@@ -1,0 +1,244 @@
+"""APSP front-end: ``solve`` owns padding, dispatch, batching and checks.
+
+Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
+
+  * **pad/unpad** — any n; padding vertices are ⊕-identity rows/cols with a
+    ⊗-identity diagonal, unreachable under every semiring.
+  * **dispatch** — "numpy" | "naive" | "blocked" | "staged" | "fused";
+    "auto" takes "naive" at n <= 64 and "fused" above.  "staged" and
+    "fused" both run the fused round (the port has no 4-dispatch round).
+  * **device** — entry points run on the card (``device="cuda"``), where
+    the fused round is the Hopper kernels; ``device="cpu"`` runs the plain
+    versions.  Without a card, asking for "cuda" raises.
+  * **batching** — a (B, n, n) input runs all B graphs through each launch.
+  * **successors** — next-hop tables (min-plus) via the fused successor
+    round or the naive/blocked loops.
+  * **validation** — min-plus solves raise ``NegativeCycleError`` when a
+    diagonal entry is negative.
+
+Not ported yet, and refused with ``NotImplementedError``: methods
+"recursive" (ROADMAP A.10) and "distributed" (A.11), ``dtype`` other than
+float32 and ``packed=True`` (A.4), ``mesh=`` (A.11), ``hbm_budget=``
+(A.10).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.apsp import plan
+from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
+from repro_torch.core.paths import fw_blocked_with_successors, fw_with_successors
+from repro_torch.core.semiring import (
+    MIN_PLUS,
+    Semiring,
+    lower_semiring,
+    resolve_semiring,
+)
+from repro_torch.core.staged import fw_staged, fw_staged_with_successors
+from repro_torch.kernels.minplus_matmul import check_variant
+
+METHODS = (
+    "auto", "numpy", "naive", "blocked", "staged", "fused", "recursive",
+    "distributed",
+)
+SUCCESSOR_METHODS = ("naive", "blocked", "staged", "fused")
+_NOT_PORTED = {"recursive": "ROADMAP A.10", "distributed": "ROADMAP A.11"}
+
+# Below this size a padded tile pass does more work than the n sweeps of the
+# naive loop; "auto" stays on the naive rung.
+_NAIVE_CUTOFF = 64
+
+
+class NegativeCycleError(ValueError):
+    """The distance matrix certifies a negative cycle (diag < 0)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class APSPResult:
+    """Outcome of ``solve``.
+
+    dist: (n, n) or (B, n, n) closure, unpadded, on the solve's device.
+    succ: int32 next-hop table of the same shape (None unless
+          successors=True); succ[i, j] = -1 where no i→j path exists.
+    """
+
+    dist: torch.Tensor
+    succ: torch.Tensor | None
+    method: str
+    semiring: str
+    block_size: int | None
+    n: int
+    padded_n: int
+
+    @property
+    def batched(self) -> bool:
+        return self.dist.ndim == 3
+
+
+def negative_cycle_mask(dist: torch.Tensor) -> torch.Tensor:
+    """Per-graph bool: does the (…, n, n) closure certify a negative cycle?"""
+    return torch.any(torch.diagonal(dist, dim1=-2, dim2=-1) < 0, dim=-1)
+
+
+def _resolve_device(device) -> torch.device:
+    try:
+        dev = torch.device(device)
+    except RuntimeError:
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}") from None
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "versions on the host"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
+def _resolve_method(method: str, n: int) -> str:
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; have {METHODS}")
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet ({_NOT_PORTED[method]})"
+        )
+    if method != "auto":
+        return method
+    return "naive" if n <= _NAIVE_CUTOFF else "fused"
+
+
+def _resolve_shape(
+    method: str, n: int, block_size: int | None
+) -> tuple[str, int | None, int]:
+    """(method, block_size, n_padded) — the dispatch-and-padding policy."""
+    meth = _resolve_method(method, n)
+    if meth in ("blocked", "staged", "fused"):
+        s = block_size or plan.auto_block_size(n)
+        return meth, s, plan.padded_size(n, s)
+    return meth, None, n
+
+
+def _coerce(w, device: torch.device) -> torch.Tensor:
+    """Any (n,n) / (B,n,n) array or tensor → contiguous float32 on device.
+
+    The ported slice solves in float32, so every input is cast: integers
+    cannot hold the ±inf identities of the tropical semirings, and float64
+    is what the reference narrows to as well.
+    """
+    t = w if isinstance(w, torch.Tensor) else torch.as_tensor(np.asarray(w))
+    if t.ndim not in (2, 3) or t.shape[-1] != t.shape[-2]:
+        raise ValueError(f"w must be (n,n) or (B,n,n), got {tuple(t.shape)}")
+    return t.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _pad(w: torch.Tensor, m: int, semiring: Semiring) -> torch.Tensor:
+    """Pad (…, n, n) to (…, m, m) with ⊕-identity edges, ⊗-identity diag."""
+    n = w.shape[-1]
+    if m == n:
+        return w
+    out = w.new_full(w.shape[:-2] + (m, m), semiring.zero)
+    out[..., :n, :n] = w
+    idx = torch.arange(n, m, device=w.device)
+    out[..., idx, idx] = semiring.one
+    return out
+
+
+def _check_negative_cycles(dist: torch.Tensor, batched: bool) -> None:
+    bad = negative_cycle_mask(dist).cpu().numpy()
+    if bad.any():
+        which = f"graphs {np.flatnonzero(bad).tolist()}" if batched else "graph"
+        raise NegativeCycleError(f"negative cycle detected in {which}")
+
+
+def _check_successor_args(meth: str, semiring: Semiring) -> None:
+    if semiring is not MIN_PLUS:
+        raise ValueError("successors=True requires the min_plus semiring")
+    if meth not in SUCCESSOR_METHODS:
+        raise ValueError(
+            f"successors=True supports methods {SUCCESSOR_METHODS}, not {meth!r}"
+        )
+
+
+def solve(
+    w,
+    *,
+    method: str = "auto",
+    semiring: Semiring | str = MIN_PLUS,
+    dtype=None,
+    packed: bool = False,
+    successors: bool = False,
+    block_size: int | None = None,
+    validate: bool = True,
+    mesh=None,
+    variant: str = "fori",
+    hbm_budget: int | None = None,
+    device="cuda",
+) -> APSPResult:
+    """All-pairs shortest paths (semiring closure) of one or many graphs.
+
+    w: (n, n) or (B, n, n) adjacency matrix — numpy array, nested list or
+       tensor; missing edges are the semiring's ⊕-identity (+inf for
+       min-plus).  Solved in float32 at any n (padded, then unpadded).
+    method: "auto" | "numpy" | "naive" | "blocked" | "staged" | "fused".
+    semiring: a ``Semiring`` or its name ("min_plus", "max_plus", "max_min",
+       "or_and", "plus_mul").
+    successors: also return the int32 next-hop table (min-plus only).
+    block_size: pivot-tile size for blocked/staged/fused (None = auto; the
+       fused round takes 16, 32, 64 or 128).
+    validate: raise ``NegativeCycleError`` on a negative diagonal
+       (min-plus only; reads the diagonal back to the host).
+    variant: "fori" or "unroll" (the same k-ascending chain).
+    device: "cuda" (default: the Hopper kernels) or "cpu" (plain versions).
+    dtype / packed / mesh / hbm_budget: not ported yet (NotImplementedError
+       naming the ROADMAP item), except dtype=float32.
+    """
+    sr = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP A.11)")
+    if hbm_budget is not None:
+        raise NotImplementedError("hbm_budget= is not ported yet (ROADMAP A.10)")
+    check_variant(variant)
+    dev = _resolve_device(device)
+    arr = _coerce(w, dev)
+    batched = arr.ndim == 3
+    n = arr.shape[-1]
+    meth, s, m = _resolve_shape(method, n, block_size)
+    if successors:
+        _check_successor_args(meth, sr)
+    if meth == "numpy" and sr is not MIN_PLUS:
+        raise ValueError("method='numpy' implements min_plus only")
+
+    succ = None
+    if meth == "numpy":
+        host = arr.cpu().numpy()
+        out = np.stack([fw_numpy(g) for g in host]) if batched else fw_numpy(host)
+        dist = torch.from_numpy(out).to(dev)
+    elif meth == "naive":
+        if successors:
+            dist, succ = fw_with_successors(arr)
+        else:
+            dist = fw_naive(arr, semiring=sr)
+    else:
+        wp = _pad(arr, m, sr)
+        if meth == "blocked":
+            if successors:
+                dist, succ = fw_blocked_with_successors(wp, block_size=s)
+            else:
+                dist = fw_blocked(wp, block_size=s, semiring=sr)
+        elif successors:
+            dist, succ = fw_staged_with_successors(wp, block_size=s)
+        else:
+            dist = fw_staged(wp, block_size=s, variant=variant, semiring=sr)
+        dist = dist[..., :n, :n]
+        if succ is not None:
+            succ = succ[..., :n, :n]
+
+    if validate and sr is MIN_PLUS:
+        _check_negative_cycles(dist, batched)
+    return APSPResult(
+        dist=dist, succ=succ, method=meth, semiring=sr.name,
+        block_size=s, n=n, padded_n=m,
+    )

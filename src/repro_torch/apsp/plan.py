@@ -1,0 +1,78 @@
+"""Planning arithmetic for APSP solves — the port's own copy.
+
+Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-68 and
+310-341): word sizes, padding, round counts, the block-size pick and the
+fused round's device-memory traffic model.  The rest of the reference's
+planner (autotuning, mesh and recursive plans) is ROADMAP A.5 / A.10 /
+A.11.
+"""
+from __future__ import annotations
+
+from repro_torch.core.semiring import dtype_name
+
+# Shared memory one thread block may use on an H100 (227 KB of the SM's
+# 256 KB, above 48 KB only as opt-in dynamic shared memory).
+H100_SMEM_PER_BLOCK = 232_448
+
+_WORD_BYTES = {
+    "float64": 8, "int64": 8,
+    "float32": 4, "int32": 4, "uint32": 4,
+    "bfloat16": 2, "float16": 2, "int16": 2, "uint16": 2,
+}
+
+
+def word_for(dtype=None) -> int:
+    """Bytes per stored element of a dtype (name, numpy or torch dtype);
+    4 when none is named."""
+    if dtype is None:
+        return 4
+    try:
+        return _WORD_BYTES[dtype_name(dtype)]
+    except KeyError:
+        raise ValueError(
+            f"no byte-model word size for dtype {dtype!r}; "
+            f"known: {sorted(_WORD_BYTES)}"
+        ) from None
+
+
+def padded_size(n: int, block: int) -> int:
+    """Smallest multiple of ``block`` that is >= n."""
+    return ((n + block - 1) // block) * block
+
+
+def round_count(n: int, block_size: int) -> int:
+    """Pivot rounds of blocked FW at a given tile size (padded n)."""
+    return padded_size(n, block_size) // block_size
+
+
+def auto_block_size(n: int, *, max_block: int = 128) -> int:
+    """Pivot-tile size for an n-vertex graph: 128 once n >= 256, below that
+    the largest power of two <= ~n/4 (floor 16)."""
+    if n >= max_block * 2:
+        return max_block
+    s = 1 << max(4, (max(n, 2) - 1).bit_length() - 2)
+    return min(s, max_block)
+
+
+def round_smem_bytes(s: int, bk: int, *, successors: bool = False) -> int:
+    """Largest shared-memory footprint of one block among the three launches
+    of a round (``kernels/csrc/fw_round.cu``): the bands launch stages the
+    closed (s, s+1) diagonal, the relax launch an (s, bk+1) col slice and a
+    (bk, s) row slice; successors add an int32 copy of the diag / col
+    slice.  Must stay within ``H100_SMEM_PER_BLOCK``."""
+    copies = 2 if successors else 1
+    bands = copies * s * (s + 1)
+    relax = copies * s * (bk + 1) + bk * s
+    return 4 * max(bands, relax)
+
+
+def fused_round_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> float:
+    """Traffic of ONE fused round if every tile is read and written once:
+    T² + 2T - 1 tile visits of (s,s) each, ×batch graphs."""
+    T = padded_size(n, s) // s
+    return 2.0 * batch * (T * T + 2 * T - 1) * s * s * word
+
+
+def fused_solve_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> float:
+    """n/s rounds × ``fused_round_hbm_bytes``."""
+    return round_count(n, s) * fused_round_hbm_bytes(n, s, word=word, batch=batch)

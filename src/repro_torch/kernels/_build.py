@@ -1,0 +1,98 @@
+"""Build the CUDA sources under ``kernels/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so`` at the
+repository root, at first use.  The hash covers the source and the flags,
+so an edited kernel is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("fw_round",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    """One compiled source: its library, build seconds (0 when it was
+    already built) and the compiler's output (``-Xptxas -v`` lines)."""
+
+    name: str
+    path: Path
+    seconds: float
+    log: str
+
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc",
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the CUDA "
+        "kernels of repro_torch cannot be built"
+    )
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build_all(names=SOURCES) -> list[Built]:
+    """Compile every source not yet built, one ``nvcc`` each, all at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo, done = [], []
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            done.append(Built(name, out, 0.0, ""))
+            continue
+        # Unique temporary name, renamed into place: concurrent builders
+        # never load a half-written library.
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        todo.append((name, out, tmp, proc, time.perf_counter()))
+    for name, out, tmp, proc, t0 in todo:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        done.append(Built(name, out, seconds, log))
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        (built,) = build_all((name,))
+        lib = _LIBS[name] = ctypes.CDLL(str(built.path))
+    return lib

@@ -1,0 +1,214 @@
+"""The fused pivot round: wrappers around the Hopper kernels.
+
+``fw_round`` replaces ``repro.kernels.fw_round.fw_round`` and
+``fw_round_with_successors`` replaces its successor-tracking twin (and the
+Pallas-Triton lowerings of both).  A round on the card is three launches on
+the current stream — diag, bands, relax (``csrc/fw_round.cu`` says why) —
+through the closed-band buffers of ``round_buffers`` /
+``succ_round_buffers``, which a solve allocates once and passes to every
+round.
+
+Both wrappers update ``w`` (and ``succ``) in place and return them.  A
+tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
+tensor goes to the kernel, and a launch that fails raises.  There is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.kernels import ref
+from repro_torch.kernels.minplus_matmul import _fit_block, check_variant
+
+BLOCK_SIZES = (16, 32, 64, 128)
+PHASES = ("diag", "bands", "relax")
+KINDS = tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors")
+              for p in PHASES)
+LAUNCHES = dict.fromkeys(KINDS, 0)
+_SEMIRING_IDS = {"min_plus": 0, "max_plus": 1, "max_min": 2, "or_and": 3,
+                 "plus_mul": 4}
+
+
+def reset_launch_counts() -> None:
+    for kind in LAUNCHES:
+        LAUNCHES[kind] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load("fw_round")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fw_round_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
+    lib.fw_round_launch.restype = i
+    lib.fw_round_succ_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.fw_round_succ_launch.restype = i
+    return lib
+
+
+def _check(w: torch.Tensor, block_size: int, b: int, dtype, what: str = "w"):
+    """(B, n) of a (n,n) or (B,n,n) round input; raises on what the kernels
+    do not take."""
+    if w.ndim not in (2, 3) or w.shape[-1] != w.shape[-2]:
+        raise ValueError(f"{what} must be (n,n) or (B,n,n), got {tuple(w.shape)}")
+    if w.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {w.dtype}")
+    if block_size not in BLOCK_SIZES:
+        raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {block_size}")
+    n = w.shape[-1]
+    if n % block_size:
+        raise ValueError(f"n={n} is not a multiple of block_size={block_size}")
+    if not 0 <= b < n // block_size:
+        raise ValueError(f"pivot round {b} outside [0, {n // block_size})")
+    if w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {w.device}")
+    if w.device.type == "cuda" and not w.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    return (w.shape[0] if w.ndim == 3 else 1), n
+
+
+def _buffers(w, block_size, dtypes):
+    B = w.shape[0] if w.ndim == 3 else 1
+    n, s = w.shape[-1], block_size
+    out = []
+    for dt in dtypes:
+        out += [torch.empty((B, s, n), dtype=dt, device=w.device),
+                torch.empty((B, n, s), dtype=dt, device=w.device)]
+    return tuple(out)
+
+
+def round_buffers(w: torch.Tensor, block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rowband (B,s,n), colband (B,n,s)) f32 buffers for ``fw_round``."""
+    return _buffers(w, block_size, (torch.float32,))
+
+
+def succ_round_buffers(w: torch.Tensor, block_size: int):
+    """(rw, cw, rs, cs): distance and successor band buffers."""
+    return _buffers(w, block_size, (torch.float32, torch.int32))
+
+
+def _check_buffers(w, block_size, bufs, count):
+    B = w.shape[0] if w.ndim == 3 else 1
+    n, s = w.shape[-1], block_size
+    shapes = [(B, s, n), (B, n, s)] * (count // 2)
+    if len(bufs) != count:
+        raise ValueError(f"expected {count} band buffers, got {len(bufs)}")
+    for buf, shape in zip(bufs, shapes):
+        if tuple(buf.shape) != shape or buf.device != w.device or not buf.is_contiguous():
+            raise ValueError(
+                f"band buffer {tuple(buf.shape)} on {buf.device} does not fit "
+                f"a round of {tuple(w.shape)} on {w.device} at block_size={s}"
+            )
+
+
+def _raise_on(err: int, kind: str) -> None:
+    if err:
+        raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
+
+
+def fw_round_phase(
+    phase: str, w: torch.Tensor, b: int, bands, *, block_size: int = 128,
+    bk: int = 32, semiring: Semiring = MIN_PLUS,
+) -> None:
+    """Launch one phase ("diag" | "bands" | "relax") of round b on the card."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    B, n = _check(w, block_size, b, torch.float32)
+    if w.device.type != "cuda":
+        raise ValueError("fw_round_phase launches a CUDA kernel; w is on the CPU")
+    _check_buffers(w, block_size, bands, 2)
+    sid = _SEMIRING_IDS.get(semiring.name)
+    if sid is None:
+        raise ValueError(f"no CUDA kernel for semiring {semiring.name!r}")
+    if phase == "bands" and n == block_size:
+        return  # a single tile has no bands to close
+    kind = f"fw_round/{phase}"
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _lib().fw_round_launch(
+            PHASES.index(phase), w.data_ptr(), bands[0].data_ptr(),
+            bands[1].data_ptr(), B, n, block_size, b,
+            _fit_block(block_size, bk), sid, stream,
+        )
+    _raise_on(err, kind)
+    LAUNCHES[kind] += 1
+
+
+def fw_round(
+    w: torch.Tensor, b: int, *, block_size: int = 128, bk: int = 32,
+    variant: str = "fori", semiring: Semiring = MIN_PLUS, bands=None,
+) -> torch.Tensor:
+    """One fused pivot round b of w (n,n) or (B,n,n), f32, in place.
+
+    bk: phase-3 staging depth (clamped to a divisor of block_size; the
+    result does not depend on it).  bands: ``round_buffers(w, block_size)``
+    to reuse across rounds (allocated here when None).
+    """
+    _check(w, block_size, b, torch.float32)
+    check_variant(variant)
+    if w.device.type == "cpu":
+        return w.copy_(ref.fw_round_ref(
+            w, b, block_size=block_size, bk=bk, variant=variant, semiring=semiring
+        ))
+    if bands is None:
+        bands = round_buffers(w, block_size)
+    for phase in PHASES:
+        fw_round_phase(phase, w, b, bands, block_size=block_size, bk=bk,
+                       semiring=semiring)
+    return w
+
+
+def fw_round_with_successors_phase(
+    phase: str, w: torch.Tensor, succ: torch.Tensor, b: int, bands, *,
+    block_size: int = 128,
+) -> None:
+    """Launch one phase of the successor round b on the card."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    B, n = _check(w, block_size, b, torch.float32)
+    _check(succ, block_size, b, torch.int32, "succ")
+    if w.device.type != "cuda" or succ.shape != w.shape or succ.device != w.device:
+        raise ValueError("w and succ must be CUDA tensors of one shape and device")
+    _check_buffers(w, block_size, bands, 4)
+    if phase == "bands" and n == block_size:
+        return
+    kind = f"fw_round_with_successors/{phase}"
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _lib().fw_round_succ_launch(
+            PHASES.index(phase), w.data_ptr(), succ.data_ptr(),
+            *(t.data_ptr() for t in bands), B, n, block_size, b, stream,
+        )
+    _raise_on(err, kind)
+    LAUNCHES[kind] += 1
+
+
+def fw_round_with_successors(
+    w: torch.Tensor, succ: torch.Tensor, b: int, *, block_size: int = 128,
+    bands=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused min-plus round carrying next hops; w f32 and succ int32,
+    (n,n) or (B,n,n), both updated in place."""
+    _check(w, block_size, b, torch.float32)
+    _check(succ, block_size, b, torch.int32, "succ")
+    if succ.shape != w.shape or succ.device != w.device:
+        raise ValueError(
+            f"succ {tuple(succ.shape)} on {succ.device} does not match "
+            f"w {tuple(w.shape)} on {w.device}"
+        )
+    if w.device.type == "cpu":
+        d, s = ref.fw_round_with_successors_ref(w, succ, b, block_size=block_size)
+        w.copy_(d)
+        succ.copy_(s)
+        return w, succ
+    if bands is None:
+        bands = succ_round_buffers(w, block_size)
+    for phase in PHASES:
+        fw_round_with_successors_phase(phase, w, succ, b, bands,
+                                       block_size=block_size)
+    return w, succ
