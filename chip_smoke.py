@@ -15,7 +15,10 @@ Phases, each of which raises (exit code 1) on any failure:
      successor round at (1024,1024) and (3,512,512).  The small solves are
      also held against ``solve(device="cpu")``, the plain path the CPU
      tests hold bitwise against the JAX reference.
-  3. kernels: each launch kind alone at the main path's shapes, against
+     The repair kernels likewise: five semirings at n=1024, E in {1, 5,
+     37, 100} (padded as the engine pads them), the successor twin, and
+     a successor repair at n=1000 through ``ApspEngine``.
+  3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
      3.35 TB/s, the H100 SXM's published peaks).
@@ -24,6 +27,11 @@ Phases, each of which raises (exit code 1) on any failure:
      with the launch counts of that run, bitwise against the plain round
      loop, then timed (warm-up, median of 3; host clock around work that
      ends in ``synchronize()``).
+  5. engine path: ``ApspEngine`` solve + 16-edge ``repair`` at n=8192,
+     successor solve + repair at n=4096 and n=512, ``solve_many`` of 32
+     ragged graphs with next hops, with the launch counts of that run;
+     checked bitwise (repair == re-solve of the updated graph) and timed
+     (repair at E = 4, 16, 64 beside the re-solve; graphs/s).
 
 The last lines are the ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -32,6 +40,7 @@ the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import statistics
@@ -43,10 +52,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_OPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-SOURCE = "src/repro_torch/kernels/csrc/fw_round.cu"
+SOURCES = {
+    "fw_round": "src/repro_torch/kernels/csrc/fw_round.cu",
+    "fw_round_with_successors": "src/repro_torch/kernels/csrc/fw_round.cu",
+    "fw_repair": "src/repro_torch/kernels/csrc/fw_repair.cu",
+    "fw_repair_with_successors": "src/repro_torch/kernels/csrc/fw_repair.cu",
+}
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
     "fw_round_with_successors": "src/repro/kernels/fw_round.py:611",
+    "fw_repair": "src/repro/kernels/fw_repair.py:228",
+    "fw_repair_with_successors": "src/repro/kernels/fw_repair.py:280",
 }
 
 
@@ -89,6 +105,31 @@ def graph(name: str, shape, seed: int):
     idx = np.arange(n)
     w[..., idx, idx] = SEMIRINGS[name].one
     return w
+
+
+def repair_edges(name: str, n: int, E: int, seed: int):
+    """E edge updates in each semiring's weight domain, with a repeated u
+    (edges 0, 1) and u == v (edge 2), padded as the engine pads them:
+    to max(4, next power of two) with no-op edges (u = v = 0, w = 0̄)."""
+    import numpy as np
+
+    from repro_torch.core.semiring import SEMIRINGS
+
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n, E).astype(np.int32)
+    v = rng.integers(0, n, E).astype(np.int32)
+    if name == "plus_mul":
+        w = rng.uniform(0.0, 1.0 / n, E).astype(np.float32)
+    elif name == "or_and":
+        w = np.ones(E, np.float32)
+    else:
+        w = rng.uniform(1.0, 10.0, E).astype(np.float32)
+    if E > 2:
+        u[1], v[2] = u[0], u[2]
+    pad = max(4, 1 << (E - 1).bit_length()) - E
+    return (np.concatenate([u, np.zeros(pad, np.int32)]),
+            np.concatenate([v, np.zeros(pad, np.int32)]),
+            np.concatenate([w, np.full(pad, SEMIRINGS[name].zero, np.float32)]))
 
 
 def plain_solve(w, *, block_size: int, semiring):
@@ -157,6 +198,18 @@ def max_abs_err(a, b) -> float:
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes) -> None:
+    """One row of the ``{"kernels": [...]}`` record (launches filled in by
+    the path that launches the kind)."""
+    bms, by = bound(ops, nbytes)
+    fn = kind.split("/")[0]
+    rows[kind] = dict(name=kind, route="cuda", source=SOURCES[fn], replaces=REPLACES[fn],
+                      launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                      bound_ms=bms, bound_by=by, library_ms=None)
+    print(f"kernel {kind}: err {err}, {ms:.4f} ms (plain {plain:.3f} ms, "
+          f"bound {bms:.5f} ms by {by})")
 
 
 # ------------------------------------------------------------------ phases
@@ -237,6 +290,54 @@ def phase_check():
     print(f"check: {checked} kernel-vs-plain cases bitwise equal")
 
 
+def phase_check_repair():
+    """The repair kernels bitwise against their plain versions on the card:
+    all five semirings at n=1024 and E in {1, 5, 37, 100} (padded as the
+    engine pads; 100 takes two launch pairs), the successor twin likewise,
+    and a successor repair at n=1000 through the engine (padded to 1024)
+    against the engine's plain path on the CPU."""
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    n, checked = 1024, 0
+    for name, sr in sorted(SEMIRINGS.items()):
+        d = torch.from_numpy(graph(name, (n, n), 5)).to(dev)
+        for E in (1, 5, 37, 100):
+            u, v, w = repair_edges(name, n, E, seed=E)
+            got = fp.fw_repair(d, u, v, w, semiring=sr)
+            want = ref.fw_repair_ref(d, u, v, w, semiring=sr)
+            sync()
+            require(same(got, want), f"fw_repair {name} n={n} E={E} != plain")
+            checked += 1
+    d = torch.from_numpy(graph("min_plus", (n, n), 6)).to(dev)
+    succ = _init_successors(d).contiguous()
+    for E in (1, 5, 37, 100):
+        u, v, w = repair_edges("min_plus", n, E, seed=E + 1)
+        gd, gs = fp.fw_repair_with_successors(d, succ, u, v, w)
+        wd, ws = ref.fw_repair_with_successors_ref(d, succ, u, v, w)
+        sync()
+        require(same(gd, wd) and same(gs, ws), f"fw_repair_with_successors E={E} != plain")
+        checked += 1
+    w = random_digraph(1000, density=0.5, seed=9)
+    eng, host = ApspEngine(), ApspEngine(device="cpu")
+    r0 = eng.solve(w, successors=True)
+    upd = [(3, 7, 0.5), (500, 2, 0.25), (999, 998, 0.125), (3, 9, 0.75)]
+    got = eng.repair(r0.dist, upd, succ=r0.succ)
+    want = host.repair(r0.dist.cpu(), upd, succ=r0.succ.cpu())
+    require(got.padded_n == 1024 and same(got.dist.cpu(), want.dist)
+            and same(got.succ.cpu(), want.succ),
+            "engine successor repair n=1000 on the card != plain on the CPU")
+    checked += 1
+    print(f"check: {checked} repair kernel-vs-plain cases bitwise equal")
+
+
 def phase_kernels(n: int, n_succ: int, s: int = 128):
     """Each launch kind alone at the main path's shapes: error vs its plain
     phase, median ms, plain ms, bound."""
@@ -250,15 +351,7 @@ def phase_kernels(n: int, n_succ: int, s: int = 128):
 
     rows = {}
     dev = torch.device("cuda")
-
-    def record(kind, err, ms, plain, ops, nbytes):
-        bms, by = bound(ops, nbytes)
-        fn = kind.split("/")[0]
-        rows[kind] = dict(name=kind, route="cuda", source=SOURCE, replaces=REPLACES[fn],
-                          launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=None)
-        print(f"kernel {kind}: err {err}, {ms:.4f} ms (plain {plain:.3f} ms, "
-              f"bound {bms:.5f} ms by {by})")
+    record = functools.partial(record_kernel, rows)
 
     # --- fw_round at (n, n), pivot round b
     T = n // s
@@ -365,8 +458,8 @@ def phase_main(rows: dict, n: int, n_succ: int, s: int = 128):
     sync()
     counts = dict(fr.LAUNCHES)
     print(f"main path launch counts: {json.dumps(counts)}")
-    for kind, row in rows.items():
-        row["launches"] = counts[kind]
+    for kind in fr.KINDS:
+        rows[kind]["launches"] = counts[kind]
         require(counts[kind] > 0, f"{kind} was not launched on the main path")
     require(res.method == "fused" and res.block_size == s, f"solve took {res.method}")
 
@@ -434,6 +527,222 @@ def breakdown(w, s: int):
           f"includes the gap after it): {parts}; span {span:.2f} ms")
 
 
+def phase_kernels_repair(rows: dict, n: int, n_succ: int, E: int = 16):
+    """Each repair launch kind alone at the engine path's shapes (E = 16
+    edges; n for fw_repair, n_succ for the successor twin) against the
+    plain version of its phase.  Bound: the stage moves its E pivot rows in
+    and E staged rows out and does E(E-1)/2 relaxations a column; the apply
+    reads and writes every element once (plus the staged rows) and does E
+    relaxations on it; a relaxation is 2 fp32 operations."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    record = functools.partial(record_kernel, rows)
+    stage_ops = lambda nn: 2.0 * E * (E - 1) / 2 * nn  # noqa: E731
+    d = torch.from_numpy(random_digraph(n, density=0.5, seed=4)).to(dev)
+    u, v, w = fp.edge_vectors(*repair_edges("min_plus", n, E, seed=16), n, dev)
+    staged = torch.empty((E, n), device=dev)
+    fp.repair_phase("stage", d, u, v, w, staged)
+    want = ref.repair_stage_ref(d, u, v, w)
+    sync()
+    require(same(staged, want), "fw_repair stage launch != plain")
+    record("fw_repair/stage", max_abs_err(staged, want),
+           event_ms(lambda: fp.repair_phase("stage", d, u, v, w, staged), 11),
+           event_ms(lambda: ref.repair_stage_ref(d, u, v, w), 3),
+           stage_ops(n), 2 * E * n * 4)
+    out = torch.empty_like(d)
+    fp.repair_phase("apply", d, u, v, w, staged, out)
+    want = ref.repair_apply_ref(d, staged, u, w)
+    sync()
+    require(same(out, want), "fw_repair apply launch != plain")
+    record("fw_repair/apply", max_abs_err(out, want),
+           event_ms(lambda: fp.repair_phase("apply", d, u, v, w, staged, out), 11),
+           event_ms(lambda: ref.repair_apply_ref(d, staged, u, w), 3),
+           2.0 * E * n * n, (2 * n * n + E * n) * 4)
+    del d, out, want
+
+    d = torch.from_numpy(random_digraph(n_succ, density=0.5, seed=5)).to(dev)
+    succ = _init_successors(d).contiguous()
+    u, v, w = fp.edge_vectors(*repair_edges("min_plus", n_succ, E, seed=17), n_succ, dev)
+    staged = torch.empty((E, n_succ), device=dev)
+    fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
+    want = ref.repair_stage_ref(d, u, v, w, strict=True)
+    sync()
+    require(same(staged, want), "fw_repair_with_successors stage launch != plain")
+    record("fw_repair_with_successors/stage", max_abs_err(staged, want),
+           event_ms(lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, staged), 11),
+           event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3),
+           stage_ops(n_succ), 2 * E * n_succ * 4)
+    out, sout = torch.empty_like(d), torch.empty_like(succ)
+    fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
+    wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
+    sync()
+    require(same(out, wd) and same(sout, ws), "fw_repair_with_successors apply launch != plain")
+    record("fw_repair_with_successors/apply", max_abs_err(out, wd),
+           event_ms(lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout), 11),
+           event_ms(lambda: ref.repair_apply_succ_ref(d, succ, staged, u, v, w), 3),
+           2.0 * E * n_succ * n_succ, (2 * n_succ * n_succ * 8 + E * n_succ * 4))
+
+
+def integer_graph(n: int, seed: int, *, hi: int, density: float):
+    """Integer weights in [1, hi] at the given density, 0 diagonal: every
+    path sum stays an integer below 2^24, exact in f32."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, hi + 1, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) >= density] = np.inf
+    np.fill_diagonal(w, 0.0)
+    return w
+
+
+def improvements(dist, count: int, seed: int):
+    """``count`` ⊕-improving link updates on distinct (u, v), u != v, with
+    dist[u, v] >= 2: the new weight dist[u, v] // 2 beats every path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = dist.shape[-1]
+    upd, seen = [], set()
+    while len(upd) < count:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        if u == v or (u, v) in seen:
+            continue
+        d = float(dist[u, v])
+        if np.isfinite(d) and d >= 2:
+            seen.add((u, v))
+            upd.append((u, v, float(d // 2)))
+    return upd
+
+
+def updated(w, upd):
+    """The weight matrix a re-solve of the repaired graph closes."""
+    w1 = w.copy()
+    for u, v, x in upd:
+        w1[u, v] = min(w1[u, v], x)
+    return w1
+
+
+def tie_free_scenario(n: int, seed: int = 0):
+    """The min-plus construction of ``launch/fw_serve.py:repair_scenario``
+    (a copy: this script imports nothing of the reference): large random
+    integer weights make shortest paths unique, so next hops compare
+    bitwise with a re-solve."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 10**6, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) > 0.4] = np.inf
+    np.fill_diagonal(w, 0.0)
+    return w, [(3, 7, 5.0), (n // 2, 2, 3.0), (1, n - 2, 17.0)]
+
+
+def phase_engine(rows: dict, n: int, n_succ: int, graphs: int = 32):
+    """This slice's main path: ``ApspEngine`` on the card.
+
+    solve at n (integer weights in [1, 1e4], density 0.5), 16 improving
+    link updates absorbed by ``repair``; a successor solve at n_succ and
+    its successor repair; the tie-free successor repair at n = 512; and
+    ``solve_many`` of ``graphs`` ragged graphs with next hops.  The launch
+    counts of that run are read, then every result is checked: the repair
+    bitwise against a re-solve of the updated graph, the successor repair
+    against its plain version and by walking 256 sampled paths, the
+    tie-free case against a re-solve (dist and next hops), each bucketed
+    result against a per-graph solve.  Then timed (host clock around work
+    that ends in synchronize(), median of 3 after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import extract_path, path_cost
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    eng = ApspEngine()
+    w = integer_graph(n, 10, hi=10**4, density=0.5)
+    ws = integer_graph(n_succ, 12, hi=10**4, density=0.5)
+    wt, upd_t = tie_free_scenario(512)
+    rng = np.random.default_rng(14)
+    sizes = rng.choice([300, 500, 512, 1000, 1024], size=graphs).tolist()
+    many_in = [random_digraph(m, density=0.5, seed=100 + k) for k, m in enumerate(sizes)]
+
+    fr.reset_launch_counts()
+    fp.reset_launch_counts()
+    r0 = eng.solve(w)
+    upd = improvements(r0.dist, 64, seed=11)
+    rep = eng.repair(r0.dist, upd[:16])
+    s0 = eng.solve(ws, successors=True)
+    upd_s = improvements(s0.dist, 16, seed=13)
+    srep = eng.repair(s0.dist, upd_s, succ=s0.succ)
+    t0 = eng.solve(wt, successors=True)
+    trep = eng.repair(t0.dist, upd_t, succ=t0.succ)
+    many = eng.solve_many(many_in, successors=True)
+    sync()
+    counts = {**fr.LAUNCHES, **fp.LAUNCHES}
+    print(f"engine path launch counts: {json.dumps(counts)}")
+    for kind in fp.KINDS:
+        require(counts[kind] > 0, f"{kind} was not launched on the engine path")
+        rows[kind]["launches"] = counts[kind]
+
+    r1 = eng.solve(updated(w, upd[:16]))
+    require(same(rep.dist, r1.dist), f"repair n={n} != re-solve of the updated graph")
+    u, v, x = (np.array(c) for c in zip(*upd_s))
+    wd, wsucc = ref.fw_repair_with_successors_ref(s0.dist, s0.succ, u, v, x)
+    require(same(srep.dist, wd) and same(srep.succ, wsucc),
+            f"successor repair n={n_succ} != plain")
+    ws1 = updated(ws, upd_s)
+    dist, succ = srep.dist.cpu().numpy(), srep.succ.cpu().numpy()
+    walked = 0
+    for i, j in rng.integers(0, n_succ, (4 * 256, 2)):
+        if walked == 256 or not np.isfinite(dist[i, j]) or i == j:
+            continue
+        path = extract_path(succ, int(i), int(j))
+        require(path and path[0] == i and path[-1] == j and path_cost(ws1, path) == dist[i, j],
+                f"successor repair: the walked path {i}->{j} does not cost dist")
+        walked += 1
+    require(walked == 256, f"only {walked} finite pairs sampled")
+    t1 = eng.solve(updated(wt, upd_t), successors=True)
+    require(same(trep.dist, t1.dist) and same(trep.succ, t1.succ),
+            "tie-free successor repair n=512 != re-solve")
+    for g, r in zip(many_in, many):
+        one = eng.solve(g, successors=True)
+        require(same(r.dist, one.dist) and same(r.succ, one.succ),
+                f"solve_many n={r.n} != per-graph solve")
+    print(f"engine checks: repair n={n} == re-solve bitwise; successor repair "
+          f"n={n_succ} == plain, {walked} walked paths cost dist; tie-free n=512 "
+          f"== re-solve (dist, succ); solve_many of {graphs} == per-graph")
+
+    def timed(fn):
+        fn()
+        return statistics.median(host_ms(fn) for _ in range(3))
+
+    # The re-solve takes the updated weights already on the card, as the
+    # repair takes the closure there: neither time includes a host copy.
+    w1 = torch.from_numpy(updated(w, upd[:16])).cuda()
+    t_solve = timed(lambda: eng.solve(w1))
+    for E in (4, 16, 64):
+        t = timed(lambda: eng.repair(r0.dist, upd[:E]))
+        print(f"engine repair n={n} E={E}: {t:.3f} ms; re-solve {t_solve:.2f} ms "
+              f"({t_solve / t:.1f}x)")
+    t = timed(lambda: eng.repair(s0.dist, upd_s, succ=s0.succ))
+    ws1 = torch.from_numpy(ws1).cuda()
+    t_s = timed(lambda: eng.solve(ws1, successors=True))
+    print(f"engine repair n={n_succ} E=16 with successors: {t:.3f} ms; re-solve "
+          f"{t_s:.2f} ms ({t_s / t:.1f}x)")
+    t = timed(lambda: eng.solve_many(many_in, successors=True))
+    hist = {m: sizes.count(m) for m in sorted(set(sizes))}
+    print(f"engine solve_many {graphs} ragged graphs {hist} with successors, from "
+          f"host arrays: {t:.2f} ms, {graphs / (t / 1e3):.1f} graphs/s "
+          f"({eng.stats.hits} plan hits, {eng.stats.misses} misses)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -457,9 +766,12 @@ def main(argv=None) -> int:
 
     name = phase_device()
     phase_check()
+    phase_check_repair()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
+        phase_kernels_repair(rows, 8192, 4096)
         phase_main(rows, 8192, 4096)
+        phase_engine(rows, 8192, 4096)
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,15 @@
-"""repro_torch.apsp — the APSP solver front-end.
+"""repro_torch.apsp — the APSP solver front-end and its engine.
 
-    from repro_torch.apsp import solve
+    from repro_torch.apsp import ApspEngine, solve
     res = solve(w)                        # any n, auto-padded, on the card
     res = solve(w_batch, method="fused")  # (B, n, n): one launch set per round
+    eng = ApspEngine()                    # plan cache for repeated solves
+    tables = eng.solve_many(graphs, successors=True)   # ragged batches
+    fixed = eng.repair(res.dist, [(u, v, w_new)])      # rank-1 link repair
 
-The engine, autotuner and mesh / recursive planners of ``repro.apsp`` are
-not ported yet (ROADMAP A.5, A.10, A.11).
+The autotuner and the mesh / recursive planners of ``repro.apsp`` are not
+ported yet (ROADMAP A.5, A.10, A.11), nor is ``ApspEngine.repair_del``
+(A.8).
 """
 from repro_torch.apsp import plan
 from repro_torch.apsp.api import (
@@ -16,13 +20,16 @@ from repro_torch.apsp.api import (
     negative_cycle_mask,
     solve,
 )
+from repro_torch.apsp.engine import ApspEngine, negative_cycle_mask_padded
 
 __all__ = [
     "APSPResult",
+    "ApspEngine",
     "METHODS",
     "SUCCESSOR_METHODS",
     "NegativeCycleError",
     "negative_cycle_mask",
+    "negative_cycle_mask_padded",
     "plan",
     "solve",
 ]

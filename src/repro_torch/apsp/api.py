@@ -146,6 +146,34 @@ def _pad(w: torch.Tensor, m: int, semiring: Semiring) -> torch.Tensor:
     return out
 
 
+def _solver(
+    meth: str, *, semiring: Semiring, block_size: int | None, bk: int = 32,
+    variant: str = "fori", successors: bool = False,
+):
+    """The solve a resolved method runs on a padded (…, m, m) tensor:
+    ``run(wp)`` → dist, or (dist, succ) with successors.  Shared by
+    ``solve`` and the engine's cached plans, so the two cannot drift."""
+    sr, s = semiring, block_size
+    if meth == "numpy":
+        def run(wp):
+            host = wp.cpu().numpy()
+            out = np.stack([fw_numpy(g) for g in host]) if wp.ndim == 3 else fw_numpy(host)
+            return torch.from_numpy(out).to(wp.device)
+
+        return run
+    if meth == "naive":
+        if successors:
+            return fw_with_successors
+        return lambda wp: fw_naive(wp, semiring=sr)
+    if meth == "blocked":
+        if successors:
+            return lambda wp: fw_blocked_with_successors(wp, block_size=s)
+        return lambda wp: fw_blocked(wp, block_size=s, semiring=sr)
+    if successors:
+        return lambda wp: fw_staged_with_successors(wp, block_size=s)
+    return lambda wp: fw_staged(wp, block_size=s, bk=bk, variant=variant, semiring=sr)
+
+
 def _check_negative_cycles(dist: torch.Tensor, batched: bool) -> None:
     bad = negative_cycle_mask(dist).cpu().numpy()
     if bad.any():
@@ -211,30 +239,13 @@ def solve(
     if meth == "numpy" and sr is not MIN_PLUS:
         raise ValueError("method='numpy' implements min_plus only")
 
-    succ = None
-    if meth == "numpy":
-        host = arr.cpu().numpy()
-        out = np.stack([fw_numpy(g) for g in host]) if batched else fw_numpy(host)
-        dist = torch.from_numpy(out).to(dev)
-    elif meth == "naive":
-        if successors:
-            dist, succ = fw_with_successors(arr)
-        else:
-            dist = fw_naive(arr, semiring=sr)
-    else:
-        wp = _pad(arr, m, sr)
-        if meth == "blocked":
-            if successors:
-                dist, succ = fw_blocked_with_successors(wp, block_size=s)
-            else:
-                dist = fw_blocked(wp, block_size=s, semiring=sr)
-        elif successors:
-            dist, succ = fw_staged_with_successors(wp, block_size=s)
-        else:
-            dist = fw_staged(wp, block_size=s, variant=variant, semiring=sr)
-        dist = dist[..., :n, :n]
-        if succ is not None:
-            succ = succ[..., :n, :n]
+    run = _solver(meth, semiring=sr, block_size=s, variant=variant,
+                  successors=successors)
+    out = run(_pad(arr, m, sr))
+    dist, succ = out if successors else (out, None)
+    dist = dist[..., :n, :n]
+    if succ is not None:
+        succ = succ[..., :n, :n]
 
     if validate and sr is MIN_PLUS:
         _check_negative_cycles(dist, batched)

@@ -1,10 +1,10 @@
 """Planning arithmetic for APSP solves — the port's own copy.
 
 Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-68 and
-310-341): word sizes, padding, round counts, the block-size pick and the
-fused round's device-memory traffic model.  The rest of the reference's
-planner (autotuning, mesh and recursive plans) is ROADMAP A.5 / A.10 /
-A.11.
+310-361): word sizes, padding, round counts, the block-size pick, the
+fused round's device-memory traffic model and the rank-1 repair's.  The
+rest of the reference's planner (autotuning, mesh and recursive plans) is
+ROADMAP A.5 / A.10 / A.11.
 """
 from __future__ import annotations
 
@@ -76,3 +76,28 @@ def fused_round_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> f
 def fused_solve_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> float:
     """n/s rounds × ``fused_round_hbm_bytes``."""
     return round_count(n, s) * fused_round_hbm_bytes(n, s, word=word, batch=batch)
+
+
+def repair_hbm_bytes(
+    n: int, s: int, *, word: int = 4, edges: int = 1,
+    successors: bool = False,
+) -> float:
+    """HBM traffic of ONE fused rank-1 repair dispatch
+    (``kernels.fw_repair``): E stage steps each read+write one (s, n) row
+    band (byte-identical copy-out — the write is the price of the
+    prefetch-safety rule), then T apply steps read+write every band once.
+    Successor tracking doubles it (distance + next-hop tables).
+
+    The repair-vs-resolve crossover the serving policy uses
+    (``ApspEngine.should_repair``): this is ~2·(E+T)·s·n words against
+    ``fused_solve_hbm_bytes``'s ~2·(n/s)·(T²+2T-1)·s² — repair wins by
+    roughly a factor of n/s per small edge batch.
+
+    This is the reference's model of the TPU kernel, kept verbatim so that
+    ``should_repair`` decides as the reference does.  The CUDA kernel
+    (``kernels/csrc/fw_repair.cu``) moves less: E pivot rows in, E staged
+    rows out, then every row read and written once (~2·n²·word).
+    """
+    m = padded_size(n, s)
+    bands = edges + m // s
+    return 2.0 * bands * s * m * word * (2 if successors else 1)

@@ -1,7 +1,8 @@
-"""Plain torch versions of the fused round kernels.
+"""Plain torch versions of the fused round and rank-1 repair kernels.
 
-Counterparts of ``repro.kernels.ref.fw_round_ref`` and
-``fw_round_with_successors_ref``: the same per-element ⊕/⊗ chains as the
+Counterparts of ``repro.kernels.ref.fw_round_ref``,
+``fw_round_with_successors_ref``, ``fw_repair_ref`` and
+``fw_repair_with_successors_ref``: the same per-element ⊕/⊗ chains as the
 reference, so outputs are bitwise equal to it.  Each round is split into
 the three phases the CUDA kernels launch (``kernels/csrc/fw_round.cu``):
 
@@ -11,10 +12,16 @@ the three phases the CUDA kernels launch (``kernels/csrc/fw_round.cu``):
   3. ``relax*``       — re-relax every tile against the closed bands, k
      ascending, pivot-band tiles starting from their closed values.
 
-They run on any device and are what ``kernels.fw_round`` computes for a
-tensor on the CPU.  On the card they are the yardstick the kernels are
-held against; the main path never calls them there.  All are
-batch-rank-agnostic and functional (they return new tensors).
+The repair is the direct per-edge loop, and beside it the two phases of
+``kernels/csrc/fw_repair.cu``: ``repair_stage*`` (the evolved pivot rows)
+and ``repair_apply*`` (every row folds all E updates against them).
+
+They run on any device and are what ``kernels.fw_round`` and
+``kernels.fw_repair`` compute for a tensor on the CPU.  On the card they
+are the yardstick the kernels are held against; the main path never calls
+them there.  All are functional (they return new tensors); the round
+functions and ``fw_repair_ref`` are batch-rank-agnostic, the other repair
+functions take (n, n).
 """
 from __future__ import annotations
 
@@ -135,3 +142,81 @@ def fw_round_with_successors_ref(
     diag, dsucc = close_diag_succ(w[..., o, o], succ[..., o, o])
     bands = close_bands_succ(w, succ, diag, dsucc, b)
     return relax_succ_tiles(w, succ, *bands, b)
+
+
+# ---------------------------------------------------------- rank-1 repair
+def _edge_lists(u, v, w, device):
+    """Host index lists and an f32 weight vector on ``device``."""
+    as_list = lambda x: (x.tolist() if isinstance(x, torch.Tensor)  # noqa: E731
+                         else [int(i) for i in x])
+    w = torch.as_tensor(w, dtype=torch.float32).to(device)
+    return as_list(u), as_list(v), w
+
+
+def fw_repair_ref(d, u, v, w, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """E sequential rank-1 updates ``d ⊕= (d[:, u_e] ⊗ w_e) ⊗ d[v_e, :]``,
+    each on the whole matrix as it stands after the previous one; batch-
+    rank-agnostic.  plus_mul's step is ``addcmul(d, d[:, u] * w, d[v, :])``,
+    one FMA, as XLA contracts the reference."""
+    u, v, w = _edge_lists(u, v, w, d.device)
+    for e in range(len(u)):
+        d = semiring.relax(d, semiring.mul(d[..., :, u[e], None], w[e]),
+                           d[..., v[e], None, :])
+    return d
+
+
+def _succ_step(d, succ, ue: int, ve: int, a, b):
+    """Strict-improvement step: cand = a + b; where cand < d the next hop
+    becomes v_e on row u_e and succ[:, u_e] (before the step) elsewhere."""
+    cand = a + b
+    better = cand < d
+    rows = torch.arange(d.shape[0], device=d.device)[:, None]
+    hop = torch.where(rows == ue, torch.tensor(ve, dtype=torch.int32, device=d.device),
+                      succ[:, ue, None])
+    return torch.where(better, cand, d), torch.where(better, hop, succ)
+
+
+def fw_repair_with_successors_ref(d, succ, u, v, w):
+    """The min-plus repair carrying the int32 next-hop table (2-D):
+    candidates ``(d[:, u] + w) + d[v, :]``, taken only where strictly
+    smaller."""
+    u, v, w = _edge_lists(u, v, w, d.device)
+    for e in range(len(u)):
+        d, succ = _succ_step(d, succ, u[e], v[e], d[:, u[e], None] + w[e], d[None, v[e], :])
+    return d, succ
+
+
+def repair_stage_ref(d, u, v, w, *, semiring: Semiring = MIN_PLUS,
+                     strict: bool = False) -> torch.Tensor:
+    """The stage launch: (E, n) rows, row g = row v_g of d after updates
+    e < g.  Step t folds edge t into rows g > t, whose row t is final then.
+    ``strict``: the successor repair's distance step (min-plus, take the
+    candidate only where it is strictly smaller)."""
+    u, v, w = _edge_lists(u, v, w, d.device)
+    P = d[v, :]  # advanced indexing: a copy
+    for t in range(len(u) - 1):
+        rest = P[t + 1:]
+        a = semiring.mul(rest[:, u[t], None], w[t])
+        if strict:
+            cand = a + P[t, None, :]
+            P[t + 1:] = torch.where(cand < rest, cand, rest)
+        else:
+            P[t + 1:] = semiring.relax(rest, a, P[t, None, :])
+    return P
+
+
+def repair_apply_ref(d, staged, u, w, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """The apply launch: every row folds the E updates in order, with the
+    staged row e in place of row v_e."""
+    u, _, w = _edge_lists(u, u, w, d.device)
+    for e in range(len(u)):
+        d = semiring.relax(d, semiring.mul(d[:, u[e], None], w[e]), staged[e, None, :])
+    return d
+
+
+def repair_apply_succ_ref(d, succ, staged, u, v, w):
+    """The successor apply launch (min-plus, strict ``<``)."""
+    u, v, w = _edge_lists(u, v, w, d.device)
+    for e in range(len(u)):
+        d, succ = _succ_step(d, succ, u[e], v[e], d[:, u[e], None] + w[e], staged[e, None, :])
+    return d, succ
