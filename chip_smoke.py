@@ -17,11 +17,16 @@ Phases, each of which raises (exit code 1) on any failure:
      tests hold bitwise against the JAX reference.
      The repair kernels likewise: five semirings at n=1024, E in {1, 5,
      37, 100} (padded as the engine pads them), the successor twin, and
-     a successor repair at n=1000 through ``ApspEngine``.
+     a successor repair at n=1000 through ``ApspEngine``.  The sweep
+     kernels of the decremental repair likewise: the four idempotent
+     semirings at n=1024 with a in {1, 5, 37, 200} affected rows, each
+     launch kind alone and the whole sweep, the successor sweep, and
+     ``repair_del`` at n=1000 through the engine.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
-     3.35 TB/s, the H100 SXM's published peaks).
+     3.35 TB/s, the H100 SXM's published peaks); the sweep kinds at a = 8,
+     64 and 256 affected rows.
   4. main path: ``solve(w)`` at n=8192 (min-plus, f32, a seeded random
      digraph of density 0.5) and ``solve(w, successors=True)`` at n=4096,
      with the launch counts of that run, bitwise against the plain round
@@ -32,6 +37,14 @@ Phases, each of which raises (exit code 1) on any failure:
      ragged graphs with next hops, with the launch counts of that run;
      checked bitwise (repair == re-solve of the updated graph) and timed
      (repair at E = 4, 16, 64 beside the re-solve; graphs/s).
+  6. repair_del path: ``ApspEngine.repair_del`` of the E = 1 and E = 16
+     on-path links that affect the fewest pairs at n=8192 and of the
+     median-ranked link (a typical a), with next hops at n=4096, the E = 16
+     batch refused by the policy (threshold 0: the counted re-solve), a
+     plus_mul deletion (re-solved) and an off-path one (a no-op), with the
+     sweep and round launch counts of that run; checked bitwise against a
+     re-solve of the updated graph and timed beside it, marking and sweep
+     apart, with the sweep's device time by launch kind.
 
 The last lines are the ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -57,12 +70,17 @@ SOURCES = {
     "fw_round_with_successors": "src/repro_torch/kernels/csrc/fw_round.cu",
     "fw_repair": "src/repro_torch/kernels/csrc/fw_repair.cu",
     "fw_repair_with_successors": "src/repro_torch/kernels/csrc/fw_repair.cu",
+    "fw_repair_del_sweep": "src/repro_torch/kernels/csrc/fw_repair_del.cu",
+    "fw_repair_del_sweep_with_successors": "src/repro_torch/kernels/csrc/fw_repair_del.cu",
 }
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
     "fw_round_with_successors": "src/repro/kernels/fw_round.py:611",
     "fw_repair": "src/repro/kernels/fw_repair.py:228",
     "fw_repair_with_successors": "src/repro/kernels/fw_repair.py:280",
+    "fw_repair_del_sweep": "src/repro/kernels/fw_repair_del.py:383",
+    # XLA-only in the reference (no Pallas variant): the kernel twin of it.
+    "fw_repair_del_sweep_with_successors": "src/repro/kernels/fw_repair_del.py:237",
 }
 
 
@@ -200,15 +218,17 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes) -> None:
+def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
+                  note: str = "", store: bool = True) -> None:
     """One row of the ``{"kernels": [...]}`` record (launches filled in by
-    the path that launches the kind)."""
+    the path that launches the kind); ``store=False`` only prints it."""
     bms, by = bound(ops, nbytes)
     fn = kind.split("/")[0]
-    rows[kind] = dict(name=kind, route="cuda", source=SOURCES[fn], replaces=REPLACES[fn],
-                      launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                      bound_ms=bms, bound_by=by, library_ms=None)
-    print(f"kernel {kind}: err {err}, {ms:.4f} ms (plain {plain:.3f} ms, "
+    if store:
+        rows[kind] = dict(name=kind, route="cuda", source=SOURCES[fn], replaces=REPLACES[fn],
+                          launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+    print(f"kernel {kind}{note}: err {err}, {ms:.4f} ms (plain {plain:.3f} ms, "
           f"bound {bms:.5f} ms by {by})")
 
 
@@ -496,35 +516,36 @@ def phase_main(rows: dict, n: int, n_succ: int, s: int = 128):
     report(f"solve n={n} min_plus f32", n, lambda: solve(w), t_plain, 4)
     report(f"solve n={n_succ} successors=True", n_succ,
            lambda: solve(ws, successors=True), t_plain_s, 8)
-    breakdown(w.clone(), s)
+    bands = fr.round_buffers(w, s)
+    wk = w.clone()
+    launch_breakdown(f"main breakdown n={n}", [
+        (p, functools.partial(fr.fw_round_phase, p, wk, b, bands, block_size=s))
+        for b in range(n // s) for p in fr.PHASES])
 
 
-def breakdown(w, s: int):
-    """Where a solve's device time goes: the round loop of ``fw_staged``
-    with CUDA events between its launches, summed by launch kind; the rest
-    of the span between the first and last event is gaps between launches."""
+def launch_breakdown(label: str, steps) -> None:
+    """Where a launch sequence's device time goes: ``steps`` is [(kind,
+    launch)] in order, with a CUDA event before each launch and after the
+    last; the time between events is summed by kind (each share includes
+    the gap after its launch)."""
     import torch
 
-    from repro_torch.kernels import fw_round as fr
-
-    bands = fr.round_buffers(w, s)
     ev = []
     sync()
-    for b in range(w.shape[-1] // s):
-        for phase in fr.PHASES:
-            ev.append(torch.cuda.Event(enable_timing=True))
-            ev[-1].record()
-            fr.fw_round_phase(phase, w, b, bands, block_size=s)
+    for _, launch in steps:
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+        launch()
     ev.append(torch.cuda.Event(enable_timing=True))
     ev[-1].record()
     sync()
-    per = dict.fromkeys(fr.PHASES, 0.0)
-    for i in range(len(ev) - 1):
-        per[fr.PHASES[i % 3]] += ev[i].elapsed_time(ev[i + 1])
+    per: dict[str, float] = {}
+    for (kind, _), a, b in zip(steps, ev, ev[1:]):
+        per[kind] = per.get(kind, 0.0) + a.elapsed_time(b)
     span = ev[0].elapsed_time(ev[-1])
     parts = ", ".join(f"{p} {t:.2f} ms ({100 * t / span:.1f}%)" for p, t in per.items())
-    print(f"main breakdown n={w.shape[-1]} (events between launches; each share "
-          f"includes the gap after it): {parts}; span {span:.2f} ms")
+    print(f"{label} (events between launches; each share includes the gap after "
+          f"it): {parts}; span {span:.2f} ms")
 
 
 def phase_kernels_repair(rows: dict, n: int, n_succ: int, E: int = 16):
@@ -743,6 +764,356 @@ def phase_engine(rows: dict, n: int, n_succ: int, graphs: int = 32):
           f"({eng.stats.hits} plan hits, {eng.stats.misses} misses)")
 
 
+# ------------------------------------------------------ decremental repair
+IDEMPOTENT = ("min_plus", "max_plus", "max_min", "or_and")
+
+
+def strip_rows(n: int, a: int, seed: int):
+    """a distinct affected rows, sorted and padded as the engine pads them:
+    to min(max(8, next power of two), n) rows with the padding index n."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = np.full(min(max(8, 1 << (a - 1).bit_length()), n), n, np.int32)
+    rows[:a] = np.sort(rng.choice(n, a, replace=False))
+    return rows
+
+
+def check_sweep_phases(d, rows, b: int, s: int, *, sr=None, succ=None):
+    """Each launch kind of round b alone against its plain phase on the same
+    inputs, from the strip as gathered.  Returns the sweep (its buffers
+    after the round) and each kind's max abs error."""
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+
+    sr = sr or MIN_PLUS
+    o = slice(b * s, (b + 1) * s)
+    sw = fd.sweep_buffers(d, rows, block_size=s, s_init=succ)
+    fn = "fw_repair_del_sweep" + ("" if succ is None else "_with_successors")
+    if succ is None:
+        launch = functools.partial(fd.sweep_phase, sw=sw, b=b, semiring=sr)
+        diag = lambda: (ref.sweep_diag_ref(d, sw.strip, sw.rows, b, block_size=s,  # noqa: E731
+                                           semiring=sr),)
+        panels = lambda x: ref.sweep_panels_ref(d, sw.strip, sw.rows, *x, b, semiring=sr)  # noqa: E731
+        relax = lambda strip, x: (ref.sweep_relax_ref(*strip, sw.rows, *x, b, semiring=sr),)  # noqa: E731
+        bufs = lambda: ((sw.band[:, o],), (sw.band, sw.acol), (sw.strip,))  # noqa: E731
+    else:
+        launch = functools.partial(fd.sweep_succ_phase, sw=sw, b=b)
+        diag = lambda: ref.sweep_diag_succ_ref(d, succ, sw.strip, sw.strip_s, sw.rows, b,  # noqa: E731
+                                               block_size=s)
+        panels = lambda x: ref.sweep_panels_succ_ref(  # noqa: E731
+            d, succ, sw.strip, sw.strip_s, sw.rows, *x, b)
+        relax = lambda strip, x: ref.sweep_relax_succ_ref(*strip, sw.rows, *x, b)  # noqa: E731
+        bufs = lambda: ((sw.band[:, o], sw.band_s[:, o]),  # noqa: E731
+                        (sw.band, sw.band_s, sw.acol, sw.acol_s), (sw.strip, sw.strip_s))
+    errs = {}
+
+    def held(phase, want, got):
+        sync()
+        require(all(same(g, x) for g, x in zip(got, want)), f"{fn}/{phase} b={b} != plain")
+        errs[phase] = max(max_abs_err(g.float(), x.float()) for g, x in zip(got, want))
+        return want
+
+    launch("diag")
+    x = held("diag", diag(), bufs()[0])
+    launch("panels")
+    x = held("panels", panels(x), bufs()[1])
+    strip = tuple(t.clone() for t in bufs()[2])
+    launch("relax")
+    held("relax", relax(strip, x), bufs()[2])
+    return sw, errs
+
+
+def phase_check_repair_del():
+    """The sweep kernels bitwise against their plain versions on the card:
+    the four idempotent semirings at n=1024 (s=128) with a in {1, 5, 37,
+    200} affected rows padded as the engine pads them (n == m, so the
+    padding rows gather the real row 1023), each launch kind alone in the
+    round that holds the first affected row and the whole sweep; the
+    successor sweep likewise; and ``ApspEngine.repair_del`` at n=1000
+    (padded to 1024) on the card against the engine's plain path on the
+    CPU, with and without next hops."""
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    n, s, checked = 1024, 128, 0
+    for name in IDEMPOTENT:
+        sr = SEMIRINGS[name]
+        d = torch.from_numpy(graph(name, (n, n), 21)).to(dev)
+        for a in (1, 5, 37, 200):
+            rows = strip_rows(n, a, seed=a)
+            check_sweep_phases(d, rows, int(rows[0]) // s, s, sr=sr)
+            got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=sr)
+            want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=sr)
+            sync()
+            require(same(got, want), f"fw_repair_del_sweep {name} n={n} a={a} != plain")
+            checked += 1
+    d = torch.from_numpy(graph("min_plus", (n, n), 22)).to(dev)
+    succ = _init_successors(d).contiguous()
+    for a in (1, 5, 37, 200):
+        rows = strip_rows(n, a, seed=a + 1)
+        check_sweep_phases(d, rows, int(rows[0]) // s, s, succ=succ)
+        gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
+        wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows, block_size=s)
+        sync()
+        require(same(gd, wd) and same(gs, ws),
+                f"fw_repair_del_sweep_with_successors n={n} a={a} != plain")
+        checked += 1
+    w = integer_graph(1000, 23, hi=10**4 - 1, density=0.5)
+    eng, host = ApspEngine(), ApspEngine(device="cpu")
+    r0 = eng.solve(w, successors=True)
+    dels, w1 = deletion_batch(w, ranked_deletions(w, r0.dist, 8, seed=24))
+    for succ in (None, r0.succ):
+        got = eng.repair_del(r0.dist, w1, dels, succ=succ, threshold=100.0)
+        want = host.repair_del(r0.dist.cpu(), w1, dels, threshold=100.0,
+                               succ=None if succ is None else succ.cpu())
+        require(got.padded_n == 1024 and got.method == "repair_del"
+                and same(got.dist.cpu(), want.dist)
+                and (succ is None or same(got.succ.cpu(), want.succ)),
+                "engine repair_del n=1000 on the card != plain on the CPU")
+        checked += 1
+    require(eng.stats.repair_dels == host.stats.repair_dels == 2, "n=1000 repair_del did not sweep")
+    print(f"check: {checked} sweep kernel-vs-plain cases bitwise equal")
+
+
+def phase_kernels_repair_del(rows: dict, n: int, n_succ: int, s: int = 128):
+    """Each sweep launch kind alone at the repair_del path's shapes, round
+    T/2, a = 8 affected rows (the record), 64 and 256: checked against the
+    plain version of its phase, then timed beside it.  Work: diag s³
+    relaxations; panels (T-1)·s³ on the band and a·s² on the strip's pivot
+    block column; relax a·n·s; 2 fp32 operations each.  Bytes: each input
+    read once and each output written once (diag: the overlaid tile in and
+    out; panels: the band and the strip's block column in and out, the diag
+    in; relax: the strip in and out, acol and the band in); successors add
+    an int32 word beside every f32 one (the relax reads the f32 band only)."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    for nn, successors in ((n, False), (n_succ, True)):
+        T, b = nn // s, nn // s // 2
+        o = slice(b * s, (b + 1) * s)
+        d = torch.from_numpy(random_digraph(nn, density=0.5, seed=6)).to(dev)
+        succ = _init_successors(d).contiguous() if successors else None
+        fn = "fw_repair_del_sweep" + ("_with_successors" if successors else "")
+        word = 8 if successors else 4
+        for a in (8, 64, 256):
+            sw, errs = check_sweep_phases(d, strip_rows(nn, a, seed=30 + a), b, s, succ=succ)
+            if successors:
+                launch = functools.partial(fd.sweep_succ_phase, sw=sw, b=b)
+                plain = {
+                    "diag": lambda: ref.sweep_diag_succ_ref(
+                        d, succ, sw.strip, sw.strip_s, sw.rows, b, block_size=s),
+                    "panels": lambda: ref.sweep_panels_succ_ref(
+                        d, succ, sw.strip, sw.strip_s, sw.rows, sw.band[:, o], sw.band_s[:, o], b),
+                    "relax": lambda: ref.sweep_relax_succ_ref(
+                        sw.strip, sw.strip_s, sw.rows, sw.band, sw.band_s, sw.acol, sw.acol_s, b),
+                }
+            else:
+                launch = functools.partial(fd.sweep_phase, sw=sw, b=b)
+                plain = {
+                    "diag": lambda: ref.sweep_diag_ref(d, sw.strip, sw.rows, b, block_size=s),
+                    "panels": lambda: ref.sweep_panels_ref(d, sw.strip, sw.rows, sw.band[:, o], b),
+                    "relax": lambda: ref.sweep_relax_ref(sw.strip, sw.rows, sw.band, sw.acol, b),
+                }
+            work = {  # (operations, bytes)
+                "diag": (2.0 * s**3, 2 * s * s * word),
+                "panels": (2.0 * ((T - 1) * s**3 + a * s * s),
+                           ((2 * T - 1) * s * s + 2 * a * s) * word),
+                "relax": (2.0 * a * nn * s, (2 * a * nn + a * s) * word + s * nn * 4),
+            }
+            for phase in fd.PHASES:
+                record_kernel(rows, f"{fn}/{phase}", errs[phase],
+                              event_ms(lambda: launch(phase), 11), event_ms(plain[phase], 3),
+                              *work[phase], note=f" n={nn} a={a}", store=a == 8)
+        del d, succ, sw
+
+
+def ranked_deletions(w, dist, count: int, seed: int, sample: int = 256):
+    """On-path edges (w == dist, u != v) ranked by how many pairs deleting
+    each one affects, fewest first, zero excluded — the ranking of
+    ``benchmarks/run.py:bench_fw_repair_del``: ``sample`` candidates drawn
+    with a seeded rng, each scored by count(dist[:, u] + w[u, v] +
+    dist[v, :] == dist, dist finite).  Returns [(pairs, u, v)]."""
+    import numpy as np
+    import torch
+
+    d = torch.as_tensor(dist).cuda()
+    wt = torch.as_tensor(w).cuda()
+    n = d.shape[-1]
+    on = (wt == d) & torch.isfinite(wt) & ~torch.eye(n, dtype=torch.bool, device=d.device)
+    cand = torch.nonzero(on).cpu().numpy()
+    require(len(cand) > 0, "no on-path edge to delete")
+    rng = np.random.default_rng(seed)
+    fin = torch.isfinite(d)
+    scored = []
+    for u, v in cand[rng.choice(len(cand), size=min(sample, len(cand)), replace=False)]:
+        pairs = int((((d[:, u, None] + wt[u, v]) + d[None, v, :] == d) & fin).sum())
+        if pairs:
+            scored.append((pairs, int(u), int(v)))
+    return sorted(scored)[:count]
+
+
+def deletion_batch(w, ranked):
+    """(deletions, updated weights): each ranked edge removed."""
+    import numpy as np
+
+    w1 = w.copy()
+    dels = []
+    for _, u, v in ranked:
+        dels.append((u, v, float(w[u, v])))
+        w1[u, v] = np.inf
+    return dels, w1
+
+
+def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
+    """This slice's path: ``ApspEngine.repair_del`` on the card.
+
+    At n (min-plus, integer weights in [1, 1e4), density 0.5): 256 on-path
+    edges ranked by the pairs they affect; E = 1 (the fewest), E = 16 (the
+    16 fewest) and E = 1 of the median-ranked edge (the typical deletion,
+    tens to hundreds of affected rows) deleted with threshold=100, so that
+    the sweep runs; the E = 16 batch again at threshold=0, which the policy
+    refuses (the counted re-solve through the round kernels).  At n_succ,
+    the tie-free construction with next hops, E = 16 likewise.  A plus_mul
+    deletion (its counted re-solve) and an off-path deletion (a no-op that
+    builds no sweep plan).  The sweep and round launch counts of that run
+    are read; then every result is checked bitwise against a re-solve of
+    the updated graph on the card, and timed (host clock around work that
+    ends in synchronize(), median of 3 after a warm-up) beside that
+    re-solve, with the marking and the sweep also timed alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine, plan
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+
+    eng = ApspEngine()
+    w = integer_graph(n, 10, hi=10**4 - 1, density=0.5)
+    r0 = eng.solve(w)
+    ranked = ranked_deletions(w, r0.dist, 256, seed=15)
+    batches = {"E=1": deletion_batch(w, ranked[:1]), "E=16": deletion_batch(w, ranked[:16]),
+               "E=1 median": deletion_batch(w, ranked[len(ranked) // 2:][:1])}
+    ws, _ = tie_free_scenario(n_succ, seed=16)
+    s0 = eng.solve(ws, successors=True)
+    dels_s, ws1 = deletion_batch(ws, ranked_deletions(ws, s0.dist, 16, seed=17))
+    pm = ApspEngine(semiring="plus_mul")
+    wp = graph("plus_mul", (512, 512), 24)
+    p0 = pm.solve(wp)
+    wp1 = wp.copy()
+    wp1[3, 7] = 0.0
+    d0 = r0.dist.cpu().numpy()
+    u_off, v_off = next((int(u), int(v)) for u, v in np.argwhere(np.isfinite(w) & (w > d0))
+                        if u != v)
+    w_off = w.copy()
+    w_off[u_off, v_off] = np.inf
+    fresh = ApspEngine()
+
+    fd.reset_launch_counts()
+    fr.reset_launch_counts()
+    reps = {label: eng.repair_del(r0.dist, w1, dels, threshold=100.0)
+            for label, (dels, w1) in batches.items()}
+    refused = eng.repair_del(r0.dist, batches["E=16"][1], batches["E=16"][0], threshold=0.0)
+    srep = eng.repair_del(s0.dist, ws1, dels_s, succ=s0.succ, threshold=100.0)
+    prep = pm.repair_del(p0.dist, wp1, [(3, 7, float(wp[3, 7]))])
+    noop = fresh.repair_del(r0.dist, w_off, [(u_off, v_off, float(w[u_off, v_off]))])
+    sync()
+    counts = dict(fd.LAUNCHES)
+    round_counts = {k: fr.LAUNCHES[k] for k in fr.KINDS if k.startswith("fw_round/")}
+    print(f"repair_del path launch counts: {json.dumps(counts)}; round launches of its "
+          f"re-solves (min_plus threshold 0, plus_mul): {json.dumps(round_counts)}")
+    for kind in fd.KINDS:
+        require(counts[kind] > 0, f"{kind} was not launched on the repair_del path")
+        rows[kind]["launches"] = counts[kind]
+    for kind, count in round_counts.items():
+        require(count > 0, f"{kind} was not launched by the repair_del path's re-solves")
+
+    for label, (dels, w1) in batches.items():
+        require(same(reps[label].dist, eng.solve(w1).dist),
+                f"repair_del n={n} {label} != re-solve of the updated graph")
+    require(refused.method != "repair_del"
+            and same(refused.dist, eng.solve(batches["E=16"][1]).dist),
+            f"repair_del n={n} E=16 at threshold 0 != its re-solve")
+    r1 = eng.solve(ws1, successors=True)
+    require(same(srep.dist, r1.dist) and same(srep.succ, r1.succ),
+            f"successor repair_del n={n_succ} != re-solve (dist, succ)")
+    require(pm.stats.repair_del_fallbacks == 1 and pm.stats.repair_dels == 0
+            and same(prep.dist, pm.solve(wp1).dist), "plus_mul repair_del != its counted re-solve")
+    require(fresh.stats.repair_del_noops == 1 and same(noop.dist, r0.dist)
+            and not any(k.method == "repair_del" for k in fresh._cache),
+            "off-path repair_del was not a no-op")
+    require(eng.stats.repair_dels == 4 and eng.stats.repair_del_fallbacks == 1,
+            "a repair_del of the path did not take the arm its threshold sets")
+    print(f"repair_del checks: n={n} E=1, E=16 and the median-ranked E=1 == re-solve "
+          f"bitwise; E=16 at threshold 0 re-solved (counted); successors n={n_succ} "
+          f"E=16 == re-solve (dist, succ); plus_mul re-solved (counted); off-path "
+          f"deletion a no-op with no sweep plan")
+
+    def timed(fn):
+        fn()
+        return statistics.median(host_ms(fn) for _ in range(3))
+
+    def report(label, nn, dist, w1, dels, succ=None):
+        # Weights and tables already on the card: no time includes a host copy.
+        w1 = torch.from_numpy(w1).cuda()
+        E = len(dels)
+        E_pad = max(4, 1 << (E - 1).bit_length())
+        u, v, wold = np.zeros(E_pad, np.int32), np.zeros(E_pad, np.int32), np.full(
+            E_pad, np.inf, np.float32)
+        for i, (ui, vi, wi) in enumerate(dels):
+            u[i], v[i], wold[i] = ui, vi, wi
+        if succ is None:
+            mark = lambda: fd.mark_affected(dist, w1, u, v, wold, E)  # noqa: E731
+            d_init, row_mask, cnt = mark()
+        else:
+            mark = lambda: fd.mark_affected_with_successors(  # noqa: E731
+                dist, succ, w1, u, v, wold, E)
+            d_init, s_init, row_mask, cnt = mark()
+        a = int(row_mask.sum())
+        rows_arr = np.full(min(max(8, 1 << (a - 1).bit_length()), nn), nn, np.int32)
+        rows_arr[:a] = np.flatnonzero(row_mask.cpu().numpy())
+        before = dict(fd.LAUNCHES)
+        if succ is None:
+            sweep = lambda: fd.fw_repair_del_sweep(d_init, rows_arr, block_size=128)  # noqa: E731
+            rep = lambda: eng.repair_del(dist, w1, dels, threshold=100.0)  # noqa: E731
+            solve = lambda: eng.solve(w1)  # noqa: E731
+        else:
+            sweep = lambda: fd.fw_repair_del_sweep_with_successors(  # noqa: E731
+                d_init, s_init, rows_arr, block_size=128)
+            rep = lambda: eng.repair_del(dist, w1, dels, succ=succ, threshold=100.0)  # noqa: E731
+            solve = lambda: eng.solve(w1, successors=True)  # noqa: E731
+        rep()
+        sync()
+        per = sum(fd.LAUNCHES[k] - before[k] for k in fd.KINDS)
+        t_rep, t_solve, t_mark, t_sweep = (timed(f) for f in (rep, solve, mark, sweep))
+        decide = plan.should_repair_del(nn, a, edges=E, successors=succ is not None)
+        print(f"engine repair_del {label}: a={a} affected rows, {int(cnt)} affected pairs "
+              f"({int(cnt) / nn**2:.3e} of n²), should_repair_del at the default "
+              f"threshold: {decide}, {per} sweep launches; {t_rep:.3f} ms (mark "
+              f"{t_mark:.3f} ms, sweep {t_sweep:.3f} ms); re-solve {t_solve:.2f} ms "
+              f"({t_solve / t_rep:.1f}x)")
+        sw = fd.sweep_buffers(d_init, rows_arr, block_size=128, s_init=None if succ is None else s_init)
+        phase = fd.sweep_phase if succ is None else fd.sweep_succ_phase
+        launch_breakdown(f"sweep breakdown {label}", [
+            (p, functools.partial(phase, p, sw, b)) for b in range(nn // 128) for p in fd.PHASES])
+
+    for label, (dels, w1) in batches.items():
+        report(f"n={n} {label}", n, r0.dist, w1, dels)
+    report(f"n={n_succ} E=16 with successors", n_succ, s0.dist, ws1, dels_s, succ=s0.succ)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -767,11 +1138,14 @@ def main(argv=None) -> int:
     name = phase_device()
     phase_check()
     phase_check_repair()
+    phase_check_repair_del()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
+        phase_kernels_repair_del(rows, 8192, 4096)
         phase_main(rows, 8192, 4096)
         phase_engine(rows, 8192, 4096)
+        phase_engine_repair_del(rows, 8192, 4096)
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,10 +6,10 @@
     eng = ApspEngine()                    # plan cache for repeated solves
     tables = eng.solve_many(graphs, successors=True)   # ragged batches
     fixed = eng.repair(res.dist, [(u, v, w_new)])      # rank-1 link repair
+    fixed = eng.repair_del(res.dist, w1, [(u, v, w_old)])  # link failures
 
 The autotuner and the mesh / recursive planners of ``repro.apsp`` are not
-ported yet (ROADMAP A.5, A.10, A.11), nor is ``ApspEngine.repair_del``
-(A.8).
+ported yet (ROADMAP A.5, A.10, A.11).
 """
 from repro_torch.apsp import plan
 from repro_torch.apsp.api import (

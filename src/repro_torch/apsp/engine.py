@@ -21,11 +21,16 @@ the session object for that:
     closed matrix through the rank-1 repair kernels (``kernels.fw_repair``),
     edge batches padded to power-of-two buckets with no-op edges so that
     one plan serves every batch length up to its bucket.
+  * **``repair_del``** — absorbs edge deletions and worsenings: marks the
+    affected pairs (torch ops), then re-relaxes only the affected rows
+    through the restricted-sweep kernels (``kernels.fw_repair_del``), or
+    re-solves when ``plan.should_repair_del`` says that is cheaper.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: ``repair_del`` (A.8), method "recursive" / ``leaf`` / ``hbm_budget``
-(A.10), method "distributed" / ``mesh`` (A.11), ``dtype`` other than
-float32 and ``packed=True`` (A.4).  The reference's TPU-lowering knobs
+item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), method
+"distributed" / ``mesh`` (A.11), ``dtype`` other than float32 and
+``packed=True`` (A.4) — the int16, bf16, packed and mesh forms of
+``repair`` and ``repair_del`` with them.  The reference's TPU-lowering knobs
 ``backend=``, ``interpret=`` and ``vmem_budget=`` have no counterpart: the
 port has one lowering per device, chosen by ``device=``, and the batch of
 a bucket rides one launch (``PlanKey.batch_block`` is the batch).
@@ -36,6 +41,7 @@ caller's concern.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -64,6 +70,7 @@ from repro_torch.core.semiring import (
     resolve_semiring,
 )
 from repro_torch.kernels import fw_repair as _fr
+from repro_torch.kernels import fw_repair_del as _frd
 from repro_torch.kernels.minplus_matmul import check_variant
 
 
@@ -87,7 +94,8 @@ class PlanKey:
     batch_block: int | None
     successors: bool
     mesh: tuple | None = None
-    edges: int = 0  # repair entries: the padded edge-batch bucket E
+    edges: int = 0  # repair entries: the padded edge-batch bucket E (the
+    #                 row bucket a_pad for "repair_del" sweep entries)
     leaf: int | None = None
     oocore: bool = False
     backend: str = "cuda"
@@ -122,6 +130,11 @@ class EngineStats:
     repairs: int = 0         # rank-1 repair dispatches (ApspEngine.repair)
     edges_repaired: int = 0  # real (unpadded) edge updates absorbed by them
     repair_rejects: int = 0  # should_repair fast-rejects (edge worsenings)
+    repair_dels: int = 0           # decremental sweeps (ApspEngine.repair_del)
+    repair_del_rows: int = 0       # affected rows those sweeps re-relaxed
+    repair_del_noops: int = 0      # empty affected set — no sweep launched
+    repair_del_fallbacks: int = 0  # marked, then re-solved (cost/semiring)
+    edges_deleted: int = 0         # real deletions absorbed (sweeps + noops)
 
 
 class ApspEngine:
@@ -132,6 +145,7 @@ class ApspEngine:
         results = eng.solve_many(graphs)      # ragged batch, auto-bucketed
         tables = eng.solve_many(graphs, successors=True)   # routing tables
         fixed = eng.repair(res.dist, [(u, v, w_new)])      # link improvements
+        fixed = eng.repair_del(res.dist, w1, [(u, v, w_old)])  # link failures
 
     Construction pins the solve configuration (method, semiring, block
     dims, device); per-call shape and batch variation is absorbed by the
@@ -312,8 +326,8 @@ class ApspEngine:
         diagonal = ⊗-identity (lifted and restored here for plus_mul, whose
         FW convention keeps a 0 diagonal; exact there only on DAGs), no
         optimal path using one updated edge twice.  Edge removals and
-        min-plus weight increases need a re-solve (``should_repair`` is the
-        cost policy; ``repair_del`` is ROADMAP A.8).
+        min-plus weight increases go to ``repair_del`` (``should_repair`` is
+        the cost policy).
 
         Edge batches pad to ``max(4, next power of two)`` with no-op edges
         (u = v = 0, w = ⊕-identity), so the plan cache holds one entry per
@@ -363,9 +377,120 @@ class ApspEngine:
         self.stats.edges_repaired += E
         return self._result(entry, d2, s2, n)
 
-    def repair_del(self, dist, w, deletions, *, succ=None, threshold: float = 0.5):
-        """Decremental repair (edge deletions / worsenings): not ported yet."""
-        raise NotImplementedError("ApspEngine.repair_del is not ported yet (ROADMAP A.8)")
+    def repair_del(
+        self, dist, w, deletions, *, succ=None, threshold: float = 0.5,
+    ) -> APSPResult:
+        """Absorb a batch of edge deletions / worsenings into a closed matrix
+        — the structural events the rank-1 ``repair`` cannot touch.
+
+        dist: a (n, n) closure (a prior solve's output); w: the **updated**
+        weight matrix (a deleted edge holds the ⊕-identity, a worsened one
+        its new weight); deletions: sequence of ``(u, v, w_old)``, the
+        endpoints and the weight the edge carried before; succ: the matching
+        next-hop table to repair alongside (min-plus only).  Neither input
+        is modified.
+
+        Two stages (``kernels.fw_repair_del``): mark the pairs whose closure
+        value is witnessed through a deleted edge, d[i,u] ⊗ w_old ⊗ d[v,j]
+        == d[i,j], and reset them to w — O(E·n²) torch ops; then re-relax
+        only the a affected rows with the restricted row sweep, three
+        launches per pivot round on the card.  The result equals a full
+        re-solve of w, bitwise on integer-valued weights.  Falls back to
+        ``self.solve(w)`` — counted in ``stats.repair_del_fallbacks`` —
+        when ``plan.should_repair_del(threshold=...)`` rejects the affected
+        row count or the semiring is plus_mul (non-idempotent ⊕ sums over
+        all paths; no restricted recomputation is sound).  An empty batch,
+        or an empty affected set, returns the input closure and launches no
+        sweep (``repair_del_noops``).  Endpoints outside [0, n) raise
+        ``ValueError``.
+        """
+        sr = self.semiring
+        arr = _coerce(dist, self.device)
+        wa = _coerce(w, self.device)
+        if arr.ndim != 2:
+            raise ValueError(f"repair_del expects a (n, n) closure, got {tuple(arr.shape)}")
+        if wa.shape != arr.shape:
+            raise ValueError(
+                f"weight matrix {tuple(wa.shape)} does not match closure {tuple(arr.shape)}"
+            )
+        n = arr.shape[-1]
+        dels = [(int(u), int(v), wi) for (u, v, wi) in deletions]
+        if succ is not None and sr is not MIN_PLUS:
+            raise ValueError(
+                "successor repair_del is min_plus only (like every successor path)"
+            )
+        s0 = None if succ is None else torch.as_tensor(succ).to(self.device, torch.int32)
+        E = len(dels)
+        if E == 0:
+            self.stats.repair_del_noops += 1
+            return APSPResult(dist=arr, succ=s0, method="repair_del", semiring=sr.name,
+                              block_size=self.block_size, n=n, padded_n=n)
+        if not all(0 <= u < n and 0 <= v < n for u, v, _ in dels):
+            raise ValueError(f"edge endpoints must lie in [0, {n})")
+        if sr is PLUS_MUL:
+            # Non-idempotent ⊕ sums over ALL paths: neither the one-witness
+            # marking nor any restricted recomputation is sound.
+            self.stats.edges_deleted += E
+            self.stats.repair_del_fallbacks += 1
+            return self.solve(w, successors=succ is not None)
+        s = self.block_size or plan.auto_block_size(n)
+        m = plan.padded_size(n, s)
+        E_pad = max(4, 1 << (E - 1).bit_length())
+        # Padding edges (u = v = 0, the ⊕-identity weight) are past the live
+        # count, and the marking skips them.
+        u = np.zeros(E_pad, np.int32)
+        v = np.zeros(E_pad, np.int32)
+        wold = np.full(E_pad, sr.zero, np.float32)
+        for i, (ui, vi, wi) in enumerate(dels):
+            u[i], v[i], wold[i] = ui, vi, wi
+        key1 = PlanKey(
+            n_padded=m, batch=1, dtype="float32", semiring=sr.name,
+            method="repair_del_mark", block_size=s, bk=0, batch_block=None,
+            successors=succ is not None, edges=E_pad, backend=self.device.type,
+        )
+        entry1 = self._lookup(key1, self._build_repair_del_mark)
+        dp, wp = _pad(arr, m, sr), _pad(wa, m, sr)
+        if succ is None:
+            d_init, row_mask, _ = entry1.runner(dp, wp, u, v, wold, E)
+            s_init = None
+        else:
+            sp = torch.full((m, m), -1, dtype=torch.int32, device=self.device)
+            sp[:n, :n] = s0
+            d_init, s_init, row_mask, _ = entry1.runner(dp, sp, wp, u, v, wold, E)
+        rows = np.flatnonzero(row_mask[:n].cpu().numpy())
+        a = int(rows.size)
+        self.stats.edges_deleted += E
+        if a == 0:
+            # No shortest path was witnessed through any deleted edge: the
+            # closure (and succ) is already the updated graph's.
+            self.stats.repair_del_noops += 1
+            return APSPResult(dist=arr, succ=s0, method="repair_del", semiring=sr.name,
+                              block_size=s, n=n, padded_n=m)
+        if not plan.should_repair_del(
+            n, a, block_size=s, word=4, edges=E, successors=succ is not None,
+            threshold=threshold,
+        ):
+            self.stats.repair_del_fallbacks += 1
+            return self.solve(w, successors=succ is not None)
+        a_pad = min(max(8, 1 << (a - 1).bit_length()), m)
+        rows_arr = np.full(a_pad, m, np.int32)
+        rows_arr[:a] = rows
+        key2 = PlanKey(
+            n_padded=m, batch=1, dtype="float32", semiring=sr.name, method="repair_del",
+            block_size=s, bk=min(self.bk, s), batch_block=None,
+            successors=succ is not None, edges=a_pad, backend=self.device.type,
+        )
+        entry2 = self._lookup(key2, self._build_repair_del_sweep)
+        if succ is None:
+            d2, s2 = entry2.runner(d_init, rows_arr)[:n, :n], None
+        else:
+            d2, s2 = entry2.runner(d_init, s_init, rows_arr)
+            d2, s2 = d2[:n, :n], s2[:n, :n]
+        if self.validate and sr is MIN_PLUS:
+            _check_negative_cycles(d2, False)
+        self.stats.repair_dels += 1
+        self.stats.repair_del_rows += a
+        return self._result(entry2, d2, s2, n)
 
     def should_repair(
         self, n: int, pending_updates: int, *, successors: bool = False,
@@ -427,6 +552,36 @@ class ApspEngine:
             return out
 
         entry.runner = runner
+        return entry
+
+    def _build_repair_del_mark(self, key: PlanKey) -> ExecutablePlan:
+        """Stage-1 runner: padded (closure[, succ], weights, edge batch, live
+        count) → (d_init[, s_init], affected-row mask, entry count); torch
+        ops on the engine's device."""
+        sr = self.semiring
+        if key.successors:
+            runner = functools.partial(_frd.mark_affected_with_successors, semiring=sr)
+        else:
+            runner = functools.partial(_frd.mark_affected, semiring=sr)
+        return ExecutablePlan(key=key, runner=runner)
+
+    def _build_repair_del_sweep(self, key: PlanKey) -> ExecutablePlan:
+        """Stage-2 runner: (d_init[, s_init], padded affected rows) → the
+        repaired closure (and next hops).  key.edges carries the row bucket
+        a_pad, the strip's height.  plus_mul never reaches here."""
+        s = key.block_size
+        entry = ExecutablePlan(key=key, runner=None)
+        entry.hbm_bytes_per_round = plan.repair_del_hbm_bytes(
+            key.n_padded, s, affected_rows=key.edges, successors=key.successors,
+        )
+        if key.successors:
+            entry.runner = functools.partial(_frd.fw_repair_del_sweep_with_successors,
+                                             block_size=s)
+        else:
+            entry.runner = functools.partial(
+                _frd.fw_repair_del_sweep, block_size=s, bk=key.bk, variant=self.variant,
+                semiring=self.semiring,
+            )
         return entry
 
     # -------------------------------------------------------------- helpers

@@ -1,8 +1,9 @@
 """Planning arithmetic for APSP solves — the port's own copy.
 
 Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-68 and
-310-361): word sizes, padding, round counts, the block-size pick, the
-fused round's device-memory traffic model and the rank-1 repair's.  The
+310-414): word sizes, padding, round counts, the block-size pick, the
+fused round's device-memory traffic model, the rank-1 repair's and the
+decremental repair's with its policy (``should_repair_del``).  The
 rest of the reference's planner (autotuning, mesh and recursive plans) is
 ROADMAP A.5 / A.10 / A.11.
 """
@@ -101,3 +102,50 @@ def repair_hbm_bytes(
     m = padded_size(n, s)
     bands = edges + m // s
     return 2.0 * bands * s * m * word * (2 if successors else 1)
+
+
+def repair_del_hbm_bytes(
+    n: int, s: int, *, affected_rows: int, word: int = 4, edges: int = 1,
+    successors: bool = False,
+) -> float:
+    """HBM traffic of ONE decremental repair (``kernels.fw_repair_del``).
+
+    Stage 1 (marking) streams the closure once per deleted edge plus the
+    updated weights and the reset write — (2 + E)·n² words.  Stage 2 (the
+    restricted row sweep) runs T rounds, each reading one (s, n) pivot band
+    and reading+writing the (a, n) affected-row strip — T·(s + 2a)·n words.
+    Successor tracking doubles it (distance + next-hop).
+
+    The reference's model of the TPU kernels, kept verbatim so that
+    ``should_repair_del`` decides as the reference does.  The CUDA sweep
+    (``kernels/csrc/fw_repair_del.cu``) is bound by operations, n²·(s + a)
+    relaxations, not by these bytes.
+    """
+    m = padded_size(n, s)
+    T = m // s
+    mark = (2.0 + edges) * m * m * word
+    sweep = T * (s + 2.0 * affected_rows) * m * word
+    return (mark + sweep) * (2 if successors else 1)
+
+
+def should_repair_del(
+    n: int, affected_rows: int, *, block_size: int | None = None,
+    word: int = 4, edges: int = 1, successors: bool = False,
+    threshold: float = 0.5,
+) -> bool:
+    """The affected-fraction policy: is the restricted sweep still cheaper
+    than a full fused re-solve once marking has counted the damage?
+
+    Runs between the two ``repair_del`` stages (the affected row count only
+    exists after marking).  Compares ``repair_del_hbm_bytes`` against
+    ``threshold ×`` the full solve's modelled traffic.
+    """
+    if affected_rows < 1:
+        return False
+    s = block_size or auto_block_size(n)
+    cost = repair_del_hbm_bytes(
+        n, s, affected_rows=affected_rows, word=word, edges=edges,
+        successors=successors,
+    )
+    full = fused_solve_hbm_bytes(n, s, word=word) * (2 if successors else 1)
+    return cost <= threshold * full

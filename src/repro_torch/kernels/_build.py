@@ -2,13 +2,15 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>_<hash>.so`` at the
-repository root, at first use.  The hash covers the source and the flags,
-so an edited kernel is rebuilt and a stale library is never loaded.
+repository root, at first use.  The hash covers the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited kernel is rebuilt and a
+stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -20,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fw_round", "fw_repair")
+SOURCES = ("fw_round", "fw_repair", "fw_repair_del")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,7 +59,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
@@ -78,9 +81,14 @@ def build_all(names=SOURCES) -> list[Built]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         todo.append((name, out, tmp, proc, time.perf_counter()))
-    for name, out, tmp, proc, t0 in todo:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+
+    def wait(job):  # one thread a compiler, so each build time is its own
+        log, _ = job[3].communicate()
+        return log, time.perf_counter() - job[4]
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(todo))) as pool:
+        results = list(pool.map(wait, todo))
+    for (name, out, tmp, proc, _), (log, seconds) in zip(todo, results):
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")

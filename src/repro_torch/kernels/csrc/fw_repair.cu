@@ -55,54 +55,9 @@
 
 #include <cuda_runtime.h>
 
+#include "semiring.cuh"
+
 namespace {
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// mul(s, w) = s ⊗ w; relax(acc, a, b) = acc ⊕ (a ⊗ b).  or_and runs on
-// MaxMin (max/min on {0,1}).  StrictMinPlus is the successor twin's
-// distance step: take a + b only where it is strictly smaller.
-struct MinPlus {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return min_nan(acc, __fadd_rn(a, b));
-  }
-};
-struct MaxPlus {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return max_nan(acc, __fadd_rn(a, b));
-  }
-};
-struct MaxMin {
-  static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return max_nan(acc, min_nan(a, b));
-  }
-};
-struct PlusMul {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return __fmaf_rn(a, b, acc);
-  }
-};
-struct StrictMinPlus {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    const float cand = __fadd_rn(a, b);
-    return cand < acc ? cand : acc;
-  }
-};
 
 constexpr int kMaxEdges = 64;     // edges one launch pair carries
 constexpr int kStageThreads = 128;  // one column each
@@ -280,12 +235,7 @@ succ_apply_kernel(const float* __restrict__ d, const int* __restrict__ succ,
         H[e][tid] = h;
 #pragma unroll
         for (int b = e + 1; b < EM; ++b) {
-          if (b < E) {
-            const float cand = __fadd_rn(a, PU[e][b]);
-            const bool better = cand < y[b];
-            y[b] = better ? cand : y[b];
-            ys[b] = better ? h : ys[b];
-          }
+          if (b < E) relax_succ(y[b], ys[b], a, h, PU[e][b]);
         }
       }
     }
@@ -323,12 +273,7 @@ succ_apply_kernel(const float* __restrict__ d, const int* __restrict__ succ,
 #pragma unroll
         for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float cand = __fadd_rn(a[m], p[q]);
-            const bool better = cand < acc[m][q];
-            acc[m][q] = better ? cand : acc[m][q];
-            sacc[m][q] = better ? h[m] : sacc[m][q];
-          }
+          for (int q = 0; q < 4; ++q) relax_succ(acc[m][q], sacc[m][q], a[m], h[m], p[q]);
       }
     }
 #pragma unroll

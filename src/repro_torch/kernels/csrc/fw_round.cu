@@ -26,14 +26,14 @@
 //              band buffers.  The batch rides gridDim.z.
 //
 // Exactness.  Each element sees the reference's ⊕/⊗ chain in the
-// reference's order.  Phases 1-2 update in place, so step k's operands
-// (row k and column k as they stood at the start of step k) are published
-// by their owners into a double-buffered shared vector before a barrier,
-// and read after it: one __syncthreads per step.  plus_mul's step is one
-// single-rounded __fmaf_rn, as XLA contracts it in the reference.  min and
-// max propagate NaN (min.NaN / max.NaN), as torch.minimum and jnp.minimum
-// do; fminf/fmaxf would drop it.  The successor round takes a candidate
-// only where cand < t, strictly.
+// reference's order, built from the steps of semiring.cuh by the chains of
+// fw_phases.cuh (shared with fw_repair_del.cu).  Phases 1-2 update in
+// place, so step k's operands are published into a double-buffered shared
+// vector before a barrier and read after it: one __syncthreads per step.
+// plus_mul's step is one single-rounded __fmaf_rn, as XLA contracts it in
+// the reference.  min and max propagate NaN (min.NaN / max.NaN), as
+// torch.minimum and jnp.minimum do; fminf/fmaxf would drop it.  The
+// successor round takes a candidate only where cand < t, strictly.
 //
 // Bound on this card.  A relaxation is ~2 fp32 operations (add and min, or
 // one FMA): n^3 relaxations per solve against the 67 TFLOP/s non-tensor
@@ -50,60 +50,15 @@
 // returns the cudaError_t of its launch (0 = launched).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "fw_phases.cuh"
 
 namespace {
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// relax(acc, a, b) = acc ⊕ (a ⊗ b) for the five f32 semirings (or_and is
-// max/min on {0,1}, the same functor as max_min).
-struct MinPlus {
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return min_nan(acc, __fadd_rn(a, b));
-  }
-};
-struct MaxPlus {
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return max_nan(acc, __fadd_rn(a, b));
-  }
-};
-struct MaxMin {
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return max_nan(acc, min_nan(a, b));
-  }
-};
-struct PlusMul {
-  static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return __fmaf_rn(a, b, acc);
-  }
-};
-
-// Strict-improvement step of the successor round.
-__device__ __forceinline__ void relax_succ(float& t, int& ts, float a, int as,
-                                           float b) {
-  float cand = __fadd_rn(a, b);
-  bool better = cand < t;
-  t = better ? cand : t;
-  ts = better ? as : ts;
-}
 
 constexpr int kRelaxThreads = 256;  // 16 x 16, each owning TM x TM outputs
 
 // ------------------------------------------------------------------ diag
-// Thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m (m < S/8) of
-// column c, in registers.  Owner of t[k][c] publishes row k; the threads of
-// column k publish column k.
+// Thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c.
 template <int S, class Op>
 __global__ void __launch_bounds__(8 * S)
 diag_kernel(const float* __restrict__ w, float* __restrict__ rowband,
@@ -118,22 +73,7 @@ diag_kernel(const float* __restrict__ w, float* __restrict__ rowband,
   float t[R];
 #pragma unroll
   for (int m = 0; m < R; ++m) t[m] = wg[(o + rg + 8 * m) * n + o + c];
-
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) rowbuf[p][c] = t[kb];
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) colbuf[p][rg + 8 * m] = t[m];
-      }
-      __syncthreads();
-      const float bj = rowbuf[p][c];
-#pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], colbuf[p][rg + 8 * m], bj);
-    }
-  }
+  close_tile_chain<S, Op>(t, rowbuf, colbuf, rg, c);
   float* rb = rowband + g * S * n;
   float* cb = colband + g * n * S;
 #pragma unroll
@@ -175,33 +115,12 @@ bands_kernel(const float* __restrict__ w, float* __restrict__ rowband,
   for (int m = 0; m < R; ++m) t[m] = wg[(r0 + rg + 8 * m) * n + c0 + c];
   __syncthreads();
 
-  if (is_row) {  // p[r][c] ⊕= d[r][k] ⊗ p[k][c]
-#pragma unroll
-    for (int kb = 0; kb < R; ++kb) {
-      for (int kk = 0; kk < 8; ++kk) {
-        const int k = kb * 8 + kk, p = k & 1;
-        if (rg == kk) buf[p][c] = t[kb];
-        __syncthreads();
-        const float bj = buf[p][c];
-#pragma unroll
-        for (int m = 0; m < R; ++m)
-          t[m] = Op::relax(t[m], d[(rg + 8 * m) * DS + k], bj);
-      }
-    }
+  if (is_row) {
+    close_row_chain<S, Op>(t, d, buf, rg, c);
 #pragma unroll
     for (int m = 0; m < R; ++m) rb[(size_t)(rg + 8 * m) * n + c0 + c] = t[m];
-  } else {  // p[r][c] ⊕= p[r][k] ⊗ d[k][c]
-    for (int k = 0; k < S; ++k) {
-      const int p = k & 1;
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) buf[p][rg + 8 * m] = t[m];
-      }
-      __syncthreads();
-      const float bj = d[k * DS + c];
-#pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], buf[p][rg + 8 * m], bj);
-    }
+  } else {
+    close_col_chain<S, R, Op>(t, d, buf, rg, c);
 #pragma unroll
     for (int m = 0; m < R; ++m) cb[(r0 + rg + 8 * m) * S + c] = t[m];
   }
@@ -256,17 +175,7 @@ relax_kernel(float* __restrict__ w, const float* __restrict__ rowband,
       Bs[kk * S + cc] = rb[(size_t)(k0 + kk) * n + (size_t)tj * S + cc];
     }
     __syncthreads();
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[TM], bv[TM];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) a[m] = As[(ty + 16 * m) * (bk + 1) + kk];
-#pragma unroll
-      for (int q = 0; q < TM; ++q) bv[q] = Bs[kk * S + tx + 16 * q];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int q = 0; q < TM; ++q) acc[m][q] = Op::relax(acc[m][q], a[m], bv[q]);
-    }
+    relax_chunk<S, TM, 16, Op>(acc, As, Bs, bk, ty, tx);
   }
   float* dst = wg + (size_t)ti * S * n + (size_t)tj * S;
 #pragma unroll
@@ -277,9 +186,7 @@ relax_kernel(float* __restrict__ w, const float* __restrict__ rowband,
 
 // ------------------------------------------------------- successor round
 // Same three launches carrying an int32 next-hop tile beside each distance
-// tile (min-plus only).  The a-side successor operand: phase 1 the tile's
-// own column k, phase 2 row the closed diagonal's successor tile, phase 2
-// col the band's own column k, phase 3 the successor col band.
+// tile (min-plus only), through the _succ chains of fw_phases.cuh.
 template <int S>
 __global__ void __launch_bounds__(8 * S)
 succ_diag_kernel(const float* __restrict__ w, const int* __restrict__ succ,
@@ -301,25 +208,7 @@ succ_diag_kernel(const float* __restrict__ w, const int* __restrict__ succ,
     t[m] = wg[(o + rg + 8 * m) * n + o + c];
     ts[m] = sg[(o + rg + 8 * m) * n + o + c];
   }
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) rowbuf[p][c] = t[kb];
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          colbuf[p][rg + 8 * m] = t[m];
-          colsbuf[p][rg + 8 * m] = ts[m];
-        }
-      }
-      __syncthreads();
-      const float bj = rowbuf[p][c];
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-        relax_succ(t[m], ts[m], colbuf[p][rg + 8 * m], colsbuf[p][rg + 8 * m], bj);
-    }
-  }
+  close_tile_chain_succ<S>(t, ts, rowbuf, colbuf, colsbuf, rg, c);
 #pragma unroll
   for (int m = 0; m < R; ++m) {
     const int r = rg + 8 * m;
@@ -369,42 +258,15 @@ succ_bands_kernel(const float* __restrict__ w, const int* __restrict__ succ,
   }
   __syncthreads();
 
-  if (is_row) {  // cand = d[r][k] + p[k][c]; next hop ds[r][k]
-#pragma unroll
-    for (int kb = 0; kb < R; ++kb) {
-      for (int kk = 0; kk < 8; ++kk) {
-        const int k = kb * 8 + kk, p = k & 1;
-        if (rg == kk) buf[p][c] = t[kb];
-        __syncthreads();
-        const float bj = buf[p][c];
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          const int r = rg + 8 * m;
-          relax_succ(t[m], ts[m], d[r * DS + k], ds[r * DS + k], bj);
-        }
-      }
-    }
+  if (is_row) {
+    close_row_chain_succ<S>(t, ts, d, ds, buf, rg, c);
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       rwg[(size_t)(rg + 8 * m) * n + c0 + c] = t[m];
       rsg[(size_t)(rg + 8 * m) * n + c0 + c] = ts[m];
     }
-  } else {  // cand = p[r][k] + d[k][c]; next hop ps[r][k]
-    for (int k = 0; k < S; ++k) {
-      const int p = k & 1;
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          buf[p][rg + 8 * m] = t[m];
-          sbuf[p][rg + 8 * m] = ts[m];
-        }
-      }
-      __syncthreads();
-      const float bj = d[k * DS + c];
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-        relax_succ(t[m], ts[m], buf[p][rg + 8 * m], sbuf[p][rg + 8 * m], bj);
-    }
+  } else {
+    close_col_chain_succ<S, R>(t, ts, d, buf, sbuf, rg, c);
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       cw[g * n * S + (r0 + rg + 8 * m) * S + c] = t[m];
@@ -474,21 +336,7 @@ succ_relax_kernel(float* __restrict__ w, int* __restrict__ succ,
       Bs[kk * S + cc] = rwg[(size_t)(k0 + kk) * n + (size_t)tj * S + cc];
     }
     __syncthreads();
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[TM], bv[TM];
-      int as[TM];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        a[m] = As[(ty + 16 * m) * (bk + 1) + kk];
-        as[m] = ASs[(ty + 16 * m) * (bk + 1) + kk];
-      }
-#pragma unroll
-      for (int q = 0; q < TM; ++q) bv[q] = Bs[kk * S + tx + 16 * q];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int q = 0; q < TM; ++q) relax_succ(acc[m][q], sacc[m][q], a[m], as[m], bv[q]);
-    }
+    relax_chunk_succ<S, TM, 16>(acc, sacc, As, ASs, Bs, bk, ty, tx);
   }
   float* dst = wg + (size_t)ti * S * n + (size_t)tj * S;
   int* sdst = sg + (size_t)ti * S * n + (size_t)tj * S;

@@ -1,0 +1,270 @@
+"""Decremental repair: affected-set marking and the restricted row sweep.
+
+Counterpart of ``repro.kernels.fw_repair_del``.  A batch of edge deletions
+(or worsenings) is absorbed in two stages:
+
+  * **mark** (``mark_affected``, ``mark_affected_with_successors``): the
+    pairs whose closure value is witnessed through a deleted edge,
+    ``d[i, u] ⊗ w_old ⊗ d[v, j] == d[i, j] ≠ 0̄``, are reset to their
+    direct edge in the updated weights; the rows holding any of them are
+    the affected rows.  In the reference these are XLA outside any Pallas
+    call; here they are torch ops on the tensors' device, the card
+    included.
+  * **sweep** (``fw_repair_del_sweep``, replacing the Pallas
+    ``_sweep_round`` driven by ``fw_repair_del_sweep``, and
+    ``fw_repair_del_sweep_with_successors``, the kernel twin of the
+    reference's XLA-only successor sweep): blocked FW restricted to the
+    (a_pad, m) strip of affected rows, three launches per pivot round on
+    the current stream — diag, panels, relax (``csrc/fw_repair_del.cu``
+    says why) — through the buffers of ``sweep_buffers``.
+
+Both sweeps return new tensors and leave their inputs as they were.  A
+tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
+tensor goes to the kernels, and a launch that fails raises.  There is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
+The sweep is sound for the ⊕-idempotent semirings only, and the kernels
+take those four; plus_mul is re-solved by ``ApspEngine.repair_del``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.kernels import ref
+from repro_torch.kernels.fw_repair import _check, edge_vectors
+from repro_torch.kernels.fw_round import _SEMIRING_IDS, BLOCK_SIZES, _raise_on
+from repro_torch.kernels.minplus_matmul import _fit_block, check_variant
+
+PHASES = ("diag", "panels", "relax")
+KINDS = tuple(f"{fn}/{p}" for fn in ("fw_repair_del_sweep", "fw_repair_del_sweep_with_successors")
+              for p in PHASES)
+LAUNCHES = dict.fromkeys(KINDS, 0)
+STRIP_ROWS = 8  # the kernels' strip tile height: strips pad to a multiple of it
+
+
+def reset_launch_counts() -> None:
+    for kind in LAUNCHES:
+        LAUNCHES[kind] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load("fw_repair_del")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fw_repair_del_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.fw_repair_del_launch.restype = i
+    lib.fw_repair_del_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.fw_repair_del_succ_launch.restype = i
+    return lib
+
+
+def _check_pair(d, other, what: str) -> None:
+    if other.shape != d.shape or other.device != d.device:
+        raise ValueError(
+            f"{what} {tuple(other.shape)} on {other.device} does not match "
+            f"d {tuple(d.shape)} on {d.device}"
+        )
+
+
+def _check_rows(rows, m: int) -> np.ndarray:
+    """Host int64 copy of the strip's row indices: each in [0, m], where m
+    marks a padding row; the real rows are distinct."""
+    r = np.asarray(rows.cpu() if isinstance(rows, torch.Tensor) else rows).astype(np.int64).reshape(-1)
+    if r.size < 1:
+        raise ValueError("rows must name at least one strip row")
+    if ((r < 0) | (r > m)).any():
+        raise ValueError(f"rows must lie in [0, {m}] ({m} marks a padding row)")
+    real = r[r < m]
+    if np.unique(real).size != real.size:
+        raise ValueError("the real rows of a strip must be distinct")
+    return r
+
+
+# ------------------------------------------------------------------- mark
+def mark_affected(dist, w1, u, v, wold, ecount, *, semiring: Semiring = MIN_PLUS):
+    """Stage 1: (d_init, affected-row mask (m,), affected-entry count).
+
+    dist: the (m, m) f32 closure before the deletions; w1: the updated
+    weights (deleted edges at the ⊕-identity); u / v / wold: the deleted
+    edges and the weight each carried before, of which the first
+    ``ecount`` are live and the rest padding.  Torch ops on dist's device.
+    """
+    m = _check(dist, 1, "dist")
+    _check_pair(dist, w1, "w1")
+    u, v, wold = edge_vectors(u, v, wold, m, "cpu")
+    return ref.mark_affected(dist, w1, u, v, wold, ecount, semiring=semiring)
+
+
+def mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount, *,
+                                  semiring: Semiring = MIN_PLUS):
+    """Stage 1 with next hops: (d_init, s_init, row mask, count)."""
+    m = _check(dist, 1, "dist")
+    _check(succ, 1, "succ", torch.int32)
+    _check_pair(dist, succ, "succ")
+    _check_pair(dist, w1, "w1")
+    u, v, wold = edge_vectors(u, v, wold, m, "cpu")
+    return ref.mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount,
+                                             semiring=semiring)
+
+
+# ------------------------------------------------------------------ sweep
+@dataclasses.dataclass
+class Sweep:
+    """The device state of one restricted sweep: what the launches read and
+    write.  The strip holds a_k rows, the input's a_pad padded with inert
+    rows to a multiple of ``STRIP_ROWS``.
+
+    rows (a_k,) int32: the matrix row of each strip row, m for padding;
+    pos (m,) int32: the strip row holding each matrix row, -1 for none;
+    strip (a_k, m), band (s, m), acol (a_k, s): f32 working buffers;
+    real / keep: int64 indices of the real rows and their strip rows, for
+    the final write-back.  With successors, s_init and the ``*_s`` int32
+    next-hop twins of strip, band and acol.
+    """
+
+    d_init: torch.Tensor
+    rows: torch.Tensor
+    pos: torch.Tensor
+    strip: torch.Tensor
+    band: torch.Tensor
+    acol: torch.Tensor
+    real: torch.Tensor
+    keep: torch.Tensor
+    s_init: torch.Tensor | None = None
+    strip_s: torch.Tensor | None = None
+    band_s: torch.Tensor | None = None
+    acol_s: torch.Tensor | None = None
+
+    @property
+    def block_size(self) -> int:
+        return self.band.shape[0]
+
+
+def sweep_buffers(d_init: torch.Tensor, rows, *, block_size: int,
+                  s_init: torch.Tensor | None = None) -> Sweep:
+    """Gather the strip of ``rows`` (padding index m clipped to row m-1)
+    and allocate the round buffers on d_init's device."""
+    m = _check(d_init, block_size, "d_init")
+    if s_init is not None:
+        _check(s_init, block_size, "s_init", torch.int32)
+        _check_pair(d_init, s_init, "s_init")
+    r = _check_rows(rows, m)
+    r = np.concatenate([r, np.full(-r.size % STRIP_ROWS, m, np.int64)])
+    keep = np.flatnonzero(r < m)
+    pos = np.full(m, -1, np.int32)
+    pos[r[keep]] = keep
+    dev = d_init.device
+    idx = torch.from_numpy(np.minimum(r, m - 1)).to(dev)
+    new = functools.partial(torch.empty, device=dev)
+    sw = Sweep(
+        d_init=d_init, rows=torch.from_numpy(r.astype(np.int32)).to(dev),
+        pos=torch.from_numpy(pos).to(dev), strip=d_init.index_select(0, idx),
+        band=new((block_size, m), dtype=d_init.dtype),
+        acol=new((r.size, block_size), dtype=d_init.dtype),
+        real=torch.from_numpy(r[keep]).to(dev), keep=torch.from_numpy(keep).to(dev),
+    )
+    if s_init is not None:
+        sw.s_init, sw.strip_s = s_init, s_init.index_select(0, idx)
+        sw.band_s = new((block_size, m), dtype=torch.int32)
+        sw.acol_s = new((r.size, block_size), dtype=torch.int32)
+    return sw
+
+
+def _write_back(t: torch.Tensor, strip: torch.Tensor, sw: Sweep) -> torch.Tensor:
+    return t.clone().index_copy_(0, sw.real, strip.index_select(0, sw.keep))
+
+
+def _launch(fn: str, phase: str, sw: Sweep, b: int, call) -> None:
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    if sw.d_init.device.type != "cuda":
+        raise ValueError(f"{fn} phases launch a CUDA kernel; the sweep is on the CPU")
+    s, m = sw.block_size, sw.d_init.shape[0]
+    if s not in BLOCK_SIZES:
+        raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {s}")
+    if not 0 <= b < m // s:
+        raise ValueError(f"pivot round {b} outside [0, {m // s})")
+    bufs = [t for t in (getattr(sw, f.name) for f in dataclasses.fields(sw)) if t is not None]
+    if any(t.device != sw.d_init.device or not t.is_contiguous() for t in bufs):
+        raise ValueError(f"{fn}/{phase}: every buffer must be contiguous on {sw.d_init.device}")
+    with torch.cuda.device(sw.d_init.device):
+        err = call(torch.cuda.current_stream(sw.d_init.device).cuda_stream)
+    kind = f"{fn}/{phase}"
+    _raise_on(err, kind)
+    LAUNCHES[kind] += 1
+
+
+def sweep_phase(phase: str, sw: Sweep, b: int, *, bk: int = 32,
+                semiring: Semiring = MIN_PLUS) -> None:
+    """Launch one phase ("diag" | "panels" | "relax") of round b on the card."""
+    sid = _SEMIRING_IDS.get(semiring.name)
+    if sid is None or semiring.name == "plus_mul":
+        raise ValueError(
+            f"no sweep kernel for semiring {semiring.name!r}: the restricted "
+            f"sweep is sound for the ⊕-idempotent semirings only"
+        )
+    s = sw.block_size
+    _launch("fw_repair_del_sweep", phase, sw, b, lambda stream: _lib().fw_repair_del_launch(
+        PHASES.index(phase), sw.d_init.data_ptr(), sw.pos.data_ptr(), sw.rows.data_ptr(),
+        sw.strip.data_ptr(), sw.band.data_ptr(), sw.acol.data_ptr(), sw.d_init.shape[0],
+        sw.strip.shape[0], s, b, _fit_block(s, bk), sid, stream))
+
+
+def sweep_succ_phase(phase: str, sw: Sweep, b: int) -> None:
+    """Launch one phase of the successor sweep's round b on the card."""
+    if sw.s_init is None:
+        raise ValueError("the sweep carries no next hops (sweep_buffers(s_init=))")
+    ptrs = (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip, sw.strip_s, sw.band,
+            sw.band_s, sw.acol, sw.acol_s)
+    _launch("fw_repair_del_sweep_with_successors", phase, sw, b,
+            lambda stream: _lib().fw_repair_del_succ_launch(
+                PHASES.index(phase), *(t.data_ptr() for t in ptrs), sw.d_init.shape[0],
+                sw.strip.shape[0], sw.block_size, b, stream))
+
+
+def fw_repair_del_sweep(
+    d_init: torch.Tensor, rows, *, block_size: int, bk: int = 32,
+    variant: str = "fori", semiring: Semiring = MIN_PLUS,
+) -> torch.Tensor:
+    """The restricted row sweep of ``d_init`` (m, m) f32 from
+    ``mark_affected``: rows (a_pad,) are the affected rows, padded with m.
+    Returns the repaired closure, a new tensor.  bk: the relax launch's
+    staging depth (clamped to a divisor of block_size; the result does not
+    depend on it)."""
+    m = _check(d_init, block_size, "d_init")
+    check_variant(variant)
+    r = _check_rows(rows, m)
+    if d_init.device.type == "cpu":
+        return ref.fw_repair_del_sweep_ref(d_init, r, block_size=block_size, bk=bk,
+                                           variant=variant, semiring=semiring)
+    sw = sweep_buffers(d_init, r, block_size=block_size)
+    for b in range(m // block_size):
+        for phase in PHASES:
+            sweep_phase(phase, sw, b, bk=bk, semiring=semiring)
+    return _write_back(sw.d_init, sw.strip, sw)
+
+
+def fw_repair_del_sweep_with_successors(
+    d_init: torch.Tensor, s_init: torch.Tensor, rows, *, block_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The min-plus sweep carrying the int32 next-hop table ``s_init`` from
+    ``mark_affected_with_successors``: (dist, succ), new tensors."""
+    m = _check(d_init, block_size, "d_init")
+    _check(s_init, block_size, "s_init", torch.int32)
+    _check_pair(d_init, s_init, "s_init")
+    r = _check_rows(rows, m)
+    if d_init.device.type == "cpu":
+        return ref.fw_repair_del_sweep_with_successors_ref(d_init, s_init, r,
+                                                           block_size=block_size)
+    sw = sweep_buffers(d_init, r, block_size=block_size, s_init=s_init)
+    for b in range(m // block_size):
+        for phase in PHASES:
+            sweep_succ_phase(phase, sw, b)
+    return _write_back(sw.d_init, sw.strip, sw), _write_back(sw.s_init, sw.strip_s, sw)

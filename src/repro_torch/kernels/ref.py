@@ -1,8 +1,10 @@
-"""Plain torch versions of the fused round and rank-1 repair kernels.
+"""Plain torch versions of the fused round, rank-1 repair and decremental
+repair kernels.
 
 Counterparts of ``repro.kernels.ref.fw_round_ref``,
-``fw_round_with_successors_ref``, ``fw_repair_ref`` and
-``fw_repair_with_successors_ref``: the same per-element ⊕/⊗ chains as the
+``fw_round_with_successors_ref``, ``fw_repair_ref``,
+``fw_repair_with_successors_ref`` and of ``repro.kernels.fw_repair_del``'s
+marking and XLA sweep twins: the same per-element ⊕/⊗ chains as the
 reference, so outputs are bitwise equal to it.  Each round is split into
 the three phases the CUDA kernels launch (``kernels/csrc/fw_round.cu``):
 
@@ -16,18 +18,27 @@ The repair is the direct per-edge loop, and beside it the two phases of
 ``kernels/csrc/fw_repair.cu``: ``repair_stage*`` (the evolved pivot rows)
 and ``repair_apply*`` (every row folds all E updates against them).
 
-They run on any device and are what ``kernels.fw_round`` and
-``kernels.fw_repair`` compute for a tensor on the CPU.  On the card they
+The decremental repair is ``mark_affected*`` (stage 1, torch ops on any
+device) and the restricted row sweep, whose rounds are the three launches
+of ``kernels/csrc/fw_repair_del.cu``, built from the round's own chains:
+``sweep_diag*`` (close the overlaid pivot tile), ``sweep_panels*`` (close
+the overlaid (s, m) band and the strip's pivot block column) and
+``sweep_relax*`` (relax the (a_pad, m) strip of affected rows, then splice
+the band rows into the strip rows inside the pivot block).
+
+They run on any device and are what ``kernels.fw_round``,
+``kernels.fw_repair`` and ``kernels.fw_repair_del`` compute for a tensor
+on the CPU.  On the card they
 are the yardstick the kernels are held against; the main path never calls
 them there.  All are functional (they return new tensors); the round
 functions and ``fw_repair_ref`` are batch-rank-agnostic, the other repair
-functions take (n, n).
+functions take (n, n).  ``mark_affected*`` are what the card runs too.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.paths import relax_succ
+from repro_torch.core.paths import _init_successors, relax_succ
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels.minplus_matmul import _fit_block, _stage_compute
 
@@ -44,21 +55,39 @@ def close_diag(diag: torch.Tensor, semiring: Semiring) -> torch.Tensor:
     return diag
 
 
+def close_row_panel(p: torch.Tensor, diag: torch.Tensor, semiring: Semiring) -> torch.Tensor:
+    """Phase 2, row band: p[r, c] ⊕= diag[r, k] ⊗ p[k, c], k ascending.
+    Returns a new tensor."""
+    for k in range(diag.shape[-1]):
+        p = semiring.relax(p, diag[..., :, k, None], p[..., k, None, :])
+    return p
+
+
+def close_col_panel(p: torch.Tensor, diag: torch.Tensor, semiring: Semiring) -> torch.Tensor:
+    """Phase 2, col band: p[r, c] ⊕= p[r, k] ⊗ diag[k, c], k ascending.
+    Returns a new tensor."""
+    for k in range(diag.shape[-1]):
+        p = semiring.relax(p, p[..., :, k, None], diag[..., k, None, :])
+    return p
+
+
 def close_bands(
     w: torch.Tensor, diag: torch.Tensor, b: int, semiring: Semiring
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase 2: (row, col) bands of round b closed against the closed diag."""
-    s = diag.shape[-1]
-    o = _pivot(b, s)
-    row = w[..., o, :]
-    for k in range(s):
-        row = semiring.relax(row, diag[..., :, k, None], row[..., k, None, :])
-    col = w[..., :, o]
-    for k in range(s):
-        col = semiring.relax(col, col[..., :, k, None], diag[..., k, None, :])
+    o = _pivot(b, diag.shape[-1])
+    row = close_row_panel(w[..., o, :], diag, semiring)
+    col = close_col_panel(w[..., :, o], diag, semiring)
     row[..., :, o] = diag  # row and col are new tensors, not views of w
     col[..., o, :] = diag
     return row, col
+
+
+def _relax_tile(c, a, bb, bk: int, semiring: Semiring, variant: str) -> torch.Tensor:
+    """c ⊕= a ⊗ bb through bk-deep ``_stage_compute`` stages, k ascending."""
+    for k0 in range(0, a.shape[-1], bk):
+        c = _stage_compute(c, a[..., :, k0:k0 + bk], bb[..., k0:k0 + bk, :], semiring, variant)
+    return c
 
 
 def relax(
@@ -73,11 +102,7 @@ def relax(
     w = w.clone()
     w[..., o, :] = row
     w[..., :, o] = col
-    for k0 in range(0, s, bk):
-        w = _stage_compute(
-            w, col[..., :, k0:k0 + bk], row[..., k0:k0 + bk, :], semiring, variant
-        )
-    return w
+    return _relax_tile(w, col, row, bk, semiring, variant)
 
 
 def fw_round_ref(
@@ -99,19 +124,37 @@ def close_diag_succ(diag, dsucc):
     return diag, dsucc
 
 
+def close_row_panel_succ(p, ps, diag, dsucc):
+    """Phase 2 row band with next hops: the a-side is the closed diag and
+    its successor tile."""
+    for k in range(diag.shape[-1]):
+        p, ps = relax_succ(k, p, ps, diag, dsucc, p)
+    return p, ps
+
+
+def close_col_panel_succ(p, ps, diag):
+    """Phase 2 col band with next hops: the a-side is the band's own
+    evolving columns."""
+    for k in range(diag.shape[-1]):
+        p, ps = relax_succ(k, p, ps, p, ps, diag)
+    return p, ps
+
+
+def _relax_succ_tile(t, ts, a, asucc, bb):
+    """t ⊕= a ⊗ bb with next hops, k ascending and unchunked, strict <."""
+    for k in range(a.shape[-1]):
+        t, ts = relax_succ(k, t, ts, a, asucc, bb)
+    return t, ts
+
+
 def close_bands_succ(w, succ, diag, dsucc, b: int):
     """Phase 2 with next hops → (row, rsucc, col, csucc).
 
     Row band: the a-side is the closed diag and its successor tile.  Col
     band: the a-side is the band's own evolving columns."""
-    s = diag.shape[-1]
-    o = _pivot(b, s)
-    row, rsucc = w[..., o, :], succ[..., o, :]
-    for k in range(s):
-        row, rsucc = relax_succ(k, row, rsucc, diag, dsucc, row)
-    col, csucc = w[..., :, o], succ[..., :, o]
-    for k in range(s):
-        col, csucc = relax_succ(k, col, csucc, col, csucc, diag)
+    o = _pivot(b, diag.shape[-1])
+    row, rsucc = close_row_panel_succ(w[..., o, :], succ[..., o, :], diag, dsucc)
+    col, csucc = close_col_panel_succ(w[..., :, o], succ[..., :, o], diag)
     row[..., :, o] = diag  # new tensors, not views of w
     rsucc[..., :, o] = dsucc
     col[..., o, :] = diag
@@ -129,9 +172,7 @@ def relax_succ_tiles(w, succ, row, rsucc, col, csucc, b: int):
     succ[..., o, :] = rsucc
     w[..., :, o] = col
     succ[..., :, o] = csucc
-    for k in range(s):
-        w, succ = relax_succ(k, w, succ, col, csucc, row)
-    return w, succ
+    return _relax_succ_tile(w, succ, col, csucc, row)
 
 
 def fw_round_with_successors_ref(
@@ -220,3 +261,172 @@ def repair_apply_succ_ref(d, succ, staged, u, v, w):
     for e in range(len(u)):
         d, succ = _succ_step(d, succ, u[e], v[e], d[:, u[e], None] + w[e], staged[e, None, :])
     return d, succ
+
+
+# ----------------------------------------------------- decremental repair
+def _affected_mask(dist, u, v, wold, ecount, semiring: Semiring) -> torch.Tensor:
+    """Bool (m, m): pairs whose closure value is witnessed through a live
+    deleted edge, ``dist[i, u] ⊗ w_old ⊗ dist[v, j] == dist[i, j] ≠ 0̄``.
+    Edges at index >= ecount are padding and skipped."""
+    u, v, wold = _edge_lists(u, v, wold, dist.device)
+    aff = torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
+    for e in range(min(int(ecount), len(u))):
+        wit = semiring.mul(semiring.mul(dist[:, u[e], None], wold[e]), dist[None, v[e], :])
+        aff |= wit == dist
+    return aff & (dist != semiring.zero)
+
+
+def mark_affected(dist, w1, u, v, wold, ecount, *, semiring: Semiring = MIN_PLUS):
+    """Stage 1: (d_init, affected-row mask (m,), affected-entry count).
+
+    d_init resets every affected entry to its direct edge in the updated
+    weights ``w1`` and keeps the (final) closure value elsewhere."""
+    aff = _affected_mask(dist, u, v, wold, ecount, semiring)
+    return torch.where(aff, w1, dist), aff.any(dim=-1), aff.sum(dtype=torch.int32)
+
+
+def mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount, *,
+                                  semiring: Semiring = MIN_PLUS):
+    """Stage 1 with next hops: affected entries also reset their successor
+    to the direct-edge start state of a re-solve of ``w1``."""
+    aff = _affected_mask(dist, u, v, wold, ecount, semiring)
+    return (torch.where(aff, w1, dist), torch.where(aff, _init_successors(w1), succ),
+            aff.any(dim=-1), aff.sum(dtype=torch.int32))
+
+
+def _band_overlay(static, strip, rows, o: int, s: int):
+    """The (s, m) pivot band at row offset o: rows of ``static``, with the
+    strip rows that lie in [o, o+s) spliced in.  Returns (band, in_blk,
+    local): which strip rows lie in the block and their offsets in it."""
+    local = rows - o
+    in_blk = (local >= 0) & (local < s)
+    band = static[o:o + s].clone()
+    band[local[in_blk]] = strip[in_blk]
+    return band, in_blk, local
+
+
+def _splice_in_block(strip, band, in_blk, local):
+    """Strip rows inside the pivot block take their band-closed rows."""
+    closed = band[torch.where(in_blk, local, 0)]
+    return torch.where(in_blk[:, None], closed, strip)
+
+
+def _rows(rows, device) -> torch.Tensor:
+    return torch.as_tensor(rows, dtype=torch.int64).to(device)
+
+
+def sweep_diag_ref(d_init, strip, rows, b: int, *, block_size: int,
+                   semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """Launch 1 of round b: the overlaid (s, s) pivot tile, closed."""
+    s = block_size
+    band, _, _ = _band_overlay(d_init, strip, _rows(rows, strip.device), b * s, s)
+    return close_diag(band[:, _pivot(b, s)], semiring)
+
+
+def sweep_panels_ref(d_init, strip, rows, diag, b: int, *,
+                     semiring: Semiring = MIN_PLUS):
+    """Launch 2 of round b → (band, acol): the overlaid (s, m) band closed
+    against ``diag`` with it spliced in at block b, and the strip's block
+    column b (a_pad, s) closed against it."""
+    s = diag.shape[-1]
+    o = _pivot(b, s)
+    band, _, _ = _band_overlay(d_init, strip, _rows(rows, strip.device), b * s, s)
+    band = close_row_panel(band, diag, semiring)
+    band[:, o] = diag
+    return band, close_col_panel(strip[:, o], diag, semiring)
+
+
+def sweep_relax_ref(strip, rows, band, acol, b: int, *, bk: int = 32,
+                    variant: str = "fori", semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """Launch 3 of round b: the whole strip, its block column b starting
+    from ``acol``, relaxed against acol ⊗ band in bk chunks; strip rows
+    inside the pivot block then take their band rows."""
+    s = acol.shape[-1]
+    strip = strip.clone()
+    strip[:, _pivot(b, s)] = acol
+    strip = _relax_tile(strip, acol, band, _fit_block(s, bk), semiring, variant)
+    local = _rows(rows, strip.device) - b * s
+    return _splice_in_block(strip, band, (local >= 0) & (local < s), local)
+
+
+def _gather_strip(t, rows):
+    """Rows of t, padding index m clipped to row m-1 (an inert copy)."""
+    return t[rows.clamp(max=t.shape[-1] - 1)]
+
+
+def _scatter_strip(t, rows, strip):
+    """t with the strip's real rows written back; padding rows drop."""
+    out = t.clone()
+    keep = rows < t.shape[-1]
+    out[rows[keep]] = strip[keep]
+    return out
+
+
+def fw_repair_del_sweep_ref(d_init, rows, *, block_size: int, bk: int = 32,
+                            variant: str = "fori", semiring: Semiring = MIN_PLUS):
+    """The restricted row sweep: T rounds of the three phases above over
+    the (a_pad, m) strip of affected rows ``rows`` (padded with m), then
+    the strip written back into a copy of d_init (m, m)."""
+    s, m = block_size, d_init.shape[-1]
+    rows = _rows(rows, d_init.device)
+    strip = _gather_strip(d_init, rows)
+    for b in range(m // s):
+        diag = sweep_diag_ref(d_init, strip, rows, b, block_size=s, semiring=semiring)
+        band, acol = sweep_panels_ref(d_init, strip, rows, diag, b, semiring=semiring)
+        strip = sweep_relax_ref(strip, rows, band, acol, b, bk=bk, variant=variant,
+                                semiring=semiring)
+    return _scatter_strip(d_init, rows, strip)
+
+
+def sweep_diag_succ_ref(d_init, s_init, strip, strip_s, rows, b: int, *, block_size: int):
+    """Successor launch 1: (diag, dsucc) of the overlaid pivot tile."""
+    s = block_size
+    o = _pivot(b, s)
+    rows = _rows(rows, strip.device)
+    band, _, _ = _band_overlay(d_init, strip, rows, b * s, s)
+    band_s, _, _ = _band_overlay(s_init, strip_s, rows, b * s, s)
+    return close_diag_succ(band[:, o], band_s[:, o])
+
+
+def sweep_panels_succ_ref(d_init, s_init, strip, strip_s, rows, diag, dsucc, b: int):
+    """Successor launch 2 → (band, band_s, acol, acol_s)."""
+    s = diag.shape[-1]
+    o = _pivot(b, s)
+    rows = _rows(rows, strip.device)
+    band, _, _ = _band_overlay(d_init, strip, rows, b * s, s)
+    band_s, _, _ = _band_overlay(s_init, strip_s, rows, b * s, s)
+    band, band_s = close_row_panel_succ(band, band_s, diag, dsucc)
+    band[:, o] = diag
+    band_s[:, o] = dsucc
+    acol, acol_s = close_col_panel_succ(strip[:, o], strip_s[:, o], diag)
+    return band, band_s, acol, acol_s
+
+
+def sweep_relax_succ_ref(strip, strip_s, rows, band, band_s, acol, acol_s, b: int):
+    """Successor launch 3 → (strip, strip_s)."""
+    s = acol.shape[-1]
+    o = _pivot(b, s)
+    strip, strip_s = strip.clone(), strip_s.clone()
+    strip[:, o] = acol
+    strip_s[:, o] = acol_s
+    strip, strip_s = _relax_succ_tile(strip, strip_s, acol, acol_s, band)
+    local = _rows(rows, strip.device) - b * s
+    in_blk = (local >= 0) & (local < s)
+    return (_splice_in_block(strip, band, in_blk, local),
+            _splice_in_block(strip_s, band_s, in_blk, local))
+
+
+def fw_repair_del_sweep_with_successors_ref(d_init, s_init, rows, *, block_size: int):
+    """The min-plus sweep carrying next hops: every phase takes a candidate
+    only where it is strictly smaller.  Returns (dist, succ)."""
+    s, m = block_size, d_init.shape[-1]
+    rows = _rows(rows, d_init.device)
+    strip, strip_s = _gather_strip(d_init, rows), _gather_strip(s_init, rows)
+    for b in range(m // s):
+        diag, dsucc = sweep_diag_succ_ref(d_init, s_init, strip, strip_s, rows, b,
+                                          block_size=s)
+        band, band_s, acol, acol_s = sweep_panels_succ_ref(
+            d_init, s_init, strip, strip_s, rows, diag, dsucc, b)
+        strip, strip_s = sweep_relax_succ_ref(strip, strip_s, rows, band, band_s,
+                                              acol, acol_s, b)
+    return _scatter_strip(d_init, rows, strip), _scatter_strip(s_init, rows, strip_s)

@@ -230,10 +230,3 @@ def test_engine_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ApspEngine(device="cpu", **kw)
 
-
-def test_repair_del_is_not_ported_yet():
-    eng = ApspEngine(device="cpu")
-    w, _, _ = repair_scenario("min_plus", 32)
-    r0 = eng.solve(w)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        eng.repair_del(r0.dist, w, [(0, 1, 1.0)])

@@ -15,6 +15,7 @@ from repro_torch.apsp import ApspEngine, solve
 from repro_torch.core.paths import _init_successors
 from repro_torch.core.semiring import SEMIRINGS
 from repro_torch.kernels import fw_repair as fp
+from repro_torch.kernels import fw_repair_del as fd
 from repro_torch.kernels import fw_round as fr
 from repro_torch.kernels import ref
 
@@ -166,3 +167,88 @@ def test_launches_refuse_what_the_kernels_do_not_take(cuda_device):
         fp.repair_phase("stage", d, u, v, w, torch.empty(65, 64, device=cuda_device))
     with pytest.raises(ValueError):  # staged buffer of the wrong shape
         fp.repair_phase("stage", d, u[:4], v[:4], w[:4], torch.empty(3, 64, device=cuda_device))
+
+
+def _same(a, b) -> bool:
+    """Bitwise equal, NaN equal to NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def _strip_rows(n, a, seed):
+    """a distinct rows, sorted and padded as the engine pads them."""
+    rng = np.random.default_rng(seed)
+    a_pad = min(max(8, 1 << (a - 1).bit_length()), n)
+    rows = np.full(a_pad, n, np.int32)
+    rows[:a] = np.sort(rng.choice(n, a, replace=False))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["min_plus", "max_plus", "max_min", "or_and"])
+@pytest.mark.parametrize("s", [16, 64, 128])
+@pytest.mark.parametrize("a", [1, 37, 200])
+def test_kernel_sweep_matches_plain(cuda_device, name, s, a):
+    d = torch.from_numpy(_graph(name, (256, 256), seed=a + s)).to(cuda_device)
+    rows = _strip_rows(256, a, seed=a)
+    before = fd.LAUNCHES["fw_repair_del_sweep/relax"]
+    got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=SEMIRINGS[name])
+    want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=SEMIRINGS[name])
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert fd.LAUNCHES["fw_repair_del_sweep/relax"] == before + 256 // s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,a", [(16, 5), (32, 37), (128, 1), (128, 200)])
+def test_kernel_successor_sweep_matches_plain(cuda_device, s, a):
+    d = torch.from_numpy(_graph("min_plus", (256, 256), seed=a)).to(cuda_device)
+    succ = _init_successors(d).contiguous()
+    rows = _strip_rows(256, a, seed=a + 1)
+    gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
+    wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows, block_size=s)
+    torch.cuda.synchronize()
+    assert torch.equal(gd, wd) and torch.equal(gs, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_engine_repair_del_on_the_card_matches_the_plain_path(cuda_device, name):
+    rng = np.random.default_rng(3)
+    w = _graph(name, (90, 90), seed=3)
+    sr = SEMIRINGS[name]
+    host = ApspEngine(semiring=name, validate=False, device="cpu")
+    d0 = host.solve(w).dist.numpy()
+    edge = (w != sr.zero) & ~np.eye(90, dtype=bool)
+    on_path = edge & (w == d0)  # plus_mul has none: it re-solves anyway
+    cand = np.argwhere(on_path if on_path.sum() >= 3 else edge)
+    dels, w1 = [], w.copy()
+    for u, v in cand[rng.choice(len(cand), 3, replace=False)]:
+        dels.append((int(u), int(v), float(w[u, v])))
+        w1[u, v] = sr.zero
+    eng = ApspEngine(semiring=name, validate=False)
+    got = eng.repair_del(torch.from_numpy(d0).to(cuda_device), w1, dels, threshold=100.0)
+    want = host.repair_del(d0, w1, dels, threshold=100.0)
+    assert got.dist.is_cuda and _same(got.dist.cpu(), want.dist)
+    fields = ("repair_dels", "repair_del_rows", "repair_del_fallbacks", "edges_deleted")
+    assert [getattr(eng.stats, f) for f in fields] == [getattr(host.stats, f) for f in fields]
+    if name == "min_plus":
+        r0 = host.solve(w, successors=True)
+        got = eng.repair_del(r0.dist.to(cuda_device), w1, dels, succ=r0.succ, threshold=100.0)
+        want = host.repair_del(r0.dist, w1, dels, succ=r0.succ, threshold=100.0)
+        assert torch.equal(got.dist.cpu(), want.dist) and torch.equal(got.succ.cpu(), want.succ)
+
+
+@pytest.mark.cuda
+def test_sweep_launches_refuse_what_the_kernels_do_not_take(cuda_device):
+    d = torch.zeros(128, 128, device=cuda_device)
+    with pytest.raises(ValueError):  # plus_mul has no sweep kernel
+        fd.fw_repair_del_sweep(d, [3], block_size=64, semiring=SEMIRINGS["plus_mul"])
+    with pytest.raises(ValueError):  # a repeated real row
+        fd.fw_repair_del_sweep(d, [3, 3], block_size=64)
+    with pytest.raises(ValueError):  # beyond the padding index
+        fd.fw_repair_del_sweep(d, [129], block_size=64)
+    sw = fd.sweep_buffers(d, [3, 70], block_size=64)
+    with pytest.raises(ValueError):
+        fd.sweep_phase("relax", sw, 2)  # round outside [0, 2)
+    with pytest.raises(ValueError):
+        fd.sweep_succ_phase("diag", sw, 0)  # no next-hop buffers
