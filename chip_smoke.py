@@ -21,12 +21,19 @@ Phases, each of which raises (exit code 1) on any failure:
      kernels of the decremental repair likewise: the four idempotent
      semirings at n=1024 with a in {1, 5, 37, 200} affected rows, each
      launch kind alone and the whole sweep, the successor sweep, and
-     ``repair_del`` at n=1000 through the engine.
+     ``repair_del`` at n=1000 through the engine.  The 4-dispatch round's
+     kernels likewise, on all five semirings: ``semiring_matmul`` with and
+     without c at square, batched and ragged shapes with ±inf operands,
+     ``fw_phase1``, ``fw_phase2_row`` / ``fw_phase2_col`` (band lengths
+     1024 and 1000), and ``fw_staged(fused=False)`` at n=1024 and
+     (4,512,512) against the plain 4-dispatch loop and the fused round.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
      3.35 TB/s, the H100 SXM's published peaks); the sweep kinds at a = 8,
-     64 and 256 affected rows.
+     64 and 256 affected rows; ``semiring_matmul`` also in plus_mul beside
+     ``torch.addmm`` at the phase-3 shape and at 4096³ in min-plus and
+     plus_mul, the latter beside ``torch.matmul`` (TF32 off).
   4. main path: ``solve(w)`` at n=8192 (min-plus, f32, a seeded random
      digraph of density 0.5) and ``solve(w, successors=True)`` at n=4096,
      with the launch counts of that run, bitwise against the plain round
@@ -45,6 +52,10 @@ Phases, each of which raises (exit code 1) on any failure:
      sweep and round launch counts of that run; checked bitwise against a
      re-solve of the updated graph and timed beside it, marking and sweep
      apart, with the sweep's device time by launch kind.
+  7. 4-dispatch path: ``fw_staged(w, fused=False)`` at n=8192 (the main
+     path's input), with the launch counts of that run (4 x 64), bitwise
+     against the fused solve, timed beside the fused round loop, with its
+     device time by launch kind.
 
 The last lines are the ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -72,6 +83,10 @@ SOURCES = {
     "fw_repair_with_successors": "src/repro_torch/kernels/csrc/fw_repair.cu",
     "fw_repair_del_sweep": "src/repro_torch/kernels/csrc/fw_repair_del.cu",
     "fw_repair_del_sweep_with_successors": "src/repro_torch/kernels/csrc/fw_repair_del.cu",
+    "semiring_matmul": "src/repro_torch/kernels/csrc/minplus_matmul.cu",
+    "fw_phase1": "src/repro_torch/kernels/csrc/fw_phase.cu",
+    "fw_phase2_row": "src/repro_torch/kernels/csrc/fw_phase.cu",
+    "fw_phase2_col": "src/repro_torch/kernels/csrc/fw_phase.cu",
 }
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
@@ -81,6 +96,10 @@ REPLACES = {
     "fw_repair_del_sweep": "src/repro/kernels/fw_repair_del.py:383",
     # XLA-only in the reference (no Pallas variant): the kernel twin of it.
     "fw_repair_del_sweep_with_successors": "src/repro/kernels/fw_repair_del.py:237",
+    "semiring_matmul": "src/repro/kernels/minplus_matmul.py:138",
+    "fw_phase1": "src/repro/kernels/fw_phase1.py:34",
+    "fw_phase2_row": "src/repro/kernels/fw_phase2.py:45",
+    "fw_phase2_col": "src/repro/kernels/fw_phase2.py:91",
 }
 
 
@@ -219,17 +238,19 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
-                  note: str = "", store: bool = True) -> None:
+                  note: str = "", store: bool = True, library=None) -> None:
     """One row of the ``{"kernels": [...]}`` record (launches filled in by
-    the path that launches the kind); ``store=False`` only prints it."""
+    the path that launches the kind); ``store=False`` only prints it.
+    ``library``: the ms of one PyTorch call computing the same function."""
     bms, by = bound(ops, nbytes)
     fn = kind.split("/")[0]
     if store:
         rows[kind] = dict(name=kind, route="cuda", source=SOURCES[fn], replaces=REPLACES[fn],
                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+                          bound_ms=bms, bound_by=by, library_ms=library)
+    lib = "" if library is None else f", library {library:.4f} ms"
     print(f"kernel {kind}{note}: err {err}, {ms:.4f} ms (plain {plain:.3f} ms, "
-          f"bound {bms:.5f} ms by {by})")
+          f"bound {bms:.5f} ms by {by}{lib})")
 
 
 # ------------------------------------------------------------------ phases
@@ -1114,6 +1135,271 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     report(f"n={n_succ} E=16 with successors", n_succ, s0.dist, ws1, dels_s, succ=s0.succ)
 
 
+# ------------------------------------------------------ 4-dispatch round
+FOUR_KINDS = ("fw_phase1", "fw_phase2_row", "fw_phase2_col", "semiring_matmul")
+
+
+def salted(name: str, shape, seed: int):
+    """Operands in each semiring's domain (``graph`` cut to shape), salted
+    with +inf and -inf: plus_mul's 0 ⊗ inf and max_plus's -inf + inf give
+    NaN, which kernel and plain version must propagate alike."""
+    import numpy as np
+
+    m = max(shape[-2:])
+    x = graph(name, (*shape[:-2], m, m), seed)[..., :shape[-2], :shape[-1]].copy()
+    rng = np.random.default_rng(seed + 1000)
+    x[rng.uniform(size=x.shape) < 0.05] = np.inf
+    x[rng.uniform(size=x.shape) < 0.05] = -np.inf
+    return x
+
+
+def plain_four(w, *, block_size: int, semiring):
+    """The plain 4-dispatch round loop on w's device."""
+    from repro_torch.kernels import ref
+
+    for b in range(w.shape[-1] // block_size):
+        w = ref.fw_round4_ref(w, b, block_size=block_size, semiring=semiring)
+    return w
+
+
+def phase_check_four():
+    """The 4-dispatch round's kernels bitwise against their plain versions
+    on the card, on all five semirings: ``semiring_matmul`` with and
+    without c at (1024,128)·(128,1024), (4,256,96)·(4,96,384) batched,
+    (1000,77)·(77,513) and (1,5)·(5,3), operands salted with ±inf;
+    ``fw_phase1`` at s = 16, 32, 128, single and (4,s,s); ``fw_phase2_row``
+    / ``fw_phase2_col`` at (128,1024) / (1024,128) and at band length 1000,
+    read as strided slices of a matrix; ``fw_staged(fused=False)`` at
+    n = 1024, s = 128 and (4,512,512) against the plain 4-dispatch loop and
+    the card's fused ``fw_staged``."""
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.core.staged import fw_staged
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    checked = 0
+    on = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    for name, sr in sorted(SEMIRINGS.items()):
+        for a_shape, b_shape in (((1024, 128), (128, 1024)), ((4, 256, 96), (4, 96, 384)),
+                                 ((1000, 77), (77, 513)), ((1, 5), (5, 3))):
+            a, b = on(salted(name, a_shape, 1)), on(salted(name, b_shape, 2))
+            c = on(salted(name, (*a_shape[:-1], b_shape[-1]), 3))
+            c0 = c.clone()
+            for cc in (None, c):
+                got = fmm.semiring_matmul(a, b, cc, semiring=sr)
+                want = ref.semiring_matmul_ref(a, b, cc, semiring=sr)
+                sync()
+                require(same(got, want), f"semiring_matmul {name} {a_shape}@{b_shape} "
+                        f"{'with' if cc is not None else 'without'} c != plain")
+                checked += 1
+            require(same(c, c0), "semiring_matmul wrote into c")
+        for s in (16, 32, 128):
+            for shape in ((s, s), (4, s, s)):
+                t = on(graph(name, shape, s))
+                require(same(fph.fw_phase1(t, semiring=sr), ref.fw_phase1_ref(t, semiring=sr)),
+                        f"fw_phase1 {name} {shape} != plain")
+                checked += 1
+        s = 128
+        diag = ref.fw_phase1_ref(on(graph(name, (s, s), 4)), semiring=sr)
+        for n in (1024, 1000):
+            w = on(graph(name, (n + s, n + s), n))
+            row, col = w[7:7 + s, 3:3 + n], w[3:3 + n, 7:7 + s]
+            got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr)
+            got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr)
+            sync()
+            require(same(got_r, ref.fw_phase2_row_ref(diag, row, semiring=sr))
+                    and same(got_c, ref.fw_phase2_col_ref(diag, col, semiring=sr)),
+                    f"fw_phase2_row/col {name} n={n} != plain")
+            checked += 2
+        for shape in ((1024, 1024), (4, 512, 512)):
+            w = on(graph(name, shape, 8))
+            got = fw_staged(w, block_size=s, semiring=sr, fused=False)
+            want = plain_four(w, block_size=s, semiring=sr)
+            fused = fw_staged(w, block_size=s, semiring=sr)
+            sync()
+            require(same(got, want), f"fw_staged(fused=False) {name} {shape} != plain loop")
+            require(same(got, fused), f"fw_staged(fused=False) {name} {shape} != fused")
+            checked += 1
+    print(f"check: {checked} 4-dispatch kernel-vs-plain cases bitwise equal")
+
+
+def phase_kernels_four(rows: dict, n: int, s: int = 128, sq: int = 4096):
+    """Each 4-dispatch launch alone at the path's shapes (n = 8192, s =
+    128, round T/2): ``fw_phase1`` (s,s), ``fw_phase2_row`` (s,n),
+    ``fw_phase2_col`` (n,s), ``semiring_matmul`` at the phase-3 shape
+    (n,s)·(s,n) + C (min-plus, the record); then plus_mul at that shape
+    beside ``torch.addmm`` and the fused round's relax launch, and the
+    square (sq,sq)·(sq,sq) product in min-plus and plus_mul, the latter
+    beside ``torch.matmul`` (TF32 off: full f32, not bitwise, not checked).
+    Work: a relaxation is 2 fp32 operations; bytes: each input read once,
+    each output written once."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    record = functools.partial(record_kernel, rows)
+    b = n // s // 2
+    o = slice(b * s, (b + 1) * s)
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=1)).to(dev)
+    tile = w[o, o].contiguous()
+    diag = torch.empty_like(tile)
+    fph.fw_phase1(tile, out=diag)
+    want = ref.fw_phase1_ref(tile, semiring=MIN_PLUS)
+    sync()
+    require(same(diag, want), "fw_phase1 launch != plain")
+    record("fw_phase1", max_abs_err(diag, want),
+           event_ms(lambda: fph.fw_phase1(tile, out=diag), 11),
+           event_ms(lambda: ref.fw_phase1_ref(tile, semiring=MIN_PLUS), 3),
+           2.0 * s**3, 2 * s * s * 4)
+
+    band_r, band_c = w[o, :].contiguous(), w[:, o].contiguous()
+    row, col = torch.empty_like(band_r), torch.empty_like(band_c)
+    for kind, fn, band, out, plain in (
+            ("fw_phase2_row", fw_phase2.fw_phase2_row, band_r, row, ref.fw_phase2_row_ref),
+            ("fw_phase2_col", fw_phase2.fw_phase2_col, band_c, col, ref.fw_phase2_col_ref)):
+        fn(diag, band, out=out)
+        want = plain(diag, band, semiring=MIN_PLUS)
+        sync()
+        require(same(out, want), f"{kind} launch != plain")
+        record(kind, max_abs_err(out, want),
+               event_ms(lambda: fn(diag, band, out=out), 11),
+               event_ms(lambda: plain(diag, band, semiring=MIN_PLUS), 3),
+               2.0 * s * s * n, (s * s + 2 * s * n) * 4)
+    row[:, o] = diag
+    col[o, :] = diag
+
+    out = torch.empty_like(w)
+    for sr in (MIN_PLUS, PLUS_MUL):
+        fmm.semiring_matmul(col, row, w, semiring=sr, out=out)
+        want = ref.semiring_matmul_ref(col, row, w, semiring=sr)
+        sync()
+        require(same(out, want), f"semiring_matmul {sr.name} phase-3 shape != plain")
+        err = max_abs_err(out, want)
+        del want
+        ms = event_ms(lambda: fmm.semiring_matmul(col, row, w, semiring=sr, out=out), 5)
+        plain = event_ms(lambda: ref.semiring_matmul_ref(col, row, w, semiring=sr), 1)
+        ops, nbytes = 2.0 * n * n * s, (2 * n * n + 2 * n * s) * 4
+        if sr is MIN_PLUS:
+            record("semiring_matmul", err, ms, plain, ops, nbytes)
+            continue
+        lib_out = torch.empty_like(out)
+        lib = event_ms(lambda: torch.addmm(w, col, row, out=lib_out), 5)
+        del lib_out
+        bands = fr.round_buffers(w, s)
+        wk = w.clone()
+        kw = dict(block_size=s, semiring=PLUS_MUL)
+        fr.fw_round_phase("diag", wk, b, bands, **kw)
+        fr.fw_round_phase("bands", wk, b, bands, **kw)
+        relax = event_ms(lambda: fr.fw_round_phase("relax", wk, b, bands, **kw), 5)
+        record("semiring_matmul", err, ms, plain, ops, nbytes, store=False,
+               note=f" plus_mul ({n},{s})·({s},{n}) + C", library=lib)
+        print(f"library plus_mul at the phase-3 shape: torch.addmm {lib:.4f} ms; "
+              f"semiring_matmul {ms:.4f} ms; fw_round/relax {relax:.4f} ms")
+        del bands, wk
+    del w, out
+
+    for sr in (MIN_PLUS, PLUS_MUL):
+        a = torch.from_numpy(graph(sr.name, (sq, sq), 40)).to(dev)
+        bb = torch.from_numpy(graph(sr.name, (sq, sq), 41)).to(dev)
+        out = fmm.semiring_matmul(a, bb, semiring=sr)
+        want = ref.semiring_matmul_ref(a, bb, semiring=sr)
+        sync()
+        require(same(out, want), f"semiring_matmul {sr.name} {sq}^3 != plain")
+        err = max_abs_err(out, want)
+        lib = None
+        if sr is PLUS_MUL:
+            lib_out = torch.empty_like(out)
+            lib = event_ms(lambda: torch.matmul(a, bb, out=lib_out), 5)
+            del lib_out
+        record("semiring_matmul", err,
+               event_ms(lambda: fmm.semiring_matmul(a, bb, semiring=sr, out=out), 5),
+               event_ms(lambda: ref.semiring_matmul_ref(a, bb, semiring=sr), 1),
+               2.0 * sq**3, 3 * sq * sq * 4, store=False,
+               note=f" {sr.name} ({sq},{sq})·({sq},{sq})", library=lib)
+        del a, bb, out, want
+
+
+def phase_four(rows: dict, n: int, s: int = 128):
+    """The 4-dispatch path: ``fw_staged(w, fused=False)`` at n (min-plus,
+    f32, the main path's seeded density-0.5 digraph), with the launch counts
+    of that run (4 kinds x n/s rounds), bitwise against the fused solve of
+    the same input, timed beside the fused ``fw_staged`` (host clock around
+    work that ends in synchronize(), median of 3 after a warm-up), and its
+    device time by launch kind."""
+    import torch
+
+    from repro_torch.apsp import solve
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.staged import fw_staged
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import minplus_matmul as fmm
+
+    dev = torch.device("cuda")
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).to(dev)
+    fph.reset_launch_counts()
+    fmm.reset_launch_counts()
+    d4 = fw_staged(w, block_size=s, fused=False)
+    sync()
+    counts = {**fph.LAUNCHES, **fmm.LAUNCHES}
+    print(f"4-dispatch path launch counts: {json.dumps(counts)}")
+    for kind in FOUR_KINDS:
+        require(counts[kind] == n // s, f"{kind} launched {counts[kind]} times, not {n // s}")
+        rows[kind]["launches"] = counts[kind]
+    fused = solve(w).dist
+    require(same(d4, fused), f"fw_staged(fused=False) n={n} != the fused solve")
+    del d4
+    print(f"4-dispatch check: fw_staged(fused=False) n={n} == fused solve, bitwise")
+
+    def timed(fn):
+        fn()
+        times = [host_ms(fn) for _ in range(3)]
+        return statistics.median(times), times
+
+    t4, all4 = timed(lambda: fw_staged(w, block_size=s, fused=False))
+    tf, allf = timed(lambda: fw_staged(w, block_size=s))
+    bms, by = bound(2.0 * n**3, (n // s) * 2.0 * n * n * 4)
+    print(f"4-dispatch fw_staged n={n} min_plus f32: median {t4:.2f} ms of "
+          f"{['%.2f' % t for t in all4]}, {n**3 / (t4 / 1e3):.4e} relaxations/s, bound "
+          f"{bms:.2f} ms by {by} ({100 * bms / t4:.1f}% of it); fused fw_staged median "
+          f"{tf:.2f} ms of {['%.2f' % t for t in allf]} ({t4 / tf:.3f}x)")
+
+    wk = w.clone()
+    diag = wk.new_empty((s, s))
+    row, col = wk.new_empty((s, n)), wk.new_empty((n, s))
+    steps = []
+    for b in range(n // s):
+        o = slice(b * s, (b + 1) * s)
+
+        def splice(o=o):
+            row[:, o] = diag
+            col[o, :] = diag
+            wk[o, :] = row
+            wk[:, o] = col
+
+        steps += [
+            ("fw_phase1", functools.partial(fph.fw_phase1, wk[o, o], out=diag)),
+            ("fw_phase2_row", functools.partial(fw_phase2.fw_phase2_row, diag, wk[o, :], out=row)),
+            ("fw_phase2_col", functools.partial(fw_phase2.fw_phase2_col, diag, wk[:, o], out=col)),
+            ("splice copies", splice),
+            ("semiring_matmul", functools.partial(fmm.semiring_matmul, col, row, wk, out=wk)),
+        ]
+    launch_breakdown(f"4-dispatch breakdown n={n}", steps)
+    require(same(wk, fused), "the 4-dispatch breakdown's rounds != the fused solve")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1139,13 +1425,16 @@ def main(argv=None) -> int:
     phase_check()
     phase_check_repair()
     phase_check_repair_del()
+    phase_check_four()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
         phase_kernels_repair_del(rows, 8192, 4096)
+        phase_kernels_four(rows, 8192)
         phase_main(rows, 8192, 4096)
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)
+        phase_four(rows, 8192)
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

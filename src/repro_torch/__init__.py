@@ -1,9 +1,10 @@
 """repro_torch — the PyTorch/CUDA port of the ``repro`` APSP package.
 
 Mirrors ``repro``'s module names (``core``, ``kernels``, ``apsp``,
-``utils``) and never imports JAX or ``repro``.  The fused Floyd-Warshall
-round runs as hand-written CUDA kernels for Hopper (sm_90a); every kernel
-has a plain torch version beside it that runs on the CPU.
+``utils``) and never imports JAX or ``repro``.  The fused and 4-dispatch
+Floyd-Warshall rounds, the semiring matmul and the repairs run as
+hand-written CUDA kernels for Hopper (sm_90a); every kernel has a plain
+torch version beside it that runs on the CPU.
 
     from repro_torch.apsp import solve
     res = solve(w)                  # on the card

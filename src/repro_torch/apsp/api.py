@@ -6,7 +6,8 @@ Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
     ⊗-identity diagonal, unreachable under every semiring.
   * **dispatch** — "numpy" | "naive" | "blocked" | "staged" | "fused";
     "auto" takes "naive" at n <= 64 and "fused" above.  "staged" and
-    "fused" both run the fused round (the port has no 4-dispatch round).
+    "fused" both run the fused round, as the reference's do; the
+    4-dispatch round is ``core.staged.fw_staged(fused=False)``.
   * **device** — entry points run on the card (``device="cuda"``), where
     the fused round is the Hopper kernels; ``device="cpu"`` runs the plain
     versions.  Without a card, asking for "cuda" raises.

@@ -1,4 +1,4 @@
-"""Core: semirings, the baseline FW loops and the fused round loop."""
+"""Core: semirings, the baseline FW loops and the staged round loops."""
 from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
 from repro_torch.core.semiring import (
     MAX_MIN,
@@ -9,7 +9,6 @@ from repro_torch.core.semiring import (
     SEMIRINGS,
     Semiring,
 )
-from repro_torch.core.staged import fw_staged
 
 __all__ = [
     "fw_blocked",
@@ -24,3 +23,13 @@ __all__ = [
     "PLUS_MUL",
     "SEMIRINGS",
 ]
+
+
+def __getattr__(name: str):
+    # The round loop imports the kernel modules, which import core.semiring:
+    # loaded on first use, so that any module of the package imports first.
+    if name == "fw_staged":
+        from repro_torch.core.staged import fw_staged
+
+        return fw_staged
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

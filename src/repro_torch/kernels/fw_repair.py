@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
-from repro_torch.kernels.fw_round import _SEMIRING_IDS, _raise_on
+from repro_torch.kernels.minplus_matmul import _raise_on, semiring_id
 
 MAX_EDGES = 64  # edges one stage + apply launch pair carries
 PHASES = ("stage", "apply")
@@ -102,9 +102,7 @@ def repair_phase(
     """Launch one phase of a repair on the card: "stage" writes the evolved
     pivot rows of d into staged (E, n); "apply" folds them into out (n, n).
     u, v, w: ``edge_vectors`` on d's device, 1 <= E <= MAX_EDGES."""
-    sid = _SEMIRING_IDS.get(semiring.name)
-    if sid is None:
-        raise ValueError(f"no CUDA kernel for semiring {semiring.name!r}")
+    sid = semiring_id(semiring)
     _launch("fw_repair", phase, d, None, u, v, w, staged, out, None, sid)
 
 

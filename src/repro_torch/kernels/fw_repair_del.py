@@ -37,8 +37,13 @@ import torch
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
 from repro_torch.kernels.fw_repair import _check, edge_vectors
-from repro_torch.kernels.fw_round import _SEMIRING_IDS, BLOCK_SIZES, _raise_on
-from repro_torch.kernels.minplus_matmul import _fit_block, check_variant
+from repro_torch.kernels.minplus_matmul import (
+    _SEMIRING_IDS,
+    BLOCK_SIZES,
+    _fit_block,
+    _raise_on,
+    check_variant,
+)
 
 PHASES = ("diag", "panels", "relax")
 KINDS = tuple(f"{fn}/{p}" for fn in ("fw_repair_del_sweep", "fw_repair_del_sweep_with_successors")

@@ -22,15 +22,18 @@ import torch
 
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
-from repro_torch.kernels.minplus_matmul import _fit_block, check_variant
+from repro_torch.kernels.minplus_matmul import (
+    BLOCK_SIZES,
+    _fit_block,
+    _raise_on,
+    check_variant,
+    semiring_id,
+)
 
-BLOCK_SIZES = (16, 32, 64, 128)
 PHASES = ("diag", "bands", "relax")
 KINDS = tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors")
               for p in PHASES)
 LAUNCHES = dict.fromkeys(KINDS, 0)
-_SEMIRING_IDS = {"min_plus": 0, "max_plus": 1, "max_min": 2, "or_and": 3,
-                 "plus_mul": 4}
 
 
 def reset_launch_counts() -> None:
@@ -106,11 +109,6 @@ def _check_buffers(w, block_size, bufs, count):
             )
 
 
-def _raise_on(err: int, kind: str) -> None:
-    if err:
-        raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
-
-
 def fw_round_phase(
     phase: str, w: torch.Tensor, b: int, bands, *, block_size: int = 128,
     bk: int = 32, semiring: Semiring = MIN_PLUS,
@@ -122,9 +120,7 @@ def fw_round_phase(
     if w.device.type != "cuda":
         raise ValueError("fw_round_phase launches a CUDA kernel; w is on the CPU")
     _check_buffers(w, block_size, bands, 2)
-    sid = _SEMIRING_IDS.get(semiring.name)
-    if sid is None:
-        raise ValueError(f"no CUDA kernel for semiring {semiring.name!r}")
+    sid = semiring_id(semiring)
     if phase == "bands" and n == block_size:
         return  # a single tile has no bands to close
     kind = f"fw_round/{phase}"

@@ -1,5 +1,6 @@
-"""Plain torch versions of the fused round, rank-1 repair and decremental
-repair kernels.
+"""Plain torch versions of the fused round, the 4-dispatch round's phase
+kernels and semiring matmul, the rank-1 repair and the decremental repair
+kernels.
 
 Counterparts of ``repro.kernels.ref.fw_round_ref``,
 ``fw_round_with_successors_ref``, ``fw_repair_ref``,
@@ -14,6 +15,14 @@ the three phases the CUDA kernels launch (``kernels/csrc/fw_round.cu``):
   3. ``relax*``       — re-relax every tile against the closed bands, k
      ascending, pivot-band tiles starting from their closed values.
 
+The 4-dispatch round (``fw_round4_ref``) is built from the plain versions
+of its four kernels: ``fw_phase1_ref``, ``fw_phase2_row_ref`` /
+``fw_phase2_col_ref`` (names over the chains above) and
+``semiring_matmul_ref``, the k-ascending chain of ``_stage_compute``.  The
+reference's ``repro.kernels.ref.semiring_matmul_ref`` reduces in XLA's
+order instead, exact for min/max but not for plus_mul, so it is not
+copied.
+
 The repair is the direct per-edge loop, and beside it the two phases of
 ``kernels/csrc/fw_repair.cu``: ``repair_stage*`` (the evolved pivot rows)
 and ``repair_apply*`` (every row folds all E updates against them).
@@ -27,6 +36,7 @@ the overlaid (s, m) band and the strip's pivot block column) and
 the band rows into the strip rows inside the pivot block).
 
 They run on any device and are what ``kernels.fw_round``,
+``kernels.fw_phase1``, ``kernels.fw_phase2``, ``kernels.minplus_matmul``,
 ``kernels.fw_repair`` and ``kernels.fw_repair_del`` compute for a tensor
 on the CPU.  On the card they
 are the yardstick the kernels are held against; the main path never calls
@@ -114,6 +124,56 @@ def fw_round_ref(
     diag = close_diag(w[..., o, o], semiring)
     row, col = close_bands(w, diag, b, semiring)
     return relax(w, row, col, b, bk=bk, variant=variant, semiring=semiring)
+
+
+# ------------------------------------------- phase kernels and the matmul
+def semiring_matmul_ref(a, b, c=None, *, semiring: Semiring = MIN_PLUS,
+                        bk: int = 32) -> torch.Tensor:
+    """C [⊕=] A ⊗⊕ B, (m,k)·(k,n) or batched, as the k-ascending chain of
+    ``_stage_compute`` in bk chunks, from C or from the ⊕-identity."""
+    if c is None:
+        c = torch.full((*a.shape[:-1], b.shape[-1]), semiring.zero,
+                       dtype=a.dtype, device=a.device)
+    return _relax_tile(c, a, b, _fit_block(a.shape[-1], bk), semiring, "fori")
+
+
+def fw_phase1_ref(tile, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """Closure of a (…, s, s) diagonal tile."""
+    return close_diag(tile, semiring)
+
+
+def fw_phase2_row_ref(diag, panel, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """Row band (…, s, t) closed against the closed diag, every tile."""
+    return close_row_panel(panel, diag, semiring)
+
+
+def fw_phase2_col_ref(diag, panel, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """Col band (…, t, s) closed against the closed diag, every tile."""
+    return close_col_panel(panel, diag, semiring)
+
+
+def fw_phase3_ref(w, col_band, row_band, *, semiring: Semiring = MIN_PLUS,
+                  bk: int = 32) -> torch.Tensor:
+    """W ⊕= col_band ⊗ row_band, k ascending."""
+    return semiring_matmul_ref(col_band, row_band, w, semiring=semiring, bk=bk)
+
+
+def fw_round4_ref(w, b: int, *, block_size: int, bk: int = 32,
+                  semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """One round of the 4-dispatch lowering (``repro.core.staged.fw_staged
+    (fused=False)``): phase 1, both phase-2 bands over all their tiles, the
+    closed diag spliced over each band's pivot tile, both bands written
+    into w, then phase 3 over the whole matrix."""
+    o = _pivot(b, block_size)
+    diag = fw_phase1_ref(w[..., o, o], semiring=semiring)
+    row = fw_phase2_row_ref(diag, w[..., o, :], semiring=semiring)
+    row[..., :, o] = diag
+    col = fw_phase2_col_ref(diag, w[..., :, o], semiring=semiring)
+    col[..., o, :] = diag
+    w = w.clone()
+    w[..., o, :] = row
+    w[..., :, o] = col
+    return fw_phase3_ref(w, col, row, semiring=semiring, bk=min(bk, block_size))
 
 
 # ------------------------------------------------------ successor round

@@ -14,9 +14,13 @@ import torch
 from repro_torch.apsp import ApspEngine, solve
 from repro_torch.core.paths import _init_successors
 from repro_torch.core.semiring import SEMIRINGS
+from repro_torch.core.staged import fw_staged
+from repro_torch.kernels import fw_phase1 as fph
+from repro_torch.kernels import fw_phase2
 from repro_torch.kernels import fw_repair as fp
 from repro_torch.kernels import fw_repair_del as fd
 from repro_torch.kernels import fw_round as fr
+from repro_torch.kernels import minplus_matmul as fmm
 from repro_torch.kernels import ref
 
 NAMES = sorted(SEMIRINGS)
@@ -252,3 +256,99 @@ def test_sweep_launches_refuse_what_the_kernels_do_not_take(cuda_device):
         fd.sweep_phase("relax", sw, 2)  # round outside [0, 2)
     with pytest.raises(ValueError):
         fd.sweep_succ_phase("diag", sw, 0)  # no next-hop buffers
+
+
+# ------------------------------------------ the 4-dispatch round's kernels
+def _salted(name, shape, seed):
+    """Operands in each semiring's domain, salted with +inf and -inf."""
+    rng = np.random.default_rng(seed)
+    m = max(shape[-2:])
+    x = _graph(name, (*shape[:-2], m, m), seed)[..., : shape[-2], : shape[-1]].copy()
+    x[rng.uniform(size=shape) < 0.05] = np.inf
+    x[rng.uniform(size=shape) < 0.05] = -np.inf
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("a_shape,b_shape", [((1, 5), (5, 3)), ((1000, 77), (77, 513)),
+                                             ((256, 128), (128, 384)),
+                                             ((3, 40, 70), (3, 70, 130))])
+@pytest.mark.parametrize("with_c", [False, True])
+def test_kernel_semiring_matmul_matches_plain(cuda_device, name, a_shape, b_shape, with_c):
+    sr = SEMIRINGS[name]
+    a = _salted(name, a_shape, 1).to(cuda_device)
+    b = _salted(name, b_shape, 2).to(cuda_device)
+    c = _salted(name, (*a_shape[:-1], b_shape[-1]), 3).to(cuda_device) if with_c else None
+    c0 = None if c is None else c.clone()
+    before = fmm.LAUNCHES["semiring_matmul"]
+    got = fmm.semiring_matmul(a, b, c, semiring=sr)
+    want = ref.semiring_matmul_ref(a, b, c, semiring=sr)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert c is None or torch.equal(c, c0)  # functional
+    assert fmm.LAUNCHES["semiring_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("shape", [(16, 16), (32, 32), (64, 64), (128, 128), (3, 128, 128)])
+def test_kernel_phase1_matches_plain(cuda_device, name, shape):
+    t = torch.from_numpy(_graph(name, shape, seed=shape[-1])).to(cuda_device)
+    got = fph.fw_phase1(t, semiring=SEMIRINGS[name])
+    want = ref.fw_phase1_ref(t, semiring=SEMIRINGS[name])
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("lead,s,n", [((), 16, 40), ((), 64, 256), ((), 128, 1000),
+                                      ((2,), 32, 97)])
+def test_kernel_phase2_matches_plain(cuda_device, name, lead, s, n):
+    """Both bands, read as strided slices of a larger matrix."""
+    sr = SEMIRINGS[name]
+    diag = ref.fw_phase1_ref(torch.from_numpy(_graph(name, (*lead, s, s), seed=s)), semiring=sr)
+    w = torch.from_numpy(_graph(name, (*lead, n + s, n + s), seed=n)).to(cuda_device)
+    diag = diag.to(cuda_device)
+    row, col = w[..., 3:3 + s, 5:5 + n], w[..., 5:5 + n, 3:3 + s]
+    got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr)
+    got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr)
+    torch.cuda.synchronize()
+    assert _same(got_r, ref.fw_phase2_row_ref(diag, row, semiring=sr))
+    assert _same(got_c, ref.fw_phase2_col_ref(diag, col, semiring=sr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("shape,s", [((256, 256), 16), ((256, 256), 64), ((2, 256, 256), 128)])
+def test_kernel_four_dispatch_matches_plain_and_fused(cuda_device, name, shape, s):
+    sr = SEMIRINGS[name]
+    w = torch.from_numpy(_graph(name, shape, seed=s)).to(cuda_device)
+    fph.reset_launch_counts()
+    fmm.reset_launch_counts()
+    got = fw_staged(w, block_size=s, semiring=sr, fused=False)
+    counts = {**fph.LAUNCHES, **fmm.LAUNCHES}
+    want = w
+    for b in range(shape[-1] // s):
+        want = ref.fw_round4_ref(want, b, block_size=s, semiring=sr)
+    fused = fw_staged(w, block_size=s, semiring=sr)
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(got, fused)
+    assert counts == dict.fromkeys(counts, shape[-1] // s)
+
+
+@pytest.mark.cuda
+def test_phase_and_matmul_launches_refuse_what_the_kernels_do_not_take(cuda_device):
+    t = torch.zeros(48, 48, device=cuda_device)
+    with pytest.raises(ValueError):  # s outside the kernels' block sizes
+        fph.fw_phase1(t)
+    with pytest.raises(ValueError):  # the band's columns are not unit-strided
+        fw_phase2.fw_phase2_row(t[:16, :16], torch.zeros(40, 16, device=cuda_device).t())
+    a = torch.zeros(8, 4, device=cuda_device)
+    with pytest.raises(ValueError):
+        fmm.semiring_matmul(a, a.t().contiguous(), variant="broadcast")
+    with pytest.raises(TypeError):
+        fmm.semiring_matmul(a.double(), a.t().double())
+    with pytest.raises(ValueError):  # c on another shape
+        fmm.semiring_matmul(a, a.t().contiguous(), torch.zeros(8, 9, device=cuda_device))

@@ -1,0 +1,129 @@
+"""The port's semiring matmul vs the JAX Pallas kernel, run in interpret mode.
+
+``repro_torch.kernels.minplus_matmul.semiring_matmul`` on CPU tensors runs
+its plain version (the k-ascending chain of ``_stage_compute``); it must
+equal ``repro.kernels.minplus_matmul.semiring_matmul(..., interpret=True)``
+bit for bit (``np.array_equal``, NaN equal to NaN, tolerance zero) on the
+same numpy inputs: all five semirings, with and without an accumulator,
+batched, at odd shapes, with ±inf among the operands.  Mirrors the matmul
+sweeps of ``tests/test_kernels.py``.  The CUDA kernel is held against the
+plain version on the card by ``tests/test_torch_kernels_cuda.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro.apsp  # noqa: F401  (imported before repro.kernels: circular import)
+from repro.core import semiring as jsr
+from repro.kernels import minplus_matmul as jmm
+from repro.kernels import ops as jops
+from repro_torch.core import semiring as tsr
+from repro_torch.kernels import minplus_matmul as tmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from test_torch_semiring import NAMES, assert_same, semiring_graph
+
+SHAPES = [  # (a shape, b shape, bm, bn, bk) of the reference's call
+    ((64, 64), (64, 64), 32, 32, 16),
+    ((37, 13), (13, 29), 256, 256, 32),
+    ((1, 5), (5, 3), 256, 256, 32),
+    ((3, 40, 24), (3, 24, 56), 16, 32, 8),
+]
+
+
+def operand(name: str, shape, seed: int, *, salt: bool = True) -> np.ndarray:
+    """Values in the semiring's domain (``semiring_graph`` cut to shape),
+    salted with +inf and -inf: plus_mul's 0 ⊗ inf and max_plus's
+    -inf + inf give NaN, which both sides must propagate alike."""
+    m = max(shape[-2:])
+    x = semiring_graph(name, (*shape[:-2], m, m), seed)[..., :shape[-2], :shape[-1]].copy()
+    if salt:
+        rng = np.random.default_rng(seed + 1000)
+        x[rng.uniform(size=x.shape) < 0.05] = np.inf
+        x[rng.uniform(size=x.shape) < 0.05] = -np.inf
+    return x
+
+
+def _out_shape(a_shape, b_shape):
+    return (*a_shape[:-1], b_shape[-1])
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("a_shape,b_shape,bm,bn,bk", SHAPES)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_semiring_matmul_matches_pallas(name, a_shape, b_shape, bm, bn, bk, with_c):
+    a, b = operand(name, a_shape, 1), operand(name, b_shape, 2)
+    c = operand(name, _out_shape(a_shape, b_shape), 3) if with_c else None
+    want = jmm.semiring_matmul(a, b, c, semiring=jsr.SEMIRINGS[name], bm=bm, bn=bn,
+                               bk=bk, interpret=True)
+    tc = None if c is None else torch.from_numpy(c)
+    got = tmm.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b), tc,
+                              semiring=tsr.SEMIRINGS[name], bm=bm, bn=bn, bk=bk)
+    assert_same(got, want)
+    if c is not None:
+        assert_same(tc, c)  # the accumulator is left as it was
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_staging_depth_invariance(name):
+    """The result does not depend on bk (the reference's
+    ``test_staging_depth_invariance``), and equals the Pallas kernel."""
+    a, b, c = (operand(name, (64, 64), seed) for seed in (17, 18, 19))
+    sr = tsr.SEMIRINGS[name]
+    outs = [tmm.semiring_matmul(*map(torch.from_numpy, (a, b, c)), semiring=sr, bk=bk)
+            for bk in (8, 16, 32, 64, 7)]
+    for o in outs[1:]:
+        assert_same(o, outs[0].numpy())
+    assert_same(outs[0], jmm.semiring_matmul(a, b, c, semiring=jsr.SEMIRINGS[name], bm=32,
+                                             bn=32, bk=16, interpret=True))
+
+
+@pytest.mark.parametrize("with_c", [False, True])
+def test_minplus_matmul_wrapper_matches_pallas(with_c):
+    a, b = operand("min_plus", (48, 32), 5), operand("min_plus", (32, 80), 6)
+    c = operand("min_plus", (48, 80), 7) if with_c else None
+    want = jops.minplus_matmul(a, b, c, bm=16, bn=16, bk=8, interpret=True)
+    got = tops.minplus_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                              None if c is None else torch.from_numpy(c), bm=16, bn=16, bk=8)
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fw_phase3_matches_pallas(name):
+    n, s = 96, 32
+    w = operand(name, (n, n), 24, salt=False)
+    cb, rb = operand(name, (n, s), 25, salt=False), operand(name, (s, n), 26, salt=False)
+    want = jops.fw_phase3(w, cb, rb, bm=32, bn=48, bk=16, semiring=jsr.SEMIRINGS[name],
+                          interpret=True)
+    got = tops.fw_phase3(*map(torch.from_numpy, (w, cb, rb)), bm=32, bn=48, bk=16,
+                         semiring=tsr.SEMIRINGS[name])
+    assert_same(got, want)
+    assert_same(tref.fw_phase3_ref(*map(torch.from_numpy, (w, cb, rb)),
+                                   semiring=tsr.SEMIRINGS[name]), want)
+
+
+def test_plus_mul_matches_dot():
+    """plus_mul is the ordinary product, to f32 rounding (the reference's
+    ``test_plus_mul_matches_dot``, same tolerance)."""
+    rng = np.random.default_rng(15)
+    a, b = (rng.uniform(0.0, 1.0, (64, 64)).astype(np.float32) for _ in range(2))
+    got = tmm.semiring_matmul(torch.from_numpy(a), torch.from_numpy(b), semiring=tsr.PLUS_MUL)
+    np.testing.assert_allclose(got.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+
+
+def test_semiring_matmul_refuses_what_it_does_not_take():
+    a, b = torch.zeros(8, 4), torch.zeros(4, 6)
+    with pytest.raises(ValueError, match="broadcast"):
+        tmm.semiring_matmul(a, b, variant="broadcast")
+    with pytest.raises(TypeError):
+        tmm.semiring_matmul(a.double(), b.double())
+    with pytest.raises(TypeError):
+        tmm.semiring_matmul(a.bfloat16(), b.bfloat16())
+    with pytest.raises(ValueError, match="contraction"):
+        tmm.semiring_matmul(a, torch.zeros(5, 6))
+    with pytest.raises(ValueError, match="batched"):
+        tmm.semiring_matmul(a[None], b)
+    with pytest.raises(ValueError):
+        tmm.semiring_matmul(a, b, torch.zeros(8, 7))
+    with pytest.raises(ValueError, match="empty"):
+        tmm.semiring_matmul(torch.zeros(8, 0), torch.zeros(0, 6))
