@@ -56,6 +56,21 @@ Phases, each of which raises (exit code 1) on any failure:
      path's input), with the launch counts of that run (4 x 64), bitwise
      against the fused solve, timed beside the fused round loop, with its
      device time by launch kind.
+  8. distributed path (``launch.mesh.run_grid`` processes sharing the one
+     card over gloo, through ``launch.fw_dist_check.grid_check``): a 1×1
+     grid at n=8192 (the main path's input; every round an owner round),
+     timed, with its device time by launch kind; a 2×2 grid at n=8192,
+     timed, with each rank's counted collective bytes against
+     ``plan.dist_round_comm_bytes`` × 64, a run in chunks of 16 rounds
+     restarted from the round-32 checkpoint, and a 16-link mesh ``repair``;
+     a 4×2 grid at n=2048 on all five semirings and a (4,2048,2048) batch.
+     Every rank holds its result against the single-device fused solve (or
+     repair) on the card, bitwise, and reports its launch counts.
+     The bordered kernel is also checked alone (phase 2: all five
+     semirings, s = 16, 32, 128, square, tall and wide bordered blocks,
+     single and batched, owner echo none / (1,1) / the last tile / one of
+     the two, ±inf salted in) and timed alone per launch kind at the 2×2
+     rank's (4224,4224) block (phase 3).
 
 The last lines are the ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -87,6 +102,7 @@ SOURCES = {
     "fw_phase1": "src/repro_torch/kernels/csrc/fw_phase.cu",
     "fw_phase2_row": "src/repro_torch/kernels/csrc/fw_phase.cu",
     "fw_phase2_col": "src/repro_torch/kernels/csrc/fw_phase.cu",
+    "fw_round_bordered": "src/repro_torch/kernels/csrc/fw_round.cu",
 }
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
@@ -100,6 +116,7 @@ REPLACES = {
     "fw_phase1": "src/repro/kernels/fw_phase1.py:34",
     "fw_phase2_row": "src/repro/kernels/fw_phase2.py:45",
     "fw_phase2_col": "src/repro/kernels/fw_phase2.py:91",
+    "fw_round_bordered": "src/repro/kernels/fw_round.py:515",
 }
 
 
@@ -500,6 +517,8 @@ def phase_main(rows: dict, n: int, n_succ: int, s: int = 128):
     counts = dict(fr.LAUNCHES)
     print(f"main path launch counts: {json.dumps(counts)}")
     for kind in fr.KINDS:
+        if kind.startswith("fw_round_bordered/"):
+            continue  # the distributed path's (phase_dist)
         rows[kind]["launches"] = counts[kind]
         require(counts[kind] > 0, f"{kind} was not launched on the main path")
     require(res.method == "fused" and res.block_size == s, f"solve took {res.method}")
@@ -1399,6 +1418,190 @@ def phase_four(rows: dict, n: int, s: int = 128):
     launch_breakdown(f"4-dispatch breakdown n={n}", steps)
     require(same(wk, fused), "the 4-dispatch breakdown's rounds != the fused solve")
 
+# ------------------------------------------------------------- distributed
+def phase_check_dist():
+    """The bordered round's kernel bitwise against its plain twin on the
+    card: all five semirings, s = 16, 32, 128; square (s + n/2)², tall
+    (s + n/2, s + n/4) and wide (s + n/4, s + n/2) bordered blocks of an
+    n = 8s solve; single and (4, rows, cols) batched; owner echo none,
+    (1, 1), the last tile, and only one of the two; operands salted with
+    ±inf (DAG inputs for max_plus, as ``graph`` makes them)."""
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    checked = 0
+    for name, sr in sorted(SEMIRINGS.items()):
+        for s in (16, 32, 128):
+            n = 8 * s
+            for rows, cols in ((s + n // 2, s + n // 2), (s + n // 2, s + n // 4),
+                               (s + n // 4, s + n // 2)):
+                tr, tc = rows // s, cols // s
+                for lead in ((), (4,)):
+                    w = torch.from_numpy(salted(name, (*lead, rows, cols), s + rows)).to(dev)
+                    for echo in ((-1, -1), (1, 1), (tr - 1, tc - 1), (1, -1), (-1, tc - 1)):
+                        got = fr.fw_round_bordered(w.clone(), *echo, block_size=s, semiring=sr)
+                        want = ref.fw_round_bordered_ref(w, *echo, block_size=s, semiring=sr)
+                        sync()
+                        require(same(got, want), f"fw_round_bordered {name} s={s} "
+                                f"{(*lead, rows, cols)} echo={echo} != plain")
+                        checked += 1
+    print(f"check: {checked} bordered-round kernel-vs-plain cases bitwise equal")
+
+
+def phase_kernels_dist(rows: dict, n: int, s: int = 128, R: int = 2, C: int = 2):
+    """Each bordered launch alone at the R×C grid's per-rank shape (s + n/R,
+    s + n/C) (min-plus, no owner echo: every band tile runs its chain),
+    against the plain version of its phase.  Work: a relaxation is 2 fp32
+    operations; bytes: each input read once, each output written once."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    record = functools.partial(record_kernel, rows)
+    nr, nc = n // R, n // C
+    w = torch.from_numpy(random_digraph(max(nr, nc) + s, density=0.5, seed=4)
+                         [:s + nr, :s + nc].copy()).to(dev)
+    bands = fr.bordered_round_buffers(w, s)
+    kw = dict(block_size=s, semiring=MIN_PLUS)
+    launch = lambda p, x: fr.fw_round_bordered_phase(p, x, -1, -1, bands, **kw)  # noqa: E731
+
+    launch("diag", w)
+    diag = ref.close_diag(w[:s, :s], MIN_PLUS)
+    sync()
+    require(same(bands[0][0, :, :s], diag) and same(bands[1][0, :s, :], diag),
+            "bordered diag launch != plain close_diag")
+    record("fw_round_bordered/diag", max_abs_err(bands[0][0, :, :s], diag),
+           event_ms(lambda: launch("diag", w), 11),
+           event_ms(lambda: ref.close_diag(w[:s, :s], MIN_PLUS), 3),
+           2.0 * s**3, 2 * s * s * 4)
+
+    launch("bands", w)
+    row, col = ref.close_bordered_bands(w, diag, -1, -1, MIN_PLUS)
+    sync()
+    require(same(bands[0][0], row) and same(bands[1][0], col),
+            "bordered bands launch != plain close_bordered_bands")
+    tiles = (nr + nc) // s
+    record("fw_round_bordered/bands", max(max_abs_err(bands[0][0], row),
+                                          max_abs_err(bands[1][0], col)),
+           event_ms(lambda: launch("bands", w), 11),
+           event_ms(lambda: ref.close_bordered_bands(w, diag, -1, -1, MIN_PLUS), 3),
+           2.0 * tiles * s**3, (s * s + 2 * tiles * s * s) * 4)
+
+    wk = w.clone()
+    launch("relax", wk)
+    want = ref.relax_bordered(w, row, col, -1, -1, semiring=MIN_PLUS)
+    sync()
+    require(same(wk, want), "bordered relax launch != plain relax_bordered")
+    r, c = w.shape
+    record("fw_round_bordered/relax", max_abs_err(wk, want),
+           event_ms(lambda: launch("relax", wk), 5),
+           event_ms(lambda: ref.relax_bordered(w, row, col, -1, -1, semiring=MIN_PLUS), 1),
+           2.0 * r * c * s, (2 * r * c + (r + c) * s) * 4)
+    print(f"kernel fw_round_bordered shape: ({r},{c}), the {R}x{C} grid's rank block "
+          f"at n={n}, s={s}")
+
+
+def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
+    """The distributed path: ``fw_distributed`` / ``solve(method=
+    "distributed")`` on ``run_grid`` processes that share the one card over
+    gloo; each rank holds its result against the single-device solve on the
+    card (``launch.fw_dist_check.grid_check``).  Timed beside the fused
+    solve of the same input in this process."""
+    import torch
+
+    from repro_torch.apsp import plan, solve
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.launch import fw_dist_check as fdc
+    from repro_torch.launch.mesh import run_grid
+
+    dev = torch.device("cuda")
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).to(dev)
+    fused_ms, fused_all = fdc._median_ms(lambda: solve(w), dev, 3)
+    del w
+    print(f"dist: fused single-device solve n={n}: median {fused_ms:.2f} ms of "
+          f"{['%.2f' % t for t in fused_all]}")
+    print("dist: the grids below are processes time-sliced on this one card, their "
+          "collectives gloo transfers staged through pinned host memory: not a "
+          "multi-card figure")
+    main = dict(n=n, bs=s, semiring="min_plus", density=0.5, seed=0, reps=3)
+    bordered = [k for k in fr.KINDS if k.startswith("fw_round_bordered/")]
+
+    def run(R, C, cfgs, timeout=600):
+        t0 = time.perf_counter()
+        recs = run_grid(fdc.grid_check, R, C, device="cuda", args=(cfgs,), timeout=timeout)
+        print(f"dist: {R}x{C} grid of {R * C} processes ran in "
+              f"{time.perf_counter() - t0:.1f} s (spawn included)")
+        for rank_recs in recs:
+            for rec in rank_recs:
+                require(rec["ok"] and rec.get("chunked_ok", True)
+                        and rec.get("breakdown_ok", True), f"dist check failed: {rec}")
+        return [list(x) for x in zip(*recs)]  # [check][rank]
+
+    def report(label, per_rank):
+        r0 = per_rank[0]
+        rounds = r0["rounds"]
+        counts = [r["launches"] for r in per_rank]
+        require(all(c[k] == rounds for c in counts for k in bordered),
+                f"{label}: bordered launches {counts}, not {rounds} of each kind a rank")
+        R, C = r0["R"], r0["C"]
+        # every rank's bordered rounds, all on this one card
+        bms, by = bound(2.0 * R * C * (s + n // R) * (s + n // C) * s * rounds, 0)
+        print(f"dist {label}: median {r0['ms']:.2f} ms of {['%.2f' % t for t in r0['times']]} "
+              f"({r0['ms'] / rounds:.3f} ms a round), fused single-device {fused_ms:.2f} ms "
+              f"({r0['ms'] / fused_ms:.3f}x); bound of all ranks' rounds on the card "
+              f"{bms:.2f} ms by {by}; launches a rank {json.dumps(counts[0])}")
+        return counts[0]
+
+    # 1x1: every round an owner round; the bordered kernel at full width
+    (one,) = run(1, 1, [dict(main, breakdown=True)])
+    report(f"1x1 n={n}", one)
+    per = one[0]["breakdown"]
+    span = per.pop("span")
+    print(f"dist 1x1 breakdown n={n} (events between launches; each share includes the "
+          f"gap after it): " + ", ".join(f"{k} {t:.2f} ms ({100 * t / span:.1f}%)"
+                                          for k, t in per.items()) + f"; span {span:.2f} ms")
+
+    # 2x2: timed, bytes counted, chunked restart; then a 16-link mesh repair
+    two, rep = run(2, 2, [dict(main, chunked=True, rounds_per_call=16, restart_at=32),
+                          dict(repair=True, semiring="min_plus", n=n, edges=16, reps=3)])
+    counts = report(f"2x2 n={n}", two)
+    for kind in bordered:
+        rows[kind]["launches"] = counts[kind]
+    model = plan.dist_round_comm_bytes(n, 2, 2, s)
+    summa = plan.summa_comm_bound_bytes(n, 2, 2)
+    for r in two:
+        require(r["comm_bytes"] == r["model_bytes"] == model * (n // s),
+                f"rank {r['rank']} counted {r['comm_bytes']} B, model {model * (n // s)}")
+    print(f"dist 2x2 collective bytes a rank: {[r['comm_bytes'] for r in two]} (model "
+          f"{model:.0f} B x {n // s} rounds = {model * (n // s):.0f} B; SUMMA bound "
+          f"{summa:.0f} B; staged through host {[r['staged_bytes'] for r in two]} B)")
+    print(f"dist 2x2 chunked: rounds_per_call=16, restarted from the round-32 checkpoint, "
+          f"== fused solve on every rank")
+    print(f"dist 2x2 mesh repair n={n} E={rep[0]['edges']}: median {rep[0]['ms']:.2f} ms "
+          f"of {['%.2f' % t for t in rep[0]['times']]} (the full-matrix gather included), "
+          f"single-device repair {rep[0]['single_ms']:.3f} ms; == single-device repair "
+          f"== re-solve on every rank; {rep[0]['comm_bytes']} collective B a rank")
+
+    # 4x2 at n_small: five semirings and a batch, through solve(method="distributed")
+    names = ("min_plus", "max_plus", "max_min", "or_and", "plus_mul")
+    cfgs = [dict(n=n_small, semiring=name, method="solve", seed=7) for name in names]
+    cfgs.append(dict(n=n_small, semiring="min_plus", method="solve", batch=4, seed=8))
+    four = run(4, 2, cfgs)
+    for per_rank in four:
+        r0 = per_rank[0]
+        print(f"dist 4x2 n={n_small} {r0['semiring']} batch={r0['batch']}: solve(method="
+              f"'distributed') == fused solve on all 8 ranks (s={r0['block_size']}, "
+              f"padded {r0['padded_n']}, rank block ({n_small // 4},{n_small // 2}))")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1426,6 +1629,7 @@ def main(argv=None) -> int:
     phase_check_repair()
     phase_check_repair_del()
     phase_check_four()
+    phase_check_dist()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
@@ -1435,6 +1639,8 @@ def main(argv=None) -> int:
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)
         phase_four(rows, 8192)
+        phase_kernels_dist(rows, 8192)
+        phase_dist(rows, 8192, 2048)
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

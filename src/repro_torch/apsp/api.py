@@ -4,10 +4,15 @@ Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
 
   * **pad/unpad** — any n; padding vertices are ⊕-identity rows/cols with a
     ⊗-identity diagonal, unreachable under every semiring.
-  * **dispatch** — "numpy" | "naive" | "blocked" | "staged" | "fused";
-    "auto" takes "naive" at n <= 64 and "fused" above.  "staged" and
-    "fused" both run the fused round, as the reference's do; the
-    4-dispatch round is ``core.staged.fw_staged(fused=False)``.
+  * **dispatch** — "numpy" | "naive" | "blocked" | "staged" | "fused" |
+    "distributed"; "auto" takes "naive" at n <= 64 and "fused" above.
+    "staged" and "fused" both run the fused round, as the reference's do;
+    the 4-dispatch round is ``core.staged.fw_staged(fused=False)``.
+    "distributed" runs ``core.distributed.fw_distributed`` on the
+    ``mesh=`` process grid (``launch.mesh.GridMesh``): every rank calls
+    ``solve`` with the same w, the solve pads through
+    ``plan.distributed_plan``, and every rank gets the full result
+    (distance only).
   * **device** — entry points run on the card (``device="cuda"``), where
     the fused round is the Hopper kernels; ``device="cpu"`` runs the plain
     versions.  Without a card, asking for "cuda" raises.
@@ -17,10 +22,9 @@ Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
   * **validation** — min-plus solves raise ``NegativeCycleError`` when a
     diagonal entry is negative.
 
-Not ported yet, and refused with ``NotImplementedError``: methods
-"recursive" (ROADMAP A.10) and "distributed" (A.11), ``dtype`` other than
-float32 and ``packed=True`` (A.4), ``mesh=`` (A.11), ``hbm_budget=``
-(A.10).
+Not ported yet, and refused with ``NotImplementedError``: method
+"recursive" (ROADMAP A.10), ``dtype`` other than float32 and
+``packed=True`` (A.4), ``hbm_budget=`` (A.10).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.apsp import plan
+from repro_torch.core.distributed import fw_distributed, gather
 from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
 from repro_torch.core.paths import fw_blocked_with_successors, fw_with_successors
 from repro_torch.core.semiring import (
@@ -46,7 +51,7 @@ METHODS = (
     "distributed",
 )
 SUCCESSOR_METHODS = ("naive", "blocked", "staged", "fused")
-_NOT_PORTED = {"recursive": "ROADMAP A.10", "distributed": "ROADMAP A.11"}
+_NOT_PORTED = {"recursive": "ROADMAP A.10"}
 
 # Below this size a padded tile pass does more work than the n sweeps of the
 # naive loop; "auto" stays on the naive rung.
@@ -112,10 +117,18 @@ def _resolve_method(method: str, n: int) -> str:
 
 
 def _resolve_shape(
-    method: str, n: int, block_size: int | None
+    method: str, n: int, block_size: int | None, mesh=None,
 ) -> tuple[str, int | None, int]:
-    """(method, block_size, n_padded) — the dispatch-and-padding policy."""
+    """(method, block_size, n_padded) — the dispatch-and-padding policy.
+    "distributed" pads to the mesh multiple through
+    ``plan.distributed_plan``."""
     meth = _resolve_method(method, n)
+    if meth == "distributed":
+        if mesh is None:
+            raise ValueError("method='distributed' requires a mesh")
+        dp = plan.distributed_plan(n, mesh.R * mesh.C, grid=(mesh.R, mesh.C),
+                                   block_size=block_size)
+        return meth, dp["block_size"], dp["n_padded"]
     if meth in ("blocked", "staged", "fused"):
         s = block_size or plan.auto_block_size(n)
         return meth, s, plan.padded_size(n, s)
@@ -149,12 +162,19 @@ def _pad(w: torch.Tensor, m: int, semiring: Semiring) -> torch.Tensor:
 
 def _solver(
     meth: str, *, semiring: Semiring, block_size: int | None, bk: int = 32,
-    variant: str = "fori", successors: bool = False,
+    variant: str = "fori", successors: bool = False, mesh=None,
 ):
     """The solve a resolved method runs on a padded (…, m, m) tensor:
     ``run(wp)`` → dist, or (dist, succ) with successors.  Shared by
     ``solve`` and the engine's cached plans, so the two cannot drift."""
     sr, s = semiring, block_size
+    if meth == "distributed":
+        def run(wp):
+            local = fw_distributed(wp, mesh, block_size=s, bk=bk, variant=variant,
+                                   semiring=sr)
+            return gather(local, mesh)
+
+        return run
     if meth == "numpy":
         def run(wp):
             host = wp.cpu().numpy()
@@ -180,6 +200,12 @@ def _check_negative_cycles(dist: torch.Tensor, batched: bool) -> None:
     if bad.any():
         which = f"graphs {np.flatnonzero(bad).tolist()}" if batched else "graph"
         raise NegativeCycleError(f"negative cycle detected in {which}")
+
+
+def _check_mesh_device(mesh, dev: torch.device) -> None:
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device}, the solve on {dev}: "
+                         f"pass device={mesh.device.type!r}")
 
 
 def _check_successor_args(meth: str, semiring: Semiring) -> None:
@@ -211,7 +237,9 @@ def solve(
     w: (n, n) or (B, n, n) adjacency matrix — numpy array, nested list or
        tensor; missing edges are the semiring's ⊕-identity (+inf for
        min-plus).  Solved in float32 at any n (padded, then unpadded).
-    method: "auto" | "numpy" | "naive" | "blocked" | "staged" | "fused".
+    method: "auto" | "numpy" | "naive" | "blocked" | "staged" | "fused" |
+       "distributed" (needs ``mesh``; every rank of the grid calls ``solve``
+       with the same w and gets the full result).
     semiring: a ``Semiring`` or its name ("min_plus", "max_plus", "max_min",
        "or_and", "plus_mul").
     successors: also return the int32 next-hop table (min-plus only).
@@ -220,13 +248,13 @@ def solve(
     validate: raise ``NegativeCycleError`` on a negative diagonal
        (min-plus only; reads the diagonal back to the host).
     variant: "fori" or "unroll" (the same k-ascending chain).
+    mesh: the ``launch.mesh.GridMesh`` of method="distributed" (ignored by
+       the other methods); its device type must be ``device``'s.
     device: "cuda" (default: the Hopper kernels) or "cpu" (plain versions).
-    dtype / packed / mesh / hbm_budget: not ported yet (NotImplementedError
+    dtype / packed / hbm_budget: not ported yet (NotImplementedError
        naming the ROADMAP item), except dtype=float32.
     """
     sr = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP A.11)")
     if hbm_budget is not None:
         raise NotImplementedError("hbm_budget= is not ported yet (ROADMAP A.10)")
     check_variant(variant)
@@ -234,14 +262,16 @@ def solve(
     arr = _coerce(w, dev)
     batched = arr.ndim == 3
     n = arr.shape[-1]
-    meth, s, m = _resolve_shape(method, n, block_size)
+    meth, s, m = _resolve_shape(method, n, block_size, mesh)
+    if meth == "distributed":
+        _check_mesh_device(mesh, dev)
     if successors:
         _check_successor_args(meth, sr)
     if meth == "numpy" and sr is not MIN_PLUS:
         raise ValueError("method='numpy' implements min_plus only")
 
     run = _solver(meth, semiring=sr, block_size=s, variant=variant,
-                  successors=successors)
+                  successors=successors, mesh=mesh)
     out = run(_pad(arr, m, sr))
     dist, succ = out if successors else (out, None)
     dist = dist[..., :n, :n]

@@ -25,15 +25,23 @@ the session object for that:
     affected pairs (torch ops), then re-relaxes only the affected rows
     through the restricted-sweep kernels (``kernels.fw_repair_del``), or
     re-solves when ``plan.should_repair_del`` says that is cheaper.
+  * **mesh** — ``ApspEngine(method="distributed", mesh=grid)`` runs every
+    solve through the distributed solve on the ``launch.mesh.GridMesh``
+    (plan keys carry the grid's signature; every rank of the grid makes
+    the same calls); ``repair`` runs the distributed rank-1 repair
+    (``core.distributed.build_repair_shard_fn``, key method
+    "repair_distributed"), ``repair_del`` the same local mark and sweep as
+    one device (its re-solve fallback is distributed).  Distance only:
+    successor requests raise.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), method
-"distributed" / ``mesh`` (A.11), ``dtype`` other than float32 and
-``packed=True`` (A.4) — the int16, bf16, packed and mesh forms of
-``repair`` and ``repair_del`` with them.  The reference's TPU-lowering knobs
-``backend=``, ``interpret=`` and ``vmem_budget=`` have no counterpart: the
-port has one lowering per device, chosen by ``device=``, and the batch of
-a bucket rides one launch (``PlanKey.batch_block`` is the batch).
+item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), ``dtype``
+other than float32 and ``packed=True`` (A.4) — the int16, bf16 and packed
+forms of ``repair`` and ``repair_del`` with them.  The reference's
+TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
+no counterpart: the port has one lowering per device, chosen by
+``device=``, and the batch of a bucket rides one launch
+(``PlanKey.batch_block`` is the batch).
 
 The engine holds no device buffers between calls.  Thread-safety is the
 caller's concern.
@@ -52,6 +60,7 @@ from repro_torch.apsp.api import (
     METHODS,
     APSPResult,
     NegativeCycleError,
+    _check_mesh_device,
     _check_negative_cycles,
     _check_successor_args,
     _coerce,
@@ -69,6 +78,7 @@ from repro_torch.core.semiring import (
     lower_semiring,
     resolve_semiring,
 )
+from repro_torch.core import distributed as _dist
 from repro_torch.kernels import fw_repair as _fr
 from repro_torch.kernels import fw_repair_del as _frd
 from repro_torch.kernels.minplus_matmul import check_variant
@@ -78,10 +88,10 @@ from repro_torch.kernels.minplus_matmul import check_variant
 class PlanKey:
     """The plan-cache key: everything that changes what a runner launches.
 
-    The reference's fields, kept: ``mesh``, ``leaf`` and ``oocore`` stay at
-    their defaults until the mesh (A.11) and recursive (A.10) engines are
-    ported.  ``backend`` is the device type the runner launches on,
-    "cuda" or "cpu".
+    The reference's fields, kept: ``mesh`` is the grid's signature on
+    distributed keys; ``leaf`` and ``oocore`` stay at their defaults until
+    the recursive engine (A.10) is ported.  ``backend`` is the device type
+    the runner launches on, "cuda" or "cpu".
     """
 
     n_padded: int
@@ -170,11 +180,12 @@ class ApspEngine:
     ):
         """method / semiring / block dims pin the solve configuration.
 
-        device: "cuda" (default: the Hopper kernels) or "cpu" (the plain
-        versions); without a card, "cuda" raises.  dtype / packed / mesh /
-        leaf / hbm_budget and methods "recursive" / "distributed" are not
-        ported yet (NotImplementedError naming the ROADMAP item), except
-        dtype=float32.
+        mesh: the ``launch.mesh.GridMesh`` of method="distributed" (its
+        device type must be ``device``'s).  device: "cuda" (default: the
+        Hopper kernels) or "cpu" (the plain versions); without a card,
+        "cuda" raises.  dtype / packed / leaf / hbm_budget and method
+        "recursive" are not ported yet (NotImplementedError naming the
+        ROADMAP item), except dtype=float32.
         """
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
@@ -183,8 +194,9 @@ class ApspEngine:
                 f"ApspEngine(method={method!r}) is not ported yet "
                 f"({_NOT_PORTED[method]})"
             )
-        if mesh is not None:
-            raise NotImplementedError("ApspEngine(mesh=) is not ported yet (ROADMAP A.11)")
+        if method == "distributed" and mesh is None:
+            raise ValueError("ApspEngine(method='distributed') requires a mesh= "
+                             "(a launch.mesh.GridMesh)")
         if leaf is not None or hbm_budget is not None:
             raise NotImplementedError(
                 "ApspEngine(leaf=, hbm_budget=) is not ported yet (ROADMAP A.10)"
@@ -198,6 +210,9 @@ class ApspEngine:
         self.variant = variant
         self.validate = validate
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        if method == "distributed":
+            _check_mesh_device(mesh, self.device)
         self.stats = EngineStats()
         self._cache: dict[PlanKey, ExecutablePlan] = {}
 
@@ -229,7 +244,7 @@ class ApspEngine:
                 f"dtype={dtype!r} is not ported yet (ROADMAP A.4); the port "
                 f"solves in float32"
             )
-        meth, s, m = _resolve_shape(self.method, n, self.block_size)
+        meth, s, m = _resolve_shape(self.method, n, self.block_size, self.mesh)
         if successors:
             _check_successor_args(meth, self.semiring)
         if meth == "numpy" and self.semiring is not MIN_PLUS:
@@ -238,8 +253,10 @@ class ApspEngine:
         key = PlanKey(
             n_padded=m, batch=batch, dtype="float32", semiring=self.semiring.name,
             method=meth, block_size=s, bk=bk,
-            batch_block=batch if meth in ("staged", "fused") else None,
-            successors=successors, backend=self.device.type,
+            batch_block=batch if meth in ("staged", "fused", "distributed") else None,
+            successors=successors,
+            mesh=self.mesh.signature if meth == "distributed" else None,
+            backend=self.device.type,
         )
         return self._lookup(key, self._build)
 
@@ -247,9 +264,11 @@ class ApspEngine:
         """The batched runner of a solve key, and its models."""
         entry = ExecutablePlan(key=key, runner=_solver(
             key.method, semiring=self.semiring, block_size=key.block_size,
-            bk=key.bk, variant=self.variant, successors=key.successors,
+            bk=key.bk, variant=self.variant, successors=key.successors, mesh=self.mesh,
         ))
-        if key.method in ("staged", "fused"):
+        if key.method == "distributed":
+            entry.smem_bytes = plan.round_smem_bytes(key.block_size, key.bk)
+        elif key.method in ("staged", "fused"):
             entry.smem_bytes = plan.round_smem_bytes(
                 key.block_size, key.bk, successors=key.successors
             )
@@ -289,7 +308,7 @@ class ApspEngine:
                 raise ValueError(f"solve_many expects (n,n) graphs, got {tuple(a.shape)}")
         buckets: dict[tuple, list[int]] = {}
         for idx, a in enumerate(arrs):
-            meth, s, m = _resolve_shape(self.method, a.shape[-1], self.block_size)
+            meth, s, m = _resolve_shape(self.method, a.shape[-1], self.block_size, self.mesh)
             buckets.setdefault((meth, m, s, str(a.dtype)), []).append(idx)
         results: list[APSPResult | None] = [None] * len(arrs)
         for (_meth, m, _s, _dt), idxs in buckets.items():
@@ -346,6 +365,9 @@ class ApspEngine:
             raise ValueError(
                 "successor repair is min_plus only (like every successor path)"
             )
+        if succ is not None and self.method == "distributed":
+            raise ValueError("distributed repair is distance-only (like the "
+                             "distributed solve)")
         E = len(updates)
         E_pad = max(4, 1 << (E - 1).bit_length())
         u = np.zeros(E_pad, np.int32)
@@ -355,12 +377,17 @@ class ApspEngine:
             u[i], v[i], w[i] = ui, vi, wi
         if not ((0 <= u) & (u < n) & (0 <= v) & (v < n)).all():
             raise ValueError(f"edge endpoints must lie in [0, {n})")
-        s = self.block_size or plan.auto_block_size(n)
-        m = plan.padded_size(n, s)
+        mesh = self.mesh.signature if self.method == "distributed" else None
+        if mesh is None:
+            s = self.block_size or plan.auto_block_size(n)
+            m = plan.padded_size(n, s)
+        else:
+            _, s, m = _resolve_shape("distributed", n, self.block_size, self.mesh)
         key = PlanKey(
-            n_padded=m, batch=1, dtype="float32", semiring=sr.name, method="repair",
+            n_padded=m, batch=1, dtype="float32", semiring=sr.name,
+            method="repair" if mesh is None else "repair_distributed",
             block_size=s, bk=0, batch_block=None, successors=succ is not None,
-            edges=E_pad, backend=self.device.type,
+            mesh=mesh, edges=E_pad, backend=self.device.type,
         )
         entry = self._lookup(key, self._build_repair)
         dp = _pad(arr, m, sr)
@@ -419,6 +446,9 @@ class ApspEngine:
             raise ValueError(
                 "successor repair_del is min_plus only (like every successor path)"
             )
+        if succ is not None and self.method == "distributed":
+            raise ValueError("distributed repair_del is distance-only (like the "
+                             "distributed solve)")
         s0 = None if succ is None else torch.as_tensor(succ).to(self.device, torch.int32)
         E = len(dels)
         if E == 0:
@@ -538,16 +568,25 @@ class ApspEngine:
                 dp, sp, u, v, w, block_size=s
             )
             return entry
+        if key.method == "repair_distributed":
+            mesh = self.mesh
+            repair = _dist.build_repair_shard_fn(mesh, key.n_padded, semiring=sr,
+                                                 edges=key.edges)
+
+            def repair_fn(dp, u, v, w):
+                return _dist.gather(repair(_dist.local_block(dp, mesh), u, v, w), mesh)
+        else:
+            repair_fn = functools.partial(_fr.fw_repair, block_size=s, semiring=sr)
 
         def runner(dp, u, v, w):
             if sr is not PLUS_MUL:
-                return _fr.fw_repair(dp, u, v, w, block_size=s, semiring=sr)
+                return repair_fn(dp, u, v, w)
             # plus_mul: FW keeps a 0 (⊕-identity) diagonal; the repair
             # recurrence needs the ⊗-identity there.  Lift, repair, restore.
             diag = torch.diagonal(dp).clone()
             lifted = dp.clone()
             torch.diagonal(lifted).fill_(sr.one)
-            out = _fr.fw_repair(lifted, u, v, w, block_size=s, semiring=sr)
+            out = repair_fn(lifted, u, v, w)
             torch.diagonal(out).copy_(diag)
             return out
 

@@ -1,13 +1,16 @@
 """Planning arithmetic for APSP solves — the port's own copy.
 
-Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-68 and
+Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-223 and
 310-414): word sizes, padding, round counts, the block-size pick, the
 fused round's device-memory traffic model, the rank-1 repair's and the
-decremental repair's with its policy (``should_repair_del``).  The
-rest of the reference's planner (autotuning, mesh and recursive plans) is
-ROADMAP A.5 / A.10 / A.11.
+decremental repair's with its policy (``should_repair_del``), and the mesh
+plan of the distributed solve (``distributed_plan`` with its grid
+factorization and communication models).  The rest of the reference's
+planner (autotuning, recursive plans) is ROADMAP A.5 / A.10.
 """
 from __future__ import annotations
+
+import math
 
 from repro_torch.core.semiring import dtype_name
 
@@ -53,6 +56,109 @@ def auto_block_size(n: int, *, max_block: int = 128) -> int:
         return max_block
     s = 1 << max(4, (max(n, 2) - 1).bit_length() - 2)
     return min(s, max_block)
+
+
+def mesh_factorization(devices: int, pods: int = 1) -> tuple[int, int]:
+    """(R, C) process-grid factorization: R = pods × rows, C the rest."""
+    if pods > 1:
+        rows = max(1, devices // pods // 2)
+        return pods * rows, devices // pods // rows
+    rows = max(1, devices // 2)
+    return rows, devices // rows
+
+
+def distributed_multiple(block_size: int, R: int, C: int) -> int:
+    """n must be a multiple of this for ``fw_distributed`` on an R×C grid
+    (every rank's (n/R, n/C) block a whole number of (s, s) tiles)."""
+    return block_size * math.lcm(R, C)
+
+
+def summa_comm_bound_bytes(n: int, R: int, C: int, word: int = 4) -> float:
+    """SUMMA comm lower bound per rank over a whole solve: n²(1/R + 1/C)
+    words."""
+    return n * n * (1.0 / R + 1.0 / C) * word
+
+
+def dist_round_comm_bytes(
+    n: int, R: int, C: int, s: int, *, word: int = 4, batch: int = 1
+) -> float:
+    """Bytes each rank hands to collectives in ONE distributed round: the
+    raw (s, s) pivot tile across the grid, the raw (s, n/C) row-panel slice
+    along its grid column and the (n/R, s) column-panel slice along its
+    grid row.  Over n/s rounds this exceeds ``summa_comm_bound_bytes`` by
+    the diagonal term alone."""
+    return batch * (s * s + s * (n // C) + (n // R) * s) * word
+
+
+def bordered_band_bytes(rows: int, cols: int, s: int, *, word: int = 4,
+                        batch: int = 1) -> int:
+    """Device memory of the bordered round's two closed-band buffers,
+    rowband (B, s, cols) and colband (B, rows, s)
+    (``kernels.fw_round.bordered_round_buffers``)."""
+    return batch * (s * cols + rows * s) * word
+
+
+def distributed_plan(
+    n: int,
+    devices: int,
+    *,
+    grid: tuple[int, int] | None = None,
+    batch: int = 1,
+    block_size: int | None = None,
+    pods: int = 1,
+    word: int = 4,
+) -> dict:
+    """The mesh plan of a distributed solve: (R, C, s) and the padding.
+
+    Picks the (R, C) grid through ``mesh_factorization`` (``grid=(R, C)``
+    pins an existing grid), the pivot width through ``auto_block_size``
+    walked down while the mesh padding wastes more than a third of n (the
+    least-padding candidate when no tile fits), and pads n to the
+    ``distributed_multiple``.  ``solve(method="distributed")``,
+    ``ApspEngine`` and ``launch.fw_dist_check`` all plan through here.
+
+    Returns the reference's fields (``R``, ``C``, ``block_size``, ``n``,
+    ``n_padded``, ``rounds``, ``tile`` (n_r, n_c), ``bordered`` (the
+    per-rank bordered matrix), ``batch``, ``comm_bytes_per_round``,
+    ``summa_bound_bytes``, ``comm_model_efficiency``) except its VMEM
+    model (``batch_block``, ``vmem_bytes``), which has no meaning on the
+    card: there the closed bands live in device buffers, whose size is
+    ``band_bytes`` instead.
+    """
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if grid is not None:
+        R, C = grid
+        if R * C != devices:
+            raise ValueError(f"grid {grid} does not cover {devices} devices")
+    else:
+        R, C = mesh_factorization(devices, pods)
+    if block_size is None:
+        cands = []
+        s = auto_block_size(n)
+        while s >= 16:
+            cands.append((s, padded_size(n, distributed_multiple(s, R, C))))
+            s //= 2
+        fitting = [(sc, mc) for sc, mc in cands if 3 * (mc - n) <= n]
+        s, m = fitting[0] if fitting else min(cands, key=lambda t: (t[1], -t[0]))
+    else:
+        s = block_size
+        m = padded_size(n, distributed_multiple(s, R, C))
+    n_r, n_c = m // R, m // C
+    rounds = m // s
+    rows, cols = n_r + s, n_c + s
+    per_round = dist_round_comm_bytes(m, R, C, s, word=word, batch=batch)
+    bound = batch * summa_comm_bound_bytes(m, R, C, word)
+    return dict(
+        R=R, C=C, block_size=s, n=n, n_padded=m, rounds=rounds,
+        tile=(n_r, n_c), bordered=(rows, cols), batch=batch,
+        band_bytes=bordered_band_bytes(rows, cols, s, word=word, batch=batch),
+        comm_bytes_per_round=per_round,
+        summa_bound_bytes=bound,
+        comm_model_efficiency=bound / (rounds * per_round),
+    )
 
 
 def round_smem_bytes(s: int, bk: int, *, successors: bool = False) -> int:

@@ -1,22 +1,24 @@
 // Fused Floyd-Warshall pivot round for Hopper (sm_90a): three launches.
 //
 // Replaces the TPU kernels src/repro/kernels/fw_round.py:fw_round
-// (_round_kernel) and fw_round.py:fw_round_with_successors
-// (_round_succ_kernel); also stands for their Pallas-Triton lowerings in
-// src/repro/kernels/fw_round_gpu.py.
+// (_round_kernel), fw_round.py:fw_round_bordered (the same _round_kernel on
+// a rectangular tile grid with _bordered_order) and
+// fw_round.py:fw_round_with_successors (_round_succ_kernel); also stands
+// for their Pallas-Triton lowerings in src/repro/kernels/fw_round_gpu.py.
 //
 // The TPU kernel runs a whole round as one sequential grid and carries the
 // closed pivot bands from step to step in VMEM scratch.  A CUDA grid runs
 // its blocks in no order, so each round here is three launches on one
-// stream, and the closed bands live in two device buffers, rowband (B,s,n)
-// and colband (B,n,s) (four with successors), that the wrapper allocates
-// once per solve:
+// stream, and the closed bands live in two device buffers, rowband
+// (B,s,cols) and colband (B,rows,s) (four with successors), that the
+// wrapper allocates once per solve:
 //
 //   1. diag  — one CTA per graph closes the (s,s) pivot tile (_close_diag)
 //              and writes it into both band buffers at block b.
-//   2. bands — 2(T-1) CTAs per graph close the row tiles (_close_row_panel)
-//              and col tiles (_close_col_panel) of round b against it.
-//   3. relax — T*T CTAs per graph relax every (s,s) tile against bk-deep
+//   2. bands — (tc-1)+(tr-1) CTAs per graph close the row tiles
+//              (_close_row_panel) and col tiles (_close_col_panel) of round
+//              b against it.
+//   3. relax — tr*tc CTAs per graph relax every (s,s) tile against bk-deep
 //              band slices staged through shared memory (_relax_tile).
 //              Tiles in row band b start from the row band, then tiles in
 //              col band b from the col band, else from w (the splice of
@@ -24,6 +26,16 @@
 //              included, k ascending, so plus_mul matches the reference.
 //              Phase 3 writes w in place: it reads bands only from the
 //              band buffers.  The batch rides gridDim.z.
+//
+// The square round runs the three kernels on (n,n) with rows = cols = n,
+// pivot b and no owner echo.  The bordered round of the distributed solve
+// runs them on a rank's (s+n_r, s+n_c) bordered block with the pivot
+// pinned at b = 0 and two owner-echo tile coordinates (pr, pc), -1 where
+// the rank holds no copy of the global pivot band (fw_round.py:247, 255,
+// 266-269): the diag launch also writes the closed corner over row-band
+// block pc and col-band block pr, whose band tiles the bands launch then
+// leaves alone, and the relax launch starts rows in block pr from the row
+// band and columns in block pc from the col band, as it does block b.
 //
 // Exactness.  Each element sees the reference's ⊕/⊗ chain in the
 // reference's order, built from the steps of semiring.cuh by the chains of
@@ -44,7 +56,9 @@
 // operands from shared memory per TM*TM relaxations.  The diag and bands
 // launches are short serial chains of s steps; they are bound by latency,
 // which their registers-resident tiles and single barrier per step keep
-// small.  tensor cores (wgmma) do not apply to a tropical ⊕.
+// small.  tensor cores (wgmma) do not apply to a tropical ⊕.  A bordered
+// round does rows*cols*s relaxations on its (rows, cols) block and is
+// bound the same way.
 //
 // Interface: plain C, pointers and the stream as void*, each entry point
 // returns the cudaError_t of its launch (0 = launched).
@@ -62,63 +76,67 @@ constexpr int kRelaxThreads = 256;  // 16 x 16, each owning TM x TM outputs
 template <int S, class Op>
 __global__ void __launch_bounds__(8 * S)
 diag_kernel(const float* __restrict__ w, float* __restrict__ rowband,
-            float* __restrict__ colband, int n, int b) {
+            float* __restrict__ colband, int rows, int cols, int b, int pr, int pc) {
   constexpr int R = S / 8;
   __shared__ float rowbuf[2][S];
   __shared__ float colbuf[2][S];
   const int c = threadIdx.x % S, rg = threadIdx.x / S;
   const size_t g = blockIdx.z;
   const size_t o = (size_t)b * S;
-  const float* wg = w + g * n * n;
+  const float* wg = w + g * rows * cols;
   float t[R];
 #pragma unroll
-  for (int m = 0; m < R; ++m) t[m] = wg[(o + rg + 8 * m) * n + o + c];
+  for (int m = 0; m < R; ++m) t[m] = wg[(o + rg + 8 * m) * cols + o + c];
   close_tile_chain<S, Op>(t, rowbuf, colbuf, rg, c);
-  float* rb = rowband + g * S * n;
-  float* cb = colband + g * n * S;
+  float* rb = rowband + g * S * cols;
+  float* cb = colband + g * rows * S;
 #pragma unroll
   for (int m = 0; m < R; ++m) {
     const int r = rg + 8 * m;
-    rb[(size_t)r * n + o + c] = t[m];
+    rb[(size_t)r * cols + o + c] = t[m];
     cb[(o + r) * S + c] = t[m];
+    if (pc >= 0) rb[(size_t)r * cols + (size_t)pc * S + c] = t[m];
+    if (pr >= 0) cb[((size_t)pr * S + r) * S + c] = t[m];
   }
 }
 
 // ----------------------------------------------------------------- bands
-// blockIdx.x < T-1: row tile (b, j); otherwise col tile (i, b); j, i skip b.
-// The closed diagonal comes from rowband's block b, staged in shared memory
-// with a padded row stride.
+// blockIdx.x < tc-1: row tile (b, j); otherwise col tile (i, b); j, i skip
+// b.  The owner-echo tiles (j == pc, i == pr) already hold the closed
+// corner (diag launch) and return at once.  The closed diagonal comes from
+// rowband's block b, staged in shared memory with a padded row stride.
 template <int S, class Op>
 __global__ void __launch_bounds__(8 * S)
 bands_kernel(const float* __restrict__ w, float* __restrict__ rowband,
-             float* __restrict__ colband, int n, int b) {
+             float* __restrict__ colband, int rows, int cols, int b, int pr, int pc) {
   constexpr int R = S / 8, DS = S + 1;
   extern __shared__ float d[];  // S x DS
   __shared__ float buf[2][S];
-  const int T = n / S;
+  const int TC = cols / S;
   const int c = threadIdx.x % S, rg = threadIdx.x / S;
   const size_t g = blockIdx.z;
   const size_t o = (size_t)b * S;
-  const bool is_row = blockIdx.x < T - 1;
-  int x = is_row ? blockIdx.x : blockIdx.x - (T - 1);
+  const bool is_row = blockIdx.x < TC - 1;
+  int x = is_row ? blockIdx.x : blockIdx.x - (TC - 1);
   x = x < b ? x : x + 1;
-  const float* wg = w + g * n * n;
-  float* rb = rowband + g * S * n;
-  float* cb = colband + g * n * S;
+  if (x == (is_row ? pc : pr)) return;
+  const float* wg = w + g * rows * cols;
+  float* rb = rowband + g * S * cols;
+  float* cb = colband + g * rows * S;
 
   for (int idx = threadIdx.x; idx < S * S; idx += 8 * S)
-    d[(idx / S) * DS + idx % S] = rb[(size_t)(idx / S) * n + o + idx % S];
+    d[(idx / S) * DS + idx % S] = rb[(size_t)(idx / S) * cols + o + idx % S];
   float t[R];
   const size_t r0 = is_row ? o : (size_t)x * S;
   const size_t c0 = is_row ? (size_t)x * S : o;
 #pragma unroll
-  for (int m = 0; m < R; ++m) t[m] = wg[(r0 + rg + 8 * m) * n + c0 + c];
+  for (int m = 0; m < R; ++m) t[m] = wg[(r0 + rg + 8 * m) * cols + c0 + c];
   __syncthreads();
 
   if (is_row) {
     close_row_chain<S, Op>(t, d, buf, rg, c);
 #pragma unroll
-    for (int m = 0; m < R; ++m) rb[(size_t)(rg + 8 * m) * n + c0 + c] = t[m];
+    for (int m = 0; m < R; ++m) rb[(size_t)(rg + 8 * m) * cols + c0 + c] = t[m];
   } else {
     close_col_chain<S, R, Op>(t, d, buf, rg, c);
 #pragma unroll
@@ -133,30 +151,31 @@ bands_kernel(const float* __restrict__ w, float* __restrict__ rowband,
 template <int S, class Op>
 __global__ void __launch_bounds__(kRelaxThreads)
 relax_kernel(float* __restrict__ w, const float* __restrict__ rowband,
-             const float* __restrict__ colband, int n, int b, int bk) {
+             const float* __restrict__ colband, int rows, int cols, int b, int pr,
+             int pc, int bk) {
   constexpr int TM = S / 16;
   extern __shared__ float smem[];
   float* As = smem;                 // S x (bk + 1)
   float* Bs = smem + S * (bk + 1);  // bk x S
-  const int T = n / S;
-  const int ti = blockIdx.x / T, tj = blockIdx.x % T;
+  const int TC = cols / S;
+  const int ti = blockIdx.x / TC, tj = blockIdx.x % TC;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const size_t g = blockIdx.z;
-  float* wg = w + g * n * n;
-  const float* rb = rowband + g * S * n;
-  const float* cb = colband + g * n * S;
+  float* wg = w + g * rows * cols;
+  const float* rb = rowband + g * S * cols;
+  const float* cb = colband + g * rows * S;
 
   const float* src;
   size_t ld;
-  if (ti == b) {
+  if (ti == b || ti == pr) {
     src = rb + (size_t)tj * S;
-    ld = n;
-  } else if (tj == b) {
+    ld = cols;
+  } else if (tj == b || tj == pc) {
     src = cb + (size_t)ti * S * S;
     ld = S;
   } else {
-    src = wg + (size_t)ti * S * n + (size_t)tj * S;
-    ld = n;
+    src = wg + (size_t)ti * S * cols + (size_t)tj * S;
+    ld = cols;
   }
   float acc[TM][TM];
 #pragma unroll
@@ -172,16 +191,16 @@ relax_kernel(float* __restrict__ w, const float* __restrict__ rowband,
     }
     for (int idx = threadIdx.x; idx < S * bk; idx += kRelaxThreads) {
       const int kk = idx / S, cc = idx % S;
-      Bs[kk * S + cc] = rb[(size_t)(k0 + kk) * n + (size_t)tj * S + cc];
+      Bs[kk * S + cc] = rb[(size_t)(k0 + kk) * cols + (size_t)tj * S + cc];
     }
     __syncthreads();
     relax_chunk<S, TM, 16, Op>(acc, As, Bs, bk, ty, tx);
   }
-  float* dst = wg + (size_t)ti * S * n + (size_t)tj * S;
+  float* dst = wg + (size_t)ti * S * cols + (size_t)tj * S;
 #pragma unroll
   for (int m = 0; m < TM; ++m)
 #pragma unroll
-    for (int q = 0; q < TM; ++q) dst[(size_t)(ty + 16 * m) * n + tx + 16 * q] = acc[m][q];
+    for (int q = 0; q < TM; ++q) dst[(size_t)(ty + 16 * m) * cols + tx + 16 * q] = acc[m][q];
 }
 
 // ------------------------------------------------------- successor round
@@ -360,32 +379,51 @@ cudaError_t prepare(K kernel, size_t smem) {
 }
 
 template <int S, class Op>
-int launch_round(int phase, float* w, float* rb, float* cb, int B, int n, int b,
-                 int bk, cudaStream_t st) {
-  const int T = n / S;
+int launch_round(int phase, float* w, float* rb, float* cb, int B, int rows, int cols,
+                 int b, int pr, int pc, int bk, cudaStream_t st) {
+  const int TR = rows / S, TC = cols / S;
   cudaError_t err;
   if (phase == 0) {
-    diag_kernel<S, Op><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, rb, cb, n, b);
+    diag_kernel<S, Op><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, rb, cb, rows, cols, b, pr, pc);
   } else if (phase == 1) {
     const size_t smem = (size_t)S * (S + 1) * sizeof(float);
     if ((err = prepare(bands_kernel<S, Op>, smem)) != cudaSuccess) return (int)err;
-    bands_kernel<S, Op><<<dim3(2 * (T - 1), 1, B), 8 * S, smem, st>>>(w, rb, cb, n, b);
+    bands_kernel<S, Op><<<dim3((TC - 1) + (TR - 1), 1, B), 8 * S, smem, st>>>(
+        w, rb, cb, rows, cols, b, pr, pc);
   } else {
     const size_t smem = ((size_t)S * (bk + 1) + (size_t)bk * S) * sizeof(float);
     if ((err = prepare(relax_kernel<S, Op>, smem)) != cudaSuccess) return (int)err;
-    relax_kernel<S, Op><<<dim3(T * T, 1, B), kRelaxThreads, smem, st>>>(w, rb, cb, n, b, bk);
+    relax_kernel<S, Op><<<dim3(TR * TC, 1, B), kRelaxThreads, smem, st>>>(
+        w, rb, cb, rows, cols, b, pr, pc, bk);
   }
   return (int)cudaGetLastError();
 }
 
 template <class Op>
-int dispatch_s(int phase, float* w, float* rb, float* cb, int B, int n, int s,
-               int b, int bk, cudaStream_t st) {
+int dispatch_s(int phase, float* w, float* rb, float* cb, int B, int rows, int cols,
+               int s, int b, int pr, int pc, int bk, cudaStream_t st) {
   switch (s) {
-    case 16: return launch_round<16, Op>(phase, w, rb, cb, B, n, b, bk, st);
-    case 32: return launch_round<32, Op>(phase, w, rb, cb, B, n, b, bk, st);
-    case 64: return launch_round<64, Op>(phase, w, rb, cb, B, n, b, bk, st);
-    case 128: return launch_round<128, Op>(phase, w, rb, cb, B, n, b, bk, st);
+    case 16: return launch_round<16, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
+    case 32: return launch_round<32, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
+    case 64: return launch_round<64, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
+    case 128: return launch_round<128, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_round(int phase, void* w, void* rowband, void* colband, int B, int rows,
+                   int cols, int s, int b, int pr, int pc, int bk, int semiring,
+                   void* stream) {
+  float* pw = static_cast<float*>(w);
+  float* rb = static_cast<float*>(rowband);
+  float* cb = static_cast<float*>(colband);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (semiring) {
+    case 0: return dispatch_s<MinPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
+    case 1: return dispatch_s<MaxPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
+    case 2:
+    case 3: return dispatch_s<MaxMin>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
+    case 4: return dispatch_s<PlusMul>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -420,18 +458,19 @@ int launch_succ(int phase, float* w, int* su, float* rw, float* cw, int* rs,
 extern "C" int fw_round_launch(int phase, void* w, void* rowband, void* colband,
                                int B, int n, int s, int b, int bk, int semiring,
                                void* stream) {
-  float* pw = static_cast<float*>(w);
-  float* rb = static_cast<float*>(rowband);
-  float* cb = static_cast<float*>(colband);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (semiring) {
-    case 0: return dispatch_s<MinPlus>(phase, pw, rb, cb, B, n, s, b, bk, st);
-    case 1: return dispatch_s<MaxPlus>(phase, pw, rb, cb, B, n, s, b, bk, st);
-    case 2:
-    case 3: return dispatch_s<MaxMin>(phase, pw, rb, cb, B, n, s, b, bk, st);
-    case 4: return dispatch_s<PlusMul>(phase, pw, rb, cb, B, n, s, b, bk, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_round(phase, w, rowband, colband, B, n, n, s, b, -1, -1, bk, semiring,
+                        stream);
+}
+
+// The bordered round: w (B,rows,cols) with the pivot at tile (0,0), rowband
+// (B,s,cols), colband (B,rows,s); pr / pc the owner-echo tile coordinates
+// (-1 = none), shared by the batch.  A single tile has no bands: the
+// wrapper does not launch phase 1 when rows == cols == s.
+extern "C" int fw_round_bordered_launch(int phase, void* w, void* rowband, void* colband,
+                                        int B, int rows, int cols, int s, int pr, int pc,
+                                        int bk, int semiring, void* stream) {
+  return dispatch_round(phase, w, rowband, colband, B, rows, cols, s, 0, pr, pc, bk,
+                        semiring, stream);
 }
 
 // The successor round: w f32 and succ int32 (B,n,n); distance bands rw

@@ -1,14 +1,15 @@
 """The fused pivot round: wrappers around the Hopper kernels.
 
-``fw_round`` replaces ``repro.kernels.fw_round.fw_round`` and
-``fw_round_with_successors`` replaces its successor-tracking twin (and the
-Pallas-Triton lowerings of both).  A round on the card is three launches on
-the current stream — diag, bands, relax (``csrc/fw_round.cu`` says why) —
-through the closed-band buffers of ``round_buffers`` /
-``succ_round_buffers``, which a solve allocates once and passes to every
-round.
+``fw_round`` replaces ``repro.kernels.fw_round.fw_round``,
+``fw_round_bordered`` its bordered form ``fw_round_bordered`` (the per-rank
+round of the distributed solve) and ``fw_round_with_successors`` its
+successor-tracking twin (and the Pallas-Triton lowerings of all three).  A
+round on the card is three launches on the current stream — diag, bands,
+relax (``csrc/fw_round.cu`` says why) — through the closed-band buffers of
+``round_buffers`` / ``bordered_round_buffers`` / ``succ_round_buffers``,
+which a solve allocates once and passes to every round.
 
-Both wrappers update ``w`` (and ``succ``) in place and return them.  A
+The wrappers update ``w`` (and ``succ``) in place and return them.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor goes to the kernel, and a launch that fails raises.  There is no
 fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
@@ -31,8 +32,8 @@ from repro_torch.kernels.minplus_matmul import (
 )
 
 PHASES = ("diag", "bands", "relax")
-KINDS = tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors")
-              for p in PHASES)
+KINDS = tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors",
+                                    "fw_round_bordered") for p in PHASES)
 LAUNCHES = dict.fromkeys(KINDS, 0)
 
 
@@ -49,6 +50,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fw_round_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
     lib.fw_round_launch.restype = i
+    lib.fw_round_bordered_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fw_round_bordered_launch.restype = i
     lib.fw_round_succ_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_round_succ_launch.restype = i
     return lib
@@ -208,3 +211,99 @@ def fw_round_with_successors(
         fw_round_with_successors_phase(phase, w, succ, b, bands,
                                        block_size=block_size)
     return w, succ
+
+
+# ---------------------------------------------------------- bordered round
+def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col: int):
+    """(B, rows, cols) of a bordered round input; raises on what the kernels
+    do not take."""
+    if w.ndim not in (2, 3):
+        raise ValueError(f"w must be (rows,cols) or (B,rows,cols), got {tuple(w.shape)}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"w must be torch.float32, got {w.dtype}")
+    if block_size not in BLOCK_SIZES:
+        raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {block_size}")
+    rows, cols = w.shape[-2:]
+    if rows % block_size or cols % block_size:
+        raise ValueError(f"w {tuple(w.shape)}: both dims must be multiples of "
+                         f"block_size={block_size}")
+    tr, tc = rows // block_size, cols // block_size
+    if not (-1 <= owner_row < tr and -1 <= owner_col < tc):
+        raise ValueError(f"owner echo ({owner_row}, {owner_col}) outside the "
+                         f"{tr}x{tc} tile grid (-1 = none)")
+    if w.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"w must lie on the CPU or a CUDA device, not {w.device}")
+    if w.device.type == "cuda" and not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    return (w.shape[0] if w.ndim == 3 else 1), rows, cols
+
+
+def bordered_round_buffers(w: torch.Tensor, block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rowband (B,s,cols), colband (B,rows,s)) f32 buffers for
+    ``fw_round_bordered`` on w (rows, cols) or (B, rows, cols)."""
+    B = w.shape[0] if w.ndim == 3 else 1
+    rows, cols = w.shape[-2:]
+    s = block_size
+    return (torch.empty((B, s, cols), dtype=torch.float32, device=w.device),
+            torch.empty((B, rows, s), dtype=torch.float32, device=w.device))
+
+
+def fw_round_bordered_phase(
+    phase: str, w: torch.Tensor, owner_row: int, owner_col: int, bands, *,
+    block_size: int = 128, bk: int = 32, semiring: Semiring = MIN_PLUS,
+) -> None:
+    """Launch one phase ("diag" | "bands" | "relax") of a bordered round on
+    the card."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    B, rows, cols = _check_bordered(w, block_size, owner_row, owner_col)
+    if w.device.type != "cuda":
+        raise ValueError("fw_round_bordered_phase launches a CUDA kernel; w is on the CPU")
+    s = block_size
+    want = [(B, s, cols), (B, rows, s)]
+    if len(bands) != 2 or any(tuple(t.shape) != sh or t.device != w.device
+                              or not t.is_contiguous() for t, sh in zip(bands, want)):
+        raise ValueError(f"band buffers must be {want} on {w.device}, contiguous")
+    sid = semiring_id(semiring)
+    if phase == "bands" and rows == cols == s:
+        return  # a single tile has no bands to close
+    kind = f"fw_round_bordered/{phase}"
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = _lib().fw_round_bordered_launch(
+            PHASES.index(phase), w.data_ptr(), bands[0].data_ptr(),
+            bands[1].data_ptr(), B, rows, cols, s, owner_row, owner_col,
+            _fit_block(s, bk), sid, stream,
+        )
+    _raise_on(err, kind)
+    LAUNCHES[kind] += 1
+
+
+def fw_round_bordered(
+    w: torch.Tensor, owner_row: int = -1, owner_col: int = -1, *,
+    block_size: int = 128, bk: int = 32, variant: str = "fori",
+    semiring: Semiring = MIN_PLUS, bands=None,
+) -> torch.Tensor:
+    """One bordered round of w (rows, cols) or (B, rows, cols), f32, in place.
+
+    w is a rank's pivot-bordered block: the raw (s, s) pivot tile in the
+    top-left corner, the raw pivot row / column panel slices as the first
+    block row / column, the rank's local block as the rest.  owner_row /
+    owner_col: the bordered tile coordinates at which the local block holds
+    the rank's own copy of the global pivot row / column band, -1 where it
+    holds none (shared by a batch).  bands: ``bordered_round_buffers(w,
+    block_size)`` to reuse across rounds (allocated here when None).
+    """
+    _check_bordered(w, block_size, owner_row, owner_col)
+    check_variant(variant)
+    if w.device.type == "cpu":
+        return w.copy_(ref.fw_round_bordered_ref(
+            w, owner_row, owner_col, block_size=block_size, bk=bk, variant=variant,
+            semiring=semiring,
+        ))
+    if bands is None:
+        bands = bordered_round_buffers(w, block_size)
+    for phase in PHASES:
+        fw_round_bordered_phase(phase, w, owner_row, owner_col, bands,
+                                block_size=block_size, bk=bk, semiring=semiring)
+    return w

@@ -3,6 +3,7 @@ kernels and semiring matmul, the rank-1 repair and the decremental repair
 kernels.
 
 Counterparts of ``repro.kernels.ref.fw_round_ref``,
+``fw_round_bordered_ref`` (the distributed solve's per-rank round),
 ``fw_round_with_successors_ref``, ``fw_repair_ref``,
 ``fw_repair_with_successors_ref`` and of ``repro.kernels.fw_repair_del``'s
 marking and XLA sweep twins: the same per-element ⊕/⊗ chains as the
@@ -124,6 +125,69 @@ def fw_round_ref(
     diag = close_diag(w[..., o, o], semiring)
     row, col = close_bands(w, diag, b, semiring)
     return relax(w, row, col, b, bk=bk, variant=variant, semiring=semiring)
+
+
+def _echo(w: torch.Tensor, dim: int, at: int, s: int, value: torch.Tensor) -> None:
+    """Write value over block ``at`` of w along ``dim`` (-2 rows, -1 cols),
+    in place; ``at < 0`` (no owner echo) writes nothing."""
+    if at >= 0:
+        w.narrow(dim, at * s, s).copy_(value)
+
+
+def close_bordered_bands(
+    w: torch.Tensor, diag: torch.Tensor, owner_row: int, owner_col: int,
+    semiring: Semiring,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2 of a bordered round: the border row (…, s, cols) and column
+    (…, rows, s) closed against the closed corner, which is spliced in at
+    block 0 and at the owner-echo blocks (``owner_col`` of the row band,
+    ``owner_row`` of the col band; -1 = none)."""
+    s = diag.shape[-1]
+    row = close_row_panel(w[..., :s, :], diag, semiring)
+    row[..., :, :s] = diag
+    _echo(row, -1, owner_col, s, diag)
+    col = close_col_panel(w[..., :, :s], diag, semiring)
+    col[..., :s, :] = diag
+    _echo(col, -2, owner_row, s, diag)
+    return row, col
+
+
+def relax_bordered(
+    w: torch.Tensor, row: torch.Tensor, col: torch.Tensor, owner_row: int,
+    owner_col: int, *, bk: int = 32, variant: str = "fori",
+    semiring: Semiring = MIN_PLUS,
+) -> torch.Tensor:
+    """Phase 3 of a bordered round: every tile ⊕= col ⊗ row in bk chunks, k
+    ascending; the border and the owner-echo rows / columns start from the
+    closed band values."""
+    s = row.shape[-2]
+    w = w.clone()
+    w[..., :s, :] = row
+    w[..., :, :s] = col
+    _echo(w, -2, owner_row, s, row)
+    _echo(w, -1, owner_col, s, col)
+    return _relax_tile(w, col, row, _fit_block(s, bk), semiring, variant)
+
+
+def fw_round_bordered_ref(
+    w: torch.Tensor, owner_row: int = -1, owner_col: int = -1, *,
+    block_size: int, bk: int = 32, variant: str = "fori",
+    semiring: Semiring = MIN_PLUS,
+) -> torch.Tensor:
+    """One bordered round of (…, rows, cols) w — bitwise the reference's
+    ``fw_round_bordered_ref``.
+
+    The pivot is pinned at tile (0, 0): phase 1 closes the (s, s) corner,
+    phase 2 the border row and column (``close_bordered_bands``), phase 3
+    relaxes every tile (``relax_bordered``).  ``owner_row`` / ``owner_col``
+    are the bordered tile coordinates at which the rank's local block holds
+    its copy of the global pivot row / column band, -1 where it holds none:
+    the closed corner and bands are spliced over those copies."""
+    s = block_size
+    diag = close_diag(w[..., :s, :s], semiring)
+    row, col = close_bordered_bands(w, diag, owner_row, owner_col, semiring)
+    return relax_bordered(w, row, col, owner_row, owner_col, bk=bk, variant=variant,
+                          semiring=semiring)
 
 
 # ------------------------------------------- phase kernels and the matmul

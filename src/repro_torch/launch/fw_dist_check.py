@@ -1,0 +1,448 @@
+"""Distributed-solve check and bench on an R×C process grid.
+
+    python -m repro_torch.launch.fw_dist_check --devices 4 --n 256 --bs 32 --bitwise
+    python -m repro_torch.launch.fw_dist_check --devices 8 --n 96 --bs 32 \\
+        --method solve --bitwise --semiring plus_mul --device cpu
+
+Counterpart of ``repro.launch.fw_dist_check``.  Spawns the R×C grid of
+``launch.mesh.run_grid`` (R, C = ``plan.mesh_factorization(--devices)``) on
+``--device``; ranks that share one card talk over gloo.  Every rank holds
+its own result against the port's single-device solve on its own device.
+Exit code 0 on success.  Modes:
+
+  (default)        fw_distributed == fw_naive (allclose, rtol = atol = 2e-5:
+                   the blocked order rounds differently from the naive one).
+  --bitwise        == the single-device fused solve, bitwise (NaN equal to
+                   NaN) — the owner-echo guarantee of the bordered round.
+  --method solve   through ``solve(method="distributed")``, which pads any n
+                   through ``plan.distributed_plan`` (e.g. --n 96); --batch B
+                   closes B graphs at once.
+  --chunked        direct mode in chunks of a quarter of the rounds,
+                   restarted from the half-way checkpoint: both runs ==
+                   the single-device solve.
+  --repair         ``ApspEngine(method="distributed").repair`` == the
+                   single-device repair == a re-solve of the updated
+                   graph, bitwise; a warm repair builds no new runner.
+  --bench          ``METRICS {json}``: per-round ms and the bytes each rank
+                   handed to collectives, against
+                   ``plan.dist_round_comm_bytes`` × rounds and the SUMMA
+                   bound.
+
+The rank functions ``grid_check`` (a list of such checks on one grid,
+returning small records) and ``run_cases`` (raw results, which the tests
+hold against the JAX reference) are what ``chip_smoke.py`` and
+``tests/test_torch_distributed.py`` run through ``run_grid``.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.apsp import ApspEngine, plan, solve
+from repro_torch.core.distributed import fw_distributed, gather, local_block
+from repro_torch.core.floyd_warshall import fw_naive
+from repro_torch.core.graph import random_digraph
+from repro_torch.core.semiring import SEMIRINGS
+from repro_torch.kernels import fw_round as fr
+from repro_torch.launch.mesh import run_grid
+
+
+# ------------------------------------------------------------------ inputs
+def graph_for(semiring: str, n: int, seed: int = 0, density: float = 0.3) -> np.ndarray:
+    """Per-semiring f32 input whose closure stays finite: tiny weights for
+    plus_mul, a sparse 0/1 graph for or_and, a random digraph (missing
+    edges = the ⊕-identity) otherwise, a DAG for max_plus."""
+    rng = np.random.default_rng(seed)
+    if semiring == "plus_mul":
+        return rng.uniform(1e-3, 1e-2, (n, n)).astype(np.float32)
+    if semiring == "or_and":
+        w = (rng.uniform(0, 1, (n, n)) < 0.05).astype(np.float32)
+        np.fill_diagonal(w, 1.0)
+        return w
+    w = random_digraph(n, density=density, seed=seed)
+    sr = SEMIRINGS[semiring]
+    if semiring != "min_plus":
+        w[np.isinf(w)] = sr.zero
+        np.fill_diagonal(w, sr.one)
+    if semiring == "max_plus":  # longest paths need a DAG
+        w[np.tril_indices(n, -1)] = -np.inf
+    return w
+
+
+def repair_scenario(semiring: str, n: int, seed: int = 0, edges: int | None = None):
+    """(w, updates, baseline method) on which a repair is exact: integer
+    weights, ⊕-improving updates, a DAG with additive deltas for plus_mul,
+    whose closure only plain FW ("naive") gives.  ``edges`` random
+    improving updates replace the fixed ones (min_plus)."""
+    rng = np.random.default_rng(seed)
+    if semiring == "min_plus":
+        w = rng.integers(1, 10**6, (n, n)).astype(np.float32)
+        w[rng.uniform(size=(n, n)) > 0.4] = np.inf
+        np.fill_diagonal(w, 0.0)
+        upd = [(3, 7, 5.0), (n // 2, 2, 3.0), (1, n - 2, 17.0)]
+        if edges is not None:
+            uv = rng.integers(0, n, (edges, 2))
+            upd = [(int(u), int(v), float(rng.integers(1, 100))) for u, v in uv]
+        return w, upd, "fused"
+    if edges is not None:
+        raise ValueError("random edge batches are drawn for min_plus only")
+    if semiring == "max_plus":
+        w = np.full((n, n), -np.inf, np.float32)
+        iu = np.triu_indices(n, 1)
+        mask = rng.uniform(size=len(iu[0])) < 0.3
+        w[iu[0][mask], iu[1][mask]] = rng.integers(1, 100, mask.sum()).astype(np.float32)
+        np.fill_diagonal(w, 0.0)
+        return w, [(3, n // 2, 500.0), (1, n - 2, 400.0)], "fused"
+    if semiring == "max_min":
+        w = rng.integers(1, 100, (n, n)).astype(np.float32)
+        w[rng.uniform(size=(n, n)) > 0.4] = -np.inf
+        np.fill_diagonal(w, np.inf)
+        return w, [(3, 7, 1000.0), (n // 2, 2, 900.0)], "fused"
+    if semiring == "or_and":
+        w = (rng.uniform(size=(n, n)) < 0.05).astype(np.float32)
+        np.fill_diagonal(w, 1.0)
+        return w, [(3, 7, 1.0), (n - 2, 9, 1.0)], "fused"
+    if semiring == "plus_mul":
+        w = np.zeros((n, n), np.float32)
+        iu = np.triu_indices(n, 1)
+        mask = rng.uniform(size=len(iu[0])) < 0.08
+        w[iu[0][mask], iu[1][mask]] = 1.0
+        return w, [(3, n // 2, 1.0), (1, n - 2, 1.0)], "naive"
+    raise ValueError(f"no repair scenario for semiring {semiring!r}")
+
+
+def apply_updates(w: np.ndarray, updates, semiring: str) -> np.ndarray:
+    """The updated weight matrix a re-solve closes: each update ⊕-merged."""
+    sr = SEMIRINGS[semiring]
+    w1 = torch.from_numpy(np.array(w, copy=True))
+    for u, v, d in updates:
+        w1[u, v] = sr.add(w1[u, v], torch.tensor(d, dtype=w1.dtype))
+    return w1.numpy()
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise-equal values, NaN equal to NaN."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _inputs(cfg: dict, device) -> torch.Tensor:
+    n, B = cfg["n"], cfg.get("batch", 1)
+    graphs = [graph_for(cfg["semiring"], n, seed=cfg.get("seed", 0) + i,
+                        density=cfg.get("density", 0.3)) for i in range(B)]
+    w = graphs[0] if B == 1 else np.stack(graphs)
+    return torch.from_numpy(w).to(device)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _median_ms(fn, device, reps: int) -> tuple[float, list[float]]:
+    """Host clock around fn() and a synchronize, median of reps after a
+    warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+# ------------------------------------------------------------ rank functions
+def grid_check(mesh, cfgs: list[dict]) -> list[dict]:
+    """Run each check of ``cfgs`` on this rank (every rank runs the same
+    list); each returns a small record with ``ok`` and what it measured."""
+    return [_check(mesh, dict(cfg)) for cfg in cfgs]
+
+
+def _check(mesh, cfg: dict) -> dict:
+    if cfg.get("repair"):
+        return _check_repair(mesh, cfg)
+    dev = mesh.device
+    sr = SEMIRINGS[cfg["semiring"]]
+    w = _inputs(cfg, dev)
+    s, backend = cfg.get("bs"), cfg.get("backend", "fused")
+    rec = dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=cfg["n"], batch=cfg.get("batch", 1),
+               semiring=sr.name, method=cfg.get("method", "direct"), backend=backend)
+    single = functools.partial(solve, method="fused", semiring=sr, validate=False,
+                               device=dev.type)
+    mesh.comm_bytes = mesh.staged_bytes = 0
+    if rec["method"] == "solve":
+        res = solve(w, method="distributed", mesh=mesh, semiring=sr, block_size=s,
+                    validate=False, device=dev.type)
+        s, got = res.block_size, res.dist
+        want = single(w, block_size=s).dist
+        rec.update(block_size=s, padded_n=res.padded_n, ok=same(got, want))
+        return rec
+    run = functools.partial(fw_distributed, w, mesh, block_size=s, semiring=sr,
+                            backend=backend)
+    fr.reset_launch_counts()
+    local = run()
+    _sync(dev)
+    rounds = cfg["n"] // s
+    rec.update(block_size=s, rounds=rounds, comm_bytes=mesh.comm_bytes,
+               launches={k: fr.LAUNCHES[k] for k in fr.KINDS if "bordered" in k},
+               staged_bytes=mesh.staged_bytes,
+               model_bytes=rounds * plan.dist_round_comm_bytes(
+                   cfg["n"], mesh.R, mesh.C, s, batch=rec["batch"]))
+    if cfg.get("bitwise", True):
+        want = local_block(single(w, block_size=s).dist, mesh)
+        rec["ok"] = same(local, want)
+    else:
+        want = local_block(fw_naive(w, semiring=sr), mesh)
+        rec["ok"] = bool(torch.allclose(local, want, rtol=2e-5, atol=2e-5, equal_nan=True))
+    del local
+    if cfg.get("chunked"):
+        rec["chunked_ok"] = _check_chunked(mesh, w, cfg, s, sr, backend, want)
+    if cfg.get("reps"):
+        rec["ms"], rec["times"] = _median_ms(run, dev, cfg["reps"])
+    if cfg.get("breakdown"):
+        rec["breakdown"], rec["breakdown_ok"] = _breakdown(w, s, want)
+    return rec
+
+
+def _chunked(mesh, w, rounds_per_call: int, restart_at: int, **kw):
+    """(first, again, checkpoints): ``fw_distributed`` in chunks of
+    ``rounds_per_call`` rounds with a checkpoint after each, and a second
+    run restarted from the full matrix gathered at round ``restart_at``."""
+    ckpts, saved = [], {}
+
+    def keep(b, block):
+        ckpts.append(b)
+        if b == restart_at:
+            saved["w"] = gather(block, mesh)
+
+    first = fw_distributed(w, mesh, rounds_per_call=rounds_per_call, checkpoint_cb=keep,
+                           **kw)
+    again = fw_distributed(saved["w"], mesh, rounds_per_call=rounds_per_call,
+                           start_round=restart_at, **kw)
+    return first, again, ckpts
+
+
+def _check_chunked(mesh, w, cfg, s, sr, backend, want) -> bool:
+    rounds = w.shape[-1] // s
+    rpc = cfg.get("rounds_per_call", max(1, rounds // 4))
+    restart_at = cfg.get("restart_at", rpc * (rounds // rpc // 2))
+    first, again, ckpts = _chunked(mesh, w, rpc, restart_at, block_size=s, semiring=sr,
+                                   backend=backend)
+    want_ckpts = [min(b, rounds) for b in range(rpc, rounds + rpc, rpc)]
+    return ckpts == want_ckpts and same(first, want) and same(again, want)
+
+
+def _breakdown(w, s, want) -> tuple[dict, bool]:
+    """Device time by launch kind of a 1×1 grid's fused rounds (CUDA events
+    between launches; each share includes the gap after it): the owner's
+    three border copies and the three bordered launches a round."""
+    n = w.shape[-1]
+    buf = w.new_empty((s + n, s + n))
+    buf[s:, s:] = w
+    loc = buf[s:, s:]
+    bands = fr.bordered_round_buffers(buf, s)
+    steps = []
+    for b in range(n // s):
+        o = slice(b * s, (b + 1) * s)
+
+        def copies(o=o):
+            buf[:s, :s] = loc[o, o]
+            buf[:s, s:] = loc[o, :]
+            buf[s:, :s] = loc[:, o]
+
+        steps.append(("border copies", copies))
+        steps += [(f"fw_round_bordered/{p}",
+                   functools.partial(fr.fw_round_bordered_phase, p, buf, b + 1, b + 1, bands,
+                                     block_size=s)) for p in fr.PHASES]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
+    torch.cuda.synchronize()
+    for (_, launch), e in zip(steps, ev):
+        e.record()
+        launch()
+    ev[-1].record()
+    torch.cuda.synchronize()
+    per: dict[str, float] = {}
+    for (kind, _), a, b in zip(steps, ev, ev[1:]):
+        per[kind] = per.get(kind, 0.0) + a.elapsed_time(b)
+    per["span"] = ev[0].elapsed_time(ev[-1])
+    return per, same(loc, want)
+
+
+def _check_repair(mesh, cfg: dict) -> dict:
+    """Mesh repair == single-device repair == re-solve of the updated graph."""
+    dev = mesh.device
+    name, n = cfg["semiring"], cfg["n"]
+    sr = SEMIRINGS[name]
+    w0, upd, baseline = repair_scenario(name, n, seed=cfg.get("seed", 0),
+                                        edges=cfg.get("edges"))
+    single = ApspEngine(method=baseline, semiring=sr, validate=False, device=dev.type)
+    dist = ApspEngine(method="distributed", mesh=mesh, semiring=sr, validate=False,
+                      device=dev.type)
+    d0 = single.solve(w0).dist
+    mesh.comm_bytes = 0
+    rd = dist.repair(d0, upd).dist
+    comm = mesh.comm_bytes
+    rs = single.repair(d0, upd).dist
+    want = single.solve(apply_updates(w0, upd, name)).dist
+    rec = dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=n, semiring=name, edges=len(upd),
+               repair=True, comm_bytes=comm, ok=same(rd, rs) and same(rs, want))
+    del rd, rs, want
+    if cfg.get("reps"):
+        rec["ms"], rec["times"] = _median_ms(lambda: dist.repair(d0, upd), dev, cfg["reps"])
+        rec["single_ms"], _ = _median_ms(lambda: single.repair(d0, upd), dev, cfg["reps"])
+    else:
+        dist.repair(d0, upd)  # warm: no new runner
+    rec["traces"] = sorted(e.traces for e in dist._cache.values())
+    rec["ok"] = rec["ok"] and all(t == 1 for t in rec["traces"])
+    return rec
+
+
+def run_cases(mesh, cases: list[dict]) -> list[dict]:
+    """Raw results of each case on this rank, as numpy arrays, for a test to
+    hold against the reference.  Kinds: "direct" (``fw_distributed`` of w,
+    gathered, with the bytes counted), "solve" (``solve(method=
+    "distributed")``), "chunked" (checkpointed run and its restart),
+    "repair" / "repair_del" (the mesh engine's ``repair`` / ``repair_del``
+    of a closure), "engine" (``ApspEngine.solve_many`` twice, with the plan
+    cache's builds), "refusals" (the message of each successor request the
+    mesh engine refuses), "imports" (whether the rank has loaded ``jax`` or
+    ``repro``)."""
+    return [_run_case(mesh, case) for case in cases]
+
+
+def _run_case(mesh, case: dict) -> dict:
+    dev = mesh.device
+    kind = case["kind"]
+    sr = SEMIRINGS[case.get("semiring", "min_plus")]
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    if kind == "imports":
+        return {name: name in sys.modules for name in ("jax", "repro")}
+    if kind == "engine":
+        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr,
+                         block_size=case.get("bs"), validate=False, device=dev.type)
+        first = eng.solve_many(case["graphs"])
+        misses = eng.stats.misses
+        eng.solve_many(case["graphs"])
+        return dict(dists=[host(r.dist) for r in first], misses=misses,
+                    hits=eng.stats.hits, cache_size=eng.cache_size,
+                    traces=[e.traces for e in eng._cache.values()])
+    if kind in ("repair", "repair_del", "refusals"):
+        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, validate=False,
+                         device=dev.type)
+        if kind == "repair":
+            res = eng.repair(case["dist"], case["updates"])
+            return dict(dist=host(res.dist), padded_n=res.padded_n)
+        if kind == "repair_del":
+            res = eng.repair_del(case["dist"], case["w1"], case["deletions"],
+                                 threshold=case.get("threshold", 0.5))
+            return dict(dist=host(res.dist), sweeps=eng.stats.repair_dels,
+                        fallbacks=eng.stats.repair_del_fallbacks)
+        w = case["w"]
+        d = eng.solve(w).dist
+        calls = dict(solve=lambda: eng.solve(w, successors=True),
+                     repair=lambda: eng.repair(d, [(0, 1, 1.0)], succ=d.int()),
+                     repair_del=lambda: eng.repair_del(d, w, [(0, 1, 1.0)], succ=d.int()))
+        out = {}
+        for name, call in calls.items():
+            try:
+                call()
+                out[name] = None
+            except ValueError as e:
+                out[name] = str(e)
+        return out
+    w = torch.as_tensor(case["w"]).to(dev)
+    s = case.get("bs")
+    if kind == "solve":
+        res = solve(w, method="distributed", mesh=mesh, semiring=sr, block_size=s,
+                    validate=False, device=dev.type)
+        return dict(dist=host(res.dist), block_size=res.block_size, padded_n=res.padded_n)
+    kw = dict(block_size=s, semiring=sr, backend=case.get("backend", "fused"))
+    if kind == "direct":
+        mesh.comm_bytes = 0
+        local = fw_distributed(w, mesh, **kw)
+        comm = mesh.comm_bytes
+        return dict(dist=host(gather(local, mesh)), comm_bytes=comm)
+    if kind == "chunked":
+        first, again, ckpts = _chunked(mesh, w, case["rounds_per_call"], case["restart_at"],
+                                       **kw)
+        return dict(dist=host(gather(first, mesh)), restarted=host(gather(again, mesh)),
+                    ckpts=ckpts)
+    raise ValueError(f"unknown case kind {kind!r}")
+
+
+# --------------------------------------------------------------------- CLI
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--devices", type=int, default=4, help="ranks of the grid")
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--bs", type=int, default=32)
+    ap.add_argument("--semiring", default="min_plus", choices=sorted(SEMIRINGS))
+    ap.add_argument("--backend", default="fused", choices=["fused", "jnp", "pallas"])
+    ap.add_argument("--method", default="direct", choices=["direct", "solve"])
+    ap.add_argument("--batch", type=int, default=1,
+                    help="solve mode: close B graphs through one batched solve")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="hold against the single-device fused solve, bitwise")
+    ap.add_argument("--chunked", action="store_true",
+                    help="direct mode in chunks, restarted from a checkpoint")
+    ap.add_argument("--repair", action="store_true",
+                    help="mesh repair == single-device repair == re-solve")
+    ap.add_argument("--bench", action="store_true",
+                    help="print METRICS json: per-round ms and collective bytes")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    if args.batch > 1 and not (args.method == "solve" and args.bitwise):
+        ap.error("--batch needs --method solve --bitwise")
+    R, C = plan.mesh_factorization(args.devices)
+    cfg = dict(n=args.n, bs=args.bs, semiring=args.semiring, backend=args.backend,
+               method=args.method, batch=args.batch, bitwise=args.bitwise,
+               chunked=args.chunked, repair=args.repair, reps=3 if args.bench else 0)
+    if args.device == "cuda":
+        from repro_torch.kernels import _build
+
+        # once, before the ranks load them: the round (and the matmul of the
+        # "pallas" backend); the repair's kernels for --repair
+        _build.build_all(("fw_round", "minplus_matmul") + (("fw_repair",) if args.repair
+                                                            else ()))
+    recs = [r[0] for r in run_grid(grid_check, R, C, device=args.device, args=([cfg],))]
+    bad = [r["rank"] for r in recs if not (r["ok"] and r.get("chunked_ok", True))]
+    mode = ("repair" if args.repair else
+            f"{'bitwise' if args.bitwise else 'allclose'} method={args.method}")
+    where = (f"devices={args.devices} grid={R}x{C} n={args.n} bs={recs[0].get('block_size')} "
+             f"semiring={args.semiring} backend={args.backend} device={args.device}")
+    if bad:
+        print(f"FAIL {mode} on ranks {bad}: {where}", file=sys.stderr)
+        return 1
+    if args.bench:
+        r0 = recs[0]
+        rounds = r0["rounds"]
+        dp = plan.distributed_plan(args.n, args.devices, grid=(R, C), block_size=args.bs)
+        metrics = dict(
+            ndev=args.devices, R=R, C=C, n=args.n, bs=args.bs, backend=args.backend,
+            device=args.device, rounds=rounds, solve_ms=r0["ms"],
+            round_ms=r0["ms"] / rounds,
+            comm_counted_bytes=[r["comm_bytes"] / rounds for r in recs],
+            comm_model_bytes=dp["comm_bytes_per_round"],
+            summa_bound_bytes_per_round=dp["summa_bound_bytes"] / rounds,
+            comm_model_efficiency=dp["comm_model_efficiency"],
+        )
+        if not all(r["comm_bytes"] == r["model_bytes"] for r in recs):
+            print(f"FAIL counted collective bytes != model: {metrics}", file=sys.stderr)
+            return 1
+        print("METRICS " + json.dumps(metrics))
+    extra = f" padded={recs[0]['padded_n']}" if args.method == "solve" and not args.repair else ""
+    print(f"OK {mode}{' chunked' if args.chunked else ''} {where} batch={args.batch}{extra}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,6 +7,10 @@ so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,8 @@ from repro_torch.kernels import fw_repair_del as fd
 from repro_torch.kernels import fw_round as fr
 from repro_torch.kernels import minplus_matmul as fmm
 from repro_torch.kernels import ref
+from repro_torch.launch import fw_dist_check as fdc
+from repro_torch.launch.mesh import run_grid
 
 NAMES = sorted(SEMIRINGS)
 
@@ -352,3 +358,52 @@ def test_phase_and_matmul_launches_refuse_what_the_kernels_do_not_take(cuda_devi
         fmm.semiring_matmul(a.double(), a.t().double())
     with pytest.raises(ValueError):  # c on another shape
         fmm.semiring_matmul(a, a.t().contiguous(), torch.zeros(8, 9, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("shape,s", [((80, 48), 16), ((3, 96, 160), 32), ((384, 256), 128)])
+def test_kernel_bordered_round_matches_plain(cuda_device, name, shape, s):
+    sr = SEMIRINGS[name]
+    w = _salted(name, shape, seed=s).to(cuda_device)
+    tr, tc = shape[-2] // s, shape[-1] // s
+    before = fr.LAUNCHES["fw_round_bordered/relax"]
+    echoes = ((-1, -1), (1, 1), (tr - 1, tc - 1), (1, -1), (-1, tc - 1))
+    for echo in echoes:
+        got = fr.fw_round_bordered(w.clone(), *echo, block_size=s, semiring=sr)
+        want = ref.fw_round_bordered_ref(w, *echo, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert _same(got, want), echo
+    assert fr.LAUNCHES["fw_round_bordered/relax"] == before + len(echoes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)])
+def test_grid_solve_on_the_card_matches_fused(cuda_device, grid):
+    """Ranks sharing the card over gloo: fw_distributed (chunked and
+    restarted) and solve(method="distributed") == the fused solve."""
+    from repro_torch.kernels import _build
+
+    _build.build_all()  # once, before the ranks load the libraries
+    cfgs = [dict(n=256, bs=32, semiring="min_plus", chunked=True, rounds_per_call=2,
+                 restart_at=4),
+            dict(n=200, semiring="plus_mul", method="solve")]
+    recs = run_grid(fdc.grid_check, *grid, device="cuda", args=(cfgs,), timeout=300)
+    for rank_recs in recs:
+        direct, via_solve = rank_recs
+        assert direct["ok"] and direct["chunked_ok"] and via_solve["ok"]
+        assert direct["comm_bytes"] == (direct["model_bytes"] if grid != (1, 1) else 0)
+        assert direct["launches"] == dict.fromkeys(direct["launches"], 256 // 32)
+
+
+def test_distributed_modules_import_without_jax():
+    """The distributed solve, the process grid and the check CLI load with
+    jax and the reference package blocked."""
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
+            "import repro_torch.core.distributed, repro_torch.launch.mesh, "
+            "repro_torch.launch.fw_dist_check")
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stderr

@@ -149,8 +149,16 @@ def test_solve_rejects_non_square_input():
     (dict(hbm_budget=1 << 20), "A.10"),
 ])
 def test_not_ported_options_name_their_roadmap_item(kw, item):
+    w = random_digraph(16, seed=0)
+    if item == "A.11":  # ported: the distributed solve needs a mesh, and
+        if "mesh" in kw:  # only method="distributed" reads it
+            assert solve(w, device="cpu", **kw).method == "naive"
+        else:
+            with pytest.raises(ValueError, match="requires a mesh"):
+                solve(w, device="cpu", **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
-        solve(random_digraph(16, seed=0), device="cpu", **kw)
+        solve(w, device="cpu", **kw)
 
 
 def test_solve_without_a_card_raises(monkeypatch):
