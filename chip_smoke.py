@@ -7,8 +7,15 @@
 Phases, each of which raises (exit code 1) on any failure:
 
   1. device: the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/kernels/csrc`` and print their registers and spills.
-  2. check: every kernel held bitwise (NaN equal to NaN) against its plain
+     ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
+     each library's build seconds, registers and spills.
+     signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
+     ∓0) in both orders and with NaN, held to XLA's min / max; then every
+     ported kernel (fused, successor and bordered rounds, semiring_matmul,
+     fw_phase1/2, fw_repair and its twin, the sweep and its twin) on inputs
+     salted with ±0 and NaN against its plain version, by bits.
+  2. check: every kernel held bitwise (by bit view, -0.0 told from +0.0,
+     NaN equal to NaN; ``repro_torch.utils.bits.bits_equal``) against its plain
      torch version on the same card tensors — the fused round on all five
      semirings at (1024,1024) s=128, (4,512,512) batched, n=1000 through
      ``solve`` (padded to 1024), n=100 (s=32) and n=60 (s=16); the
@@ -27,6 +34,11 @@ Phases, each of which raises (exit code 1) on any failure:
      ``fw_phase1``, ``fw_phase2_row`` / ``fw_phase2_col`` (band lengths
      1024 and 1000), and ``fw_staged(fused=False)`` at n=1024 and
      (4,512,512) against the plain 4-dispatch loop and the fused round.
+     The lowered rounds likewise: every storage lowering (int16 ×4,
+     packed or_and, bf16 and f16 ×5, ±0 and NaN salted in the floats) at
+     n=96 (s=32) and n=1024 (s=32, 128), single and batched, the bf16 / f16
+     successor round, and each lowered ``solve`` at n=90 against the plain
+     path on the CPU.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
@@ -34,11 +46,19 @@ Phases, each of which raises (exit code 1) on any failure:
      64 and 256 affected rows; ``semiring_matmul`` also in plus_mul beside
      ``torch.addmm`` at the phase-3 shape and at 4096³ in min-plus and
      plus_mul, the latter beside ``torch.matmul`` (TF32 off).
+     The lowered launch kinds likewise at n=8192 (successors n=4096).
   4. main path: ``solve(w)`` at n=8192 (min-plus, f32, a seeded random
      digraph of density 0.5) and ``solve(w, successors=True)`` at n=4096,
      with the launch counts of that run, bitwise against the plain round
      loop, then timed (warm-up, median of 3; host clock around work that
-     ends in ``synchronize()``).
+     ends in ``synchronize()``).  The lowered main path the same way: the
+     n=8192 graph with dtype=int16, in bf16 and in f16, 32 graphs of
+     n=8192 through ``solve(packed=True)``, bf16 / f16 successors at
+     n=4096, with device time by launch kind.  ``flash_decode`` at the
+     Qwen2-7B decode shape (B 8, Hkv 4, g 7, hd 128, S 32768, kv_len
+     32000) in bf16 and f32, within 2e-2 / 2e-5 of its plain versions,
+     poisoned tail and kv_len=0 checked, timed beside
+     ``scaled_dot_product_attention``.
   5. engine path: ``ApspEngine`` solve + 16-edge ``repair`` at n=8192,
      successor solve + repair at n=4096 and n=512, ``solve_many`` of 32
      ragged graphs with next hops, with the launch counts of that run;
@@ -81,6 +101,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -103,7 +124,10 @@ SOURCES = {
     "fw_phase2_row": "src/repro_torch/kernels/csrc/fw_phase.cu",
     "fw_phase2_col": "src/repro_torch/kernels/csrc/fw_phase.cu",
     "fw_round_bordered": "src/repro_torch/kernels/csrc/fw_round.cu",
+    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
 }
+# The lowered launch kinds (``lowered_kinds``) are built from here.
+LOWERED_SOURCE = "src/repro_torch/kernels/csrc/fw_round_lowered.cu"
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
     "fw_round_with_successors": "src/repro/kernels/fw_round.py:611",
@@ -117,6 +141,7 @@ REPLACES = {
     "fw_phase2_row": "src/repro/kernels/fw_phase2.py:45",
     "fw_phase2_col": "src/repro/kernels/fw_phase2.py:91",
     "fw_round_bordered": "src/repro/kernels/fw_round.py:515",
+    "flash_decode": "src/repro/kernels/flash_decode.py:68",
 }
 
 
@@ -124,12 +149,24 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def same(a, b) -> bool:
-    """Bitwise-equal values, NaN equal to NaN (torch.equal says NaN != NaN)."""
-    import torch
+@functools.cache
+def lowered_kinds() -> frozenset:
+    """The launch kinds of the storage lowerings (``fw_round/relax[int16]``
+    …), from ``fw_round.LOWERINGS`` / ``SUCC_LOWERINGS``."""
+    from repro_torch.kernels import fw_round as fr
 
-    return a.shape == b.shape and a.dtype == b.dtype and bool(
-        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return frozenset(
+        [f"fw_round/{p}[{tag}]" for tag in fr.LOWERINGS for p in fr.PHASES]
+        + [f"fw_round_with_successors/{p}[{tag}]" for tag in fr.SUCC_LOWERINGS
+           for p in fr.PHASES])
+
+
+def same(a, b) -> bool:
+    """Equal by bit view (``repro_torch.utils.bits.bits_equal``): dtype,
+    shape and bits, -0.0 told from +0.0, every NaN equal to every NaN."""
+    from repro_torch.utils.bits import bits_equal
+
+    return bits_equal(a, b)
 
 
 def require(cond: bool, what: str) -> None:
@@ -261,8 +298,9 @@ def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
     ``library``: the ms of one PyTorch call computing the same function."""
     bms, by = bound(ops, nbytes)
     fn = kind.split("/")[0]
+    source = LOWERED_SOURCE if kind in lowered_kinds() else SOURCES[fn]
     if store:
-        rows[kind] = dict(name=kind, route="cuda", source=SOURCES[fn], replaces=REPLACES[fn],
+        rows[kind] = dict(name=kind, route="cuda", source=source, replaces=REPLACES[fn],
                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
                           bound_ms=bms, bound_by=by, library_ms=library)
     lib = "" if library is None else f", library {library:.4f} ms"
@@ -284,23 +322,20 @@ def phase_device():
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
     for built in _build.build_all():
-        print(f"built {built.path.name} in {built.seconds:.1f} s")
-        func, spill = None, ""
+        regs, spills, kernels = 0, [], 0
+        func = None
         for line in built.log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                func = m.group(1)
-                kern = re.search(r"([a-z_]+_kernel)", func)
-                size = re.search(r"ILi(\d+)E", func)
-                op = re.search(r"(MinPlus|MaxPlus|MaxMin|PlusMul)", func)
-                func = "/".join(x.group(1) for x in (kern, size, op) if x)
+                func, kernels = m.group(1), kernels + 1
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and m.group(1) != "0" and func:
+                spills.append(f"{func} {m.group(1)}/{m.group(2)} B")
+            m = re.search(r"Used (\d+) registers", line)
             if m:
-                spill = f"spill {m.group(1)}/{m.group(2)} B"
-            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-            if m and func:
-                print(f"  ptxas {func}: {m.group(1)} regs, {m.group(2) or 0} B static "
-                      f"smem, {spill}")
+                regs = max(regs, int(m.group(1)))
+        print(f"built {built.path.name} in {built.seconds:.1f} s: {kernels} kernels, at most "
+              f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
     return name
 
 
@@ -517,8 +552,8 @@ def phase_main(rows: dict, n: int, n_succ: int, s: int = 128):
     counts = dict(fr.LAUNCHES)
     print(f"main path launch counts: {json.dumps(counts)}")
     for kind in fr.KINDS:
-        if kind.startswith("fw_round_bordered/"):
-            continue  # the distributed path's (phase_dist)
+        if kind.startswith("fw_round_bordered/") or kind in lowered_kinds():
+            continue  # the distributed path's (phase_dist), the lowered path's
         rows[kind]["launches"] = counts[kind]
         require(counts[kind] > 0, f"{kind} was not launched on the main path")
     require(res.method == "fused" and res.block_size == s, f"solve took {res.method}")
@@ -1071,7 +1106,8 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     noop = fresh.repair_del(r0.dist, w_off, [(u_off, v_off, float(w[u_off, v_off]))])
     sync()
     counts = dict(fd.LAUNCHES)
-    round_counts = {k: fr.LAUNCHES[k] for k in fr.KINDS if k.startswith("fw_round/")}
+    round_counts = {k: fr.LAUNCHES[k] for k in fr.KINDS if k.startswith("fw_round/")
+                    and k not in lowered_kinds()}
     print(f"repair_del path launch counts: {json.dumps(counts)}; round launches of its "
           f"re-solves (min_plus threshold 0, plus_mul): {json.dumps(round_counts)}")
     for kind in fd.KINDS:
@@ -1603,6 +1639,686 @@ def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
               f"padded {r0['padded_n']}, rank block ({n_small // 4},{n_small // 2}))")
 
 
+# --------------------------------------------------- signed zero and NaN
+def domain_graph(name: str, shape, seed: int):
+    """A graph whose closure keeps most entries finite: min_plus weights in
+    [1, 10), max_plus and max_min in [-10, -1) (so no cycle grows under
+    max), 30 % 0̄; or_and 10 % ones; plus_mul [0, 1/n); the diagonal 1̄."""
+    import numpy as np
+
+    from repro_torch.core.semiring import SEMIRINGS
+
+    if name not in ("max_plus", "max_min"):
+        return graph(name, shape, seed)
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-10.0, -1.0, size=shape).astype(np.float32)
+    w[rng.uniform(size=shape) < 0.3] = SEMIRINGS[name].zero
+    idx = np.arange(shape[-1])
+    w[..., idx, idx] = SEMIRINGS[name].one
+    return w
+
+
+def signed_zero_graph(name: str, shape, seed: int):
+    """domain_graph with +0 and -0 salted in and no NaN, so a wrong sign
+    shows in the output: 3 % of the entries +0 and 3 % -0.  A max keeps -0
+    only where no candidate is +0, and + gives -0 only from two -0s, so
+    max_plus takes 0.3 % of each, and or_and holds 1 % ones, 1 % +0 and -0
+    elsewhere (its 10 % ones would close every pair).  The diagonal 1̄ of
+    min_plus / max_plus is -0, the exact identity of + (+0 would turn every
+    -0 it meets into +0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    u = rng.uniform(size=shape)
+    if name == "or_and":
+        w = np.where(rng.uniform(size=shape) < 0.01, 1.0, -0.0).astype(np.float32)
+        w[u < 0.01] = 0.0
+        idx = np.arange(shape[-1])
+        w[..., idx, idx] = 1.0
+        return w
+    w = domain_graph(name, shape, seed)
+    if name in ("min_plus", "max_plus"):
+        idx = np.arange(shape[-1])
+        w[..., idx, idx] = -0.0
+    share = 0.003 if name == "max_plus" else 0.03
+    w[u < share] = 0.0
+    w[(u >= share) & (u < 2 * share)] = -0.0
+    return w
+
+
+def nan_salted(w, seed: int, count: int, keep_out):
+    """w (numpy, copied) with ``count`` NaNs in every graph, at random
+    positions outside the diagonal tiles ``keep_out`` ((lo, hi) index
+    ranges): there a NaN spreads along one row or column of a round's or a
+    panel's output at most, so the output stays mostly finite."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = w.copy()
+    placed = 0
+    while placed < count:
+        i, j = (int(x) for x in rng.integers(0, w.shape[-1], 2))
+        if not any(lo <= i < hi and lo <= j < hi for lo, hi in keep_out):
+            w[..., i, j] = np.nan
+            placed += 1
+    return w
+
+
+def value_shares(t) -> tuple[float, int, int, int]:
+    """(finite share, +0 count, -0 count, NaN count) of a float tensor."""
+    import torch
+
+    t = t.float()
+    zero = t == 0
+    neg = zero & torch.signbit(t)
+    return (float(torch.isfinite(t).float().mean()), int((zero & ~neg).sum()),
+            int(neg.sum()), int(torch.isnan(t).sum()))
+
+
+def salted_cases(name: str, w, wb, tiles, s: int):
+    """(what, kernel result, plain result) of every ported kernel on one
+    semiring's inputs: w (n, n), wb (2, n/2, n/2) and tiles (4, s, s), on
+    the card or (for the plain side only) on the CPU.  Rounds run pivot 3
+    of w and 1 of wb, the bordered round the (s + 512, s + 768) corner,
+    the panels the first block row and column."""
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_phase1, fw_phase2
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    sr, n = SEMIRINGS[name], w.shape[-1]
+    corner = w[:s + 512, :s + 768].contiguous()
+    diag = fw_phase1.fw_phase1(tiles[0], semiring=sr)
+    edges = repair_edges(name, n, 5, 43)
+    cases = [
+        ("fw_round", fr.fw_round(w.clone(), 3, block_size=s, semiring=sr),
+         ref.fw_round_ref(w, 3, block_size=s, semiring=sr)),
+        ("fw_round batched", fr.fw_round(wb.clone(), 1, block_size=64, semiring=sr),
+         ref.fw_round_ref(wb, 1, block_size=64, semiring=sr)),
+        ("fw_round_bordered", fr.fw_round_bordered(corner.clone(), 1, 1, block_size=s,
+                                                  semiring=sr),
+         ref.fw_round_bordered_ref(corner, 1, 1, block_size=s, semiring=sr)),
+        ("semiring_matmul", fmm.semiring_matmul(w[:, :s], w[:s], w, semiring=sr),
+         ref.semiring_matmul_ref(w[:, :s], w[:s], w, semiring=sr)),
+        ("fw_phase1", fw_phase1.fw_phase1(tiles, semiring=sr),
+         ref.fw_phase1_ref(tiles, semiring=sr)),
+        ("fw_phase2_row", fw_phase2.fw_phase2_row(diag, w[:s], semiring=sr),
+         ref.fw_phase2_row_ref(diag, w[:s], semiring=sr)),
+        ("fw_phase2_col", fw_phase2.fw_phase2_col(diag, w[:, :s].contiguous(), semiring=sr),
+         ref.fw_phase2_col_ref(diag, w[:, :s], semiring=sr)),
+        ("fw_repair", fp.fw_repair(w, *edges, semiring=sr),
+         ref.fw_repair_ref(w, *edges, semiring=sr)),
+    ]
+    if name in IDEMPOTENT:
+        rows = strip_rows(n, 37, seed=44)
+        cases.append(("fw_repair_del_sweep",
+                      fd.fw_repair_del_sweep(w, rows, block_size=s, semiring=sr),
+                      ref.fw_repair_del_sweep_ref(w, rows, block_size=s, semiring=sr)))
+    if name == "min_plus":
+        succ = _init_successors(w).contiguous()
+        edges = repair_edges(name, n, 5, 45)
+        rows = strip_rows(n, 37, seed=46)
+        for what, got, want in (
+            ("fw_round_with_successors",
+             fr.fw_round_with_successors(w.clone(), succ.clone(), 2, block_size=s),
+             ref.fw_round_with_successors_ref(w, succ, 2, block_size=s)),
+            ("fw_repair_with_successors", fp.fw_repair_with_successors(w, succ, *edges),
+             ref.fw_repair_with_successors_ref(w, succ, *edges)),
+            ("fw_repair_del_sweep_with_successors",
+             fd.fw_repair_del_sweep_with_successors(w, succ, rows, block_size=s),
+             ref.fw_repair_del_sweep_with_successors_ref(w, succ, rows, block_size=s)),
+        ):
+            cases += [(what, got[0], want[0]), (what + " next hops", got[1], want[1])]
+    return cases
+
+
+def salted_inputs(name: str, kind: str, n: int, s: int, dev):
+    """(w, wb, tiles) of salted_cases: signed-zero graphs (kind "zero"), or
+    domain graphs with NaNs kept off the diagonal tiles, whose closure
+    would spread them over the whole output (kind "nan"; among the
+    (4, s, s) tiles only the last holds a NaN)."""
+    import torch
+
+    make = signed_zero_graph if kind == "zero" else domain_graph
+    w, wb = make(name, (n, n), 41), make(name, (2, n // 2, n // 2), 42)
+    tiles = make(name, (4, s, s), 43)
+    if kind == "nan":
+        w = nan_salted(w, 51, 16, [(b * s, b * s + s) for b in range(n // s)])
+        w[s + 5, 7] = w[9, s + 11] = float("nan")  # one in each panel
+        wb = nan_salted(wb, 52, 8, [(b * 64, b * 64 + 64) for b in range(n // 128)])
+        tiles[3] = nan_salted(tiles[3], 53, 1, [])
+    return tuple(torch.from_numpy(x).to(dev) for x in (w, wb, tiles))
+
+
+def require_salt_survives(what: str, name: str, want, *, zeros: bool, nans: bool):
+    """The plain output of a salted case must stay mostly finite (at least
+    half its entries) and still carry its salt: zeros of both signs where
+    the semiring keeps them (the four idempotent ones; plus_mul sums every
+    term, so its output holds a -0 only where all of them are -0, and its
+    zero case checks that ±0 factors leave the sums' bits alone), NaNs
+    where NaNs went in.  Returns the output's (+0, -0, NaN) counts."""
+    if not want.is_floating_point():
+        return 0, 0, 0
+    finite, pos, neg, nan = value_shares(want)
+    require(finite >= 0.5, f"{what} {name}: only {finite:.3f} of the output is finite")
+    if zeros and name in IDEMPOTENT:
+        require(pos > 0 and neg > 0, f"{what} {name}: the output holds {pos} +0 and {neg} -0")
+    if nans:
+        require(nan > 0, f"{what} {name}: no NaN reached the output")
+    return pos, neg, nan
+
+
+def planted_zero_matrix(name: str, n: int = 32):
+    """A (n, n) min_plus or max_plus matrix, 0̄ but for the +0 diagonal and
+    four planted two-step paths whose ⊕ must choose between +0 and -0:
+    cells (1, 2) and (4, 5) in round 0's pivot tile at s = 16, (17, 18) and
+    (20, 21) in the block it relaxes.  In cells (1, 2) and (17, 18) the
+    accumulator holds the sign min keeps last (+0 for min, -0 for max) and
+    the path brings the other; in (4, 5) and (20, 21) the other way round.
+    Returns (w, cells): min must leave -0 in every cell, max +0."""
+    import numpy as np
+
+    from repro_torch.core.semiring import SEMIRINGS
+
+    z1, z2 = (0.0, -0.0) if name == "min_plus" else (-0.0, 0.0)
+    w = np.full((n, n), SEMIRINGS[name].zero, np.float32)
+    np.fill_diagonal(w, 0.0)
+    cells = []
+    for (i, j), k, acc, step in (((1, 2), 3, z1, z2), ((4, 5), 6, z2, z1),
+                                 ((17, 18), 7, z1, z2), ((20, 21), 9, z2, z1)):
+        w[i, j], w[i, k], w[k, j] = acc, step, step
+        cells.append((i, j))
+    return w, cells
+
+
+def phase_signed_zero():
+    """C.1 on the card.  What min.NaN / max.NaN (``csrc/semiring.cuh``) do
+    with ±0 in both argument orders, through the kernels that use them: the
+    f32 round and ``fw_phase1`` and the bf16 / f16 round on
+    ``planted_zero_matrix`` (XLA's rule: min(±0, ∓0) = -0, max = +0).  Then
+    every ported kernel against its plain version, by bits, on two inputs
+    of each semiring: signed zeros without NaN, and NaNs kept where they
+    cannot flood the output; each plain output must stay mostly finite and
+    keep its salt (``require_salt_survives``)."""
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_phase1
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    for name in ("min_plus", "max_plus"):
+        sr = SEMIRINGS[name]
+        w32, cells = planted_zero_matrix(name)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            w = torch.from_numpy(w32).to(dev).to(dt)
+            got = fr.fw_round(w.clone(), 0, block_size=16, semiring=sr)
+            want = ref.fw_round_ref(w, 0, block_size=16, semiring=sr)
+            results = [("fw_round", got, want)]
+            if dt == torch.float32:
+                results.append(("fw_phase1", fw_phase1.fw_phase1(w[:16, :16], semiring=sr),
+                                ref.fw_phase1_ref(w[:16, :16], semiring=sr)))
+            sync()
+            for what, g, x in results:
+                signs = [bool(torch.signbit(g[i, j])) for i, j in cells if i < g.shape[0]]
+                print(f"signed zero {what} {name} {str(dt)[6:]}: planted cells "
+                      f"{['-0' if sb else '+0' for sb in signs]}")
+                require(same(g, x) and all(sb == (name == "min_plus") for sb in signs),
+                        f"{what} {name} {dt}: min.NaN / max.NaN do not give XLA's sign "
+                        f"for (±0, ∓0)")
+    print("signed zero: min.NaN.f32 gives -0 and max.NaN.f32 +0 for (+0, -0) and (-0, +0) "
+          "inside the round and phase 1 kernels, as XLA's min / max do: semiring.cuh needs "
+          "no sign fix")
+
+    n, s = 1024, 128
+    for kind in ("zero", "nan"):
+        checked, pos, neg, nans, least = 0, 0, 0, 0, 1.0
+        for name in sorted(SEMIRINGS):
+            w, wb, tiles = salted_inputs(name, kind, n, s, dev)
+            cases = salted_cases(name, w, wb, tiles, s)
+            sync()
+            for what, got, want in cases:
+                require(same(got, want), f"{what} {name} on {kind}-salted inputs != plain (bits)")
+                p, q, r = require_salt_survives(what, name, want, zeros=kind == "zero",
+                                                nans=kind == "nan")
+                pos, neg, nans = pos + p, neg + q, nans + r
+                if want.is_floating_point():
+                    least = min(least, value_shares(want)[0])
+                checked += 1
+        print(f"check: {checked} kernel-vs-plain cases on {kind}-salted inputs equal by bits "
+              f"(outputs: {pos} +0, {neg} -0, {nans} NaN; least finite share {least:.4f})")
+
+
+# ------------------------------------------------------ storage lowerings
+LOWERED_CASES = ([("int16", n) for n in IDEMPOTENT] + [("packed", "or_and")]
+                 + [(t, n) for t in ("bf16", "f16")
+                    for n in ("max_min", "max_plus", "min_plus", "or_and", "plus_mul")])
+# Operations of one lowered min-plus relaxation, for the bounds, counted as
+# the f32 rows count theirs (add, min = 2) and as csrc/fw_round_lowered.cu
+# says: one for each arithmetic op, rounding or select made per (i, j, k).
+# bf16 / f16 add, round, min; int16 add, clamp ×2, the two sentinel
+# selects, min (each sentinel test looks at one operand only, so it is made
+# per (i, k) or (k, j), not per triple); packed one LOP3 for 32 graphs.
+LOWERED_OPS = {"bf16": 3, "f16": 3, "int16": 6, "packed": 1}
+LOWERED_WORD = {"bf16": 2, "f16": 2, "int16": 2, "packed": 4}
+
+
+def lowered_case(tag: str, name: str, shape, seed: int, s: int):
+    """(w on the card, its semiring) of a lowered round at block size s:
+    int16 weights with the ⊕-identity sentinel and near-saturation values,
+    {0,1} for or_and_i16, random int32 words for the packed closure, or
+    ``signed_zero_graph`` cast to bf16 / f16 with two NaNs a graph off the
+    diagonal tiles (where a round cannot spread them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.semiring import OR_AND_PACKED, SEMIRINGS, lower_semiring
+
+    rng = np.random.default_rng(seed)
+    if tag == "packed":
+        words = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(words.view(np.int32)).cuda(), OR_AND_PACKED
+    if tag == "int16":
+        sr = lower_semiring(SEMIRINGS[name], torch.int16)
+        if name == "or_and":
+            return torch.from_numpy((rng.uniform(size=shape) < 0.25).astype(np.int16)).cuda(), sr
+        v = rng.integers(-40, 40, size=shape).astype(np.int16)
+        v[rng.uniform(size=shape) < 0.02] = 32000
+        v[rng.uniform(size=shape) < 0.02] = -32000
+        v[rng.uniform(size=shape) < 0.15] = sr.zero
+        return torch.from_numpy(v).cuda(), sr
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16}[tag]
+    n = shape[-1]
+    w = nan_salted(signed_zero_graph(name, shape, seed), seed, 2,
+                   [(b * s, b * s + s) for b in range(n // s)])
+    return torch.from_numpy(w).cuda().to(dt), SEMIRINGS[name]
+
+
+def phase_check_lowered():
+    """The lowered round kernels bitwise against their plain versions on the
+    card: every lowering (int16 ×4, packed, bf16 and f16 ×5) at n = 96 (s =
+    32) and n = 1024 (s = 32, 128), single and batched, the middle round;
+    the successor round on bf16 and f16 likewise; and each lowered
+    ``solve`` at n = 90 (padded) on the card against the plain path on the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import solve
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    checked = 0
+    shapes = [((96, 96), 32), ((3, 96, 96), 32), ((1024, 1024), 32), ((2, 1024, 1024), 32),
+              ((1024, 1024), 128), ((2, 1024, 1024), 128)]
+    pos = neg = nans = 0
+    for tag, name in LOWERED_CASES:
+        for shape, s in shapes:
+            w, sr = lowered_case(tag, name, shape, seed=shape[-1] + s, s=s)
+            b = shape[-1] // s // 2
+            got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
+            want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
+            sync()
+            what = f"fw_round[{tag}] {shape} s={s}"
+            require(got.dtype == w.dtype and same(got, want), f"{what} {name} != plain")
+            if tag in ("bf16", "f16"):
+                p, q, r = require_salt_survives(what, name, want, zeros=True, nans=True)
+                pos, neg, nans = pos + p, neg + q, nans + r
+            checked += 1
+    for dt in (torch.bfloat16, torch.float16):
+        for shape, s in shapes:
+            w = torch.from_numpy(signed_zero_graph("min_plus", shape, s)).cuda().to(dt)
+            succ = _init_successors(w).contiguous()
+            b = shape[-1] // s // 2
+            gd, gs = fr.fw_round_with_successors(w.clone(), succ.clone(), b, block_size=s)
+            wd, ws = ref.fw_round_with_successors_ref(w, succ, b, block_size=s)
+            sync()
+            require(same(gd, wd) and same(gs, ws),
+                    f"fw_round_with_successors[{dt}] {shape} s={s} != plain")
+            checked += 1
+    rng = np.random.default_rng(47)
+    w = rng.integers(1, 60, size=(2, 90, 90)).astype(np.float32)
+    w[rng.uniform(size=w.shape) < 0.5] = np.inf
+    w[:, np.arange(90), np.arange(90)] = 0.0
+    bits = (rng.uniform(size=(37, 90, 90)) < 0.04).astype(np.float32)
+    solves = [dict(w=w, dtype=torch.int16), dict(w=w, dtype=torch.bfloat16),
+              dict(w=w, dtype=torch.float16), dict(w=w, dtype=torch.bfloat16, successors=True),
+              dict(w=w, semiring="max_min", dtype=torch.int16),
+              dict(w=bits, semiring="or_and", packed=True)]
+    for kw in solves:
+        kw = dict(kw, method="fused", block_size=32)
+        got = solve(**kw)
+        want = solve(**kw, device="cpu")
+        require(same(got.dist.cpu(), want.dist) and (
+            want.succ is None or same(got.succ.cpu(), want.succ)),
+            f"lowered solve {({k: v for k, v in kw.items() if k != 'w'})}: card != plain on the CPU")
+        checked += 1
+    print(f"check: {checked} lowered kernel-vs-plain cases bitwise equal (the bf16 / f16 "
+          f"rounds salted with ±0 and off-diagonal NaN; their outputs: {pos} +0, {neg} -0, "
+          f"{nans} NaN)")
+
+
+def packed_graphs(count: int, n: int, seed: int):
+    """``count`` random digraphs of n vertices as bool (count, n, n) on the
+    card: edge probability 2/n (a mean out-degree of 2, so closures grow
+    over many rounds), self-loops set."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = torch.empty((count, n, n), dtype=torch.bool, device="cuda")
+    for g in range(count):
+        out[g] = torch.rand((n, n), generator=gen, device="cuda") < 2.0 / n
+    out[:, torch.arange(n), torch.arange(n)] = True
+    return out
+
+
+def phase_kernels_lowered(rows: dict, n: int, n_succ: int, s: int = 128):
+    """Each lowered launch kind alone at the lowered main path's shapes
+    (n = 8192, s = 128, round T/2; successors at n_succ) against the plain
+    version of its phase: the int16 and bf16 / f16 min-plus lowerings and
+    the packed or_and words.  Bound: operations (``LOWERED_OPS`` a
+    relaxation) over 67 TOP/s, or bytes in the storage word over 3.35 TB/s,
+    whichever is larger."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import api
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    record = functools.partial(record_kernel, rows)
+    T = n // s
+    b = T // 2
+    o = slice(b * s, (b + 1) * s)
+    w32 = torch.from_numpy(random_digraph(n, density=0.5, seed=1)).cuda()
+    words = np.random.default_rng(48).integers(0, 1 << 32, (n, n), dtype=np.uint64)
+    inputs = {
+        "int16": (api._coerce(w32, MIN_PLUS_I16, None, w32.device), MIN_PLUS_I16),
+        "bf16": (w32.to(torch.bfloat16), MIN_PLUS),
+        "f16": (w32.to(torch.float16), MIN_PLUS),
+        "packed": (torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda(), OR_AND_PACKED),
+    }
+    del w32, words
+    for tag, (w, sr) in inputs.items():
+        ops, word = LOWERED_OPS[tag], LOWERED_WORD[tag]
+        bands = fr.round_buffers(w, s)
+        kw = dict(block_size=s, semiring=sr)
+        fr.fw_round_phase("diag", w, b, bands, **kw)
+        diag = ref.close_diag(w[o, o], sr)
+        sync()
+        require(same(bands[0][0, :, o], diag) and same(bands[1][0, o, :], diag),
+                f"diag[{tag}] launch != plain close_diag")
+        record(f"fw_round/diag[{tag}]", max_abs_err(bands[0][0, :, o], diag),
+               event_ms(lambda: fr.fw_round_phase("diag", w, b, bands, **kw), 11),
+               event_ms(lambda: ref.close_diag(w[o, o], sr), 3), ops * s**3, 2 * s * s * word)
+        fr.fw_round_phase("bands", w, b, bands, **kw)
+        row, col = ref.close_bands(w, diag, b, sr)
+        sync()
+        require(same(bands[0][0], row) and same(bands[1][0], col),
+                f"bands[{tag}] launch != plain close_bands")
+        tiles = 2 * (T - 1)
+        record(f"fw_round/bands[{tag}]",
+               max(max_abs_err(bands[0][0], row), max_abs_err(bands[1][0], col)),
+               event_ms(lambda: fr.fw_round_phase("bands", w, b, bands, **kw), 11),
+               event_ms(lambda: ref.close_bands(w, diag, b, sr), 3),
+               ops * tiles * s**3, (s * s + 2 * tiles * s * s) * word)
+        wk = w.clone()
+        fr.fw_round_phase("relax", wk, b, bands, **kw)
+        want = ref.relax(w, row, col, b, semiring=sr)
+        sync()
+        require(same(wk, want), f"relax[{tag}] launch != plain relax")
+        record(f"fw_round/relax[{tag}]", max_abs_err(wk, want),
+               event_ms(lambda: fr.fw_round_phase("relax", wk, b, bands, **kw), 5),
+               event_ms(lambda: ref.relax(w, row, col, b, semiring=sr), 1),
+               ops * n * n * s, (2 * n * n + 2 * n * s) * word)
+        del w, wk, want, bands, row, col
+    inputs.clear()
+
+    T = n_succ // s
+    b = T // 2
+    o = slice(b * s, (b + 1) * s)
+    w32 = torch.from_numpy(random_digraph(n_succ, density=0.5, seed=2)).cuda()
+    succ = _init_successors(w32).contiguous()
+    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        w = w32.to(dt)
+        bands = fr.succ_round_buffers(w, s)
+        word = 2 + 4  # distance + next hop
+        fr.fw_round_with_successors_phase("diag", w, succ, b, bands, block_size=s)
+        diag, dsucc = ref.close_diag_succ(w[o, o], succ[o, o])
+        sync()
+        require(same(bands[0][0, :, o], diag) and same(bands[2][0, :, o], dsucc),
+                f"successor diag[{tag}] launch != plain")
+        record(f"fw_round_with_successors/diag[{tag}]", max_abs_err(bands[0][0, :, o], diag),
+               event_ms(lambda: fr.fw_round_with_successors_phase(
+                   "diag", w, succ, b, bands, block_size=s), 11),
+               event_ms(lambda: ref.close_diag_succ(w[o, o], succ[o, o]), 3),
+               3.0 * s**3, 2 * s * s * word)
+        fr.fw_round_with_successors_phase("bands", w, succ, b, bands, block_size=s)
+        want_b = ref.close_bands_succ(w, succ, diag, dsucc, b)
+        sync()
+        require(all(same(g[0], x) for g, x in zip(bands, (want_b[0], want_b[2], want_b[1],
+                                                            want_b[3]))),
+                f"successor bands[{tag}] launch != plain")
+        tiles = 2 * (T - 1)
+        record(f"fw_round_with_successors/bands[{tag}]",
+               max(max_abs_err(bands[0][0], want_b[0]), max_abs_err(bands[1][0], want_b[2])),
+               event_ms(lambda: fr.fw_round_with_successors_phase(
+                   "bands", w, succ, b, bands, block_size=s), 11),
+               event_ms(lambda: ref.close_bands_succ(w, succ, diag, dsucc, b), 3),
+               3.0 * tiles * s**3, (s * s + 2 * tiles * s * s) * word)
+        wk, sk = w.clone(), succ.clone()
+        fr.fw_round_with_successors_phase("relax", wk, sk, b, bands, block_size=s)
+        wd, ws = ref.relax_succ_tiles(w, succ, *want_b, b)
+        sync()
+        require(same(wk, wd) and same(sk, ws), f"successor relax[{tag}] launch != plain")
+        record(f"fw_round_with_successors/relax[{tag}]", max_abs_err(wk, wd),
+               event_ms(lambda: fr.fw_round_with_successors_phase(
+                   "relax", wk, sk, b, bands, block_size=s), 5),
+               event_ms(lambda: ref.relax_succ_tiles(w, succ, *want_b, b), 1),
+               3.0 * n_succ * n_succ * s, (2 * n_succ * n_succ + 2 * n_succ * s) * word)
+        del w, wk, sk, bands, want_b, wd, ws
+
+
+def phase_main_lowered(rows: dict, n: int, n_succ: int, s: int = 128, graphs: int = 32):
+    """The lowered main path: ``solve`` of the main path's n = 8192 graph with
+    dtype=int16, in bf16 and in f16; ``solve(bits, semiring="or_and",
+    packed=True)`` of 32 graphs of n = 8192; ``solve(successors=True)`` of
+    the n_succ graph in bf16 and in f16.  Launch counts of that run; each
+    result against its plain round loop on the card by bits; median of 3
+    and device time by launch kind."""
+    import torch
+
+    from repro_torch.apsp import api, solve
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+    from repro_torch.kernels import fw_round as fr
+
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
+    ws = torch.from_numpy(random_digraph(n_succ, density=0.5, seed=3)).cuda()
+    wb, wh = w.to(torch.bfloat16), w.to(torch.float16)
+    wsb, wsh = ws.to(torch.bfloat16), ws.to(torch.float16)
+    bits = packed_graphs(graphs, n, seed=49)
+    del ws
+    runs = {
+        "int16": lambda: solve(w, dtype=torch.int16),
+        "bf16": lambda: solve(wb),
+        "f16": lambda: solve(wh),
+        "packed": lambda: solve(bits, semiring="or_and", packed=True),
+        "bf16 successors": lambda: solve(wsb, successors=True),
+        "f16 successors": lambda: solve(wsh, successors=True),
+    }
+    fr.reset_launch_counts()
+    results = {label: run() for label, run in runs.items()}
+    sync()
+    counts = dict(fr.LAUNCHES)
+    print(f"lowered main path launch counts: {json.dumps({k: v for k, v in counts.items() if v})}")
+    for kind in sorted(lowered_kinds()):
+        rows[kind]["launches"] = counts[kind]
+        require(counts[kind] > 0, f"{kind} was not launched on the lowered main path")
+
+    def check(label, got, want, plain_ms):
+        require(same(got, want), f"lowered solve {label} != plain round loop")
+        print(f"main lowered {label}: == plain round loop on the card by bits "
+              f"(plain {plain_ms:.0f} ms)")
+
+    plain = {}
+    for label, wt, sr in (("int16", api._coerce(w, MIN_PLUS_I16, None, w.device), MIN_PLUS_I16),
+                          ("bf16", wb, MIN_PLUS), ("f16", wh, MIN_PLUS)):
+        t0 = time.perf_counter()
+        want = plain_solve(wt, block_size=s, semiring=sr)
+        sync()
+        plain[label] = (time.perf_counter() - t0) * 1e3
+        check(label, results[label].dist, want, plain[label])
+        require(results[label].dist.dtype == wt.dtype, f"{label} solve changed the dtype")
+        del want
+    words = api.pack_reachability(bits)
+    t0 = time.perf_counter()
+    want = api.unpack_reachability(plain_solve(words, block_size=s, semiring=OR_AND_PACKED),
+                                   graphs, dtype=torch.bool)
+    sync()
+    plain["packed"] = (time.perf_counter() - t0) * 1e3
+    check("packed", results["packed"].dist, want, plain["packed"])
+    reach = results["packed"].dist.sum(dim=(1, 2)).float().mean().item() / n / n
+    print(f"main lowered packed: {graphs} graphs of n={n}, mean reachable share {reach:.4f}")
+    del want
+    for label, wt in (("bf16 successors", wsb), ("f16 successors", wsh)):
+        t0 = time.perf_counter()
+        want_d, want_s = plain_solve_succ(wt, block_size=s)
+        sync()
+        plain[label] = (time.perf_counter() - t0) * 1e3
+        check(label, results[label].dist, want_d, plain[label])
+        require(same(results[label].succ, want_s), f"lowered solve {label} next hops != plain")
+        del want_d, want_s
+    results.clear()
+
+    for label, run in runs.items():
+        run()  # warm-up
+        times = [host_ms(run) for _ in range(3)]
+        nn = n_succ if "successors" in label else n
+        tag = label.split()[0]
+        word = LOWERED_WORD[tag] + (4 if "successors" in label else 0)
+        ops = (3.0 if "successors" in label else LOWERED_OPS[tag]) * nn**3
+        bms, by = bound(ops, (nn // s) * 2.0 * nn * nn * word)
+        extra = f", {graphs * nn**3 / (statistics.median(times) / 1e3):.4e} graph-relaxations/s" \
+            if tag == "packed" else ""
+        print(f"main lowered solve {label} n={nn}: median {statistics.median(times):.2f} ms of "
+              f"{['%.2f' % t for t in times]}, bound {bms:.2f} ms by {by}{extra}, "
+              f"plain {plain[label]:.0f} ms")
+    for label, wt, sr in (("int16", api._coerce(w, MIN_PLUS_I16, None, w.device), MIN_PLUS_I16),
+                          ("bf16", wb, MIN_PLUS), ("packed", api.pack_reachability(bits)[0],
+                                                   OR_AND_PACKED)):
+        bands = fr.round_buffers(wt, s)
+        wk = wt.clone()
+        launch_breakdown(f"main lowered breakdown {label} n={n}", [
+            (p, functools.partial(fr.fw_round_phase, p, wk, b, bands, block_size=s, semiring=sr))
+            for b in range(n // s) for p in fr.PHASES])
+
+
+# ------------------------------------------------------------ flash decode
+def decode_tolerance(dtype, want) -> tuple[float, float]:
+    """(rtol, atol) of ``flash_decode`` against a plain version: in f32 the
+    reference's 2e-5 / 2e-5; in bf16 the reference's rtol 2e-2 with an atol
+    of two bf16 ulps of the largest |output|.  Kernel and plain version
+    both accumulate in f32 and round once to bf16, so they differ by at
+    most one ulp of an entry, and the limit shrinks with the outputs (an
+    average over kv_len rows of v, of RMS about sqrt(e / kv_len))."""
+    import torch
+
+    if dtype == torch.float32:
+        return 2e-5, 2e-5
+    top = float(want.float().abs().max())
+    return 2e-2, 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def phase_flash_decode(rows: dict, B: int = 8, Hkv: int = 4, g: int = 7, hd: int = 128,
+                       S: int = 32768, kv_len: int = 32000):
+    """``flash_decode`` at the decode shape of ``configs/qwen2_7b.py`` (28
+    query heads over 4 KV heads, head dim 128, its 32k context; batch 8,
+    kv_len 32000), in bf16 and in f32: the launch count of that call; held
+    against the plain online-softmax walk and the masked softmax on the
+    card (``decode_tolerance``: the reference's 2e-5 in f32; in bf16 its
+    rtol 2e-2 with an atol of two bf16 ulps of the largest output); the
+    poisoned tail (k / v past kv_len set to ±99, unchanged within 1e-6) and
+    kv_len = 0 (the mean of v, same limit);
+    timed beside one ``scaled_dot_product_attention(..., enable_gqa=True)``
+    call over the same kv_len rows.  Bound: the bytes of q, of the K and V
+    rows below kv_len and of the output over 3.35 TB/s (4 FLOP per (q
+    row, column, position) over 67 TFLOP/s is smaller)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fdec
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, Hkv, g, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+        fdec.reset_launch_counts()
+        out = fdec.flash_decode(q, k, v, kl)
+        sync()
+        launches = fdec.LAUNCHES["flash_decode"]
+        require(launches == 1, f"flash_decode launched {launches} times, not once")
+        want = ref.flash_decode_online_ref(q, k, v, kl)
+        masked = ref.flash_decode_ref(q, k, v, kl)
+        rtol, atol = decode_tolerance(dtype, want)
+        err = max_abs_err(out.float(), want.float())
+        print(f"flash_decode {dtype}: max |out| {float(want.float().abs().max())}, max abs err "
+              f"{err} (online) / {max_abs_err(out.float(), masked.float())} (masked); "
+              f"limit atol {atol} + rtol {rtol} x |out|")
+        require(torch.allclose(out.float(), want.float(), rtol=rtol, atol=atol)
+                and torch.allclose(out.float(), masked.float(), rtol=rtol, atol=atol),
+                f"flash_decode {dtype} != plain (max abs err {err})")
+        k2, v2 = k.clone(), v.clone()
+        k2[:, kv_len:] = 99.0
+        v2[:, kv_len:] = -99.0
+        poisoned = fdec.flash_decode(q, k2, v2, kl)
+        zero = fdec.flash_decode(q, k, v, torch.zeros_like(kl))
+        sync()
+        require(torch.allclose(poisoned.float(), out.float(), rtol=1e-6, atol=1e-6),
+                f"flash_decode {dtype}: the masked tail leaks in")
+        want0 = ref.flash_decode_online_ref(q, k, v, 0)
+        rtol0, atol0 = decode_tolerance(dtype, want0)
+        print(f"flash_decode {dtype} kv_len=0: max |out| {float(want0.float().abs().max())}, "
+              f"max abs err {max_abs_err(zero.float(), want0.float())}, limit atol {atol0}")
+        require(torch.allclose(zero.float(), want0.float(), rtol=rtol0, atol=atol0),
+                f"flash_decode {dtype} kv_len=0 != plain")
+        del k2, v2
+        qs = q.reshape(B, Hkv * g, 1, hd)
+        ks = k[:, :kv_len].transpose(1, 2).contiguous()
+        vs = v[:, :kv_len].transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+        lib_err = max_abs_err(lib_out.reshape(q.shape).float(), want.float())
+        print(f"scaled_dot_product_attention {dtype}: max abs err {lib_err} from the plain version")
+        require(torch.allclose(lib_out.reshape(q.shape).float(), want.float(), rtol=rtol,
+                               atol=4 * atol),
+                f"scaled_dot_product_attention {dtype} disagrees with the plain version")
+        word = torch.finfo(dtype).bits // 8
+        nbytes = (2 * q.numel() + 2 * B * kv_len * Hkv * hd) * word
+        record_kernel(rows, "flash_decode", err,
+                      event_ms(lambda: fdec.flash_decode(q, k, v, kl), 21),
+                      event_ms(lambda: ref.flash_decode_online_ref(q, k, v, kl), 3),
+                      4.0 * B * Hkv * g * hd * kv_len, nbytes,
+                      note=f" {dtype} B={B} Hkv={Hkv} g={g} hd={hd} S={S} kv_len={kv_len}",
+                      store=dtype == torch.bfloat16,
+                      library=event_ms(lambda: F.scaled_dot_product_attention(
+                          qs, ks, vs, enable_gqa=True), 21))
+        if dtype == torch.bfloat16:
+            rows["flash_decode"]["launches"] = launches
+        del q, k, v, ks, vs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1625,17 +2341,22 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     name = phase_device()
+    phase_signed_zero()
     phase_check()
     phase_check_repair()
     phase_check_repair_del()
     phase_check_four()
     phase_check_dist()
+    phase_check_lowered()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
         phase_kernels_repair_del(rows, 8192, 4096)
         phase_kernels_four(rows, 8192)
+        phase_kernels_lowered(rows, 8192, 4096)
         phase_main(rows, 8192, 4096)
+        phase_main_lowered(rows, 8192, 4096)
+        phase_flash_decode(rows)
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)
         phase_four(rows, 8192)

@@ -2,9 +2,11 @@
 
 Mirrors ``repro``'s module names (``core``, ``kernels``, ``apsp``,
 ``utils``) and never imports JAX or ``repro``.  The fused and 4-dispatch
-Floyd-Warshall rounds, the semiring matmul and the repairs run as
-hand-written CUDA kernels for Hopper (sm_90a); every kernel has a plain
-torch version beside it that runs on the CPU.
+Floyd-Warshall rounds (the fused one also in bf16, f16, saturating int16
+and bit-packed or_and storage), the semiring matmul, the repairs and
+single-token decode attention run as hand-written CUDA kernels for Hopper
+(sm_90a); every kernel has a plain torch version beside it that runs on
+the CPU.
 
     from repro_torch.apsp import solve
     res = solve(w)                  # on the card

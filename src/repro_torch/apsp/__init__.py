@@ -3,6 +3,9 @@
     from repro_torch.apsp import ApspEngine, solve
     res = solve(w)                        # any n, auto-padded, on the card
     res = solve(w_batch, method="fused")  # (B, n, n): one launch set per round
+    res = solve(w, dtype=torch.int16)     # saturating int16 lowering
+    res = solve(w.to(torch.bfloat16))     # solved in bf16, the input's dtype
+    res = solve(graphs, semiring="or_and", packed=True)  # 32 closures a word
     eng = ApspEngine()                    # plan cache for repeated solves
     tables = eng.solve_many(graphs, successors=True)   # ragged batches
     fixed = eng.repair(res.dist, [(u, v, w_new)])      # rank-1 link repair
@@ -18,7 +21,9 @@ from repro_torch.apsp.api import (
     APSPResult,
     NegativeCycleError,
     negative_cycle_mask,
+    pack_reachability,
     solve,
+    unpack_reachability,
 )
 from repro_torch.apsp.engine import ApspEngine, negative_cycle_mask_padded
 
@@ -30,6 +35,8 @@ __all__ = [
     "NegativeCycleError",
     "negative_cycle_mask",
     "negative_cycle_mask_padded",
+    "pack_reachability",
     "plan",
     "solve",
+    "unpack_reachability",
 ]

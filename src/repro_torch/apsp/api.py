@@ -1,6 +1,6 @@
 """APSP front-end: ``solve`` owns padding, dispatch, batching and checks.
 
-Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
+Counterpart of ``repro.apsp.api.solve``:
 
   * **pad/unpad** — any n; padding vertices are ⊕-identity rows/cols with a
     ⊗-identity diagonal, unreachable under every semiring.
@@ -17,14 +17,19 @@ Counterpart of ``repro.apsp.api.solve`` for float32 matrices:
     the fused round is the Hopper kernels; ``device="cpu"`` runs the plain
     versions.  Without a card, asking for "cuda" raises.
   * **batching** — a (B, n, n) input runs all B graphs through each launch.
-  * **successors** — next-hop tables (min-plus) via the fused successor
-    round or the naive/blocked loops.
-  * **validation** — min-plus solves raise ``NegativeCycleError`` when a
-    diagonal entry is negative.
+  * **storage** — the input's float dtype is kept (f32, bf16, f16; f64
+    narrows to f32, integers widen to f32 as the reference promotes them);
+    ``dtype=`` casts, and ``dtype=int16`` runs the saturating int16
+    lowering; ``packed=True`` packs 32 {0,1} graphs per int32 word and runs
+    one bitwise or_and closure over them (``pack_reachability``).
+  * **successors** — next-hop tables (min-plus, any float dtype) via the
+    fused successor round or the naive/blocked loops.
+  * **validation** — min-plus solves (and their lowerings) raise
+    ``NegativeCycleError`` when a diagonal entry is negative.
 
 Not ported yet, and refused with ``NotImplementedError``: method
-"recursive" (ROADMAP A.10), ``dtype`` other than float32 and
-``packed=True`` (A.4), ``hbm_budget=`` (A.10).
+"recursive" (ROADMAP A.10), ``hbm_budget=`` (A.10), and a non-f32 or
+lowered solve on method "distributed" or "numpy" (A.4b).
 """
 from __future__ import annotations
 
@@ -38,13 +43,20 @@ from repro_torch.core.distributed import fw_distributed, gather
 from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
 from repro_torch.core.paths import fw_blocked_with_successors, fw_with_successors
 from repro_torch.core.semiring import (
+    FLOAT_DTYPES,
+    I16_INF,
+    I16_NINF,
     MIN_PLUS,
+    PACK_LANES,
     Semiring,
+    dtype_name,
     lower_semiring,
+    require_f32,
     resolve_semiring,
 )
 from repro_torch.core.staged import fw_staged, fw_staged_with_successors
 from repro_torch.kernels.minplus_matmul import check_variant
+from repro_torch.utils.interop import host_tensor
 
 METHODS = (
     "auto", "numpy", "naive", "blocked", "staged", "fused", "recursive",
@@ -82,6 +94,55 @@ class APSPResult:
     @property
     def batched(self) -> bool:
         return self.dist.ndim == 3
+
+
+def _is_min_plus(sr: Semiring) -> bool:
+    """min_plus or one of its storage lowerings (negative-cycle semantics)."""
+    return sr is MIN_PLUS or sr.name.startswith("min_plus")
+
+
+def _as_tensor(w) -> torch.Tensor:
+    """A tensor as it is; a numpy array or nested list as a CPU tensor of
+    the same dtype and bits (ml_dtypes bfloat16 included)."""
+    return w if isinstance(w, torch.Tensor) else host_tensor(w)
+
+
+def pack_reachability(w) -> torch.Tensor:
+    """Pack (B, n, n) or (n, n) boolean graphs into int32 bit planes.
+
+    Graph g lands in word g // 32, bit g % 32 (LSB-first): ``(out[g // 32]
+    >> (g % 32)) & 1`` is "edge i→j in graph g"; any nonzero entry is an
+    edge.  B is padded to a multiple of 32 with empty graphs: the output is
+    (ceil(B/32), n, n) int32 on w's device.
+    """
+    t = _as_tensor(w)
+    if t.ndim == 2:
+        t = t[None]
+    if t.ndim != 3 or t.shape[-1] != t.shape[-2]:
+        raise ValueError(f"w must be (n,n) or (B,n,n), got {tuple(t.shape)}")
+    B, n, _ = t.shape
+    words = torch.zeros((-(-B // PACK_LANES), n, n), dtype=torch.int32, device=t.device)
+    for g in range(B):
+        bit = g % PACK_LANES
+        words[g // PACK_LANES] |= (t[g] != 0).to(torch.int32) * (
+            (1 << bit) if bit < 31 else -(1 << 31))
+    return words
+
+
+def unpack_reachability(p, count: int | None = None, *, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``pack_reachability``: (G, n, n) int32 words → (count, n,
+    n) 0/1 matrices of ``dtype`` (count defaults to all G·32 lanes)."""
+    t = _as_tensor(p)
+    if t.ndim == 2:
+        t = t[None]
+    if t.ndim != 3 or t.shape[-1] != t.shape[-2]:
+        raise ValueError(f"p must be (n,n) or (G,n,n), got {tuple(t.shape)}")
+    G, n, _ = t.shape
+    count = G * PACK_LANES if count is None else count
+    out = torch.empty((count, n, n), dtype=dtype, device=t.device)
+    for g in range(count):
+        out[g] = (t[g // PACK_LANES] >> (g % PACK_LANES)) & 1
+    return out
 
 
 def negative_cycle_mask(dist: torch.Tensor) -> torch.Tensor:
@@ -135,17 +196,53 @@ def _resolve_shape(
     return meth, None, n
 
 
-def _coerce(w, device: torch.device) -> torch.Tensor:
-    """Any (n,n) / (B,n,n) array or tensor → contiguous float32 on device.
+def _torch_dtype(dtype) -> torch.dtype:
+    """A dtype of any spelling → the torch dtype the port stores it in
+    (float64 narrows to float32, as the reference's does without x64)."""
+    name = dtype_name(dtype)
+    if name == "float64":
+        return torch.float32
+    try:
+        return getattr(torch, name)
+    except AttributeError:
+        raise ValueError(f"unknown dtype {dtype!r}") from None
 
-    The ported slice solves in float32, so every input is cast: integers
-    cannot hold the ±inf identities of the tropical semirings, and float64
-    is what the reference narrows to as well.
+
+def _coerce(w, semiring: Semiring, dtype, device) -> torch.Tensor:
+    """Any (n,n) / (B,n,n) array or tensor → a contiguous tensor on device in
+    the solve's storage dtype (``repro/apsp/api.py:217-258``).
+
+    * packed or_and: int32 bit-plane words; uint32 is a bit view, never a
+      value cast (bit 31 is graph 31).
+    * int16 lowerings: weights clipped into [I16_NINF, I16_INF] first, so
+      ±inf lands on the sentinels and nothing wraps.
+    * an explicit float ``dtype``: a plain cast.
+    * otherwise float inputs keep their dtype (float64 narrows to
+      float32), and integers become float32 (they cannot hold ±inf).
     """
-    t = w if isinstance(w, torch.Tensor) else torch.as_tensor(np.asarray(w))
+    t = _as_tensor(w)
     if t.ndim not in (2, 3) or t.shape[-1] != t.shape[-2]:
         raise ValueError(f"w must be (n,n) or (B,n,n), got {tuple(t.shape)}")
-    return t.to(device=device, dtype=torch.float32).contiguous()
+    t = t.to(device)
+    if semiring.packed:
+        if t.is_floating_point() or t.dtype == torch.bool:
+            raise ValueError(
+                f"semiring {semiring.name!r} takes int32 bit-plane words, got "
+                f"{t.dtype}; pack boolean graphs with pack_reachability() or "
+                f"call solve(..., packed=True)"
+            )
+        if t.dtype == torch.uint32:
+            t = t.view(torch.int32)
+        return t.to(torch.int32).contiguous()
+    if semiring.dtype == "int16":
+        if t.is_floating_point() and t.element_size() < 4:
+            t = t.float()  # 32767 is not a bf16: clip where it is exact
+        return t.clamp(I16_NINF, I16_INF).to(torch.int16).contiguous()
+    if dtype is not None:
+        return t.to(_torch_dtype(dtype)).contiguous()
+    if dtype_name(t.dtype) not in FLOAT_DTYPES or t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    return t.contiguous()
 
 
 def _pad(w: torch.Tensor, m: int, semiring: Semiring) -> torch.Tensor:
@@ -234,35 +331,63 @@ def solve(
 ) -> APSPResult:
     """All-pairs shortest paths (semiring closure) of one or many graphs.
 
-    w: (n, n) or (B, n, n) adjacency matrix — numpy array, nested list or
-       tensor; missing edges are the semiring's ⊕-identity (+inf for
-       min-plus).  Solved in float32 at any n (padded, then unpadded).
+    w: (n, n) or (B, n, n) adjacency matrix — numpy array (ml_dtypes
+       bfloat16 too), nested list or tensor; missing edges are the
+       semiring's ⊕-identity (+inf for min-plus).  Any n (padded, then
+       unpadded); f32, bf16 and f16 inputs are solved in their own dtype.
     method: "auto" | "numpy" | "naive" | "blocked" | "staged" | "fused" |
        "distributed" (needs ``mesh``; every rank of the grid calls ``solve``
        with the same w and gets the full result).
     semiring: a ``Semiring`` or its name ("min_plus", "max_plus", "max_min",
-       "or_and", "plus_mul").
-    successors: also return the int32 next-hop table (min-plus only).
+       "or_and", "plus_mul", or a lowering's: "min_plus_i16", …,
+       "or_and_packed" for pre-packed int32 words).
+    dtype: the storage dtype (None keeps the input's float dtype).  A float
+       dtype is a plain cast; int16 runs the saturating lowering (weights
+       clip into [-32768, 32767], +inf ↦ 32767); plus_mul has none.
+    packed: bit-packed transitive closure (or_and only): the (B, n, n) or
+       (n, n) {0,1} graphs (any dtype, nonzero = edge) are packed 32 to an
+       int32 word, closed once with bitwise OR / AND, and unpacked to the
+       input's shape and dtype.
+    successors: also return the int32 next-hop table (min-plus, any float
+       dtype).
     block_size: pivot-tile size for blocked/staged/fused (None = auto; the
        fused round takes 16, 32, 64 or 128).
     validate: raise ``NegativeCycleError`` on a negative diagonal
-       (min-plus only; reads the diagonal back to the host).
+       (min-plus and its lowerings; reads the diagonal back to the host).
     variant: "fori" or "unroll" (the same k-ascending chain).
     mesh: the ``launch.mesh.GridMesh`` of method="distributed" (ignored by
        the other methods); its device type must be ``device``'s.
     device: "cuda" (default: the Hopper kernels) or "cpu" (plain versions).
-    dtype / packed / hbm_budget: not ported yet (NotImplementedError
-       naming the ROADMAP item), except dtype=float32.
+    hbm_budget: not ported yet (NotImplementedError naming ROADMAP A.10).
     """
-    sr = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
     if hbm_budget is not None:
         raise NotImplementedError("hbm_budget= is not ported yet (ROADMAP A.10)")
+    sr = resolve_semiring(semiring)
+    if packed:
+        # Pack → one closure over int32 bit planes → unpack: each bit lane
+        # is an independent graph, so the planes equal B unpacked solves.
+        if successors:
+            raise ValueError("successors=True requires min_plus; packed=True is the "
+                             "or_and transitive-closure lowering")
+        sr = lower_semiring(sr, dtype, packed=True)
+        arr = _as_tensor(w)
+        count = arr.shape[0] if arr.ndim == 3 else 1
+        words = pack_reachability(arr.to(_resolve_device(device)))
+        inner = solve(words[0] if words.shape[0] == 1 else words, method=method,
+                      semiring=sr, block_size=block_size, validate=False, mesh=mesh,
+                      variant=variant, device=device)
+        dist = unpack_reachability(inner.dist, count, dtype=arr.dtype)
+        return dataclasses.replace(inner, dist=dist if arr.ndim == 3 else dist[0],
+                                   n=arr.shape[-1])
+    sr = lower_semiring(sr, dtype)
     check_variant(variant)
     dev = _resolve_device(device)
-    arr = _coerce(w, dev)
+    arr = _coerce(w, sr, dtype, dev)
     batched = arr.ndim == 3
     n = arr.shape[-1]
     meth, s, m = _resolve_shape(method, n, block_size, mesh)
+    if meth in ("distributed", "numpy"):
+        require_f32(sr, arr, where=f"solve(method={meth!r})")
     if meth == "distributed":
         _check_mesh_device(mesh, dev)
     if successors:
@@ -278,7 +403,7 @@ def solve(
     if succ is not None:
         succ = succ[..., :n, :n]
 
-    if validate and sr is MIN_PLUS:
+    if validate and _is_min_plus(sr):
         _check_negative_cycles(dist, batched)
     return APSPResult(
         dist=dist, succ=succ, method=meth, semiring=sr.name,

@@ -35,9 +35,10 @@ the session object for that:
     successor requests raise.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), ``dtype``
-other than float32 and ``packed=True`` (A.4) — the int16, bf16 and packed
-forms of ``repair`` and ``repair_del`` with them.  The reference's
+item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), and any
+storage but float32 — ``dtype=`` int16 / bf16 / f16, ``packed=True``, a
+lowered semiring, or a half-precision input, which is refused rather than
+widened (A.4b: the lowered repair kernels).  The reference's
 TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
 no counterpart: the port has one lowering per device, chosen by
 ``device=``, and the batch of a bucket rides one launch
@@ -76,6 +77,7 @@ from repro_torch.core.semiring import (
     Semiring,
     dtype_name,
     lower_semiring,
+    require_f32,
     resolve_semiring,
 )
 from repro_torch.core import distributed as _dist
@@ -185,7 +187,7 @@ class ApspEngine:
         Hopper kernels) or "cpu" (the plain versions); without a card,
         "cuda" raises.  dtype / packed / leaf / hbm_budget and method
         "recursive" are not ported yet (NotImplementedError naming the
-        ROADMAP item), except dtype=float32.
+        ROADMAP item), and so is any storage but float32 (A.4b).
         """
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
@@ -204,6 +206,12 @@ class ApspEngine:
         check_variant(variant)
         self.method = method
         self.semiring = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
+        if self.semiring.dtype is not None or (
+                dtype is not None and dtype_name(dtype) not in ("float32", "float64")):
+            raise NotImplementedError(
+                f"ApspEngine runs float32 only; dtype={dtype!r}, packed={packed}, "
+                f"semiring {self.semiring.name!r} is not ported there yet (ROADMAP A.4b)"
+            )
         self.dtype = dtype
         self.block_size = block_size
         self.bk = bk
@@ -241,8 +249,8 @@ class ApspEngine:
         """Resolve (and cache) the plan for an (n, batch) solve."""
         if dtype_name(dtype) != "float32":
             raise NotImplementedError(
-                f"dtype={dtype!r} is not ported yet (ROADMAP A.4); the port "
-                f"solves in float32"
+                f"dtype={dtype!r} is not ported to ApspEngine yet (ROADMAP A.4b); "
+                f"the engine solves in float32"
             )
         meth, s, m = _resolve_shape(self.method, n, self.block_size, self.mesh)
         if successors:
@@ -280,7 +288,7 @@ class ApspEngine:
     # -------------------------------------------------------------- solving
     def solve(self, w, *, successors: bool = False) -> APSPResult:
         """One graph or one uniform (B, n, n) batch through the cache."""
-        arr = _coerce(w, self.device)
+        arr = _coerce_f32(w, self.device)
         batched = arr.ndim == 3
         n = arr.shape[-1]
         B = arr.shape[0] if batched else 1
@@ -302,7 +310,7 @@ class ApspEngine:
         (B, n, n) array or tensor.  Returns per-graph results in input
         order, bitwise equal to per-graph ``solve`` calls.
         """
-        arrs = [_coerce(g, self.device) for g in graphs]
+        arrs = [_coerce_f32(g, self.device) for g in graphs]
         for a in arrs:
             if a.ndim != 2:
                 raise ValueError(f"solve_many expects (n,n) graphs, got {tuple(a.shape)}")
@@ -354,7 +362,7 @@ class ApspEngine:
         outside [0, n) raise ``ValueError``.
         """
         sr = self.semiring
-        arr = _coerce(dist, self.device)
+        arr = _coerce_f32(dist, self.device)
         if arr.ndim != 2:
             raise ValueError(f"repair expects a (n, n) closure, got {tuple(arr.shape)}")
         n = arr.shape[-1]
@@ -432,8 +440,8 @@ class ApspEngine:
         ``ValueError``.
         """
         sr = self.semiring
-        arr = _coerce(dist, self.device)
-        wa = _coerce(w, self.device)
+        arr = _coerce_f32(dist, self.device)
+        wa = _coerce_f32(w, self.device)
         if arr.ndim != 2:
             raise ValueError(f"repair_del expects a (n, n) closure, got {tuple(arr.shape)}")
         if wa.shape != arr.shape:
@@ -638,6 +646,14 @@ class ApspEngine:
             semiring=entry.key.semiring, block_size=entry.key.block_size,
             n=n, padded_n=entry.key.n_padded,
         )
+
+
+def _coerce_f32(w, device: torch.device) -> torch.Tensor:
+    """``api._coerce`` for the engine's float32-only paths: floats keep
+    their dtype, so a half-precision input is refused, not widened."""
+    t = _coerce(w, MIN_PLUS, None, device)
+    require_f32(MIN_PLUS, t, where="ApspEngine")
+    return t
 
 
 def negative_cycle_mask_padded(dist, ns: Sequence[int]) -> np.ndarray:

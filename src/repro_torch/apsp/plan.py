@@ -25,9 +25,12 @@ _WORD_BYTES = {
 }
 
 
-def word_for(dtype=None) -> int:
-    """Bytes per stored element of a dtype (name, numpy or torch dtype);
+def word_for(dtype=None, *, semiring=None) -> int:
+    """Bytes per stored element of a dtype (name, numpy or torch dtype), or
+    of the dtype a lowering pins (``semiring.dtype`` wins over ``dtype``);
     4 when none is named."""
+    if semiring is not None and semiring.dtype is not None:
+        dtype = semiring.dtype
     if dtype is None:
         return 4
     try:
@@ -161,16 +164,17 @@ def distributed_plan(
     )
 
 
-def round_smem_bytes(s: int, bk: int, *, successors: bool = False) -> int:
+def round_smem_bytes(s: int, bk: int, *, successors: bool = False, word: int = 4) -> int:
     """Largest shared-memory footprint of one block among the three launches
-    of a round (``kernels/csrc/fw_round.cu``): the bands launch stages the
+    of a round (``kernels/csrc/fw_round.cuh``): the bands launch stages the
     closed (s, s+1) diagonal, the relax launch an (s, bk+1) col slice and a
-    (bk, s) row slice; successors add an int32 copy of the diag / col
-    slice.  Must stay within ``H100_SMEM_PER_BLOCK``."""
-    copies = 2 if successors else 1
-    bands = copies * s * (s + 1)
-    relax = copies * s * (bk + 1) + bk * s
-    return 4 * max(bands, relax)
+    (bk, s) row slice, in the storage ``word``; successors add an int32
+    copy of the diag / col slice.  Must stay within
+    ``H100_SMEM_PER_BLOCK``."""
+    succ = 4 if successors else 0
+    bands = (word + succ) * s * (s + 1)
+    relax = (word + succ) * s * (bk + 1) + word * bk * s
+    return max(bands, relax)
 
 
 def fused_round_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> float:

@@ -9,7 +9,8 @@ Torch counterparts of ``repro.core.floyd_warshall``:
 ``fw_naive`` and ``fw_blocked`` are batch-rank-agnostic: a (B, n, n) input
 runs every graph through the same loop with a leading batch dim.  Each
 per-element ⊕/⊗ chain is the reference's, step for step, so results are
-bitwise equal to it.
+bitwise equal to it, in every storage a lowering takes (the steps are the
+lowering's own ``Semiring`` ops: bf16 / f16, int16, packed words).
 """
 from __future__ import annotations
 

@@ -109,14 +109,23 @@ def extract_path(succ, src: int, dst: int, max_len: int | None = None) -> list[i
 
 
 def _lift_distances(a) -> np.ndarray:
-    """Tables → host numpy arrays for the walks.  Only f32 tables exist in
-    the port so far; the int16 / bf16 lift is ROADMAP A.4."""
-    a = _as_numpy(a)
+    """Tables in any storage → host arrays with IEEE semantics for the walks:
+    int16 saturating tables to float64 with their sentinels as ±inf, bf16 /
+    f16 to float64, f32 / f64 as they are."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        a = (a.double() if a.dtype in (torch.bfloat16, torch.float16) else a).numpy()
+    a = np.asarray(a)
+    if a.dtype.kind in "iu":
+        from repro_torch.core.semiring import I16_INF, I16_NINF
+
+        out = a.astype(np.float64)
+        out[a == I16_INF] = np.inf
+        out[a == I16_NINF] = -np.inf
+        return out
     if a.dtype.kind == "f" and a.dtype.itemsize >= 4:
         return a
-    raise NotImplementedError(
-        f"lifting {a.dtype} distance tables is not ported yet (ROADMAP A.4)"
-    )
+    return a.astype(np.float64)  # bf16 / f16
 
 
 def extract_path_from_dist(

@@ -1,6 +1,6 @@
 """Semiring algebra underlying blocked Floyd-Warshall, as torch ops.
 
-The five f32 semirings of ``repro.core.semiring`` with the same names and
+The five semirings of ``repro.core.semiring`` with the same names and
 identities:
 
   * ``MIN_PLUS``  — all-pairs shortest paths
@@ -9,24 +9,70 @@ identities:
   * ``OR_AND``    — transitive closure on {0,1} (kept arithmetic: max/min)
   * ``PLUS_MUL``  — ordinary linear algebra
 
-``relax(acc, a, b)`` is the one step every kernel chain is built from,
-``add(acc, mul(a, b))``.  For plus_mul it is ``torch.addcmul``: a single
-rounded fused multiply-add.  That is what the reference computes — XLA
-contracts ``c + a*b`` into one FMA inside ``jit`` — and what the CUDA
-kernels compute with ``__fmaf_rn``.  Two roundings would differ from the
-reference in the last bit.  min/max are ``torch.minimum``/``torch.maximum``,
-which propagate NaN as ``jnp.minimum``/``jnp.maximum`` do.
+and their storage lowerings (``lower_semiring``): the saturating int16
+tropical ones (``MIN_PLUS_I16`` …, sentinels ``I16_INF`` / ``I16_NINF``),
+the bit-packed transitive closure ``OR_AND_PACKED`` (32 graphs per int32
+word, ⊕ = OR, ⊗ = AND) and the identity lowering of every float dtype.
 
-The int16 / bit-packed storage lowerings are not ported yet (ROADMAP A.4).
+``relax(acc, a, b)`` is the one step every kernel chain is built from,
+``add(acc, mul(a, b))``.  For plus_mul in f32 it is ``torch.addcmul``: a
+single rounded fused multiply-add, as XLA contracts ``c + a*b`` inside
+``jit`` and the CUDA kernels compute with ``__fmaf_rn``.  In bf16 / f16 XLA
+does not contract: ⊗ rounds to the storage type and ⊕ rounds again, and so
+does the port (``acc + a * b`` in torch's 16-bit ops, which compute in f32
+and round each result).
+
+min and max are XLA's: NaN propagates, and between equal operands the
+result's sign bit is the OR of the two sign bits for min and their AND for
+max (min(+0, -0) = -0 and max(+0, -0) = +0 in either argument order).
+``torch.minimum`` / ``torch.maximum`` on the CPU return the sign of one
+fixed argument instead, so the float ones fix the sign through the bit
+view.  Integers have no signed zero.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 Tensor = torch.Tensor
+
+# int16 tropical sentinels: ⊕-identities of min_plus / max_plus.  The
+# saturating ⊗ clamps finite sums into [I16_NINF, I16_INF] and propagates
+# the sentinels exactly, so no sum wraps past them.
+I16_INF = 32767
+I16_NINF = -32768
+
+# Graphs per element of the bit-packed or_and lowering (int32 lanes).
+PACK_LANES = 32
+
+_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _signed(x: Tensor, y: Tensor, combine) -> Tensor:
+    """Where x == y, the float whose bits are combine(bits x, bits y)."""
+    ix, iy = (t.view(_BITS[t.element_size()]) for t in (x, y))
+    return combine(ix, iy).view(x.dtype)
+
+
+def minimum(x: Tensor, y: Tensor) -> Tensor:
+    """XLA's min: NaN propagates; min(+0, -0) = -0 in either order."""
+    m = torch.minimum(x, y)
+    if not m.is_floating_point():
+        return m
+    x, y = torch.broadcast_tensors(x, y)
+    return torch.where(x == y, _signed(x, y, torch.bitwise_or), m)
+
+
+def maximum(x: Tensor, y: Tensor) -> Tensor:
+    """XLA's max: NaN propagates; max(+0, -0) = +0 in either order."""
+    m = torch.maximum(x, y)
+    if not m.is_floating_point():
+        return m
+    x, y = torch.broadcast_tensors(x, y)
+    return torch.where(x == y, _signed(x, y, torch.bitwise_and), m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,15 +82,25 @@ class Semiring:
     name: identifier shared with the reference package.
     add / mul: the ⊕ / ⊗ combiners.
     zero: identity of ⊕ (annihilator of ⊗); one: identity of ⊗.
-    relax: ``acc ⊕ (a ⊗ b)`` in one step (an FMA for plus_mul).
+    relax: ``acc ⊕ (a ⊗ b)`` in one step.
+    dtype: the storage dtype a lowering is pinned to ("int16", "int32"),
+      None for the float semirings, which take any float dtype.
+    lanes: graphs carried per element (32 for the packed or_and lowering).
     """
 
     name: str
     add: Callable[[Tensor, Tensor], Tensor]
     mul: Callable[[Tensor, Tensor], Tensor]
-    zero: float
-    one: float
+    zero: float | int
+    one: float | int
     relax: Callable[[Tensor, Tensor, Tensor], Tensor]
+    dtype: str | None = None
+    lanes: int = 1
+
+    @property
+    def packed(self) -> bool:
+        """True iff this lowering bit-packs several graphs per element."""
+        return self.lanes > 1
 
 
 def _relax_with(add, mul):
@@ -54,32 +110,78 @@ def _relax_with(add, mul):
     return relax
 
 
+def _plus_mul_relax(acc: Tensor, a: Tensor, b: Tensor) -> Tensor:
+    """One FMA in f32 (and f64); two rounded ops in bf16 / f16."""
+    if acc.element_size() >= 4:
+        return torch.addcmul(acc, a, b)
+    return acc + a * b
+
+
 MIN_PLUS = Semiring(
-    "min_plus", torch.minimum, torch.add, float("inf"), 0.0,
-    _relax_with(torch.minimum, torch.add),
+    "min_plus", minimum, torch.add, float("inf"), 0.0, _relax_with(minimum, torch.add),
 )
 MAX_PLUS = Semiring(
-    "max_plus", torch.maximum, torch.add, float("-inf"), 0.0,
-    _relax_with(torch.maximum, torch.add),
+    "max_plus", maximum, torch.add, float("-inf"), 0.0, _relax_with(maximum, torch.add),
 )
 MAX_MIN = Semiring(
-    "max_min", torch.maximum, torch.minimum, float("-inf"), float("inf"),
-    _relax_with(torch.maximum, torch.minimum),
+    "max_min", maximum, minimum, float("-inf"), float("inf"), _relax_with(maximum, minimum),
 )
 OR_AND = Semiring(
-    "or_and", torch.maximum, torch.minimum, 0.0, 1.0,
-    _relax_with(torch.maximum, torch.minimum),
+    "or_and", maximum, minimum, 0.0, 1.0, _relax_with(maximum, minimum),
 )
-PLUS_MUL = Semiring(
-    "plus_mul", torch.add, torch.mul, 0.0, 1.0, torch.addcmul,
-)
+PLUS_MUL = Semiring("plus_mul", torch.add, torch.mul, 0.0, 1.0, _plus_mul_relax)
 
 SEMIRINGS = {s.name: s for s in (MIN_PLUS, MAX_PLUS, MAX_MIN, OR_AND, PLUS_MUL)}
 
-# Names of the reference's storage lowerings, which the port does not have yet.
-LOWERED_SEMIRINGS = (
-    "or_and_packed", "min_plus_i16", "max_plus_i16", "max_min_i16", "or_and_i16",
+# Bit-packed transitive closure: bit g of element [i, j] is "edge i→j in
+# graph g" for 32 independent graphs; OR / AND relax all 32 lanes at once.
+# ⊕-identity 0 = no edge in any graph; ⊗-identity -1 = all bits set.
+OR_AND_PACKED = Semiring(
+    "or_and_packed", torch.bitwise_or, torch.bitwise_and, 0, -1,
+    _relax_with(torch.bitwise_or, torch.bitwise_and), dtype="int32", lanes=PACK_LANES,
 )
+
+
+def _sat_tropical_mul(dominant: int, other: int):
+    """Saturating int16 ⊗: widen to int32, add, clamp to [I16_NINF,
+    I16_INF], then the sentinels override — ``other`` first, ``dominant``
+    (the lowering's ⊕-identity) last, so INF ⊗ NINF is the ⊕-identity and
+    a missing edge never turns into a finite path."""
+
+    def mul(a: Tensor, b: Tensor) -> Tensor:
+        s = (a.to(torch.int32) + b.to(torch.int32)).clamp(I16_NINF, I16_INF).to(torch.int16)
+        s = torch.where((a == other) | (b == other), other, s)
+        return torch.where((a == dominant) | (b == dominant), dominant, s)
+
+    return mul
+
+
+def _lowered(sr: Semiring, name: str, *, mul=None, zero, one) -> Semiring:
+    mul = mul or sr.mul
+    return dataclasses.replace(sr, name=name, mul=mul, zero=zero, one=one,
+                               relax=_relax_with(sr.add, mul), dtype="int16")
+
+
+MIN_PLUS_I16 = _lowered(MIN_PLUS, "min_plus_i16", mul=_sat_tropical_mul(I16_INF, I16_NINF),
+                        zero=I16_INF, one=0)
+MAX_PLUS_I16 = _lowered(MAX_PLUS, "max_plus_i16", mul=_sat_tropical_mul(I16_NINF, I16_INF),
+                        zero=I16_NINF, one=0)
+# max_min / or_and need no arithmetic: int16 min/max cannot overflow.
+MAX_MIN_I16 = _lowered(MAX_MIN, "max_min_i16", zero=I16_NINF, one=I16_INF)
+OR_AND_I16 = _lowered(OR_AND, "or_and_i16", zero=0, one=1)
+
+_I16_LOWERINGS = {
+    "min_plus": MIN_PLUS_I16,
+    "max_plus": MAX_PLUS_I16,
+    "max_min": MAX_MIN_I16,
+    "or_and": OR_AND_I16,
+}
+
+LOWERED_SEMIRINGS = {
+    s.name: s for s in (OR_AND_PACKED, MIN_PLUS_I16, MAX_PLUS_I16, MAX_MIN_I16, OR_AND_I16)
+}
+
+FLOAT_DTYPES = ("float32", "float64", "bfloat16", "float16")
 
 
 def dtype_name(dtype) -> str:
@@ -89,28 +191,65 @@ def dtype_name(dtype) -> str:
     return str(name or dtype).removeprefix("torch.")
 
 
+@functools.cache
 def lower_semiring(sr: Semiring, dtype=None, *, packed: bool = False) -> Semiring:
-    """The storage-lowering map; only the f32 identity lowering is ported."""
-    if packed or (dtype is not None and dtype_name(dtype) != "float32"):
-        raise NotImplementedError(
-            f"storage lowering dtype={dtype!r}, packed={packed} is not ported "
-            f"yet (ROADMAP A.4); the port solves in float32"
+    """The storage-lowering map: (semiring, dtype, packed) → the semiring
+    the kernels run; cached, so one request always returns one object.
+
+      * ``packed=True`` — or_and only → ``OR_AND_PACKED`` (int32 words).
+      * int16 → the saturating lowerings (plus_mul has none).
+      * float dtypes and ``dtype=None`` → the semiring itself.
+    """
+    if packed:
+        if sr.name not in ("or_and", "or_and_packed"):
+            raise ValueError(
+                f"packed=True is the bit-packed transitive-closure lowering; "
+                f"it requires the or_and semiring, not {sr.name!r}"
+            )
+        if dtype is not None and dtype_name(dtype) != "int32":
+            raise ValueError(
+                f"the packed or_and lowering stores int32 bit lanes, got dtype={dtype!r}"
+            )
+        return OR_AND_PACKED
+    if dtype is None or sr.dtype is not None:
+        return sr
+    name = dtype_name(dtype)
+    if name in FLOAT_DTYPES:
+        return sr
+    if name == "int16":
+        try:
+            return _I16_LOWERINGS[sr.name]
+        except KeyError:
+            raise ValueError(
+                f"no int16 lowering for semiring {sr.name!r} (plus_mul needs true "
+                f"ring arithmetic; 16-bit overflow is unsound)"
+            ) from None
+    raise ValueError(
+        f"no {name} lowering for semiring {sr.name!r}; supported narrow dtypes: "
+        f"int16 (saturating tropical), bfloat16, float16, and packed int32 or_and "
+        f"(packed=True)"
+    )
+
+
+def resolve_semiring(semiring: Semiring | str) -> Semiring:
+    """A ``Semiring`` or its name (a lowering's too) → the ``Semiring``."""
+    if not isinstance(semiring, str):
+        return semiring
+    sr = SEMIRINGS.get(semiring) or LOWERED_SEMIRINGS.get(semiring)
+    if sr is None:
+        raise ValueError(
+            f"unknown semiring {semiring!r}; have "
+            f"{sorted(SEMIRINGS) + sorted(LOWERED_SEMIRINGS)}"
         )
     return sr
 
 
-def resolve_semiring(semiring: Semiring | str) -> Semiring:
-    """A ``Semiring`` or its name → the ``Semiring``."""
-    if not isinstance(semiring, str):
-        return semiring
-    if semiring in LOWERED_SEMIRINGS:
+def require_f32(semiring: Semiring, *tensors: Tensor, where: str) -> None:
+    """The paths still f32-only refuse a lowering or a non-f32 tensor
+    (never widen it): NotImplementedError naming A.4b."""
+    bad = [t.dtype for t in tensors if t.dtype != torch.float32]
+    if semiring.dtype is not None or bad:
+        what = f"semiring {semiring.name!r}" if semiring.dtype is not None else f"{bad[0]}"
         raise NotImplementedError(
-            f"semiring {semiring!r} is a storage lowering, not ported yet "
-            f"(ROADMAP A.4)"
+            f"{where} runs float32 only; {what} is not ported there yet (ROADMAP A.4b)"
         )
-    try:
-        return SEMIRINGS[semiring]
-    except KeyError:
-        raise ValueError(
-            f"unknown semiring {semiring!r}; have {sorted(SEMIRINGS)}"
-        ) from None

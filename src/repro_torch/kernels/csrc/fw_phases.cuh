@@ -20,6 +20,11 @@
 //
 // The _succ forms carry an int32 next hop beside each distance and take a
 // candidate only where it is strictly smaller (relax_succ, min-plus).
+//
+// Every chain is generic over the register type V (float or int) and the
+// storage type T of its shared-memory operands (float, __nv_bfloat16,
+// __half, short, int), both deduced from the arguments: shared operands
+// cross through widen() / put() of semiring.cuh, which are exact.
 #pragma once
 
 #include "semiring.cuh"
@@ -27,74 +32,74 @@
 namespace {
 
 // _close_diag: t[r][c] ⊕= t[r][k] ⊗ t[k][c].
-template <int S, class Op>
-__device__ __forceinline__ void close_tile_chain(float (&t)[S / 8], float (*rowbuf)[S],
-                                                 float (*colbuf)[S], int rg, int c) {
+template <int S, class Op, class V, class T>
+__device__ __forceinline__ void close_tile_chain(V (&t)[S / 8], T (*rowbuf)[S],
+                                                 T (*colbuf)[S], int rg, int c) {
   constexpr int R = S / 8;
 #pragma unroll
   for (int kb = 0; kb < R; ++kb) {
     for (int kk = 0; kk < 8; ++kk) {
       const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) rowbuf[p][c] = t[kb];
+      if (rg == kk) put(rowbuf[p][c], t[kb]);
       if (c == k) {
 #pragma unroll
-        for (int m = 0; m < R; ++m) colbuf[p][rg + 8 * m] = t[m];
+        for (int m = 0; m < R; ++m) put(colbuf[p][rg + 8 * m], t[m]);
       }
       __syncthreads();
-      const float bj = rowbuf[p][c];
+      const V bj = widen(rowbuf[p][c]);
 #pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], colbuf[p][rg + 8 * m], bj);
+      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], widen(colbuf[p][rg + 8 * m]), bj);
     }
   }
 }
 
 // _close_row_panel: p[r][c] ⊕= d[r][k] ⊗ p[k][c].
-template <int S, class Op>
-__device__ __forceinline__ void close_row_chain(float (&t)[S / 8], const float* d,
-                                                float (*buf)[S], int rg, int c) {
+template <int S, class Op, class V, class T>
+__device__ __forceinline__ void close_row_chain(V (&t)[S / 8], const T* d,
+                                                T (*buf)[S], int rg, int c) {
   constexpr int R = S / 8, DS = S + 1;
 #pragma unroll
   for (int kb = 0; kb < R; ++kb) {
     for (int kk = 0; kk < 8; ++kk) {
       const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) buf[p][c] = t[kb];
+      if (rg == kk) put(buf[p][c], t[kb]);
       __syncthreads();
-      const float bj = buf[p][c];
+      const V bj = widen(buf[p][c]);
 #pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], d[(rg + 8 * m) * DS + k], bj);
+      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], widen(d[(rg + 8 * m) * DS + k]), bj);
     }
   }
 }
 
 // _close_col_panel on 8·RA rows: p[r][c] ⊕= p[r][k] ⊗ d[k][c].
-template <int S, int RA, class Op>
-__device__ __forceinline__ void close_col_chain(float (&t)[RA], const float* d,
-                                                float (*buf)[S], int rg, int c) {
+template <int S, int RA, class Op, class V, class T>
+__device__ __forceinline__ void close_col_chain(V (&t)[RA], const T* d,
+                                                T (*buf)[S], int rg, int c) {
   constexpr int DS = S + 1;
   for (int k = 0; k < S; ++k) {
     const int p = k & 1;
     if (c == k) {
 #pragma unroll
-      for (int m = 0; m < RA; ++m) buf[p][rg + 8 * m] = t[m];
+      for (int m = 0; m < RA; ++m) put(buf[p][rg + 8 * m], t[m]);
     }
     __syncthreads();
-    const float bj = d[k * DS + c];
+    const V bj = widen(d[k * DS + c]);
 #pragma unroll
-    for (int m = 0; m < RA; ++m) t[m] = Op::relax(t[m], buf[p][rg + 8 * m], bj);
+    for (int m = 0; m < RA; ++m) t[m] = Op::relax(t[m], widen(buf[p][rg + 8 * m]), bj);
   }
 }
 
 // _relax_tile over one staged chunk.
-template <int S, int RM, int TY, class Op>
-__device__ __forceinline__ void relax_chunk(float (&acc)[RM][S / 16], const float* As,
-                                            const float* Bs, int bk, int ty, int tx) {
+template <int S, int RM, int TY, class Op, class V, class T>
+__device__ __forceinline__ void relax_chunk(V (&acc)[RM][S / 16], const T* As,
+                                            const T* Bs, int bk, int ty, int tx) {
   constexpr int CM = S / 16;
   for (int kk = 0; kk < bk; ++kk) {
-    float a[RM], bv[CM];
+    V a[RM], bv[CM];
 #pragma unroll
-    for (int m = 0; m < RM; ++m) a[m] = As[(ty + TY * m) * (bk + 1) + kk];
+    for (int m = 0; m < RM; ++m) a[m] = widen(As[(ty + TY * m) * (bk + 1) + kk]);
 #pragma unroll
-    for (int q = 0; q < CM; ++q) bv[q] = Bs[kk * S + tx + 16 * q];
+    for (int q = 0; q < CM; ++q) bv[q] = widen(Bs[kk * S + tx + 16 * q]);
 #pragma unroll
     for (int m = 0; m < RM; ++m)
 #pragma unroll
@@ -105,57 +110,58 @@ __device__ __forceinline__ void relax_chunk(float (&acc)[RM][S / 16], const floa
 // ------------------------------------------------------------- successors
 // The a-side next hop: diag the tile's own column k, row panel the closed
 // diagonal's successor tile ds, col panel the tile's own column k, relax
-// the staged successor slice ASs.
-template <int S>
+// the staged successor slice ASs.  Op is the distance step of relax_succ
+// (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
+template <int S, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void close_tile_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],
-                                                      float (*rowbuf)[S], float (*colbuf)[S],
+                                                      T (*rowbuf)[S], T (*colbuf)[S],
                                                       int (*colsbuf)[S], int rg, int c) {
   constexpr int R = S / 8;
 #pragma unroll
   for (int kb = 0; kb < R; ++kb) {
     for (int kk = 0; kk < 8; ++kk) {
       const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) rowbuf[p][c] = t[kb];
+      if (rg == kk) put(rowbuf[p][c], t[kb]);
       if (c == k) {
 #pragma unroll
         for (int m = 0; m < R; ++m) {
-          colbuf[p][rg + 8 * m] = t[m];
+          put(colbuf[p][rg + 8 * m], t[m]);
           colsbuf[p][rg + 8 * m] = ts[m];
         }
       }
       __syncthreads();
-      const float bj = rowbuf[p][c];
+      const float bj = widen(rowbuf[p][c]);
 #pragma unroll
       for (int m = 0; m < R; ++m)
-        relax_succ(t[m], ts[m], colbuf[p][rg + 8 * m], colsbuf[p][rg + 8 * m], bj);
+        relax_succ<Op>(t[m], ts[m], widen(colbuf[p][rg + 8 * m]), colsbuf[p][rg + 8 * m], bj);
     }
   }
 }
 
-template <int S>
+template <int S, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void close_row_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],
-                                                     const float* d, const int* ds,
-                                                     float (*buf)[S], int rg, int c) {
+                                                     const T* d, const int* ds,
+                                                     T (*buf)[S], int rg, int c) {
   constexpr int R = S / 8, DS = S + 1;
 #pragma unroll
   for (int kb = 0; kb < R; ++kb) {
     for (int kk = 0; kk < 8; ++kk) {
       const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) buf[p][c] = t[kb];
+      if (rg == kk) put(buf[p][c], t[kb]);
       __syncthreads();
-      const float bj = buf[p][c];
+      const float bj = widen(buf[p][c]);
 #pragma unroll
       for (int m = 0; m < R; ++m) {
         const int r = rg + 8 * m;
-        relax_succ(t[m], ts[m], d[r * DS + k], ds[r * DS + k], bj);
+        relax_succ<Op>(t[m], ts[m], widen(d[r * DS + k]), ds[r * DS + k], bj);
       }
     }
   }
 }
 
-template <int S, int RA>
+template <int S, int RA, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void close_col_chain_succ(float (&t)[RA], int (&ts)[RA],
-                                                     const float* d, float (*buf)[S],
+                                                     const T* d, T (*buf)[S],
                                                      int (*sbuf)[S], int rg, int c) {
   constexpr int DS = S + 1;
   for (int k = 0; k < S; ++k) {
@@ -163,37 +169,37 @@ __device__ __forceinline__ void close_col_chain_succ(float (&t)[RA], int (&ts)[R
     if (c == k) {
 #pragma unroll
       for (int m = 0; m < RA; ++m) {
-        buf[p][rg + 8 * m] = t[m];
+        put(buf[p][rg + 8 * m], t[m]);
         sbuf[p][rg + 8 * m] = ts[m];
       }
     }
     __syncthreads();
-    const float bj = d[k * DS + c];
+    const float bj = widen(d[k * DS + c]);
 #pragma unroll
     for (int m = 0; m < RA; ++m)
-      relax_succ(t[m], ts[m], buf[p][rg + 8 * m], sbuf[p][rg + 8 * m], bj);
+      relax_succ<Op>(t[m], ts[m], widen(buf[p][rg + 8 * m]), sbuf[p][rg + 8 * m], bj);
   }
 }
 
-template <int S, int RM, int TY>
+template <int S, int RM, int TY, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void relax_chunk_succ(float (&acc)[RM][S / 16], int (&sacc)[RM][S / 16],
-                                                 const float* As, const int* ASs,
-                                                 const float* Bs, int bk, int ty, int tx) {
+                                                 const T* As, const int* ASs,
+                                                 const T* Bs, int bk, int ty, int tx) {
   constexpr int CM = S / 16;
   for (int kk = 0; kk < bk; ++kk) {
     float a[RM], bv[CM];
     int as[RM];
 #pragma unroll
     for (int m = 0; m < RM; ++m) {
-      a[m] = As[(ty + TY * m) * (bk + 1) + kk];
+      a[m] = widen(As[(ty + TY * m) * (bk + 1) + kk]);
       as[m] = ASs[(ty + TY * m) * (bk + 1) + kk];
     }
 #pragma unroll
-    for (int q = 0; q < CM; ++q) bv[q] = Bs[kk * S + tx + 16 * q];
+    for (int q = 0; q < CM; ++q) bv[q] = widen(Bs[kk * S + tx + 16 * q]);
 #pragma unroll
     for (int m = 0; m < RM; ++m)
 #pragma unroll
-      for (int q = 0; q < CM; ++q) relax_succ(acc[m][q], sacc[m][q], a[m], as[m], bv[q]);
+      for (int q = 0; q < CM; ++q) relax_succ<Op>(acc[m][q], sacc[m][q], a[m], as[m], bv[q]);
   }
 }
 

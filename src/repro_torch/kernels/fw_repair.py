@@ -13,7 +13,7 @@ steps.
 The edges are three device vectors: ``u``, ``v`` int32 and ``w`` f32.  The
 reference's int32 bit-pattern encoding of the weights
 (``encode_weights``) served the TPU's scalar-prefetch channel and has no
-counterpart here; bf16 / int16 / packed weights come with ROADMAP A.4.
+counterpart here; bf16 / int16 / packed weights are refused, not widened (ROADMAP A.4b).
 
 Both wrappers return new tensors and leave ``d`` (and ``succ``) as they
 were.  A tensor on the CPU goes to the plain version in ``kernels.ref``; a
@@ -28,9 +28,9 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
 from repro_torch.kernels import ref
-from repro_torch.kernels.minplus_matmul import _raise_on, semiring_id
+from repro_torch.kernels.minplus_matmul import _raise_on, check_f32, semiring_id
 
 MAX_EDGES = 64  # edges one stage + apply launch pair carries
 PHASES = ("stage", "apply")
@@ -61,7 +61,9 @@ def _check(d: torch.Tensor, block_size: int, what: str = "d", dtype=torch.float3
     """n of a (n, n) repair input; raises on what the kernels do not take."""
     if d.ndim != 2 or d.shape[0] != d.shape[1]:
         raise ValueError(f"{what} must be (n, n), got {tuple(d.shape)}")
-    if d.dtype != dtype:
+    if dtype == torch.float32:
+        check_f32(d, what)
+    elif d.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {d.dtype}")
     n = d.shape[0]
     if block_size < 1 or n % block_size:
@@ -170,6 +172,7 @@ def fw_repair(
     the kernels' own tiling does not depend on it.  Returns a new tensor.
     """
     n = _check(d, block_size)
+    require_f32(semiring, where="fw_repair")
     u, v, w = edge_vectors(u, v, w, n, d.device)
     if d.device.type == "cpu":
         return ref.fw_repair_ref(d, u, v, w, semiring=semiring)

@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
 from repro_torch.kernels import ref
 from repro_torch.kernels.fw_repair import _check, edge_vectors
 from repro_torch.kernels.minplus_matmul import (
@@ -102,6 +102,7 @@ def mark_affected(dist, w1, u, v, wold, ecount, *, semiring: Semiring = MIN_PLUS
     ``ecount`` are live and the rest padding.  Torch ops on dist's device.
     """
     m = _check(dist, 1, "dist")
+    require_f32(semiring, where="mark_affected")
     _check_pair(dist, w1, "w1")
     u, v, wold = edge_vectors(u, v, wold, m, "cpu")
     return ref.mark_affected(dist, w1, u, v, wold, ecount, semiring=semiring)
@@ -244,6 +245,7 @@ def fw_repair_del_sweep(
     staging depth (clamped to a divisor of block_size; the result does not
     depend on it)."""
     m = _check(d_init, block_size, "d_init")
+    require_f32(semiring, where="fw_repair_del_sweep")
     check_variant(variant)
     r = _check_rows(rows, m)
     if d_init.device.type == "cpu":

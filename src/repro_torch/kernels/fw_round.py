@@ -9,10 +9,18 @@ relax (``csrc/fw_round.cu`` says why) — through the closed-band buffers of
 ``round_buffers`` / ``bordered_round_buffers`` / ``succ_round_buffers``,
 which a solve allocates once and passes to every round.
 
+Storage.  ``w`` is f32 (``csrc/fw_round.cu``) or one of the storage
+lowerings of ``core.semiring`` (``csrc/fw_round_lowered.cu``, the same
+three launches on storage-typed tiles): bf16 or f16 with any of the five
+semirings, int16 with the saturating ``*_i16`` lowerings, int32 words with
+``OR_AND_PACKED``.  The successor round takes f32, bf16 or f16 distances.
+The bordered round is f32 only (its lowered forms are ROADMAP A.4b).
+
 The wrappers update ``w`` (and ``succ``) in place and return them.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor goes to the kernel, and a launch that fails raises.  There is no
-fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
+fallback between the two.  ``LAUNCHES`` counts kernel launches by kind;
+a lowered launch counts under its own kind, e.g. ``fw_round/relax[int16]``.
 """
 from __future__ import annotations
 
@@ -21,20 +29,31 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
 from repro_torch.kernels import ref
 from repro_torch.kernels.minplus_matmul import (
     BLOCK_SIZES,
     _fit_block,
     _raise_on,
+    check_f32,
     check_variant,
     semiring_id,
 )
 
 PHASES = ("diag", "bands", "relax")
-KINDS = tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors",
-                                    "fw_round_bordered") for p in PHASES)
+# Storage lowerings of the round: tag → storage code of
+# csrc/fw_round_lowered.cu.
+LOWERINGS = {"bf16": 0, "f16": 1, "int16": 2, "packed": 3}
+SUCC_LOWERINGS = ("bf16", "f16")
+KINDS = (
+    tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors",
+                                 "fw_round_bordered") for p in PHASES)
+    + tuple(f"fw_round/{p}[{tag}]" for tag in LOWERINGS for p in PHASES)
+    + tuple(f"fw_round_with_successors/{p}[{tag}]" for tag in SUCC_LOWERINGS
+            for p in PHASES)
+)
 LAUNCHES = dict.fromkeys(KINDS, 0)
+_FLOAT_TAGS = {torch.float32: None, torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def reset_launch_counts() -> None:
@@ -57,12 +76,42 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(w: torch.Tensor, block_size: int, b: int, dtype, what: str = "w"):
+@functools.cache
+def _lowered_lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load("fw_round_lowered")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fw_round_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
+    lib.fw_round_lowered_launch.restype = i
+    lib.fw_round_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.fw_round_lowered_succ_launch.restype = i
+    return lib
+
+
+def _lowering(w: torch.Tensor, semiring: Semiring) -> str | None:
+    """The storage tag of a round on w (None = the f32 kernels); raises
+    TypeError where w's dtype is not the semiring's storage."""
+    if semiring.packed:
+        want, tag = torch.int32, "packed"
+    elif semiring.dtype == "int16":
+        want, tag = torch.int16, "int16"
+    elif w.dtype in _FLOAT_TAGS:
+        return _FLOAT_TAGS[w.dtype]
+    else:
+        raise TypeError(f"w must be float32, bfloat16 or float16 for semiring "
+                        f"{semiring.name!r}, got {w.dtype}")
+    if w.dtype != want:
+        raise TypeError(f"semiring {semiring.name!r} stores {want}, got w of {w.dtype}")
+    return tag
+
+
+def _check(w: torch.Tensor, block_size: int, b: int, dtype=None, what: str = "w"):
     """(B, n) of a (n,n) or (B,n,n) round input; raises on what the kernels
-    do not take."""
+    do not take (dtype None: any storage, checked by ``_lowering``)."""
     if w.ndim not in (2, 3) or w.shape[-1] != w.shape[-2]:
         raise ValueError(f"{what} must be (n,n) or (B,n,n), got {tuple(w.shape)}")
-    if w.dtype != dtype:
+    if dtype is not None and w.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {w.dtype}")
     if block_size not in BLOCK_SIZES:
         raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {block_size}")
@@ -89,25 +138,29 @@ def _buffers(w, block_size, dtypes):
 
 
 def round_buffers(w: torch.Tensor, block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rowband (B,s,n), colband (B,n,s)) f32 buffers for ``fw_round``."""
-    return _buffers(w, block_size, (torch.float32,))
+    """(rowband (B,s,n), colband (B,n,s)) buffers in w's dtype for
+    ``fw_round``."""
+    return _buffers(w, block_size, (w.dtype,))
 
 
 def succ_round_buffers(w: torch.Tensor, block_size: int):
-    """(rw, cw, rs, cs): distance and successor band buffers."""
-    return _buffers(w, block_size, (torch.float32, torch.int32))
+    """(rw, cw, rs, cs): distance band buffers in w's dtype and int32
+    successor band buffers."""
+    return _buffers(w, block_size, (w.dtype, torch.int32))
 
 
 def _check_buffers(w, block_size, bufs, count):
     B = w.shape[0] if w.ndim == 3 else 1
     n, s = w.shape[-1], block_size
     shapes = [(B, s, n), (B, n, s)] * (count // 2)
+    dtypes = [w.dtype] * 2 + [torch.int32] * (count - 2)
     if len(bufs) != count:
         raise ValueError(f"expected {count} band buffers, got {len(bufs)}")
-    for buf, shape in zip(bufs, shapes):
-        if tuple(buf.shape) != shape or buf.device != w.device or not buf.is_contiguous():
+    for buf, shape, dt in zip(bufs, shapes, dtypes):
+        if (tuple(buf.shape) != shape or buf.dtype != dt or buf.device != w.device
+                or not buf.is_contiguous()):
             raise ValueError(
-                f"band buffer {tuple(buf.shape)} on {buf.device} does not fit "
+                f"band buffer {tuple(buf.shape)} {buf.dtype} on {buf.device} does not fit "
                 f"a round of {tuple(w.shape)} on {w.device} at block_size={s}"
             )
 
@@ -119,21 +172,25 @@ def fw_round_phase(
     """Launch one phase ("diag" | "bands" | "relax") of round b on the card."""
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-    B, n = _check(w, block_size, b, torch.float32)
+    B, n = _check(w, block_size, b)
+    tag = _lowering(w, semiring)
     if w.device.type != "cuda":
         raise ValueError("fw_round_phase launches a CUDA kernel; w is on the CPU")
     _check_buffers(w, block_size, bands, 2)
-    sid = semiring_id(semiring)
     if phase == "bands" and n == block_size:
         return  # a single tile has no bands to close
-    kind = f"fw_round/{phase}"
+    kind = f"fw_round/{phase}" + (f"[{tag}]" if tag else "")
+    ptrs = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, n, block_size, b,
+            _fit_block(block_size, bk))
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _lib().fw_round_launch(
-            PHASES.index(phase), w.data_ptr(), bands[0].data_ptr(),
-            bands[1].data_ptr(), B, n, block_size, b,
-            _fit_block(block_size, bk), sid, stream,
-        )
+        if tag is None:
+            err = _lib().fw_round_launch(PHASES.index(phase), *ptrs, semiring_id(semiring),
+                                         stream)
+        else:
+            err = _lowered_lib().fw_round_lowered_launch(
+                PHASES.index(phase), LOWERINGS[tag], semiring_id(semiring, lowered=True),
+                *ptrs, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
 
@@ -142,13 +199,15 @@ def fw_round(
     w: torch.Tensor, b: int, *, block_size: int = 128, bk: int = 32,
     variant: str = "fori", semiring: Semiring = MIN_PLUS, bands=None,
 ) -> torch.Tensor:
-    """One fused pivot round b of w (n,n) or (B,n,n), f32, in place.
+    """One fused pivot round b of w (n,n) or (B,n,n), in place: f32, bf16 or
+    f16 with a float semiring, int16 or int32 words with their lowering.
 
     bk: phase-3 staging depth (clamped to a divisor of block_size; the
     result does not depend on it).  bands: ``round_buffers(w, block_size)``
     to reuse across rounds (allocated here when None).
     """
-    _check(w, block_size, b, torch.float32)
+    _check(w, block_size, b)
+    _lowering(w, semiring)
     check_variant(variant)
     if w.device.type == "cpu":
         return w.copy_(ref.fw_round_ref(
@@ -162,6 +221,13 @@ def fw_round(
     return w
 
 
+def _succ_lowering(w: torch.Tensor) -> str | None:
+    if w.dtype not in _FLOAT_TAGS:
+        raise TypeError(f"successor rounds take float32, bfloat16 or float16 "
+                        f"distances, got {w.dtype}")
+    return _FLOAT_TAGS[w.dtype]
+
+
 def fw_round_with_successors_phase(
     phase: str, w: torch.Tensor, succ: torch.Tensor, b: int, bands, *,
     block_size: int = 128,
@@ -169,20 +235,24 @@ def fw_round_with_successors_phase(
     """Launch one phase of the successor round b on the card."""
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-    B, n = _check(w, block_size, b, torch.float32)
+    B, n = _check(w, block_size, b)
+    tag = _succ_lowering(w)
     _check(succ, block_size, b, torch.int32, "succ")
     if w.device.type != "cuda" or succ.shape != w.shape or succ.device != w.device:
         raise ValueError("w and succ must be CUDA tensors of one shape and device")
     _check_buffers(w, block_size, bands, 4)
     if phase == "bands" and n == block_size:
         return
-    kind = f"fw_round_with_successors/{phase}"
+    kind = f"fw_round_with_successors/{phase}" + (f"[{tag}]" if tag else "")
+    ptrs = (w.data_ptr(), succ.data_ptr(), *(t.data_ptr() for t in bands), B, n,
+            block_size, b)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _lib().fw_round_succ_launch(
-            PHASES.index(phase), w.data_ptr(), succ.data_ptr(),
-            *(t.data_ptr() for t in bands), B, n, block_size, b, stream,
-        )
+        if tag is None:
+            err = _lib().fw_round_succ_launch(PHASES.index(phase), *ptrs, stream)
+        else:
+            err = _lowered_lib().fw_round_lowered_succ_launch(
+                PHASES.index(phase), LOWERINGS[tag], *ptrs, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
 
@@ -191,9 +261,10 @@ def fw_round_with_successors(
     w: torch.Tensor, succ: torch.Tensor, b: int, *, block_size: int = 128,
     bands=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One fused min-plus round carrying next hops; w f32 and succ int32,
-    (n,n) or (B,n,n), both updated in place."""
-    _check(w, block_size, b, torch.float32)
+    """One fused min-plus round carrying next hops; w f32, bf16 or f16 and
+    succ int32, (n,n) or (B,n,n), both updated in place."""
+    _check(w, block_size, b)
+    _succ_lowering(w)
     _check(succ, block_size, b, torch.int32, "succ")
     if succ.shape != w.shape or succ.device != w.device:
         raise ValueError(
@@ -219,8 +290,7 @@ def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col:
     do not take."""
     if w.ndim not in (2, 3):
         raise ValueError(f"w must be (rows,cols) or (B,rows,cols), got {tuple(w.shape)}")
-    if w.dtype != torch.float32:
-        raise TypeError(f"w must be torch.float32, got {w.dtype}")
+    check_f32(w, "w of fw_round_bordered")
     if block_size not in BLOCK_SIZES:
         raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {block_size}")
     rows, cols = w.shape[-2:]
@@ -295,6 +365,7 @@ def fw_round_bordered(
     block_size)`` to reuse across rounds (allocated here when None).
     """
     _check_bordered(w, block_size, owner_row, owner_col)
+    require_f32(semiring, where="fw_round_bordered")
     check_variant(variant)
     if w.device.type == "cpu":
         return w.copy_(ref.fw_round_bordered_ref(

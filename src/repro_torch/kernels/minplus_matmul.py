@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
 
 VARIANTS = ("fori", "unroll")
 
@@ -65,12 +65,27 @@ def _raise_on(err: int, kind: str) -> None:
         raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
 
 
+# Storage types of the lowerings that only the fused round takes so far.
+_LOWERED_STORAGE = (torch.bfloat16, torch.float16, torch.int16, torch.int32)
+
+
+def check_f32(t: torch.Tensor, what: str) -> None:
+    """f32, or raise: NotImplementedError naming ROADMAP A.4b for a lowered
+    storage type (never widened), TypeError for any other."""
+    if t.dtype in _LOWERED_STORAGE:
+        raise NotImplementedError(
+            f"{what} is {t.dtype}: this kernel runs float32 only; its lowered "
+            f"forms are not ported yet (ROADMAP A.4b)"
+        )
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what} must be torch.float32, got {t.dtype}")
+
+
 def check_operand(t: torch.Tensor, what: str) -> None:
     """f32, (r, c) or (B, r, c), on the CPU or a CUDA device."""
     if t.ndim not in (2, 3):
         raise ValueError(f"{what} must be 2-D or batched 3-D, got {tuple(t.shape)}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what} must be torch.float32, got {t.dtype}")
+    check_f32(t, what)
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {t.device}")
 
@@ -93,8 +108,20 @@ def output(out, shape, like: torch.Tensor, what: str = "out") -> torch.Tensor:
     return out
 
 
-def semiring_id(semiring: Semiring) -> int:
-    sid = _SEMIRING_IDS.get(semiring.name)
+def semiring_id(semiring: Semiring, *, lowered: bool = False) -> int:
+    """The kernels' semiring code.  A storage lowering raises (A.4b) unless
+    ``lowered``: the lowered round maps it to its abstract semiring's code
+    (``min_plus_i16`` → min_plus, ``or_and_packed`` → or_and), and its
+    storage code tells the two apart."""
+    name = semiring.name
+    if semiring.dtype is not None:
+        if not lowered:
+            raise NotImplementedError(
+                f"semiring {name!r} is a storage lowering: this kernel runs "
+                f"float32 only (ROADMAP A.4b)"
+            )
+        name = name.removesuffix("_i16").removesuffix("_packed")
+    sid = _SEMIRING_IDS.get(name)
     if sid is None:
         raise ValueError(f"no CUDA kernel for semiring {semiring.name!r}")
     return sid
@@ -157,6 +184,7 @@ def semiring_matmul(
     from repro_torch.kernels import ref  # ref imports this module
 
     check_variant(variant)
+    require_f32(semiring, where="semiring_matmul")
     for t, what in ((a, "a"), (b, "b")) + (() if c is None else ((c, "c"),)):
         check_operand(t, what)
     B, m, k, n = _shapes(a, b)

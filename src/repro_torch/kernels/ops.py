@@ -1,7 +1,10 @@
 """Public wrappers over the kernels: counterpart of ``repro.kernels.ops``.
 
 ``minplus_matmul``, ``fw_phase3`` and ``transitive_closure`` as in the
-reference, and the same re-exports.  Each runs where its tensors lie: the
+reference, and the same re-exports.  The matmul and phase kernels run
+float32 only: a lowered dtype or semiring raises ``NotImplementedError``
+naming ROADMAP A.4b; ``fw_round`` / ``fw_round_with_successors`` and so
+``transitive_closure`` take the storage lowerings too.  Each runs where its tensors lie: the
 CUDA kernels for tensors on the card, the plain versions for tensors on
 the CPU.  The reference's ``default_interpret`` / ``default_gpu_interpret``
 choose Pallas's interpret mode on a machine without a TPU or GPU; the

@@ -28,6 +28,15 @@ The repair is the direct per-edge loop, and beside it the two phases of
 ``kernels/csrc/fw_repair.cu``: ``repair_stage*`` (the evolved pivot rows)
 and ``repair_apply*`` (every row folds all E updates against them).
 
+The round twins are generic over the storage dtype: f32, bf16 and f16
+(each ⊗ and ⊕ rounded to the storage type by torch's 16-bit ops), the
+saturating int16 lowerings and the bit-packed or_and words, through the
+lowering's own ``Semiring`` ops.
+
+``flash_decode_ref`` is the masked-softmax oracle of single-token decode
+attention and ``flash_decode_online_ref`` the block-by-block online
+softmax of the reference's ``_decode_kernel``.
+
 The decremental repair is ``mark_affected*`` (stage 1, torch ops on any
 device) and the restricted row sweep, whose rounds are the three launches
 of ``kernels/csrc/fw_repair_del.cu``, built from the round's own chains:
@@ -554,3 +563,46 @@ def fw_repair_del_sweep_with_successors_ref(d_init, s_init, rows, *, block_size:
         strip, strip_s = sweep_relax_succ_ref(strip, strip_s, rows, band, band_s,
                                               acol, acol_s, b)
     return _scatter_strip(d_init, rows, strip), _scatter_strip(s_init, rows, strip_s)
+
+
+# ------------------------------------------------------------ flash decode
+NEG_INF = -1e30  # the reference's mask value: kv_len = 0 averages v, no NaN
+
+
+def _logits(q, k, kv_len, start: int = 0):
+    """(B, Hkv, g, rows) f32 logits of q against k rows [start, start+rows),
+    positions at or past kv_len set to NEG_INF."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    pos = torch.arange(start, start + k.shape[1], device=k.device)
+    return torch.where(pos < kv_len, logits, NEG_INF)
+
+
+def flash_decode_ref(q, k, v, kv_len) -> torch.Tensor:
+    """Masked softmax attention of one decode token: q (B,Hkv,g,hd), k/v
+    (B,S,Hkv,hd), kv_len an int or a 0-d tensor → (B,Hkv,g,hd) in q's
+    dtype; f32 math."""
+    p = torch.softmax(_logits(q, k, kv_len), dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_online_ref(q, k, v, kv_len, bs: int = 256) -> torch.Tensor:
+    """The reference kernel's walk: bs-row K/V blocks in order, a running
+    max m, sum l and accumulator in f32 (bs becomes S when it does not
+    divide S)."""
+    S = k.shape[1]
+    if S % bs:
+        bs = S
+    lead = q.shape[:-1]
+    m = torch.full((*lead, 1), NEG_INF, device=q.device)
+    l = torch.zeros((*lead, 1), device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for k0 in range(0, S, bs):
+        logits = _logits(q, k[:, k0:k0 + bs], kv_len, k0)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        acc = acc * alpha + torch.einsum("bhgs,bshd->bhgd", p, v[:, k0:k0 + bs].float())
+    return (acc / l).to(q.dtype)

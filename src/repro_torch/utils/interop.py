@@ -1,9 +1,12 @@
 """Carry state across between the JAX package and the port.
 
-The system has no learned weights: its state is graph matrices (f32
-weights) and solved tables (f32 distances, int32 successors).  Both
-packages read and write them as numpy arrays, so these two functions are
-the whole bridge.
+The system has no learned weights: its state is graph matrices and solved
+tables — f32, f16 or bf16 weights and distances, int16 saturating
+distances, int32 bit-packed reachability words and int32 successors.
+Both packages read and write them as numpy arrays, so these two functions
+are the whole bridge.  bfloat16 is not a numpy dtype: the reference's
+arrays carry it as ``ml_dtypes.bfloat16``, and it crosses by bit view
+(uint16), never by a value cast.
 """
 from __future__ import annotations
 
@@ -12,22 +15,46 @@ import torch
 
 _DTYPES = {
     np.dtype(np.float32): torch.float32,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
 }
 
 
-def from_numpy(arr, *, device="cuda") -> torch.Tensor:
-    """A weight matrix (f32) or successor table (int32) → a tensor on ``device``.
+def _is_bfloat16(dtype: np.dtype) -> bool:
+    return dtype.name == "bfloat16" and dtype.itemsize == 2
 
-    Other float inputs are cast to f32 and other integer inputs to int32 —
-    the two storage types of the ported slice.
+
+def host_tensor(arr) -> torch.Tensor:
+    """A numpy array (or nested list) → a CPU tensor of the same dtype and
+    bits; ml_dtypes bfloat16 → torch.bfloat16 through its uint16 view."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if not a.flags.writeable:  # e.g. a view of a JAX array
+        a = a.copy()
+    if _is_bfloat16(a.dtype):
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_numpy(arr, *, device="cuda") -> torch.Tensor:
+    """A weight matrix or solved table → a tensor on ``device``.
+
+    f32, f16, bf16, int16, int32 and bool keep their dtype; other floats
+    are cast to f32 and other integers to int32, the port's wide types.
     """
     a = np.asarray(arr)
-    if a.dtype not in _DTYPES:
+    if not _is_bfloat16(a.dtype) and a.dtype not in _DTYPES:
         a = a.astype(np.int32 if a.dtype.kind in "iu" else np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return host_tensor(a).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor on any device → a host numpy array of the same dtype."""
-    return t.detach().cpu().numpy()
+    """A tensor on any device → a host numpy array of the same dtype;
+    bfloat16 comes back as ``ml_dtypes.bfloat16`` (needs that package)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

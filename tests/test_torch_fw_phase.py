@@ -3,7 +3,8 @@
 ``repro_torch.kernels.fw_phase1`` / ``fw_phase2`` on CPU tensors run their
 plain versions; they must equal ``repro.kernels.fw_phase1.fw_phase1`` and
 ``fw_phase2.fw_phase2_row`` / ``fw_phase2_col`` in interpret mode bit for
-bit (``np.array_equal``, NaN equal to NaN, tolerance zero) on the same numpy
+bit (``bits_equal``: bits compared, -0.0 told from +0.0, NaN equal to NaN,
+tolerance zero) on the same numpy
 inputs, on all five semirings, single and batched, at band lengths that are
 not multiples of s.  The slice as a whole, ``repro_torch.core.staged.
 fw_staged(fused=False)``, must equal ``repro.core.staged.fw_staged(

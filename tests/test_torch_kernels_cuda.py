@@ -17,8 +17,13 @@ import torch
 
 from repro_torch.apsp import ApspEngine, solve
 from repro_torch.core.paths import _init_successors
-from repro_torch.core.semiring import SEMIRINGS
+from repro_torch.core.semiring import (
+    OR_AND_PACKED,
+    SEMIRINGS,
+    lower_semiring,
+)
 from repro_torch.core.staged import fw_staged
+from repro_torch.kernels import flash_decode as fdec
 from repro_torch.kernels import fw_phase1 as fph
 from repro_torch.kernels import fw_phase2
 from repro_torch.kernels import fw_repair as fp
@@ -28,15 +33,20 @@ from repro_torch.kernels import minplus_matmul as fmm
 from repro_torch.kernels import ref
 from repro_torch.launch import fw_dist_check as fdc
 from repro_torch.launch.mesh import run_grid
+from repro_torch.utils.bits import bits_equal
 
 NAMES = sorted(SEMIRINGS)
 
 
 @pytest.fixture
 def cuda_device():
-    """The card, or a skip: decided here, never at import or collection."""
+    """The card, or a skip: decided here, never at import or collection.
+    The first use builds every library at once, one nvcc each."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.kernels import _build
+
+    _build.build_all()
     return torch.device("cuda")
 
 
@@ -71,7 +81,7 @@ def test_kernel_round_matches_plain(cuda_device, name, shape, s):
         got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
         want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
         torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        assert bits_equal(got, want)
     assert fr.LAUNCHES["fw_round/relax"] == before + 2
 
 
@@ -84,7 +94,7 @@ def test_kernel_successor_round_matches_plain(cuda_device, shape, s):
         gd, gs = fr.fw_round_with_successors(w.clone(), succ.clone(), b, block_size=s)
         wd, ws = ref.fw_round_with_successors_ref(w, succ, b, block_size=s)
         torch.cuda.synchronize()
-        assert torch.equal(gd, wd) and torch.equal(gs, ws)
+        assert bits_equal(gd, wd) and bits_equal(gs, ws)
 
 
 @pytest.mark.cuda
@@ -94,11 +104,11 @@ def test_solve_on_the_card_matches_the_plain_path(cuda_device, name):
     got = solve(w, method="fused", semiring=name, block_size=32)
     want = solve(w, method="fused", semiring=name, block_size=32, device="cpu")
     assert got.dist.is_cuda
-    assert torch.equal(got.dist.cpu(), want.dist)
+    assert bits_equal(got.dist.cpu(), want.dist)
     if name == "min_plus":
         got = solve(w, successors=True, block_size=16)
         want = solve(w, successors=True, block_size=16, device="cpu")
-        assert torch.equal(got.succ.cpu(), want.succ)
+        assert bits_equal(got.succ.cpu(), want.succ)
 
 
 def _edges(name, n, E, seed):
@@ -123,8 +133,7 @@ def test_kernel_repair_matches_plain(cuda_device, name, E):
     got = fp.fw_repair(d, u, v, w, semiring=SEMIRINGS[name])
     want = ref.fw_repair_ref(d, u, v, w, semiring=SEMIRINGS[name])
     torch.cuda.synchronize()
-    assert torch.equal(got.isnan(), want.isnan())
-    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert bits_equal(got, want)
     assert fp.LAUNCHES["fw_repair/apply"] == before + (2 if E + 1 > fp.MAX_EDGES else 1)
 
 
@@ -137,7 +146,7 @@ def test_kernel_successor_repair_matches_plain(cuda_device, E):
     gd, gs = fp.fw_repair_with_successors(d, succ, u, v, w)
     wd, ws = ref.fw_repair_with_successors_ref(d, succ, u, v, w)
     torch.cuda.synchronize()
-    assert torch.equal(gd, wd) and torch.equal(gs, ws)
+    assert bits_equal(gd, wd) and bits_equal(gs, ws)
 
 
 @pytest.mark.cuda
@@ -151,13 +160,12 @@ def test_engine_repair_on_the_card_matches_the_plain_path(cuda_device, name):
     got = eng.repair(r0.dist, upd)
     want = host.repair(r0.dist.cpu(), upd)
     assert got.dist.is_cuda
-    assert torch.equal(got.dist.cpu().isnan(), want.dist.isnan())
-    assert torch.equal(torch.nan_to_num(got.dist.cpu()), torch.nan_to_num(want.dist))
+    assert bits_equal(got.dist.cpu(), want.dist)
     if name == "min_plus":
         r0 = eng.solve(w, successors=True)
         got = eng.repair(r0.dist, upd, succ=r0.succ)
         want = host.repair(r0.dist.cpu(), upd, succ=r0.succ.cpu())
-        assert torch.equal(got.succ.cpu(), want.succ)
+        assert bits_equal(got.succ.cpu(), want.succ)
 
 
 @pytest.mark.cuda
@@ -177,11 +185,6 @@ def test_launches_refuse_what_the_kernels_do_not_take(cuda_device):
         fp.repair_phase("stage", d, u, v, w, torch.empty(65, 64, device=cuda_device))
     with pytest.raises(ValueError):  # staged buffer of the wrong shape
         fp.repair_phase("stage", d, u[:4], v[:4], w[:4], torch.empty(3, 64, device=cuda_device))
-
-
-def _same(a, b) -> bool:
-    """Bitwise equal, NaN equal to NaN."""
-    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
 def _strip_rows(n, a, seed):
@@ -204,7 +207,7 @@ def test_kernel_sweep_matches_plain(cuda_device, name, s, a):
     got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=SEMIRINGS[name])
     want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=SEMIRINGS[name])
     torch.cuda.synchronize()
-    assert _same(got, want)
+    assert bits_equal(got, want)
     assert fd.LAUNCHES["fw_repair_del_sweep/relax"] == before + 256 // s
 
 
@@ -217,7 +220,7 @@ def test_kernel_successor_sweep_matches_plain(cuda_device, s, a):
     gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
     wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows, block_size=s)
     torch.cuda.synchronize()
-    assert torch.equal(gd, wd) and torch.equal(gs, ws)
+    assert bits_equal(gd, wd) and bits_equal(gs, ws)
 
 
 @pytest.mark.cuda
@@ -238,14 +241,14 @@ def test_engine_repair_del_on_the_card_matches_the_plain_path(cuda_device, name)
     eng = ApspEngine(semiring=name, validate=False)
     got = eng.repair_del(torch.from_numpy(d0).to(cuda_device), w1, dels, threshold=100.0)
     want = host.repair_del(d0, w1, dels, threshold=100.0)
-    assert got.dist.is_cuda and _same(got.dist.cpu(), want.dist)
+    assert got.dist.is_cuda and bits_equal(got.dist.cpu(), want.dist)
     fields = ("repair_dels", "repair_del_rows", "repair_del_fallbacks", "edges_deleted")
     assert [getattr(eng.stats, f) for f in fields] == [getattr(host.stats, f) for f in fields]
     if name == "min_plus":
         r0 = host.solve(w, successors=True)
         got = eng.repair_del(r0.dist.to(cuda_device), w1, dels, succ=r0.succ, threshold=100.0)
         want = host.repair_del(r0.dist, w1, dels, succ=r0.succ, threshold=100.0)
-        assert torch.equal(got.dist.cpu(), want.dist) and torch.equal(got.succ.cpu(), want.succ)
+        assert bits_equal(got.dist.cpu(), want.dist) and bits_equal(got.succ.cpu(), want.succ)
 
 
 @pytest.mark.cuda
@@ -291,8 +294,8 @@ def test_kernel_semiring_matmul_matches_plain(cuda_device, name, a_shape, b_shap
     got = fmm.semiring_matmul(a, b, c, semiring=sr)
     want = ref.semiring_matmul_ref(a, b, c, semiring=sr)
     torch.cuda.synchronize()
-    assert _same(got, want)
-    assert c is None or torch.equal(c, c0)  # functional
+    assert bits_equal(got, want)
+    assert c is None or bits_equal(c, c0)  # functional
     assert fmm.LAUNCHES["semiring_matmul"] == before + 1
 
 
@@ -304,7 +307,7 @@ def test_kernel_phase1_matches_plain(cuda_device, name, shape):
     got = fph.fw_phase1(t, semiring=SEMIRINGS[name])
     want = ref.fw_phase1_ref(t, semiring=SEMIRINGS[name])
     torch.cuda.synchronize()
-    assert _same(got, want)
+    assert bits_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -321,8 +324,8 @@ def test_kernel_phase2_matches_plain(cuda_device, name, lead, s, n):
     got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr)
     got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr)
     torch.cuda.synchronize()
-    assert _same(got_r, ref.fw_phase2_row_ref(diag, row, semiring=sr))
-    assert _same(got_c, ref.fw_phase2_col_ref(diag, col, semiring=sr))
+    assert bits_equal(got_r, ref.fw_phase2_row_ref(diag, row, semiring=sr))
+    assert bits_equal(got_c, ref.fw_phase2_col_ref(diag, col, semiring=sr))
 
 
 @pytest.mark.cuda
@@ -340,7 +343,7 @@ def test_kernel_four_dispatch_matches_plain_and_fused(cuda_device, name, shape, 
         want = ref.fw_round4_ref(want, b, block_size=s, semiring=sr)
     fused = fw_staged(w, block_size=s, semiring=sr)
     torch.cuda.synchronize()
-    assert _same(got, want) and _same(got, fused)
+    assert bits_equal(got, want) and bits_equal(got, fused)
     assert counts == dict.fromkeys(counts, shape[-1] // s)
 
 
@@ -373,7 +376,7 @@ def test_kernel_bordered_round_matches_plain(cuda_device, name, shape, s):
         got = fr.fw_round_bordered(w.clone(), *echo, block_size=s, semiring=sr)
         want = ref.fw_round_bordered_ref(w, *echo, block_size=s, semiring=sr)
         torch.cuda.synchronize()
-        assert _same(got, want), echo
+        assert bits_equal(got, want), echo
     assert fr.LAUNCHES["fw_round_bordered/relax"] == before + len(echoes)
 
 
@@ -407,3 +410,303 @@ def test_distributed_modules_import_without_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ------------------------------------------------- signed zero and NaN
+IDEMPOTENT = ("min_plus", "max_plus", "max_min", "or_and")
+
+
+def _domain_graph(name, shape, seed):
+    """_graph, but max_plus / max_min weights in [-10, -1) (no cycle grows
+    under max, no DAG needed): most of a closure stays finite."""
+    if name not in ("max_plus", "max_min"):
+        return _graph(name, shape, seed)
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(-10.0, -1.0, size=shape).astype(np.float32)
+    w[rng.uniform(size=shape) < 0.3] = SEMIRINGS[name].zero
+    idx = np.arange(shape[-1])
+    w[..., idx, idx] = SEMIRINGS[name].one
+    return w
+
+
+def _signed_zero_graph(name, shape, seed):
+    """_domain_graph with ±0 salted in and no NaN: 3 % of each sign (max_plus
+    0.3 %: a max keeps -0 only where no candidate is +0, and + gives -0
+    only from two -0s); or_and 1 % ones, 1 % +0, -0 elsewhere; the
+    diagonal 1̄ of min_plus / max_plus as -0, the exact identity of +."""
+    rng = np.random.default_rng(seed + 1)
+    u = rng.uniform(size=shape)
+    if name == "or_and":
+        w = np.where(rng.uniform(size=shape) < 0.01, 1.0, -0.0).astype(np.float32)
+        w[u < 0.01] = 0.0
+        idx = np.arange(shape[-1])
+        w[..., idx, idx] = 1.0
+        return w
+    w = _domain_graph(name, shape, seed)
+    if name in ("min_plus", "max_plus"):
+        idx = np.arange(shape[-1])
+        w[..., idx, idx] = -0.0
+    share = 0.003 if name == "max_plus" else 0.03
+    w[u < share] = 0.0
+    w[(u >= share) & (u < 2 * share)] = -0.0
+    return w
+
+
+def _nan_salted(w, seed, count, s):
+    """w with ``count`` NaNs a graph off its diagonal (s, s) tiles, where no
+    round or panel closes them over the whole output."""
+    rng = np.random.default_rng(seed)
+    w = w.copy()
+    placed = 0
+    while placed < count:
+        i, j = (int(x) for x in rng.integers(0, w.shape[-1], 2))
+        if i // s != j // s:
+            w[..., i, j] = np.nan
+            placed += 1
+    return w
+
+
+def _assert_salt_survives(name, want, *, zeros, nans):
+    """The plain output stays mostly finite and keeps its salt: zeros of
+    both signs for the idempotent semirings (plus_mul sums every term, so
+    it holds -0 only where all terms are -0), NaNs where NaNs went in."""
+    if not want.is_floating_point():
+        return
+    want = want.float().cpu()
+    zero, neg = want == 0, torch.signbit(want)
+    assert torch.isfinite(want).float().mean() >= 0.5
+    if zeros and name in IDEMPOTENT:
+        assert (zero & neg).any() and (zero & ~neg).any()
+    if nans:
+        assert want.isnan().any()
+
+
+def _planted_zero_matrix(name, n=32):
+    """0̄ but for the +0 diagonal and four two-step paths whose ⊕ picks
+    between +0 and -0 with either sign in the accumulator: cells (1, 2),
+    (4, 5) in round 0's pivot tile at s = 16, (17, 18), (20, 21) in the
+    block it relaxes.  min must leave -0 in each, max +0."""
+    z1, z2 = (0.0, -0.0) if name == "min_plus" else (-0.0, 0.0)
+    w = np.full((n, n), SEMIRINGS[name].zero, np.float32)
+    np.fill_diagonal(w, 0.0)
+    cells = []
+    for (i, j), k, acc, step in (((1, 2), 3, z1, z2), ((4, 5), 6, z2, z1),
+                                 ((17, 18), 7, z1, z2), ((20, 21), 9, z2, z1)):
+        w[i, j], w[i, k], w[k, j] = acc, step, step
+        cells.append((i, j))
+    return w, cells
+
+
+@pytest.mark.cuda
+def test_min_max_steps_take_xla_signed_zero(cuda_device):
+    """min.NaN / max.NaN inside the kernels (the f32 round and phase 1, the
+    bf16 / f16 round): -0 / +0 for (±0, ∓0) in either order, what XLA's
+    min / max give."""
+    for name in ("min_plus", "max_plus"):
+        sr = SEMIRINGS[name]
+        w32, cells = _planted_zero_matrix(name)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            w = torch.from_numpy(w32).to(dt).to(cuda_device)
+            got = fr.fw_round(w.clone(), 0, block_size=16, semiring=sr)
+            assert bits_equal(got, ref.fw_round_ref(w, 0, block_size=16, semiring=sr))
+            assert all(bool(got[i, j].signbit()) == (name == "min_plus") for i, j in cells)
+        w = torch.from_numpy(w32[:16, :16]).to(cuda_device)
+        got = fph.fw_phase1(w, semiring=sr)
+        assert bits_equal(got, ref.fw_phase1_ref(w, semiring=sr))
+        assert all(bool(got[i, j].signbit()) == (name == "min_plus") for i, j in cells[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_kernels_match_plain_on_signed_zero_and_nan(cuda_device, name):
+    """The round, the bordered round, the successor round, the phase
+    kernels, the matmul and the repairs, by bits, on two inputs: ±0 salted
+    without NaN, and NaNs off the diagonal tiles (one tile of the phase-1
+    batch all NaN); each plain output stays mostly finite and keeps its
+    salt."""
+    sr = SEMIRINGS[name]
+    n = 256
+    for kind in ("zero", "nan"):
+        make = _signed_zero_graph if kind == "zero" else _domain_graph
+        w, tiles = make(name, (2, n, n), 3), make(name, (3, 64, 64), 4)
+        if kind == "nan":
+            w = _nan_salted(w, 11, 4, 64)
+            w[:, 7, 70] = w[:, 100, 5] = np.nan  # one in each panel
+            tiles[2] = _nan_salted(tiles[2], 6, 1, 1)
+        w, tiles = torch.from_numpy(w).to(cuda_device), torch.from_numpy(tiles).to(cuda_device)
+        diag = ref.fw_phase1_ref(w[:, :64, :64], semiring=sr)
+        a, b = w[0, :, :96].contiguous(), w[1, :96, :].contiguous()
+        row, col = w[:, :64, :].contiguous(), w[:, :, :64].contiguous()
+        cases = [
+            (fr.fw_round(w.clone(), 1, block_size=64, semiring=sr),
+             ref.fw_round_ref(w, 1, block_size=64, semiring=sr)),
+            (fr.fw_round_bordered(w.clone(), 1, 2, block_size=32, semiring=sr),
+             ref.fw_round_bordered_ref(w, 1, 2, block_size=32, semiring=sr)),
+            (fmm.semiring_matmul(a, b, w[0], semiring=sr),
+             ref.semiring_matmul_ref(a, b, w[0], semiring=sr)),
+            (fph.fw_phase1(tiles, semiring=sr), ref.fw_phase1_ref(tiles, semiring=sr)),
+            (fw_phase2.fw_phase2_row(diag, row, semiring=sr),
+             ref.fw_phase2_row_ref(diag, row, semiring=sr)),
+            (fw_phase2.fw_phase2_col(diag, col, semiring=sr),
+             ref.fw_phase2_col_ref(diag, col, semiring=sr)),
+        ]
+        if name == "min_plus":
+            succ = _init_successors(w).contiguous()
+            gd, gs = fr.fw_round_with_successors(w.clone(), succ.clone(), 2, block_size=64)
+            wd, ws = ref.fw_round_with_successors_ref(w, succ, 2, block_size=64)
+            cases += [(gd, wd), (gs, ws)]
+        if name != "plus_mul":
+            d = w[0].contiguous()
+            u, v, e = _edges(name, n, 5, seed=5)
+            rows = _strip_rows(n, 37, seed=6)
+            cases += [(fp.fw_repair(d, u, v, e, semiring=sr),
+                       ref.fw_repair_ref(d, u, v, e, semiring=sr)),
+                      (fd.fw_repair_del_sweep(d, rows, block_size=64, semiring=sr),
+                       ref.fw_repair_del_sweep_ref(d, rows, block_size=64, semiring=sr))]
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(cases):
+            assert bits_equal(got, want), (kind, i)
+            _assert_salt_survives(name, want, zeros=kind == "zero", nans=kind == "nan")
+
+
+# ------------------------------------------------------ storage lowerings
+def _lowered_case(tag: str, name: str, shape, seed: int, s: int):
+    """(w on the CPU, semiring) of a lowered round at block size s: int16
+    weights with the ⊕-identity sentinel and near-saturation values
+    sprinkled in, {0,1} int16 for or_and_i16, random int32 words for the
+    packed closure, or the signed-zero graph cast to bf16 / f16 with two
+    NaNs a graph off the diagonal tiles."""
+    rng = np.random.default_rng(seed)
+    if tag == "packed":
+        words = rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+        return torch.from_numpy(words.view(np.int32)), OR_AND_PACKED
+    if tag == "int16":
+        sr = lower_semiring(SEMIRINGS[name], torch.int16)
+        if name == "or_and":
+            return torch.from_numpy((rng.uniform(size=shape) < 0.25).astype(np.int16)), sr
+        v = rng.integers(-40, 40, size=shape).astype(np.int16)
+        v[rng.uniform(size=shape) < 0.02] = 32000
+        v[rng.uniform(size=shape) < 0.02] = -32000
+        v[rng.uniform(size=shape) < 0.15] = sr.zero
+        return torch.from_numpy(v), sr
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16}[tag]
+    w = _nan_salted(_signed_zero_graph(name, shape, seed), seed, 2, s)
+    return torch.from_numpy(w).to(dt), SEMIRINGS[name]
+
+
+LOWERED_CASES = ([("int16", n) for n in ("min_plus", "max_plus", "max_min", "or_and")]
+                 + [("packed", "or_and")]
+                 + [(tag, n) for tag in ("bf16", "f16") for n in NAMES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", LOWERED_CASES)
+@pytest.mark.parametrize("shape,s", [((256, 256), 16), ((256, 256), 32),
+                                     ((256, 256), 64), ((3, 256, 256), 128)])
+def test_kernel_lowered_round_matches_plain(cuda_device, tag, name, shape, s):
+    w, sr = _lowered_case(tag, name, shape, seed=s, s=s)
+    w = w.to(cuda_device)
+    kind = f"fw_round/relax[{tag}]"
+    before = fr.LAUNCHES[kind]
+    for b in (0, shape[-1] // s - 1):
+        got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
+        want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert got.dtype == w.dtype and bits_equal(got, want), (tag, name, b)
+        if tag in ("bf16", "f16"):
+            _assert_salt_survives(name, want, zeros=True, nans=True)
+    assert fr.LAUNCHES[kind] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,s", [((256, 256), 16), ((3, 256, 256), 128)])
+def test_kernel_lowered_successor_round_matches_plain(cuda_device, dtype, shape, s):
+    w = torch.from_numpy(_signed_zero_graph("min_plus", shape, seed=s)).to(dtype).to(cuda_device)
+    succ = _init_successors(w).contiguous()
+    for b in (0, shape[-1] // s - 1):
+        gd, gs = fr.fw_round_with_successors(w.clone(), succ.clone(), b, block_size=s)
+        wd, ws = ref.fw_round_with_successors_ref(w, succ, b, block_size=s)
+        torch.cuda.synchronize()
+        assert bits_equal(gd, wd) and bits_equal(gs, ws)
+
+
+@pytest.mark.cuda
+def test_lowered_solves_on_the_card_match_the_plain_path(cuda_device):
+    rng = np.random.default_rng(4)
+    w = rng.integers(1, 50, size=(2, 100, 100)).astype(np.float32)
+    w[rng.uniform(size=w.shape) < 0.5] = np.inf
+    w[:, np.arange(100), np.arange(100)] = 0.0
+    for kw in (dict(dtype=torch.int16), dict(dtype=torch.bfloat16),
+               dict(dtype=torch.float16), dict(dtype=torch.bfloat16, successors=True)):
+        got = solve(w, method="fused", block_size=32, **kw)
+        want = solve(w, method="fused", block_size=32, device="cpu", **kw)
+        assert bits_equal(got.dist.cpu(), want.dist), kw
+        if "successors" in kw:
+            assert bits_equal(got.succ.cpu(), want.succ)
+    bits = (rng.uniform(size=(37, 100, 100)) < 0.05).astype(np.float32)
+    got = solve(bits, semiring="or_and", packed=True, block_size=32)
+    want = solve(bits, semiring="or_and", packed=True, block_size=32, device="cpu")
+    assert got.dist.shape == (37, 100, 100) and bits_equal(got.dist.cpu(), want.dist)
+
+
+@pytest.mark.cuda
+def test_lowered_launches_refuse_what_the_kernels_do_not_take(cuda_device):
+    w = torch.zeros(128, 128, dtype=torch.int16, device=cuda_device)
+    with pytest.raises(TypeError):  # int16 storage with a float semiring
+        fr.fw_round(w, 0, block_size=64)
+    with pytest.raises(TypeError):  # packed words must be int32
+        fr.fw_round(w, 0, block_size=64, semiring=OR_AND_PACKED)
+    with pytest.raises(ValueError):  # band buffers of another dtype
+        fr.fw_round(w.float(), 0, block_size=64, bands=fr.round_buffers(w, 64))
+    with pytest.raises(NotImplementedError, match="A.4b"):
+        fr.fw_round_bordered(w.bfloat16(), block_size=64)
+    with pytest.raises(NotImplementedError, match="A.4b"):
+        fmm.semiring_matmul(w.bfloat16(), w.bfloat16())
+
+
+# ---------------------------------------------------------- flash decode
+def _qkv(shape, dtype, seed, device):
+    B, S, Hkv, g, hd = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dtype).to(device)
+               for sh in ((B, Hkv, g, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+    return q, k, v
+
+
+def _decode_tolerance(dtype, want):
+    """(rtol, atol): f32 the reference's 2e-5; bf16 its rtol 2e-2 with an
+    atol of two bf16 ulps of the largest |output| (kernel and plain version
+    both round once from f32, and the outputs shrink as kv_len grows)."""
+    if dtype == torch.float32:
+        return 2e-5, 2e-5
+    top = float(want.float().abs().max())
+    return 2e-2, float(2.0 * 2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,kv_len", [((2, 512, 2, 4, 64), 512), ((1, 1024, 4, 1, 128), 300),
+                                          ((2, 256, 1, 8, 64), 1), ((2, 768, 4, 7, 128), 700),
+                                          ((1, 512, 2, 2, 64), 0)])
+def test_kernel_flash_decode_matches_plain(cuda_device, dtype, tol, shape, kv_len):
+    """Within the reference's rtol (``tol``) and ``_decode_tolerance``'s
+    atol of the online and the masked plain version."""
+    q, k, v = _qkv(shape, dtype, kv_len + shape[1], cuda_device)
+    before = fdec.LAUNCHES["flash_decode"]
+    got = fdec.flash_decode(q, k, v, torch.tensor(kv_len, device=cuda_device))
+    want = ref.flash_decode_online_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = _decode_tolerance(dtype, want)
+    assert rtol == tol
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(got.float(), ref.flash_decode_ref(q, k, v, kv_len).float(),
+                               rtol=rtol, atol=atol)
+    assert fdec.LAUNCHES["flash_decode"] == before + 1
+    if 0 < kv_len < shape[1]:  # the masked tail does not leak in
+        k2, v2 = k.clone(), v.clone()
+        k2[:, kv_len:] = 99.0
+        v2[:, kv_len:] = -99.0
+        torch.testing.assert_close(fdec.flash_decode(q, k2, v2, kv_len), got, rtol=1e-6,
+                                   atol=1e-6)

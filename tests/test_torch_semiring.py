@@ -2,8 +2,9 @@
 
 The same numpy inputs go through ``repro`` (JAX, on the CPU) and
 ``repro_torch`` (plain torch, ``device="cpu"``); results must be equal
-bit for bit (``np.array_equal(..., equal_nan=True)``, tolerance zero) on
-all five f32 semirings.  plus_mul's ⊗-then-⊕ step is one fused
+bit for bit (``repro_torch.utils.bits.bits_equal``: dtype, shape and
+bits, -0.0 told from +0.0, NaN equal to NaN; tolerance zero) on all five
+f32 semirings.  plus_mul's ⊗-then-⊕ step is one fused
 multiply-add on both sides: XLA contracts it inside ``jit``, and the port
 runs ``torch.addcmul``.
 """
@@ -21,6 +22,7 @@ from repro_torch.apsp import plan as tplan
 from repro_torch.core import floyd_warshall as tfw
 from repro_torch.core import graph as tgraph
 from repro_torch.core import semiring as tsr
+from repro_torch.utils.bits import bits_equal
 from repro_torch.utils.interop import from_numpy, to_numpy
 
 from repro.apsp import plan as jplan
@@ -49,10 +51,11 @@ def semiring_graph(name: str, shape, seed: int) -> np.ndarray:
 
 
 def assert_same(got, want):
+    """Bitwise equal by bit view (``bits_equal``), -0.0 told from +0.0."""
     got = to_numpy(got) if isinstance(got, torch.Tensor) else np.asarray(got)
-    want = np.asarray(want)
-    assert got.shape == want.shape
-    assert np.array_equal(got, want, equal_nan=True)
+    want = to_numpy(want) if isinstance(want, torch.Tensor) else np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.dtype, want.dtype)
+    assert bits_equal(got, want)
 
 
 def _specials(rng, shape):
@@ -104,15 +107,27 @@ def test_plus_mul_relax_is_one_rounding():
 
 @pytest.mark.parametrize("name", sorted(jsr.LOWERED_SEMIRINGS))
 def test_lowered_semirings_are_not_ported(name):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tsr.resolve_semiring(name)
+    """Each lowering resolves by name to the reference's (identities,
+    storage, lanes), and the paths still f32-only refuse it (A.4b)."""
+    t, j = tsr.resolve_semiring(name), jsr.LOWERED_SEMIRINGS[name]
+    assert t is tsr.LOWERED_SEMIRINGS[name]
+    assert (t.name, t.zero, t.one, t.dtype, t.lanes) == (j.name, j.zero, j.one, j.dtype, j.lanes)
+    with pytest.raises(NotImplementedError, match="A.4b"):
+        tsr.require_f32(t, where="test")
 
 
 @pytest.mark.parametrize("kw", [dict(dtype="int16"), dict(dtype=torch.bfloat16),
                                 dict(packed=True)])
 def test_lower_semiring_refuses_narrow_storage(kw):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tsr.lower_semiring(tsr.MIN_PLUS, **kw)
+    """The narrow storages lower as the reference's do (or_and for packed);
+    what the reference refuses, the port refuses with its ValueError."""
+    sr = tsr.OR_AND if kw.get("packed") else tsr.MIN_PLUS
+    jkw = {**kw, "dtype": jnp.bfloat16} if kw.get("dtype") is torch.bfloat16 else kw
+    want = jsr.lower_semiring(jsr.SEMIRINGS[sr.name], **jkw)
+    assert tsr.lower_semiring(sr, **kw).name == want.name
+    with pytest.raises(ValueError):
+        tsr.lower_semiring(tsr.PLUS_MUL if "dtype" in kw else tsr.MIN_PLUS,
+                           **({"dtype": "int16"} if "dtype" in kw else kw))
     assert tsr.lower_semiring(tsr.MIN_PLUS, np.float32) is tsr.MIN_PLUS
 
 
@@ -168,6 +183,12 @@ def test_interop_round_trip_keeps_types():
     assert tw.dtype == torch.float32 and ts.dtype == torch.int32
     assert_same(to_numpy(tw), w)
     assert_same(to_numpy(ts), succ)
+    for arr, dt in ((np.asarray(jnp.asarray(w, jnp.bfloat16)), torch.bfloat16),
+                    (w.astype(np.float16), torch.float16),
+                    (np.clip(w, -32768, 32767).astype(np.int16), torch.int16)):
+        t = from_numpy(arr, device="cpu")
+        assert t.dtype == dt
+        assert_same(to_numpy(t), arr)  # by bit view, never a value cast
     assert from_numpy(w.astype(np.float64), device="cpu").dtype == torch.float32
     assert from_numpy(succ.astype(np.int64), device="cpu").dtype == torch.int32
 
@@ -189,4 +210,6 @@ def test_plan_arithmetic_matches_reference(n):
 def test_every_kernel_configuration_fits_h100_shared_memory(s):
     for bk in (1, 8, s // 2, s):
         for successors in (False, True):
-            assert tplan.round_smem_bytes(s, bk, successors=successors) <= tplan.H100_SMEM_PER_BLOCK
+            for word in (4, 2):  # f32 / int32 words, the 16-bit storages
+                assert tplan.round_smem_bytes(s, bk, successors=successors,
+                                              word=word) <= tplan.H100_SMEM_PER_BLOCK

@@ -3,7 +3,8 @@
 ``repro_torch.kernels.minplus_matmul.semiring_matmul`` on CPU tensors runs
 its plain version (the k-ascending chain of ``_stage_compute``); it must
 equal ``repro.kernels.minplus_matmul.semiring_matmul(..., interpret=True)``
-bit for bit (``np.array_equal``, NaN equal to NaN, tolerance zero) on the
+bit for bit (``bits_equal``: bits compared, -0.0 told from +0.0, NaN equal to NaN,
+tolerance zero) on the
 same numpy inputs: all five semirings, with and without an accumulator,
 batched, at odd shapes, with ±inf among the operands.  Mirrors the matmul
 sweeps of ``tests/test_kernels.py``.  The CUDA kernel is held against the
@@ -117,7 +118,7 @@ def test_semiring_matmul_refuses_what_it_does_not_take():
         tmm.semiring_matmul(a, b, variant="broadcast")
     with pytest.raises(TypeError):
         tmm.semiring_matmul(a.double(), b.double())
-    with pytest.raises(TypeError):
+    with pytest.raises(NotImplementedError, match="A.4b"):  # refused, not widened
         tmm.semiring_matmul(a.bfloat16(), b.bfloat16())
     with pytest.raises(ValueError, match="contraction"):
         tmm.semiring_matmul(a, torch.zeros(5, 6))

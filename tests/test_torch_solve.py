@@ -150,6 +150,12 @@ def test_solve_rejects_non_square_input():
 ])
 def test_not_ported_options_name_their_roadmap_item(kw, item):
     w = random_digraph(16, seed=0)
+    if item == "A.4":  # ported: the storage lowerings solve as the reference's
+        got = solve(w, device="cpu", **kw)
+        want = japsp.solve(w, **kw)
+        assert got.semiring == want.semiring
+        assert_same(got.dist, np.asarray(want.dist))
+        return
     if item == "A.11":  # ported: the distributed solve needs a mesh, and
         if "mesh" in kw:  # only method="distributed" reads it
             assert solve(w, device="cpu", **kw).method == "naive"
@@ -193,8 +199,9 @@ def test_path_walks_match_reference():
         assert tpaths.path_cost(w, p) == jpaths.path_cost(w, p)
         q = tpaths.extract_path_from_dist(w, t.dist, src, dst)
         assert q == jpaths.extract_path_from_dist(w, jd, src, dst)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tpaths.extract_path_from_dist(np.zeros((70, 70), np.int16), jd, 0, 1)
+    i16 = np.asarray(japsp.solve(w, dtype=np.int16, method="fused", block_size=16).dist)
+    assert tpaths.extract_path_from_dist(w, i16, 3, 69) == jpaths.extract_path_from_dist(
+        w, i16, 3, 69)  # int16 tables lift, sentinels to ±inf
 
 
 # -------------------------------------------------------------- isolation
