@@ -38,7 +38,13 @@ Phases, each of which raises (exit code 1) on any failure:
      packed or_and, bf16 and f16 ×5, ±0 and NaN salted in the floats) at
      n=96 (s=32) and n=1024 (s=32, 128), single and batched, the bf16 / f16
      successor round, and each lowered ``solve`` at n=90 against the plain
-     path on the CPU.
+     path on the CPU.  The lowered repair and sweep kernels and the int32
+     round likewise (``phase_check_lowered_repair``): the repair on every
+     storage (int16 ×4, packed, bf16 / f16 ×5, int32 or_and / plus_mul) at
+     n=96 and 1024 with E in {1, 16, 37, 64}, bf16 / f16 salted with ±0
+     and, apart, with off-diagonal NaN; the successor repair; the sweep at
+     a in {1, 37}, each launch kind alone; the successor sweep; the int32
+     round; ``repair_del`` at n=1000 through lowered engines card == CPU.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
@@ -46,7 +52,9 @@ Phases, each of which raises (exit code 1) on any failure:
      64 and 256 affected rows; ``semiring_matmul`` also in plus_mul beside
      ``torch.addmm`` at the phase-3 shape and at 4096³ in min-plus and
      plus_mul, the latter beside ``torch.matmul`` (TF32 off).
-     The lowered launch kinds likewise at n=8192 (successors n=4096).
+     The lowered launch kinds likewise at n=8192 (successors n=4096),
+     the lowered repair (E=16) and sweep (a=8) kinds and the int32 round
+     kinds included.
   4. main path: ``solve(w)`` at n=8192 (min-plus, f32, a seeded random
      digraph of density 0.5) and ``solve(w, successors=True)`` at n=4096,
      with the launch counts of that run, bitwise against the plain round
@@ -76,7 +84,16 @@ Phases, each of which raises (exit code 1) on any failure:
      path's input), with the launch counts of that run (4 x 64), bitwise
      against the fused solve, timed beside the fused round loop, with its
      device time by launch kind.
-  8. distributed path (``launch.mesh.run_grid`` processes sharing the one
+  8. lowered engine path: ``ApspEngine`` pinned to int16, bf16, f16 and
+     one packed word plane at n=8192 (integer weights in [1, 16], exact in
+     every storage): solve, ``repair`` E=16 and ``repair_del`` E=1 / E=16,
+     each == a re-solve by bits and timed beside it; bf16 / f16 successor
+     repair and repair_del at n=4096; a bf16 plus_mul ``repair_del`` (the
+     counted re-solve); ``solve_many`` of 32 ragged graphs in bf16 and
+     int16.  Integer storage: int8 / uint32 / bool or_and and int32
+     plus_mul solves at n=1024 card == CPU with the reference's dtype, a
+     uint8 or_and engine's repair paths, or_and int32 at n=8192 timed.
+  9. distributed path (``launch.mesh.run_grid`` processes sharing the one
      card over gloo, through ``launch.fw_dist_check.grid_check``): a 1×1
      grid at n=8192 (the main path's input; every round an owner round),
      timed, with its device time by launch kind; a 2×2 grid at n=8192,
@@ -127,7 +144,16 @@ SOURCES = {
     "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
 }
 # The lowered launch kinds (``lowered_kinds``) are built from here.
-LOWERED_SOURCE = "src/repro_torch/kernels/csrc/fw_round_lowered.cu"
+LOWERED_SOURCES = {
+    "fw_round": "src/repro_torch/kernels/csrc/fw_round_lowered.cu",
+    "fw_round_with_successors": "src/repro_torch/kernels/csrc/fw_round_lowered.cu",
+    "fw_repair": "src/repro_torch/kernels/csrc/fw_repair_lowered.cu",
+    "fw_repair_with_successors": "src/repro_torch/kernels/csrc/fw_repair_lowered.cu",
+    "fw_repair_del_sweep": "src/repro_torch/kernels/csrc/fw_repair_del_lowered.cu",
+    "fw_repair_del_sweep_with_successors":
+        "src/repro_torch/kernels/csrc/fw_repair_del_lowered.cu",
+}
+INT32_TAGS = ("or_and_i32", "plus_mul_i32")
 REPLACES = {
     "fw_round": "src/repro/kernels/fw_round.py:413",
     "fw_round_with_successors": "src/repro/kernels/fw_round.py:611",
@@ -151,14 +177,21 @@ class SmokeFailure(RuntimeError):
 
 @functools.cache
 def lowered_kinds() -> frozenset:
-    """The launch kinds of the storage lowerings (``fw_round/relax[int16]``
-    …), from ``fw_round.LOWERINGS`` / ``SUCC_LOWERINGS``."""
+    """The launch kinds of the storage lowerings (``fw_round/relax[int16]``,
+    ``fw_repair/apply[bf16]``, ``fw_repair_del_sweep/relax[packed]`` …):
+    every kind of the round, repair and sweep wrappers with a tag."""
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
 
-    return frozenset(
-        [f"fw_round/{p}[{tag}]" for tag in fr.LOWERINGS for p in fr.PHASES]
-        + [f"fw_round_with_successors/{p}[{tag}]" for tag in fr.SUCC_LOWERINGS
-           for p in fr.PHASES])
+    return frozenset(k for k in fr.KINDS + fp.KINDS + fd.KINDS if k.endswith("]"))
+
+
+def round_lowered_kinds() -> list:
+    """The lowered round kinds of the lowered main path (``solve`` in
+    int16, bf16, f16 and packed words; bf16 / f16 successors)."""
+    return sorted(k for k in lowered_kinds() if k.startswith("fw_round")
+                  and not any(t in k for t in INT32_TAGS))
 
 
 def same(a, b) -> bool:
@@ -298,7 +331,7 @@ def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
     ``library``: the ms of one PyTorch call computing the same function."""
     bms, by = bound(ops, nbytes)
     fn = kind.split("/")[0]
-    source = LOWERED_SOURCE if kind in lowered_kinds() else SOURCES[fn]
+    source = (LOWERED_SOURCES if kind in lowered_kinds() else SOURCES)[fn]
     if store:
         rows[kind] = dict(name=kind, route="cuda", source=source, replaces=REPLACES[fn],
                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -783,7 +816,7 @@ def phase_engine(rows: dict, n: int, n_succ: int, graphs: int = 32):
     sync()
     counts = {**fr.LAUNCHES, **fp.LAUNCHES}
     print(f"engine path launch counts: {json.dumps(counts)}")
-    for kind in fp.KINDS:
+    for kind in (k for k in fp.KINDS if k not in lowered_kinds()):
         require(counts[kind] > 0, f"{kind} was not launched on the engine path")
         rows[kind]["launches"] = counts[kind]
 
@@ -1110,7 +1143,7 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
                     and k not in lowered_kinds()}
     print(f"repair_del path launch counts: {json.dumps(counts)}; round launches of its "
           f"re-solves (min_plus threshold 0, plus_mul): {json.dumps(round_counts)}")
-    for kind in fd.KINDS:
+    for kind in (k for k in fd.KINDS if k not in lowered_kinds()):
         require(counts[kind] > 0, f"{kind} was not launched on the repair_del path")
         rows[kind]["launches"] = counts[kind]
     for kind, count in round_counts.items():
@@ -2161,7 +2194,7 @@ def phase_main_lowered(rows: dict, n: int, n_succ: int, s: int = 128, graphs: in
     sync()
     counts = dict(fr.LAUNCHES)
     print(f"lowered main path launch counts: {json.dumps({k: v for k, v in counts.items() if v})}")
-    for kind in sorted(lowered_kinds()):
+    for kind in round_lowered_kinds():
         rows[kind]["launches"] = counts[kind]
         require(counts[kind] > 0, f"{kind} was not launched on the lowered main path")
 
@@ -2221,6 +2254,753 @@ def phase_main_lowered(rows: dict, n: int, n_succ: int, s: int = 128, graphs: in
         launch_breakdown(f"main lowered breakdown {label} n={n}", [
             (p, functools.partial(fr.fw_round_phase, p, wk, b, bands, block_size=s, semiring=sr))
             for b in range(n // s) for p in fr.PHASES])
+
+
+# ------------------------------------------- lowered repair and sweep
+# Every storage of the repair kernels: the round's lowerings and the int32
+# carriers of the integer or_and / plus_mul storages; the sweep takes all
+# but plus_mul.
+STORAGE_CASES = LOWERED_CASES + [("or_and_i32", "or_and"), ("plus_mul_i32", "plus_mul")]
+SWEEP_STORAGE_CASES = [c for c in STORAGE_CASES if c[1] != "plus_mul"]
+LOWERED_OPS.update({"or_and_i32": 2, "plus_mul_i32": 2})  # min, max / mul, add
+LOWERED_WORD.update({"or_and_i32": 4, "plus_mul_i32": 4})
+
+
+def storage_case(tag: str, name: str, shape, seed: int, s: int, salt: str = "zero"):
+    """(d on the card, its semiring) in a kernel's storage: ``lowered_case``
+    for int16 and packed words; bf16 / f16 salted with ±0
+    (``signed_zero_graph``, salt "zero") or, separately, with NaNs off the
+    diagonal tiles (``domain_graph`` + ``nan_salted``, salt "nan"; salt
+    "domain": the domain graph alone, for ``nan_off_edges``); the int32
+    carrier of or_and on small integers and of plus_mul on full-range ones
+    (every product and sum wraps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+
+    if tag in INT32_TAGS:
+        rng = np.random.default_rng(seed)
+        lo, hi = (-1000, 1000) if tag == "or_and_i32" else (-(1 << 31), 1 << 31)
+        return (torch.from_numpy(rng.integers(lo, hi, size=shape).astype(np.int32)).cuda(),
+                SEMIRINGS[name])
+    if tag not in ("bf16", "f16"):
+        return lowered_case(tag, name, shape, seed, s)
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16}[tag]
+    if salt == "zero":
+        w = signed_zero_graph(name, shape, seed)
+    elif salt == "nan":
+        w = nan_salted(domain_graph(name, shape, seed), seed, 2,
+                       [(b * s, b * s + s) for b in range(shape[-1] // s)])
+    else:
+        w = domain_graph(name, shape, seed)
+    return torch.from_numpy(w).cuda().to(dt), SEMIRINGS[name]
+
+
+def nan_off_edges(d, u, v, seed: int, count: int = 4):
+    """d (copied) with ``count`` NaNs at (i, j), i != j, outside the rows v_e
+    and the columns u_e of the edges (padding edges included): a repair
+    reads d[i, u_e] and d[v_e, j], so a NaN there would flood whole rows
+    and columns, while one elsewhere stays where it is."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = d.clone()
+    rows, cols = set(int(x) for x in v), set(int(x) for x in u)
+    placed = 0
+    while placed < count:
+        i, j = (int(x) for x in rng.integers(0, d.shape[-1], 2))
+        if i != j and i not in rows and j not in cols:
+            d[i, j] = float("nan")
+            placed += 1
+    return d
+
+
+def salts(tag: str):
+    return ("zero", "nan") if tag in ("bf16", "f16") else ("plain",)
+
+
+def lowered_edges(d, sr, E: int, seed: int):
+    """E edge updates in d's storage (a repeated u, a u == v edge), padded as
+    the engine pads them with no-op edges (u = v = 0, w = 0̄): int16 weights
+    in [-5, 30), random int32 lane masks (packed) or full-range int32
+    integers, and floats in ``domain_graph``'s domain for bf16 / f16 (so a
+    salted ±0 survives the repair)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = d.shape[-1]
+    E_pad = max(4, 1 << (E - 1).bit_length())
+    u = np.zeros(E_pad, np.int32)
+    v = np.zeros(E_pad, np.int32)
+    u[:E] = rng.integers(0, n, E)
+    v[:E] = rng.integers(0, n, E)
+    if E > 2:
+        u[1], v[2] = u[0], u[2]
+    if d.dtype == torch.int32:
+        x = rng.integers(-(1 << 31), 1 << 31, E_pad).astype(np.int32)
+    elif d.dtype == torch.int16:
+        x = rng.integers(-5, 30, E_pad).astype(np.int16)
+    elif sr.name == "plus_mul":
+        x = rng.uniform(0.0, 1.0 / n, E_pad).astype(np.float32)
+    elif sr.name == "or_and":
+        x = np.ones(E_pad, np.float32)
+    elif sr.name in ("max_plus", "max_min"):  # domain_graph's weights: no zero is beaten
+        x = rng.uniform(-10.0, -1.0, E_pad).astype(np.float32)
+    else:
+        x = rng.uniform(1.0, 10.0, E_pad).astype(np.float32)
+    w = torch.from_numpy(x).to(d.dtype)
+    w[E:] = sr.zero
+    return u, v, w
+
+
+def strip_heights(n: int, salt: str):
+    """The affected-row counts a sweep check runs: 1 and 37, but only 1 on a
+    NaN-salted n = 96 (a NaN reaches every strip row through the band's
+    columns, so 37 rows of 96 would leave under half the output finite)."""
+    return (1,) if salt == "nan" and n < 128 else (1, 37)
+
+
+def nan_off_strip(d, rows, s: int, seed: int, count: int = 4):
+    """d (copied) with ``count`` NaNs off the strip rows and off the diagonal
+    tiles: there a NaN spreads along its column of the band, and from
+    there over the strip rows only, never over the static rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = d.clone()
+    strip = set(int(r) for r in rows)
+    placed = 0
+    while placed < count:
+        i, j = (int(x) for x in rng.integers(0, d.shape[-1], 2))
+        if i not in strip and i // s != j // s:
+            d[i, j] = float("nan")
+            placed += 1
+    return d
+
+
+def phase_check_lowered_repair():
+    """The lowered repair and sweep kernels and the int32 round, bitwise
+    against their plain versions on the card, each launch kind alone too:
+    the repair on every storage (int16 ×4, packed, bf16 and f16 ×5, int32
+    or_and / plus_mul) at n ∈ {96, 1024} with E ∈ {1, 16, 37, 64} (padded
+    as the engine pads; 37 and 64 take two and three launch pairs), bf16 /
+    f16 salted with ±0 and, separately, with off-diagonal NaN; the
+    successor repair on bf16 / f16 likewise; the sweep on every storage but
+    plus_mul at n = 96 (s = 32) and n = 1024 (s = 128) with a ∈ {1, 37}
+    affected rows, each launch kind alone in the round of the first
+    affected row; the successor sweep likewise; the int32 round at n = 96
+    and 1024, single and batched; and ``repair_del`` at n = 1000 through
+    int16, bf16, f16, packed and uint8 or_and engines (bf16 with next hops
+    too) on the card against the engine's plain path on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine, api
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    checked = 0
+    pos = neg = nans = 0
+
+    def salt_held(what, name, want, salt):
+        nonlocal pos, neg, nans
+        if salt in ("zero", "nan"):
+            p, q, r = require_salt_survives(what, name, want, zeros=salt == "zero",
+                                            nans=salt == "nan")
+            pos, neg, nans = pos + p, neg + q, nans + r
+
+    for tag, name in STORAGE_CASES:
+        for n in (96, 1024):
+            for salt in salts(tag):
+                base, sr = storage_case(tag, name, (n, n), seed=n + 3, s=32,
+                                        salt="domain" if salt == "nan" else salt)
+                for E in (1, 16, 37, 64):
+                    u, v, w = lowered_edges(base, sr, E, seed=E)
+                    d = nan_off_edges(base, u, v, E) if salt == "nan" else base
+                    got = fp.fw_repair(d, u, v, w, block_size=32, semiring=sr)
+                    want = ref.fw_repair_ref(d, u, v, w, semiring=sr)
+                    sync()
+                    what = f"fw_repair[{tag}] {name} n={n} E={E} {salt}"
+                    require(got.dtype == d.dtype and same(got, want), f"{what} != plain")
+                    salt_held(what, name, want, salt)
+                    checked += 1
+                u, v, w = fp.edge_vectors(*lowered_edges(d, sr, 16, seed=5), n, d.device,
+                                          d.dtype)
+                staged = torch.empty((16, n), dtype=d.dtype, device=d.device)
+                out = torch.empty_like(d)
+                fp.repair_phase("stage", d, u, v, w, staged, semiring=sr)
+                fp.repair_phase("apply", d, u, v, w, staged, out, semiring=sr)
+                plain = ref.repair_stage_ref(d, u, v, w, semiring=sr)
+                sync()
+                require(same(staged, plain), f"fw_repair/stage[{tag}] {name} n={n} != plain")
+                require(same(out, ref.repair_apply_ref(d, plain, u, w, semiring=sr)),
+                        f"fw_repair/apply[{tag}] {name} n={n} != plain")
+                checked += 2
+    for tag in ("bf16", "f16"):
+        for n in (96, 1024):
+            for salt in salts(tag):
+                base, sr = storage_case(tag, "min_plus", (n, n), seed=n + 4, s=32,
+                                        salt="domain" if salt == "nan" else salt)
+                succ = _init_successors(base).contiguous()
+                for E in (1, 16, 37, 64):
+                    u, v, w = lowered_edges(base, sr, E, seed=E + 1)
+                    d = nan_off_edges(base, u, v, E) if salt == "nan" else base
+                    gd, gs = fp.fw_repair_with_successors(d, succ, u, v, w, block_size=32)
+                    wd, ws = ref.fw_repair_with_successors_ref(d, succ, u, v, w)
+                    sync()
+                    what = f"fw_repair_with_successors[{tag}] n={n} E={E} {salt}"
+                    require(same(gd, wd) and same(gs, ws), f"{what} != plain")
+                    salt_held(what, "min_plus", wd, salt)
+                    checked += 1
+                u, v, w = fp.edge_vectors(*lowered_edges(d, sr, 16, seed=6), n, d.device,
+                                          d.dtype)
+                staged = torch.empty((16, n), dtype=d.dtype, device=d.device)
+                out, sout = torch.empty_like(d), torch.empty_like(succ)
+                fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
+                fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
+                plain = ref.repair_stage_ref(d, u, v, w, strict=True)
+                pd, ps = ref.repair_apply_succ_ref(d, succ, plain, u, v, w)
+                sync()
+                require(same(staged, plain) and same(out, pd) and same(sout, ps),
+                        f"fw_repair_with_successors stage / apply [{tag}] n={n} != plain")
+                checked += 2
+    for tag, name in SWEEP_STORAGE_CASES:
+        for n, s in ((96, 32), (1024, 128)):
+            for salt in salts(tag):
+                base, sr = storage_case(tag, name, (n, n), seed=n + 5, s=s,
+                                        salt="domain" if salt == "nan" else salt)
+                for a in strip_heights(n, salt):
+                    rows = strip_rows(n, a, seed=a + n)
+                    d = nan_off_strip(base, rows, s, a) if salt == "nan" else base
+                    check_sweep_phases(d, rows, int(rows[0]) // s, s, sr=sr)
+                    got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=sr)
+                    want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=sr)
+                    sync()
+                    what = f"fw_repair_del_sweep[{tag}] {name} n={n} a={a} {salt}"
+                    require(got.dtype == d.dtype and same(got, want), f"{what} != plain")
+                    salt_held(what, name, want, salt)
+                    checked += 4
+    for tag in ("bf16", "f16"):
+        for n, s in ((96, 32), (1024, 128)):
+            for salt in salts(tag):
+                base, _ = storage_case(tag, "min_plus", (n, n), seed=n + 6, s=s,
+                                       salt="domain" if salt == "nan" else salt)
+                succ = _init_successors(base).contiguous()
+                for a in strip_heights(n, salt):
+                    rows = strip_rows(n, a, seed=a + n + 1)
+                    d = nan_off_strip(base, rows, s, a) if salt == "nan" else base
+                    check_sweep_phases(d, rows, int(rows[0]) // s, s, succ=succ)
+                    gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
+                    wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows,
+                                                                         block_size=s)
+                    sync()
+                    require(same(gd, wd) and same(gs, ws),
+                            f"fw_repair_del_sweep_with_successors[{tag}] n={n} a={a} {salt}"
+                            f" != plain")
+                    checked += 4
+    for tag in INT32_TAGS:
+        name = tag.removesuffix("_i32")
+        for shape, s in (((96, 96), 32), ((2, 96, 96), 32), ((1024, 1024), 128),
+                         ((2, 1024, 1024), 128)):
+            w, sr = storage_case(tag, name, shape, seed=shape[-1], s=s)
+            b = shape[-1] // s // 2
+            got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
+            want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
+            sync()
+            require(same(got, want), f"fw_round[{tag}] {shape} s={s} != plain")
+            checked += 1
+    w = integer_graph(1000, 25, hi=8, density=0.05)
+    bits = (np.random.default_rng(26).uniform(size=(32, 1000, 1000)) < 0.002)
+    bits[:, np.arange(1000), np.arange(1000)] = True
+    words = api.pack_reachability(torch.from_numpy(bits)).numpy()
+    engines = [(dict(dtype=torch.int16), w), (dict(dtype=torch.bfloat16), w),
+               (dict(dtype=torch.float16), w), (dict(semiring="or_and", packed=True), words),
+               (dict(semiring="or_and"), np.isfinite(w).astype(np.uint8))]
+    for kw, x in engines:
+        eng, host = ApspEngine(**kw), ApspEngine(device="cpu", **kw)
+        r0 = eng.solve(x)
+        dels, x1 = lowered_deletions(x, r0.dist, 8, seed=27)
+        got = eng.repair_del(r0.dist, x1, dels, threshold=100.0)
+        want = host.repair_del(r0.dist.cpu(), x1, dels, threshold=100.0)
+        require(got.padded_n == 1024 and same(got.dist.cpu(), want.dist)
+                and eng.stats.repair_dels == host.stats.repair_dels == 1,
+                f"engine repair_del {kw} n=1000 on the card != plain on the CPU")
+        checked += 1
+    eng, host = ApspEngine(dtype=torch.bfloat16), ApspEngine(dtype=torch.bfloat16, device="cpu")
+    r0 = eng.solve(w, successors=True)
+    dels, w1 = lowered_deletions(w, r0.dist, 8, seed=28)
+    got = eng.repair_del(r0.dist, w1, dels, succ=r0.succ, threshold=100.0)
+    want = host.repair_del(r0.dist.cpu(), w1, dels, succ=r0.succ.cpu(), threshold=100.0)
+    require(same(got.dist.cpu(), want.dist) and same(got.succ.cpu(), want.succ),
+            "engine bf16 successor repair_del n=1000 on the card != plain on the CPU")
+    checked += 1
+    print(f"check: {checked} lowered repair / sweep / int32 round kernel-vs-plain cases "
+          f"bitwise equal (bf16 / f16 salted with ±0 and, apart, off-diagonal NaN; their "
+          f"outputs: {pos} +0, {neg} -0, {nans} NaN)")
+
+
+def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
+                                 s: int = 128, a: int = 8):
+    """Each lowered repair, sweep and int32 round launch kind alone at the
+    lowered engine path's shapes (n = 8192, E = 16, sweep a = 8 affected
+    rows in round T/2; successors at n_succ) against the plain version of
+    its phase: the min-plus lowerings in int16, bf16 and f16, the packed
+    or_and word plane and the int32 carriers of or_and and plus_mul.
+    Bound: operations (``LOWERED_OPS`` a relaxation; successors 3) over
+    67 TOP/s, or bytes in the storage word over 3.35 TB/s, each input read
+    once and each output written once, whichever is larger."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND, OR_AND_PACKED, PLUS_MUL
+    from repro_torch.apsp import api
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    record = functools.partial(record_kernel, rows)
+    w32 = torch.from_numpy(random_digraph(n, density=0.5, seed=1)).cuda()
+    words = np.random.default_rng(50).integers(0, 1 << 32, (n, n), dtype=np.uint64)
+    carrier = np.random.default_rng(51).integers(-1000, 1000, (n, n)).astype(np.int32)
+    inputs = {
+        "int16": lambda: (api._coerce(w32, MIN_PLUS_I16, None, w32.device), MIN_PLUS_I16),
+        "bf16": lambda: (w32.to(torch.bfloat16), MIN_PLUS),
+        "f16": lambda: (w32.to(torch.float16), MIN_PLUS),
+        "packed": lambda: (torch.from_numpy(words.astype(np.uint32).view(np.int32)).cuda(),
+                           OR_AND_PACKED),
+        "or_and_i32": lambda: (torch.from_numpy(carrier).cuda(), OR_AND),
+        "plus_mul_i32": lambda: (torch.from_numpy(carrier).cuda(), PLUS_MUL),
+    }
+    T, b = n // s, n // s // 2
+    o = slice(b * s, (b + 1) * s)
+    for tag, make in inputs.items():
+        d, sr = make()
+        ops, word = LOWERED_OPS[tag], LOWERED_WORD[tag]
+        u, v, w = fp.edge_vectors(*lowered_edges(d, sr, E, seed=52), n, d.device, d.dtype)
+        staged = torch.empty((E, n), dtype=d.dtype, device=d.device)
+        fp.repair_phase("stage", d, u, v, w, staged, semiring=sr)
+        want = ref.repair_stage_ref(d, u, v, w, semiring=sr)
+        sync()
+        require(same(staged, want), f"fw_repair stage[{tag}] launch != plain")
+        record(f"fw_repair/stage[{tag}]", max_abs_err(staged.float(), want.float()),
+               event_ms(lambda: fp.repair_phase("stage", d, u, v, w, staged, semiring=sr), 11),
+               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, semiring=sr), 3),
+               ops * E * (E - 1) / 2 * n, 2 * E * n * word)
+        out = torch.empty_like(d)
+        fp.repair_phase("apply", d, u, v, w, staged, out, semiring=sr)
+        want = ref.repair_apply_ref(d, staged, u, w, semiring=sr)
+        sync()
+        require(same(out, want), f"fw_repair apply[{tag}] launch != plain")
+        record(f"fw_repair/apply[{tag}]", max_abs_err(out.float(), want.float()),
+               event_ms(lambda: fp.repair_phase("apply", d, u, v, w, staged, out,
+                                                semiring=sr), 11),
+               event_ms(lambda: ref.repair_apply_ref(d, staged, u, w, semiring=sr), 3),
+               ops * E * n * n, (2 * n * n + E * n) * word)
+        del out, want, staged
+        if tag in INT32_TAGS:  # the int32 round (solve of an integer storage)
+            bands = fr.round_buffers(d, s)
+            kw = dict(block_size=s, semiring=sr)
+            fr.fw_round_phase("diag", d, b, bands, **kw)
+            diag = ref.close_diag(d[o, o], sr)
+            sync()
+            require(same(bands[0][0, :, o], diag), f"diag[{tag}] launch != plain close_diag")
+            record(f"fw_round/diag[{tag}]", 0.0,
+                   event_ms(lambda: fr.fw_round_phase("diag", d, b, bands, **kw), 11),
+                   event_ms(lambda: ref.close_diag(d[o, o], sr), 3), ops * s**3,
+                   2 * s * s * word)
+            fr.fw_round_phase("bands", d, b, bands, **kw)
+            row, col = ref.close_bands(d, diag, b, sr)
+            sync()
+            require(same(bands[0][0], row) and same(bands[1][0], col),
+                    f"bands[{tag}] launch != plain close_bands")
+            tiles = 2 * (T - 1)
+            record(f"fw_round/bands[{tag}]", 0.0,
+                   event_ms(lambda: fr.fw_round_phase("bands", d, b, bands, **kw), 11),
+                   event_ms(lambda: ref.close_bands(d, diag, b, sr), 3),
+                   ops * tiles * s**3, (s * s + 2 * tiles * s * s) * word)
+            dk = d.clone()
+            fr.fw_round_phase("relax", dk, b, bands, **kw)
+            want = ref.relax(d, row, col, b, semiring=sr)
+            sync()
+            require(same(dk, want), f"relax[{tag}] launch != plain relax")
+            record(f"fw_round/relax[{tag}]", 0.0,
+                   event_ms(lambda: fr.fw_round_phase("relax", dk, b, bands, **kw), 5),
+                   event_ms(lambda: ref.relax(d, row, col, b, semiring=sr), 1),
+                   ops * n * n * s, (2 * n * n + 2 * n * s) * word)
+            del dk, want, bands, row, col
+        if tag == "plus_mul_i32":
+            continue
+        sw, errs = check_sweep_phases(d, strip_rows(n, a, seed=53), b, s, sr=sr)
+        plain = {
+            "diag": lambda: ref.sweep_diag_ref(d, sw.strip, sw.rows, b, block_size=s,
+                                               semiring=sr),
+            "panels": lambda: ref.sweep_panels_ref(d, sw.strip, sw.rows, sw.band[:, o], b,
+                                                   semiring=sr),
+            "relax": lambda: ref.sweep_relax_ref(sw.strip, sw.rows, sw.band, sw.acol, b,
+                                                 semiring=sr),
+        }
+        work = {  # (operations, bytes), as phase_kernels_repair_del counts them
+            "diag": (ops * s**3, 2 * s * s * word),
+            "panels": (ops * ((T - 1) * s**3 + a * s * s),
+                       ((2 * T - 1) * s * s + 2 * a * s) * word),
+            "relax": (ops * a * n * s, (2 * a * n + a * s + s * n) * word),
+        }
+        for phase in fd.PHASES:
+            record(f"fw_repair_del_sweep/{phase}[{tag}]", errs[phase],
+                   event_ms(lambda: fd.sweep_phase(phase, sw, b, semiring=sr), 11),
+                   event_ms(plain[phase], 3), *work[phase])
+        del d, sw
+    inputs.clear()
+    del w32
+
+    T, b = n_succ // s, n_succ // s // 2
+    o = slice(b * s, (b + 1) * s)
+    w32 = torch.from_numpy(random_digraph(n_succ, density=0.5, seed=2)).cuda()
+    succ = _init_successors(w32).contiguous()
+    for tag, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        d = w32.to(dt)
+        word = 2 + 4  # distance + next hop
+        u, v, w = fp.edge_vectors(*lowered_edges(d, MIN_PLUS, E, seed=54), n_succ, d.device,
+                                  d.dtype)
+        staged = torch.empty((E, n_succ), dtype=dt, device=d.device)
+        fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
+        want = ref.repair_stage_ref(d, u, v, w, strict=True)
+        sync()
+        require(same(staged, want), f"successor stage[{tag}] launch != plain")
+        record(f"fw_repair_with_successors/stage[{tag}]", max_abs_err(staged, want),
+               event_ms(lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, staged), 11),
+               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3),
+               3.0 * E * (E - 1) / 2 * n_succ, 2 * E * n_succ * 2)
+        out, sout = torch.empty_like(d), torch.empty_like(succ)
+        fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
+        wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
+        sync()
+        require(same(out, wd) and same(sout, ws), f"successor apply[{tag}] launch != plain")
+        record(f"fw_repair_with_successors/apply[{tag}]", max_abs_err(out, wd),
+               event_ms(lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out,
+                                                     sout), 11),
+               event_ms(lambda: ref.repair_apply_succ_ref(d, succ, staged, u, v, w), 3),
+               3.0 * E * n_succ * n_succ, 2 * n_succ * n_succ * word + E * n_succ * 2)
+        del out, sout, wd, ws, staged
+        sw, errs = check_sweep_phases(d, strip_rows(n_succ, a, seed=55), b, s, succ=succ)
+        plain = {
+            "diag": lambda: ref.sweep_diag_succ_ref(d, succ, sw.strip, sw.strip_s, sw.rows, b,
+                                                    block_size=s),
+            "panels": lambda: ref.sweep_panels_succ_ref(
+                d, succ, sw.strip, sw.strip_s, sw.rows, sw.band[:, o], sw.band_s[:, o], b),
+            "relax": lambda: ref.sweep_relax_succ_ref(
+                sw.strip, sw.strip_s, sw.rows, sw.band, sw.band_s, sw.acol, sw.acol_s, b),
+        }
+        work = {
+            "diag": (3.0 * s**3, 2 * s * s * word),
+            "panels": (3.0 * ((T - 1) * s**3 + a * s * s),
+                       ((2 * T - 1) * s * s + 2 * a * s) * word),
+            "relax": (3.0 * a * n_succ * s, (2 * a * n_succ + a * s) * word + s * n_succ * 2),
+        }
+        for phase in fd.PHASES:
+            record(f"fw_repair_del_sweep_with_successors/{phase}[{tag}]", errs[phase],
+                   event_ms(lambda: fd.sweep_succ_phase(phase, sw, b), 11),
+                   event_ms(plain[phase], 3), *work[phase])
+        del d, sw
+
+
+def phase_engine_lowered(rows: dict, n: int, n_succ: int, graphs: int = 32):
+    """The lowered engine path: ``ApspEngine`` pinned to each storage on the
+    card, at the lowered main path's n.
+
+    int16, bf16 and f16 engines on one integer graph (weights in [1, 16],
+    density 0.02: path sums ≤ 256, exact in every storage, so repair and
+    repair_del equal a re-solve by bits); a packed or_and engine on one
+    word plane of the lowered main path's 32 graphs.  Each: solve, a
+    16-edge ``repair`` (lane masks for packed), ``repair_del`` of 1 and of
+    16 on-path edges at threshold 100 (the sweep).  bf16 and f16 successor
+    ``repair`` and ``repair_del`` at n_succ; a bf16 plus_mul ``repair_del``
+    (the counted re-solve); ``solve_many`` of ``graphs`` ragged graphs in
+    bf16 and int16.  Launch counts of that run; then every result is
+    checked (repairs == re-solve of the updated graph; successor repairs
+    == their plain version on the card, dist == re-solve; buckets ==
+    per-graph solve) and timed beside its re-solve (CUDA events, median of
+    3 after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine, api
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    w = integer_graph(n, 60, hi=16, density=0.02)
+    ws = integer_graph(n_succ, 61, hi=16, density=0.02)
+    bits = packed_graphs(graphs, n, seed=49)
+    words = api.pack_reachability(bits).cpu().numpy()  # (1, n, n)
+    del bits
+    rng = np.random.default_rng(62)
+    sizes = rng.choice([300, 500, 512, 1000, 1024], size=graphs).tolist()
+    many_in = [integer_graph(m, 200 + k, hi=16, density=0.05) for k, m in enumerate(sizes)]
+    storages = {"int16": dict(dtype=torch.int16), "bf16": dict(dtype=torch.bfloat16),
+                "f16": dict(dtype=torch.float16),
+                "packed": dict(semiring="or_and", packed=True)}
+    engines = {tag: ApspEngine(**kw) for tag, kw in storages.items()}
+    inputs = {tag: (words if tag == "packed" else w) for tag in storages}
+
+    def lane_updates(x, count, seed):
+        """Lane masks of edges that some lanes gain (packed ``repair``)."""
+        r = np.random.default_rng(seed)
+        return [(int(u), int(v), int(r.integers(1, 1 << 31)))
+                for u, v in r.integers(0, x.shape[-1], (count, 2)) if u != v]
+
+    for label in ("fw_round", "fw_repair", "fw_repair_del"):
+        {"fw_round": fr, "fw_repair": fp, "fw_repair_del": fd}[label].reset_launch_counts()
+    res = {}
+    for tag, eng in engines.items():
+        x = inputs[tag]
+        r0 = eng.solve(x)
+        upd = lane_updates(x, 16, 63) if tag == "packed" else improvements(
+            r0.dist.float(), 16, seed=63)
+        rep = eng.repair(r0.dist, upd)
+        d1 = lowered_deletions(x, r0.dist, 1, seed=64)
+        d16 = lowered_deletions(x, r0.dist, 16, seed=65)
+        del1 = eng.repair_del(r0.dist, d1[1], d1[0], threshold=100.0)
+        a1 = eng.stats.repair_del_rows
+        del16 = eng.repair_del(r0.dist, d16[1], d16[0], threshold=100.0)
+        require(eng.stats.repair_dels == 2, f"lowered repair_del[{tag}] did not sweep")
+        print(f"lowered repair_del[{tag}] n={n}: affected rows swept: E=1 {a1}, "
+              f"E=16 {eng.stats.repair_del_rows - a1}")
+        res[tag] = (x, r0, upd, rep, d1, d16, del1, del16)
+    succ_res = {}
+    for tag in ("bf16", "f16"):
+        eng = engines[tag]
+        s0 = eng.solve(ws, successors=True)
+        upd = improvements(s0.dist.float(), 16, seed=66)
+        srep = eng.repair(s0.dist, upd, succ=s0.succ)
+        dels = lowered_deletions(ws, s0.dist, 16, seed=67)
+        sdel = eng.repair_del(s0.dist, dels[1], dels[0], succ=s0.succ, threshold=100.0)
+        succ_res[tag] = (s0, upd, srep, dels, sdel)
+    pm = ApspEngine(semiring="plus_mul", dtype=torch.bfloat16)
+    wp = np.triu((np.random.default_rng(68).uniform(size=(n, n)) < 0.001)
+                 .astype(np.float32), 1)
+    p0 = pm.solve(wp)
+    u_p, v_p = (int(x) for x in np.argwhere(wp == 1)[0])
+    wp1 = wp.copy()
+    wp1[u_p, v_p] = 0.0
+    prep = pm.repair_del(p0.dist, wp1, [(u_p, v_p, 1.0)])
+    many = {tag: engines[tag].solve_many(many_in) for tag in ("bf16", "int16")}
+    sync()
+    counts = {**fr.LAUNCHES, **fp.LAUNCHES, **fd.LAUNCHES}
+    print(f"lowered engine path launch counts: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    kinds = [k for k in lowered_kinds() if k.startswith(("fw_repair/", "fw_repair_with",
+                                                         "fw_repair_del"))
+             and not any(t in k for t in INT32_TAGS)]
+    for kind in sorted(kinds):
+        require(counts[kind] > 0, f"{kind} was not launched on the lowered engine path")
+        rows[kind]["launches"] = counts[kind]
+
+    for tag, (x, r0, upd, rep, d1, d16, del1, del16) in res.items():
+        eng = engines[tag]
+        if tag == "packed":
+            x1 = x.copy()
+            for u, v, lanes in upd:
+                x1[0, u, v] |= lanes
+        else:
+            x1 = updated(x, upd)
+        require(same(rep.dist, eng.solve(x1).dist),
+                f"lowered repair[{tag}] n={n} != re-solve of the updated graph")
+        for label, (dels, xd), got in (("E=1", d1, del1), ("E=16", d16, del16)):
+            require(got.method == "repair_del" and same(got.dist, eng.solve(xd).dist),
+                    f"lowered repair_del[{tag}] n={n} {label} != re-solve")
+    for tag, (s0, upd, srep, (dels, ws1), sdel) in succ_res.items():
+        u, v, x = (np.array(c) for c in zip(*upd))
+        wd, wsucc = ref.fw_repair_with_successors_ref(s0.dist, s0.succ, u, v,
+                                                      torch.tensor(x).to(s0.dist.dtype))
+        require(same(srep.dist, wd) and same(srep.succ, wsucc),
+                f"lowered successor repair[{tag}] n={n_succ} != plain")
+        eng = engines[tag]
+        require(same(srep.dist, eng.solve(updated(ws, upd)).dist),
+                f"lowered successor repair[{tag}] n={n_succ}: dist != re-solve")
+        r1 = eng.solve(ws1, successors=True)
+        require(same(sdel.dist, r1.dist), f"lowered successor repair_del[{tag}] dist != re-solve")
+        walked = walk_paths(sdel, ws1, 256, seed=69)
+        require(walked == 256, f"successor repair_del[{tag}]: {walked} paths walked")
+    require(pm.stats.repair_del_fallbacks == 1 and pm.stats.repair_dels == 0
+            and same(prep.dist, pm.solve(wp1).dist),
+            "bf16 plus_mul repair_del != its counted re-solve")
+    for tag, results in many.items():
+        for g, r in zip(many_in, results):
+            require(same(r.dist, engines[tag].solve(g).dist),
+                    f"solve_many[{tag}] n={r.n} != per-graph solve")
+    print(f"lowered engine checks: int16 / bf16 / f16 / packed repair E=16 and repair_del "
+          f"E=1 / E=16 at n={n} == re-solve by bits; bf16 / f16 successor repair == plain "
+          f"and its dist == re-solve, successor repair_del dist == re-solve with 256 walked "
+          f"paths each; bf16 plus_mul repair_del re-solved (counted); solve_many of "
+          f"{graphs} in bf16 and int16 == per-graph")
+
+    def timed(fn):
+        return event_ms(fn, 3)
+
+    for tag, (x, r0, upd, rep, d1, d16, del1, del16) in res.items():
+        eng = engines[tag]
+        xs = torch.as_tensor(x).cuda()
+        t_solve = timed(lambda: eng.solve(xs))
+        t_rep = timed(lambda: eng.repair(r0.dist, upd))
+        line = [f"repair E=16 {t_rep:.3f} ms ({t_solve / t_rep:.1f}x)"]
+        for label, (dels, xd) in (("E=1", d1), ("E=16", d16)):
+            xd = torch.as_tensor(xd).cuda()
+            t = timed(lambda: eng.repair_del(r0.dist, xd, dels, threshold=100.0))
+            line.append(f"repair_del {label} {t:.3f} ms ({t_solve / t:.1f}x)")
+        print(f"engine lowered {tag} n={n}: solve {t_solve:.2f} ms; " + "; ".join(line))
+    for tag, (s0, upd, srep, (dels, ws1), sdel) in succ_res.items():
+        eng = engines[tag]
+        wst = torch.from_numpy(ws1).cuda()
+        t_solve = timed(lambda: eng.solve(wst, successors=True))
+        t_rep = timed(lambda: eng.repair(s0.dist, upd, succ=s0.succ))
+        t_del = timed(lambda: eng.repair_del(s0.dist, wst, dels, succ=s0.succ, threshold=100.0))
+        print(f"engine lowered {tag} successors n={n_succ}: solve {t_solve:.2f} ms; repair "
+              f"E=16 {t_rep:.3f} ms ({t_solve / t_rep:.1f}x); repair_del E=16 {t_del:.3f} ms "
+              f"({t_solve / t_del:.1f}x)")
+    wpt = torch.from_numpy(wp1).cuda()
+    t = timed(lambda: pm.repair_del(p0.dist, wpt, [(u_p, v_p, 1.0)]))
+    print(f"engine lowered bf16 plus_mul repair_del n={n} (counted re-solve): {t:.2f} ms")
+    for tag in many:
+        t = timed(lambda: engines[tag].solve_many(many_in))
+        print(f"engine lowered {tag} solve_many of {graphs} ragged graphs from host arrays: "
+              f"{t:.2f} ms, {graphs / (t / 1e3):.1f} graphs/s")
+
+
+def walk_paths(res, w, count: int, seed: int) -> int:
+    """Walk ``count`` sampled finite pairs of a successor result through its
+    next hops; each path must start and end right and cost dist (f32
+    path sums of the integer weights w)."""
+    import numpy as np
+
+    from repro_torch.core.paths import extract_path, path_cost
+
+    dist, succ = res.dist.float().cpu().numpy(), res.succ.cpu().numpy()
+    n = dist.shape[-1]
+    rng = np.random.default_rng(seed)
+    walked = 0
+    for i, j in rng.integers(0, n, (16 * count, 2)):
+        if walked == count or not np.isfinite(dist[i, j]) or i == j:
+            continue
+        path = extract_path(succ, int(i), int(j))
+        require(path and path[0] == i and path[-1] == j and path_cost(w, path) == dist[i, j],
+                f"the walked path {i}->{j} does not cost dist")
+        walked += 1
+    return walked
+
+
+def phase_integer_storage(rows: dict, n: int = 1024, n_big: int = 8192):
+    """The integer storages of or_and and plus_mul (the reference keeps the
+    input's dtype): ``solve`` of int8, uint32 and bool or_and and of int32
+    plus_mul (whose sums and products wrap) at n on the card against the
+    plain path on the CPU, by bits and with the reference's dtype; a uint8
+    or_and engine's ``repair`` and ``repair_del`` and an int32 plus_mul
+    engine's ``repair`` at n likewise; or_and on int32 at n_big, timed.
+    Launch counts of that run (the int32 kinds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine, solve
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+
+    rng = np.random.default_rng(70)
+    edges = rng.uniform(size=(n, n)) < 0.003
+    big = (rng.uniform(size=(n_big, n_big)) < 2.0 / n_big).astype(np.int32)
+    np.fill_diagonal(big, 1)
+    cases = [("or_and", (edges * rng.integers(1, 100, (n, n))).astype(np.int8), torch.int8),
+             ("or_and", np.where(edges, np.uint32(4_000_000_000), np.uint32(7)), torch.uint32),
+             ("or_and", edges, torch.bool),
+             ("plus_mul", (edges * 3).astype(np.int32), torch.int32)]
+    uint8 = edges.astype(np.uint8)
+    np.fill_diagonal(uint8, 1)
+    pm = np.triu(edges * rng.integers(1, 1000, (n, n)), 1).astype(np.int32)
+    for kind in ("fw_round", "fw_repair", "fw_repair_del"):
+        {"fw_round": fr, "fw_repair": fp, "fw_repair_del": fd}[kind].reset_launch_counts()
+    got = [solve(x, semiring=name) for name, x, _ in cases]
+    oe = ApspEngine(semiring="or_and")
+    o0 = oe.solve(uint8)
+    orep = oe.repair(o0.dist, [(3, 7, 1), (n // 2, 2, 1)])
+    dels, u1 = lowered_deletions(uint8, o0.dist, 4, seed=71)
+    odel = oe.repair_del(o0.dist, u1, dels, threshold=100.0)
+    pe = ApspEngine(semiring="plus_mul", method="fused")
+    q0 = pe.solve(pm)
+    qrep = pe.repair(q0.dist, [(2, 9, 5), (1, n - 2, 3)])
+    r_big = solve(big, semiring="or_and")
+    sync()
+    counts = {**fr.LAUNCHES, **fp.LAUNCHES, **fd.LAUNCHES}
+    print(f"integer storage launch counts: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for kind in sorted(k for k in lowered_kinds() if any(t in k for t in INT32_TAGS)):
+        if kind.startswith("fw_repair_del") and "plus_mul" in kind:
+            continue
+        require(counts.get(kind, 0) > 0, f"{kind} was not launched on the integer storage path")
+        rows[kind]["launches"] = counts[kind]
+
+    for (name, x, dt), r in zip(cases, got):
+        want = solve(x, semiring=name, device="cpu")
+        require(r.dist.dtype == dt and same(r.dist.cpu(), want.dist),
+                f"integer storage solve {name} {dt}: card != plain on the CPU")
+    host = ApspEngine(semiring="or_and", device="cpu")
+    h0 = host.solve(uint8)
+    require(o0.dist.dtype == torch.uint8 and same(o0.dist.cpu(), h0.dist)
+            and same(orep.dist.cpu(), host.repair(h0.dist, [(3, 7, 1), (n // 2, 2, 1)]).dist)
+            and same(odel.dist.cpu(), host.repair_del(h0.dist, u1, dels, threshold=100.0).dist),
+            "uint8 or_and engine on the card != plain on the CPU")
+    hp = ApspEngine(semiring="plus_mul", method="fused", device="cpu")
+    require(same(qrep.dist.cpu(), hp.repair(hp.solve(pm).dist, [(2, 9, 5),
+                                                                (1, n - 2, 3)]).dist),
+            "int32 plus_mul engine repair on the card != plain on the CPU")
+    require(r_big.dist.dtype == torch.int32, "or_and int32 solve changed the dtype")
+    print(f"integer storage checks: int8 / uint32 / bool or_and and int32 plus_mul solves "
+          f"n={n} card == CPU with the reference's dtype; uint8 or_and engine repair and "
+          f"repair_del and int32 plus_mul repair card == CPU")
+    bt = torch.from_numpy(big).cuda()
+    t = event_ms(lambda: solve(bt, semiring="or_and"), 3)
+    print(f"integer storage or_and int32 solve n={n_big}: median {t:.2f} ms")
+
+
+def lowered_deletions(x, dist, count: int, seed: int):
+    """(deletions, updated weights) of an engine in any storage: up to
+    ``count`` edges on shortest paths (x == dist, not on the diagonal),
+    drawn with a seeded rng, each removed (its weight set to the semiring's
+    ⊕-identity: inf for the min-plus floats, 0 for or_and).  For one packed
+    word plane (1, n, n) an edge is removed from every lane that holds it,
+    and its old weight is that lane mask."""
+    import numpy as np
+    import torch
+
+    d = torch.as_tensor(dist).cpu()
+    rng = np.random.default_rng(seed)
+    x1 = x.copy()
+    dels = []
+    if x.ndim == 3:  # a packed word plane: closure bits == edge bits
+        on = np.argwhere((x[0] != 0) & ~np.eye(x.shape[-1], dtype=bool))
+        for u, v in on[rng.choice(len(on), size=count, replace=False)]:
+            dels.append((int(u), int(v), int(x[0, u, v])))
+            x1[0, u, v] = 0
+        return dels, x1
+    x0 = x.astype(np.float64)
+    d0 = d.to(torch.float64).numpy()
+    on = np.argwhere((x0 == d0) & (x0 != 0) & np.isfinite(x0)
+                     & ~np.eye(x.shape[-1], dtype=bool))
+    require(len(on) >= count, "too few on-path edges to delete")
+    for u, v in on[rng.choice(len(on), size=count, replace=False)]:
+        dels.append((int(u), int(v), x[u, v].item()))
+        x1[u, v] = np.inf if x.dtype.kind == "f" else 0
+    return dels, x1
 
 
 # ------------------------------------------------------------ flash decode
@@ -2348,14 +3128,18 @@ def main(argv=None) -> int:
     phase_check_four()
     phase_check_dist()
     phase_check_lowered()
+    phase_check_lowered_repair()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
         phase_kernels_repair_del(rows, 8192, 4096)
         phase_kernels_four(rows, 8192)
         phase_kernels_lowered(rows, 8192, 4096)
+        phase_kernels_lowered_repair(rows, 8192, 4096)
         phase_main(rows, 8192, 4096)
         phase_main_lowered(rows, 8192, 4096)
+        phase_engine_lowered(rows, 8192, 4096)
+        phase_integer_storage(rows)
         phase_flash_decode(rows)
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)

@@ -18,7 +18,10 @@ Counterpart of ``repro.apsp.api.solve``:
     versions.  Without a card, asking for "cuda" raises.
   * **batching** — a (B, n, n) input runs all B graphs through each launch.
   * **storage** — the input's float dtype is kept (f32, bf16, f16; f64
-    narrows to f32, integers widen to f32 as the reference promotes them);
+    narrows to f32); integers widen to f32 for the semirings with an
+    infinite identity, as the reference promotes them, and keep their
+    dtype for or_and and plus_mul (int64 narrows to int32), computed on an
+    int32 carrier (``core.semiring.to_carrier``) and converted back;
     ``dtype=`` casts, and ``dtype=int16`` runs the saturating int16
     lowering; ``packed=True`` packs 32 {0,1} graphs per int32 word and runs
     one bitwise or_and closure over them (``pack_reachability``).
@@ -34,6 +37,7 @@ lowered solve on method "distributed" or "numpy" (A.4b).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -43,16 +47,19 @@ from repro_torch.core.distributed import fw_distributed, gather
 from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
 from repro_torch.core.paths import fw_blocked_with_successors, fw_with_successors
 from repro_torch.core.semiring import (
-    FLOAT_DTYPES,
     I16_INF,
     I16_NINF,
     MIN_PLUS,
     PACK_LANES,
     Semiring,
     dtype_name,
+    from_carrier,
+    int_carrier,
+    int_storage,
     lower_semiring,
-    require_f32,
+    require_f32_a4b,
     resolve_semiring,
+    to_carrier,
 )
 from repro_torch.core.staged import fw_staged, fw_staged_with_successors
 from repro_torch.kernels.minplus_matmul import check_variant
@@ -64,6 +71,9 @@ METHODS = (
 )
 SUCCESSOR_METHODS = ("naive", "blocked", "staged", "fused")
 _NOT_PORTED = {"recursive": "ROADMAP A.10"}
+
+# 64-bit integers arrive in the reference as JAX's 32-bit ones (no x64).
+_NARROW = {torch.int64: torch.int32, torch.uint64: torch.uint32}
 
 # Below this size a padded tile pass does more work than the n sweeps of the
 # naive loop; "auto" stays on the naive rung.
@@ -218,7 +228,10 @@ def _coerce(w, semiring: Semiring, dtype, device) -> torch.Tensor:
       ±inf lands on the sentinels and nothing wraps.
     * an explicit float ``dtype``: a plain cast.
     * otherwise float inputs keep their dtype (float64 narrows to
-      float32), and integers become float32 (they cannot hold ±inf).
+      float32); integers (and bool) keep theirs for the semirings whose
+      identities are finite (or_and, plus_mul; int64 narrows to int32 and
+      uint64 to uint32, as ``jnp.asarray`` does) and become float32 for
+      the others, which need ±inf.
     """
     t = _as_tensor(w)
     if t.ndim not in (2, 3) or t.shape[-1] != t.shape[-2]:
@@ -240,9 +253,11 @@ def _coerce(w, semiring: Semiring, dtype, device) -> torch.Tensor:
         return t.clamp(I16_NINF, I16_INF).to(torch.int16).contiguous()
     if dtype is not None:
         return t.to(_torch_dtype(dtype)).contiguous()
-    if dtype_name(t.dtype) not in FLOAT_DTYPES or t.dtype == torch.float64:
-        t = t.to(torch.float32)
-    return t.contiguous()
+    if t.is_floating_point():
+        return (t.to(torch.float32) if t.dtype == torch.float64 else t).contiguous()
+    if not (math.isfinite(semiring.zero) and math.isfinite(semiring.one)):
+        return t.to(torch.float32).contiguous()
+    return t.to(_NARROW.get(t.dtype, t.dtype)).contiguous()
 
 
 def _pad(w: torch.Tensor, m: int, semiring: Semiring) -> torch.Tensor:
@@ -383,11 +398,14 @@ def solve(
     check_variant(variant)
     dev = _resolve_device(device)
     arr = _coerce(w, sr, dtype, dev)
+    store, run_sr = arr.dtype, sr
+    if int_storage(store, sr):
+        arr, run_sr = to_carrier(arr, sr), int_carrier(sr, store)
     batched = arr.ndim == 3
     n = arr.shape[-1]
     meth, s, m = _resolve_shape(method, n, block_size, mesh)
     if meth in ("distributed", "numpy"):
-        require_f32(sr, arr, where=f"solve(method={meth!r})")
+        require_f32_a4b(sr, arr, where=f"solve(method={meth!r})")
     if meth == "distributed":
         _check_mesh_device(mesh, dev)
     if successors:
@@ -395,11 +413,13 @@ def solve(
     if meth == "numpy" and sr is not MIN_PLUS:
         raise ValueError("method='numpy' implements min_plus only")
 
-    run = _solver(meth, semiring=sr, block_size=s, variant=variant,
+    run = _solver(meth, semiring=run_sr, block_size=s, variant=variant,
                   successors=successors, mesh=mesh)
-    out = run(_pad(arr, m, sr))
+    out = run(_pad(arr, m, run_sr))
     dist, succ = out if successors else (out, None)
     dist = dist[..., :n, :n]
+    if int_storage(store, sr):
+        dist = from_carrier(dist, store, sr)
     if succ is not None:
         succ = succ[..., :n, :n]
 

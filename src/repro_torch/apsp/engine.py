@@ -1,6 +1,6 @@
 """Batched APSP execution engine: plan cache, ragged bucketing, repair.
 
-Counterpart of ``repro.apsp.engine`` for float32 on one device.  Serving
+Counterpart of ``repro.apsp.engine`` on one device.  Serving
 workloads solve the same (n, B) shapes over and over, in ragged batches,
 and absorb link improvements without a full re-solve.  ``ApspEngine`` is
 the session object for that:
@@ -12,6 +12,17 @@ the session object for that:
     counts runner builds, so a warm key stays at 1.  The runner is the
     same per-method solve ``api.solve`` runs (``api._solver``); capturing
     a key's launches in a CUDA graph is open work (ROADMAP A.5).
+  * **storage** — ``dtype=`` / ``packed=`` pin a storage lowering at
+    construction, as the reference's do: ``dtype=torch.int16`` runs the
+    saturating int16 lowerings, bf16 / f16 cast the weights, and
+    ``packed=True`` (or_and) serves int32 word planes of 32 graphs (inputs
+    pre-packed with ``api.pack_reachability``; ``repair`` and
+    ``repair_del`` take one (1, n, n) plane, w a lane mask).  Unpinned, a
+    float input keeps its dtype and an integer or_and / plus_mul input its
+    integer storage (``api._coerce``), computed on an int32 carrier.  Plan
+    keys carry the storage dtype, and every path — solve, ``solve_many``,
+    ``repair`` (successors in bf16 / f16), ``repair_del`` — runs the
+    storage's own kernels.
   * **``solve_many``** — buckets a ragged list of graphs by (method,
     padded n, block size, dtype), pads each bucket into one (B, m, m)
     batch and runs it through the kernels' batch grid (one launch set per
@@ -36,9 +47,9 @@ the session object for that:
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), and any
-storage but float32 — ``dtype=`` int16 / bf16 / f16, ``packed=True``, a
-lowered semiring, or a half-precision input, which is refused rather than
-widened (A.4b: the lowered repair kernels).  The reference's
+storage but float32 under method "staged" or on a mesh (A.4b: the lowered
+4-dispatch kernels and bordered round), which is refused rather than
+widened.  The reference's
 TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
 no counterpart: the port has one lowering per device, chosen by
 ``device=``, and the batch of a bucket rides one launch
@@ -65,6 +76,7 @@ from repro_torch.apsp.api import (
     _check_negative_cycles,
     _check_successor_args,
     _coerce,
+    _is_min_plus,
     _NOT_PORTED,
     _pad,
     _resolve_device,
@@ -72,13 +84,16 @@ from repro_torch.apsp.api import (
     _solver,
 )
 from repro_torch.core.semiring import (
+    A4B,
     MIN_PLUS,
-    PLUS_MUL,
     Semiring,
     dtype_name,
+    from_carrier,
+    int_carrier,
+    int_storage,
     lower_semiring,
-    require_f32,
     resolve_semiring,
+    to_carrier,
 )
 from repro_torch.core import distributed as _dist
 from repro_torch.kernels import fw_repair as _fr
@@ -180,14 +195,15 @@ class ApspEngine:
         hbm_budget: int | None = None,
         device="cuda",
     ):
-        """method / semiring / block dims pin the solve configuration.
+        """method / semiring / block dims pin the solve configuration, and
+        dtype / packed its storage lowering (``lower_semiring``).
 
         mesh: the ``launch.mesh.GridMesh`` of method="distributed" (its
         device type must be ``device``'s).  device: "cuda" (default: the
         Hopper kernels) or "cpu" (the plain versions); without a card,
-        "cuda" raises.  dtype / packed / leaf / hbm_budget and method
-        "recursive" are not ported yet (NotImplementedError naming the
-        ROADMAP item), and so is any storage but float32 (A.4b).
+        "cuda" raises.  leaf / hbm_budget and method "recursive" are not
+        ported yet (NotImplementedError naming ROADMAP A.10), nor is a
+        lowering under method "staged" or "distributed" (A.4b).
         """
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
@@ -208,10 +224,8 @@ class ApspEngine:
         self.semiring = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
         if self.semiring.dtype is not None or (
                 dtype is not None and dtype_name(dtype) not in ("float32", "float64")):
-            raise NotImplementedError(
-                f"ApspEngine runs float32 only; dtype={dtype!r}, packed={packed}, "
-                f"semiring {self.semiring.name!r} is not ported there yet (ROADMAP A.4b)"
-            )
+            _refuse_lowered(method, f"dtype={dtype!r}, packed={packed}, semiring "
+                                    f"{self.semiring.name!r}")
         self.dtype = dtype
         self.block_size = block_size
         self.bk = bk
@@ -246,20 +260,19 @@ class ApspEngine:
         self, n: int, batch: int = 1, *, dtype=torch.float32,
         successors: bool = False,
     ) -> ExecutablePlan:
-        """Resolve (and cache) the plan for an (n, batch) solve."""
-        if dtype_name(dtype) != "float32":
-            raise NotImplementedError(
-                f"dtype={dtype!r} is not ported to ApspEngine yet (ROADMAP A.4b); "
-                f"the engine solves in float32"
-            )
+        """Resolve (and cache) the plan for an (n, batch) solve in the
+        storage ``dtype``."""
         meth, s, m = _resolve_shape(self.method, n, self.block_size, self.mesh)
+        dt = dtype_name(dtype)
+        if self.semiring.dtype is not None or dt != "float32":
+            _refuse_lowered(meth, f"dtype {dt}, semiring {self.semiring.name!r}")
         if successors:
             _check_successor_args(meth, self.semiring)
         if meth == "numpy" and self.semiring is not MIN_PLUS:
             raise ValueError("method='numpy' implements min_plus only")
         bk = min(self.bk, s) if s is not None else self.bk
         key = PlanKey(
-            n_padded=m, batch=batch, dtype="float32", semiring=self.semiring.name,
+            n_padded=m, batch=batch, dtype=dt, semiring=self.semiring.name,
             method=meth, block_size=s, bk=bk,
             batch_block=batch if meth in ("staged", "fused", "distributed") else None,
             successors=successors,
@@ -271,33 +284,35 @@ class ApspEngine:
     def _build(self, key: PlanKey) -> ExecutablePlan:
         """The batched runner of a solve key, and its models."""
         entry = ExecutablePlan(key=key, runner=_solver(
-            key.method, semiring=self.semiring, block_size=key.block_size,
+            key.method, semiring=self._run_semiring(key.dtype), block_size=key.block_size,
             bk=key.bk, variant=self.variant, successors=key.successors, mesh=self.mesh,
         ))
+        word = plan.word_for(key.dtype)
         if key.method == "distributed":
             entry.smem_bytes = plan.round_smem_bytes(key.block_size, key.bk)
         elif key.method in ("staged", "fused"):
             entry.smem_bytes = plan.round_smem_bytes(
-                key.block_size, key.bk, successors=key.successors
+                key.block_size, key.bk, successors=key.successors, word=word,
             )
             entry.hbm_bytes_per_round = (2 if key.successors else 1) * (
-                plan.fused_round_hbm_bytes(key.n_padded, key.block_size, batch=key.batch)
+                plan.fused_round_hbm_bytes(key.n_padded, key.block_size, word=word,
+                                           batch=key.batch)
             )
         return entry
 
     # -------------------------------------------------------------- solving
     def solve(self, w, *, successors: bool = False) -> APSPResult:
         """One graph or one uniform (B, n, n) batch through the cache."""
-        arr = _coerce_f32(w, self.device)
+        arr = _coerce(w, self.semiring, self.dtype, self.device)
         batched = arr.ndim == 3
         n = arr.shape[-1]
         B = arr.shape[0] if batched else 1
-        entry = self.plan_for(n, B, successors=successors)
-        dist, succ = self._run(entry, arr if batched else arr[None], n)
+        entry = self.plan_for(n, B, dtype=arr.dtype, successors=successors)
+        dist, succ = self._run(entry, [arr] if not batched else list(arr), n)
         if not batched:
             dist = dist[0]
             succ = succ[0] if succ is not None else None
-        if self.validate and self.semiring is MIN_PLUS:
+        if self.validate and _is_min_plus(self.semiring):
             _check_negative_cycles(dist, batched)
         self.stats.solves += 1
         self.stats.graphs_solved += B
@@ -310,7 +325,7 @@ class ApspEngine:
         (B, n, n) array or tensor.  Returns per-graph results in input
         order, bitwise equal to per-graph ``solve`` calls.
         """
-        arrs = [_coerce_f32(g, self.device) for g in graphs]
+        arrs = [_coerce(g, self.semiring, self.dtype, self.device) for g in graphs]
         for a in arrs:
             if a.ndim != 2:
                 raise ValueError(f"solve_many expects (n,n) graphs, got {tuple(a.shape)}")
@@ -320,11 +335,11 @@ class ApspEngine:
             buckets.setdefault((meth, m, s, str(a.dtype)), []).append(idx)
         results: list[APSPResult | None] = [None] * len(arrs)
         for (_meth, m, _s, _dt), idxs in buckets.items():
-            entry = self.plan_for(arrs[idxs[0]].shape[-1], len(idxs), successors=successors)
-            wb = torch.stack([_pad(arrs[i], m, self.semiring) for i in idxs])
-            dist, succ = self._run(entry, wb, m)
+            entry = self.plan_for(arrs[idxs[0]].shape[-1], len(idxs),
+                                  dtype=arrs[idxs[0]].dtype, successors=successors)
+            dist, succ = self._run(entry, [arrs[i] for i in idxs], m)
             ns = [arrs[i].shape[-1] for i in idxs]
-            if self.validate and self.semiring is MIN_PLUS:
+            if self.validate and _is_min_plus(self.semiring):
                 bad = negative_cycle_mask_padded(dist, ns)
                 if bad.any():
                     which = [idxs[k] for k in np.flatnonzero(bad)]
@@ -340,49 +355,52 @@ class ApspEngine:
     def repair(self, dist, updates, *, succ=None) -> APSPResult:
         """Absorb a batch of ⊕-improving edge updates into a closed matrix.
 
-        dist: a (n, n) closure (a prior solve's output); updates: sequence
-        of ``(u, v, w)`` where ``w`` is the ⊕-delta merged into edge
-        (u, v) — the improved weight itself for the idempotent semirings,
-        the additive delta for plus_mul; succ: the matching next-hop table
-        to patch alongside (min-plus only).  Neither input is modified.
+        dist: a (n, n) closure (a prior solve's output; for the packed
+        lowering one (1, n, n) word plane, restored to that shape);
+        updates: sequence of ``(u, v, w)`` where ``w`` is the ⊕-delta
+        merged into edge (u, v) — the improved weight itself for the
+        idempotent semirings, the additive delta for plus_mul, the int32
+        mask of the lanes that gain the edge for packed; succ: the matching
+        next-hop table to patch alongside (min-plus, float distances).
+        Neither input is modified.
 
-        One stage + apply launch pair per 64 edges (``kernels.fw_repair``;
-        its plain version on the CPU) — O(E·n²) against the full solve's
-        O(n³).  The result equals a full re-solve of the updated graph
-        under the kernel's conditions: ⊕-improving updates, closure
-        diagonal = ⊗-identity (lifted and restored here for plus_mul, whose
-        FW convention keeps a 0 diagonal; exact there only on DAGs), no
-        optimal path using one updated edge twice.  Edge removals and
-        min-plus weight increases go to ``repair_del`` (``should_repair`` is
-        the cost policy).
+        One stage + apply launch pair per 64 edges (32 in a lowered
+        storage; ``kernels.fw_repair``; its plain version on the CPU) —
+        O(E·n²) against the full solve's O(n³).  The result equals a full
+        re-solve of the updated graph under the kernel's conditions:
+        ⊕-improving updates, closure diagonal = ⊗-identity (lifted and
+        restored here, in the storage dtype, for plus_mul, whose FW
+        convention keeps a 0 diagonal; exact there only on DAGs), no
+        optimal path using one updated edge twice, and exact arithmetic
+        (integer weights whose path sums the storage holds).  Edge removals
+        and min-plus weight increases go to ``repair_del``
+        (``should_repair`` is the cost policy).
 
         Edge batches pad to ``max(4, next power of two)`` with no-op edges
         (u = v = 0, w = ⊕-identity), so the plan cache holds one entry per
         (shape, bucket) rather than one per batch length.  Endpoints
-        outside [0, n) raise ``ValueError``.
+        outside [0, n), or a weight the storage cannot hold, raise
+        ``ValueError``.
         """
         sr = self.semiring
-        arr = _coerce_f32(dist, self.device)
-        if arr.ndim != 2:
+        arr = _coerce(dist, sr, self.dtype, self.device)
+        packed_plane = sr.packed and arr.ndim == 3 and arr.shape[0] == 1
+        if packed_plane:
+            arr = arr[0]
+        if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
             raise ValueError(f"repair expects a (n, n) closure, got {tuple(arr.shape)}")
         n = arr.shape[-1]
         updates = list(updates)
         if not updates:
             raise ValueError("repair needs at least one (u, v, w) update")
-        if succ is not None and sr is not MIN_PLUS:
-            raise ValueError(
-                "successor repair is min_plus only (like every successor path)"
-            )
-        if succ is not None and self.method == "distributed":
-            raise ValueError("distributed repair is distance-only (like the "
-                             "distributed solve)")
+        self._check_succ(succ, arr, "repair")
         E = len(updates)
         E_pad = max(4, 1 << (E - 1).bit_length())
         u = np.zeros(E_pad, np.int32)
         v = np.zeros(E_pad, np.int32)
-        w = np.full(E_pad, sr.zero, np.float32)
-        for i, (ui, vi, wi) in enumerate(updates):
-            u[i], v[i], w[i] = ui, vi, wi
+        for i, (ui, vi, _) in enumerate(updates):
+            u[i], v[i] = ui, vi
+        w = _edge_weights(E_pad, sr.zero, arr.dtype, [wi for _, _, wi in updates])
         if not ((0 <= u) & (u < n) & (0 <= v) & (v < n)).all():
             raise ValueError(f"edge endpoints must lie in [0, {n})")
         mesh = self.mesh.signature if self.method == "distributed" else None
@@ -392,25 +410,28 @@ class ApspEngine:
         else:
             _, s, m = _resolve_shape("distributed", n, self.block_size, self.mesh)
         key = PlanKey(
-            n_padded=m, batch=1, dtype="float32", semiring=sr.name,
+            n_padded=m, batch=1, dtype=dtype_name(arr.dtype), semiring=sr.name,
             method="repair" if mesh is None else "repair_distributed",
             block_size=s, bk=0, batch_block=None, successors=succ is not None,
             mesh=mesh, edges=E_pad, backend=self.device.type,
         )
         entry = self._lookup(key, self._build_repair)
-        dp = _pad(arr, m, sr)
+        work, run_sr = self._carry(arr)
+        dp = _pad(work, m, run_sr)
+        wc = self._carry(w)[0]
         if succ is None:
-            d2, s2 = entry.runner(dp, u, v, w)[:n, :n], None
+            d2, s2 = entry.runner(dp, u, v, wc)[:n, :n], None
         else:
             sp = torch.full((m, m), -1, dtype=torch.int32, device=self.device)
             sp[:n, :n] = torch.as_tensor(succ).to(self.device, torch.int32)
-            d2, s2 = entry.runner(dp, sp, u, v, w)
+            d2, s2 = entry.runner(dp, sp, u, v, wc)
             d2, s2 = d2[:n, :n], s2[:n, :n]
-        if self.validate and sr is MIN_PLUS:
+        d2 = self._back(d2, arr.dtype)
+        if self.validate and _is_min_plus(sr):
             _check_negative_cycles(d2, False)
         self.stats.repairs += 1
         self.stats.edges_repaired += E
-        return self._result(entry, d2, s2, n)
+        return self._result(entry, d2[None] if packed_plane else d2, s2, n)
 
     def repair_del(
         self, dist, w, deletions, *, succ=None, threshold: float = 0.5,
@@ -418,31 +439,38 @@ class ApspEngine:
         """Absorb a batch of edge deletions / worsenings into a closed matrix
         — the structural events the rank-1 ``repair`` cannot touch.
 
-        dist: a (n, n) closure (a prior solve's output); w: the **updated**
-        weight matrix (a deleted edge holds the ⊕-identity, a worsened one
-        its new weight); deletions: sequence of ``(u, v, w_old)``, the
-        endpoints and the weight the edge carried before; succ: the matching
-        next-hop table to repair alongside (min-plus only).  Neither input
-        is modified.
+        dist: a (n, n) closure (a prior solve's output; packed: one
+        (1, n, n) word plane, as ``repair``); w: the **updated** weight
+        matrix (a deleted edge holds the ⊕-identity, a worsened one its new
+        weight); deletions: sequence of ``(u, v, w_old)``, the endpoints
+        and the weight the edge carried before (packed: the int32 mask of
+        the lanes that held it); succ: the matching next-hop table to
+        repair alongside (min-plus, float distances).  Neither input is
+        modified.
 
         Two stages (``kernels.fw_repair_del``): mark the pairs whose closure
         value is witnessed through a deleted edge, d[i,u] ⊗ w_old ⊗ d[v,j]
-        == d[i,j], and reset them to w — O(E·n²) torch ops; then re-relax
-        only the a affected rows with the restricted row sweep, three
-        launches per pivot round on the card.  The result equals a full
-        re-solve of w, bitwise on integer-valued weights.  Falls back to
-        ``self.solve(w)`` — counted in ``stats.repair_del_fallbacks`` —
-        when ``plan.should_repair_del(threshold=...)`` rejects the affected
-        row count or the semiring is plus_mul (non-idempotent ⊕ sums over
-        all paths; no restricted recomputation is sound).  An empty batch,
-        or an empty affected set, returns the input closure and launches no
-        sweep (``repair_del_noops``).  Endpoints outside [0, n) raise
-        ``ValueError``.
+        == d[i,j], and reset them to w (packed: per lane) — O(E·n²) torch
+        ops; then re-relax only the a affected rows with the restricted
+        row sweep, three launches per pivot round on the card.  The result
+        equals a full re-solve of w, bitwise on integer-valued weights.
+        Falls back to ``self.solve(w)`` — counted in
+        ``stats.repair_del_fallbacks`` — when ``plan.should_repair_del(
+        threshold=...)`` rejects the affected row count or the semiring is
+        plus_mul in any storage (non-idempotent ⊕ sums over all paths; no
+        restricted recomputation is sound).  An empty batch, or an empty
+        affected set, returns the input closure and launches no sweep
+        (``repair_del_noops``).  A non-finite old weight in an integer
+        lowering stays the ⊕-identity (the edge never existed there).
+        Endpoints outside [0, n) raise ``ValueError``.
         """
         sr = self.semiring
-        arr = _coerce_f32(dist, self.device)
-        wa = _coerce_f32(w, self.device)
-        if arr.ndim != 2:
+        arr = _coerce(dist, sr, self.dtype, self.device)
+        wa = _coerce(w, sr, self.dtype, self.device)
+        packed_plane = sr.packed and arr.ndim == 3 and arr.shape[0] == 1
+        if packed_plane:
+            arr, wa = arr[0], wa[0]
+        if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
             raise ValueError(f"repair_del expects a (n, n) closure, got {tuple(arr.shape)}")
         if wa.shape != arr.shape:
             raise ValueError(
@@ -450,22 +478,17 @@ class ApspEngine:
             )
         n = arr.shape[-1]
         dels = [(int(u), int(v), wi) for (u, v, wi) in deletions]
-        if succ is not None and sr is not MIN_PLUS:
-            raise ValueError(
-                "successor repair_del is min_plus only (like every successor path)"
-            )
-        if succ is not None and self.method == "distributed":
-            raise ValueError("distributed repair_del is distance-only (like the "
-                             "distributed solve)")
+        self._check_succ(succ, arr, "repair_del")
         s0 = None if succ is None else torch.as_tensor(succ).to(self.device, torch.int32)
+        d0 = arr[None] if packed_plane else arr
         E = len(dels)
         if E == 0:
             self.stats.repair_del_noops += 1
-            return APSPResult(dist=arr, succ=s0, method="repair_del", semiring=sr.name,
+            return APSPResult(dist=d0, succ=s0, method="repair_del", semiring=sr.name,
                               block_size=self.block_size, n=n, padded_n=n)
         if not all(0 <= u < n and 0 <= v < n for u, v, _ in dels):
             raise ValueError(f"edge endpoints must lie in [0, {n})")
-        if sr is PLUS_MUL:
+        if "plus_mul" in sr.name:
             # Non-idempotent ⊕ sums over ALL paths: neither the one-witness
             # marking nor any restricted recomputation is sound.
             self.stats.edges_deleted += E
@@ -478,16 +501,20 @@ class ApspEngine:
         # count, and the marking skips them.
         u = np.zeros(E_pad, np.int32)
         v = np.zeros(E_pad, np.int32)
-        wold = np.full(E_pad, sr.zero, np.float32)
-        for i, (ui, vi, wi) in enumerate(dels):
-            u[i], v[i], wold[i] = ui, vi, wi
+        for i, (ui, vi, _) in enumerate(dels):
+            u[i], v[i] = ui, vi
+        wold = _edge_weights(E_pad, sr.zero, arr.dtype, [wi for _, _, wi in dels],
+                             lenient=True)
+        dt = dtype_name(arr.dtype)
         key1 = PlanKey(
-            n_padded=m, batch=1, dtype="float32", semiring=sr.name,
+            n_padded=m, batch=1, dtype=dt, semiring=sr.name,
             method="repair_del_mark", block_size=s, bk=0, batch_block=None,
             successors=succ is not None, edges=E_pad, backend=self.device.type,
         )
         entry1 = self._lookup(key1, self._build_repair_del_mark)
-        dp, wp = _pad(arr, m, sr), _pad(wa, m, sr)
+        work, run_sr = self._carry(arr)
+        dp, wp = _pad(work, m, run_sr), _pad(self._carry(wa)[0], m, run_sr)
+        wold = self._carry(wold)[0]
         if succ is None:
             d_init, row_mask, _ = entry1.runner(dp, wp, u, v, wold, E)
             s_init = None
@@ -502,11 +529,11 @@ class ApspEngine:
             # No shortest path was witnessed through any deleted edge: the
             # closure (and succ) is already the updated graph's.
             self.stats.repair_del_noops += 1
-            return APSPResult(dist=arr, succ=s0, method="repair_del", semiring=sr.name,
+            return APSPResult(dist=d0, succ=s0, method="repair_del", semiring=sr.name,
                               block_size=s, n=n, padded_n=m)
         if not plan.should_repair_del(
-            n, a, block_size=s, word=4, edges=E, successors=succ is not None,
-            threshold=threshold,
+            n, a, block_size=s, word=arr.element_size(), edges=E,
+            successors=succ is not None, threshold=threshold,
         ):
             self.stats.repair_del_fallbacks += 1
             return self.solve(w, successors=succ is not None)
@@ -514,7 +541,7 @@ class ApspEngine:
         rows_arr = np.full(a_pad, m, np.int32)
         rows_arr[:a] = rows
         key2 = PlanKey(
-            n_padded=m, batch=1, dtype="float32", semiring=sr.name, method="repair_del",
+            n_padded=m, batch=1, dtype=dt, semiring=sr.name, method="repair_del",
             block_size=s, bk=min(self.bk, s), batch_block=None,
             successors=succ is not None, edges=a_pad, backend=self.device.type,
         )
@@ -524,11 +551,12 @@ class ApspEngine:
         else:
             d2, s2 = entry2.runner(d_init, s_init, rows_arr)
             d2, s2 = d2[:n, :n], s2[:n, :n]
-        if self.validate and sr is MIN_PLUS:
+        d2 = self._back(d2, arr.dtype)
+        if self.validate and _is_min_plus(sr):
             _check_negative_cycles(d2, False)
         self.stats.repair_dels += 1
         self.stats.repair_del_rows += a
-        return self._result(entry2, d2, s2, n)
+        return self._result(entry2, d2[None] if packed_plane else d2, s2, n)
 
     def should_repair(
         self, n: int, pending_updates: int, *, successors: bool = False,
@@ -544,11 +572,12 @@ class ApspEngine:
 
         Otherwise compares ``plan.repair_hbm_bytes`` for the accumulated
         edge count against ``threshold ×`` the full solve's modelled
-        traffic.  Both are the reference's models of the TPU kernels, kept
-        so that this decides exactly as ``repro.apsp.ApspEngine`` does; the
-        CUDA kernels' own traffic differs (``kernels/csrc/fw_repair.cu``:
-        ~2·n² words per repair against ~2·n² per round), which moves the
-        crossover but not the order of magnitude.
+        traffic, in the storage's word.  Both are the reference's models of
+        the TPU kernels, kept so that this decides exactly as
+        ``repro.apsp.ApspEngine`` does; the CUDA kernels' own traffic
+        differs (``kernels/csrc/fw_repair.cu``: ~2·n² words per repair
+        against ~2·n² per round), which moves the crossover but not the
+        order of magnitude.
         """
         if worsenings > 0:
             self.stats.repair_rejects += 1
@@ -565,11 +594,12 @@ class ApspEngine:
 
     def _build_repair(self, key: PlanKey) -> ExecutablePlan:
         """The repair runner of a cache key: padded (dist[, succ], u, v, w)
-        → repaired padded tables."""
-        sr, s = self.semiring, key.block_size
+        on the storage's carrier → repaired padded tables."""
+        sr, s = self._run_semiring(key.dtype), key.block_size
         entry = ExecutablePlan(key=key, runner=None)
         entry.hbm_bytes_per_round = plan.repair_hbm_bytes(
-            key.n_padded, s, edges=key.edges, successors=key.successors,
+            key.n_padded, s, word=plan.word_for(key.dtype), edges=key.edges,
+            successors=key.successors,
         )
         if key.successors:
             entry.runner = lambda dp, sp, u, v, w: _fr.fw_repair_with_successors(
@@ -587,10 +617,11 @@ class ApspEngine:
             repair_fn = functools.partial(_fr.fw_repair, block_size=s, semiring=sr)
 
         def runner(dp, u, v, w):
-            if sr is not PLUS_MUL:
+            if "plus_mul" not in key.semiring:
                 return repair_fn(dp, u, v, w)
             # plus_mul: FW keeps a 0 (⊕-identity) diagonal; the repair
-            # recurrence needs the ⊗-identity there.  Lift, repair, restore.
+            # recurrence needs the ⊗-identity there.  Lift, repair, restore,
+            # in the storage's dtype.
             diag = torch.diagonal(dp).clone()
             lifted = dp.clone()
             torch.diagonal(lifted).fill_(sr.one)
@@ -605,7 +636,7 @@ class ApspEngine:
         """Stage-1 runner: padded (closure[, succ], weights, edge batch, live
         count) → (d_init[, s_init], affected-row mask, entry count); torch
         ops on the engine's device."""
-        sr = self.semiring
+        sr = self._run_semiring(key.dtype)
         if key.successors:
             runner = functools.partial(_frd.mark_affected_with_successors, semiring=sr)
         else:
@@ -619,7 +650,8 @@ class ApspEngine:
         s = key.block_size
         entry = ExecutablePlan(key=key, runner=None)
         entry.hbm_bytes_per_round = plan.repair_del_hbm_bytes(
-            key.n_padded, s, affected_rows=key.edges, successors=key.successors,
+            key.n_padded, s, affected_rows=key.edges, word=plan.word_for(key.dtype),
+            successors=key.successors,
         )
         if key.successors:
             entry.runner = functools.partial(_frd.fw_repair_del_sweep_with_successors,
@@ -627,18 +659,52 @@ class ApspEngine:
         else:
             entry.runner = functools.partial(
                 _frd.fw_repair_del_sweep, block_size=s, bk=key.bk, variant=self.variant,
-                semiring=self.semiring,
+                semiring=self._run_semiring(key.dtype),
             )
         return entry
 
     # -------------------------------------------------------------- helpers
-    def _run(self, entry: ExecutablePlan, wb: torch.Tensor, n: int):
-        """Pad to the plan shape, run the cached runner, unpad."""
-        out = entry.runner(_pad(wb, entry.key.n_padded, self.semiring))
-        if entry.key.successors:
-            dist, succ = out
-            return dist[..., :n, :n], succ[..., :n, :n]
-        return out[..., :n, :n], None
+    def _run_semiring(self, dtype: str) -> Semiring:
+        """The semiring a key's kernels run: the engine's, or the one of the
+        int32 carrier of an integer storage."""
+        t = getattr(torch, dtype)
+        return int_carrier(self.semiring, t) if int_storage(t, self.semiring) else self.semiring
+
+    def _carry(self, t: torch.Tensor) -> tuple[torch.Tensor, Semiring]:
+        """(the tensor the kernels take, their semiring): an integer or_and /
+        plus_mul storage goes to its int32 carrier."""
+        if int_storage(t.dtype, self.semiring):
+            return to_carrier(t, self.semiring), int_carrier(self.semiring, t.dtype)
+        return t, self.semiring
+
+    def _back(self, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Inverse of ``_carry`` for a result in the storage ``dtype``."""
+        return from_carrier(t, dtype, self.semiring) if int_storage(dtype, self.semiring) else t
+
+    def _check_succ(self, succ, arr: torch.Tensor, what: str) -> None:
+        if succ is None:
+            return
+        if not _is_min_plus(self.semiring):
+            raise ValueError(f"successor {what} is min_plus only (like every successor path)")
+        if not arr.is_floating_point():
+            raise ValueError(f"successor {what} needs a float distance table (the "
+                             f"strict-< relaxation is not lowered for int16)")
+        if self.method == "distributed":
+            raise ValueError(f"distributed {what} is distance-only (like the "
+                             f"distributed solve)")
+
+    def _run(self, entry: ExecutablePlan, graphs: list, m: int):
+        """Carry, pad to the plan shape and stack the (n_i, n_i) graphs of
+        one bucket, run the cached runner, unpad to m and return the
+        (B, m, m) results in the storage dtype."""
+        dtype = graphs[0].dtype
+        carried = [self._carry(g) for g in graphs]
+        sr = carried[0][1]
+        wb = torch.stack([_pad(c, entry.key.n_padded, sr) for c, _ in carried])
+        out = entry.runner(wb)
+        dist, succ = out if entry.key.successors else (out, None)
+        dist = self._back(dist[..., :m, :m], dtype)
+        return dist, succ[..., :m, :m] if succ is not None else None
 
     def _result(self, entry: ExecutablePlan, dist, succ, n: int) -> APSPResult:
         return APSPResult(
@@ -648,12 +714,36 @@ class ApspEngine:
         )
 
 
-def _coerce_f32(w, device: torch.device) -> torch.Tensor:
-    """``api._coerce`` for the engine's float32-only paths: floats keep
-    their dtype, so a half-precision input is refused, not widened."""
-    t = _coerce(w, MIN_PLUS, None, device)
-    require_f32(MIN_PLUS, t, where="ApspEngine")
-    return t
+def _refuse_lowered(method: str, what: str) -> None:
+    """A storage lowering on a method whose lowered kernels are still to
+    port: NotImplementedError naming ROADMAP A.4b, never a silent widening."""
+    if method in ("staged", "distributed"):
+        raise NotImplementedError(
+            f"ApspEngine(method={method!r}) runs float32 only; {what} is not ported "
+            f"there yet: ROADMAP A.4b, {A4B}"
+        )
+
+
+def _edge_weights(count: int, fill, dtype: torch.dtype, values, *,
+                  lenient: bool = False) -> torch.Tensor:
+    """(count,) edge weights in the storage ``dtype`` on the CPU: ``values``
+    first, ``fill`` (the ⊕-identity) after them.  A value the dtype cannot
+    hold (±inf or out of range in an integer storage) raises ValueError, as
+    the reference's numpy assignment does, or with ``lenient`` keeps the
+    fill: a non-finite old weight in an integer lowering names an edge that
+    never existed there, and the ⊕-identity witness is inert."""
+    hold = torch.int64 if dtype == torch.uint32 else dtype  # uint32 has no index_put
+    w = torch.full((count,), fill, dtype=hold)
+    for i, x in enumerate(values):
+        try:
+            if dtype == torch.uint32 and not 0 <= x < 1 << 32:
+                raise OverflowError(f"{x} does not fit uint32")
+            w[i] = x
+        except (RuntimeError, OverflowError, ValueError) as err:
+            if not lenient:
+                raise ValueError(f"edge weight {x!r} does not fit the {dtype} "
+                                 f"storage") from err
+    return w.to(dtype)
 
 
 def negative_cycle_mask_padded(dist, ns: Sequence[int]) -> np.ndarray:
@@ -663,5 +753,5 @@ def negative_cycle_mask_padded(dist, ns: Sequence[int]) -> np.ndarray:
     vertices have a 0 (⊗-identity) diagonal, so restricting the check to
     the real diagonal is equivalent but keeps intent explicit.
     """
-    d = torch.diagonal(torch.as_tensor(dist), dim1=-2, dim2=-1).cpu().numpy()
-    return np.array([bool((d[k, : ns[k]] < 0).any()) for k in range(len(ns))])
+    neg = (torch.diagonal(torch.as_tensor(dist), dim1=-2, dim2=-1) < 0).cpu().numpy()
+    return np.array([bool(neg[k, : ns[k]].any()) for k in range(len(ns))])

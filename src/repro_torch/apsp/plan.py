@@ -22,6 +22,7 @@ _WORD_BYTES = {
     "float64": 8, "int64": 8,
     "float32": 4, "int32": 4, "uint32": 4,
     "bfloat16": 2, "float16": 2, "int16": 2, "uint16": 2,
+    "int8": 1, "uint8": 1, "bool": 1,
 }
 
 

@@ -65,7 +65,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 from repro_torch.kernels import fw_round as _fr
 from repro_torch.kernels import ref
 from repro_torch.kernels.minplus_matmul import check_variant, semiring_matmul
@@ -164,7 +164,7 @@ def build_fw_shard_fn(
         )
     check_variant(variant)
     s, sr = block_size, semiring
-    require_f32(sr, where="the distributed solve")
+    require_f32_a4b(sr, where="the distributed solve")
     R, C = mesh.R, mesh.C
     n_r, n_c = local_shape(n, mesh)
     if n % (R * s) or n % (C * s):
@@ -179,7 +179,7 @@ def build_fw_shard_fn(
         if w.ndim != (3 if batched else 2) or tuple(w.shape[-2:]) != (n, n):
             raise ValueError(f"w must be {'(B,n,n)' if batched else '(n,n)'} with "
                              f"n={n}, got {tuple(w.shape)}")
-        require_f32(sr, w, where="the distributed solve")
+        require_f32_a4b(sr, w, where="the distributed solve")
         buf = torch.empty((*w.shape[:-2], s + n_r, s + n_c), dtype=torch.float32,
                           device=mesh.device)
         buf[..., s:, s:] = local_block(w, mesh)
@@ -256,7 +256,7 @@ def build_repair_shard_fn(mesh, n: int, *, semiring: Semiring = MIN_PLUS, edges:
     def fn(dl: torch.Tensor, u, v, w) -> torch.Tensor:
         if tuple(dl.shape) != (nr, nc):
             raise ValueError(f"local block must be ({nr}, {nc}), got {tuple(dl.shape)}")
-        us, vs, ws = ref._edge_lists(u, v, w, dl.device)
+        us, vs, ws = ref._edge_lists(u, v, w, dl)
         if not len(us) == len(vs) == edges:
             raise ValueError(f"expected {edges} edges, got {len(us)}")
         col, row = dl.new_empty((nr, 1)), dl.new_empty((1, nc))

@@ -14,6 +14,17 @@ tropical ones (``MIN_PLUS_I16`` …, sentinels ``I16_INF`` / ``I16_NINF``),
 the bit-packed transitive closure ``OR_AND_PACKED`` (32 graphs per int32
 word, ⊕ = OR, ⊗ = AND) and the identity lowering of every float dtype.
 
+Integer storage.  or_and and plus_mul have finite identities, so the
+reference keeps an integer input's dtype for them (bool, int8, uint8,
+int16, int32, uint32; int64 arrives as int32).  The port computes those on
+an int32 carrier (``int_carrier``, ``to_carrier``, ``from_carrier``) and
+converts back, which is exact: or_and's max / min only select values, and
+plus_mul's wrapping add and multiply mod 2³² truncate to mod 2⁸ / 2¹⁶.
+Two storages need care: uint32 or_and flips bit 31 on the way in and out
+(signed order on the carrier = unsigned order on the storage, and the
+identities flip with it), and bool plus_mul runs as or_and (XLA's bool add
+and multiply are OR and AND).
+
 ``relax(acc, a, b)`` is the one step every kernel chain is built from,
 ``add(acc, mul(a, b))``.  For plus_mul in f32 it is ``torch.addcmul``: a
 single rounded fused multiply-add, as XLA contracts ``c + a*b`` inside
@@ -244,12 +255,60 @@ def resolve_semiring(semiring: Semiring | str) -> Semiring:
     return sr
 
 
-def require_f32(semiring: Semiring, *tensors: Tensor, where: str) -> None:
-    """The paths still f32-only refuse a lowering or a non-f32 tensor
-    (never widen it): NotImplementedError naming A.4b."""
+# What of the storage lowerings is still to port (ROADMAP A.4b).
+A4B = ("the lowered bordered round (distributed solve, mesh engine) and the "
+       "lowered 4-dispatch kernels (fw_staged(fused=False), kernels.ops, engine "
+       "method='staged')")
+
+
+def require_f32_a4b(semiring: Semiring, *tensors: Tensor, where: str) -> None:
+    """The paths whose kernels are f32 only (A4B) refuse a lowering or a
+    non-f32 tensor, and never widen it: NotImplementedError naming A.4b."""
     bad = [t.dtype for t in tensors if t.dtype != torch.float32]
     if semiring.dtype is not None or bad:
         what = f"semiring {semiring.name!r}" if semiring.dtype is not None else f"{bad[0]}"
         raise NotImplementedError(
-            f"{where} runs float32 only; {what} is not ported there yet (ROADMAP A.4b)"
+            f"{where} runs float32 only; {what} is not ported there yet: ROADMAP "
+            f"A.4b, {A4B}"
         )
+
+
+# ------------------------------------------------------- integer storage
+_SIGN = -(1 << 31)  # bit 31 of an int32
+
+# uint32 or_and on its carrier: bit 31 flipped, so are the identities.
+_OR_AND_FLIPPED = dataclasses.replace(OR_AND, zero=_SIGN, one=_SIGN + 1)
+
+
+def int_storage(dtype: torch.dtype, semiring: Semiring) -> bool:
+    """True for an integer (or bool) storage of a float semiring: or_and or
+    plus_mul in the reference's integer storage, run on an int32 carrier."""
+    return semiring.dtype is None and not dtype.is_floating_point
+
+
+def int_carrier(semiring: Semiring, dtype: torch.dtype) -> Semiring:
+    """The semiring the int32 carrier of a ``dtype`` storage runs."""
+    if dtype == torch.bool and semiring.name == "plus_mul":
+        return OR_AND
+    if dtype == torch.uint32 and semiring.name == "or_and":
+        return _OR_AND_FLIPPED
+    return semiring
+
+
+def to_carrier(t: Tensor, semiring: Semiring) -> Tensor:
+    """The int32 carrier of an integer storage tensor (a new tensor)."""
+    if t.dtype == torch.uint32:
+        c = t.contiguous().view(torch.int32)
+        return c ^ _SIGN if semiring.name == "or_and" else c.clone()
+    return t.to(torch.int32)
+
+
+def from_carrier(c: Tensor, dtype: torch.dtype, semiring: Semiring) -> Tensor:
+    """Inverse of ``to_carrier``: the carrier's values in ``dtype`` (wrapping
+    truncation for the narrow integers, nonzero for bool)."""
+    if dtype == torch.uint32:
+        c = c ^ _SIGN if semiring.name == "or_and" else c
+        return c.contiguous().view(torch.uint32)
+    if dtype == torch.bool:
+        return c != 0
+    return c.to(dtype)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.paths import _init_successors
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 from repro_torch.kernels import fw_round as _fr
 from repro_torch.kernels.fw_phase1 import fw_phase1
 from repro_torch.kernels.fw_phase2 import fw_phase2_col, fw_phase2_row
@@ -64,7 +64,7 @@ def fw_staged(
                          f"the 4-dispatch (False) rounds")
     w = w.contiguous().clone()  # the rounds update it in place
     if fused is not None and not fused:
-        require_f32(semiring, w, where="fw_staged(fused=False)")
+        require_f32_a4b(semiring, w, where="fw_staged(fused=False)")
         return _four_dispatch(w, block_size, min(bm, n), min(bn, n), min(bk, block_size),
                               variant, semiring)
     bands = _fr.round_buffers(w, block_size) if w.is_cuda else None

@@ -50,282 +50,25 @@
 // at 67 TFLOP/s): at E = 16, n = 8192 it is bound by bytes (0.16 ms); the
 // two meet near E = 80.  The stage launch moves ~2·E·n words.
 //
+// The kernels are fw_repair.cuh's, templated on the storage type; this
+// file instantiates them for f32 with every edge capacity 8 / 16 / 32 / 64,
+// fw_repair_lowered.cu for the storage lowerings.
+//
 // Interface: plain C, pointers and the stream as void*, each entry point
 // returns the cudaError_t of its launch (0 = launched).
 
 #include <cuda_runtime.h>
 
-#include "semiring.cuh"
+#include "fw_repair.cuh"
 
 namespace {
 
-constexpr int kMaxEdges = 64;     // edges one launch pair carries
-constexpr int kStageThreads = 128;  // one column each
-constexpr int kRows = 32;         // rows per apply CTA
-constexpr int kCols = 128;        // column chunk of the apply CTA
-constexpr int kSlice = 16;        // staged rows per shared-memory slice
-constexpr int kApplyThreads = 256;  // 8 row groups of 4 x 32 lanes of 4 columns
-
-// ------------------------------------------------------------------ stage
-template <int EM, class Op>
-__global__ void __launch_bounds__(kStageThreads)
-stage_kernel(const float* __restrict__ d, float* __restrict__ staged,
-             const int* __restrict__ u, const int* __restrict__ v,
-             const float* __restrict__ w, int n, int E) {
-  __shared__ float M[EM][EM + 1];  // row v_g at column u_b, evolving
-  __shared__ float A[EM][EM + 1];  // A[g][t] = (row v_g at u_t before step t) ⊗ w_t
-  __shared__ int us[EM], vs[EM];
-  __shared__ float ws[EM];
-  const int tid = threadIdx.x;
-  if (tid < E) {
-    us[tid] = u[tid];
-    vs[tid] = v[tid];
-    ws[tid] = w[tid];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < E * E; idx += kStageThreads)
-    M[idx / E][idx % E] = d[(size_t)vs[idx / E] * n + us[idx % E]];
-  __syncthreads();
-  for (int t = 0; t < E; ++t) {
-    for (int g = t + 1 + tid; g < E; g += kStageThreads) A[g][t] = Op::mul(M[g][t], ws[t]);
-    __syncthreads();
-    const int k = E - 1 - t;  // rows g > t, columns b > t (column t is read no more)
-    for (int idx = tid; idx < k * k; idx += kStageThreads) {
-      const int g = t + 1 + idx / k, b = t + 1 + idx % k;
-      M[g][b] = Op::relax(M[g][b], A[g][t], M[t][b]);
-    }
-    __syncthreads();
-  }
-
-  const int j = blockIdx.x * kStageThreads + tid;
-  if (j >= n) return;
-  float x[EM];
-#pragma unroll
-  for (int g = 0; g < EM; ++g) x[g] = g < E ? d[(size_t)vs[g] * n + j] : 0.f;
-#pragma unroll
-  for (int t = 0; t < EM; ++t) {
-#pragma unroll
-    for (int g = t + 1; g < EM; ++g)
-      if (g < E) x[g] = Op::relax(x[g], A[g][t], x[t]);
-  }
-#pragma unroll
-  for (int g = 0; g < EM; ++g)
-    if (g < E) staged[(size_t)g * n + j] = x[g];
-}
-
-// ------------------------------------------------------------------ apply
-template <int EM, class Op>
-__global__ void __launch_bounds__(kApplyThreads)
-apply_kernel(const float* __restrict__ d, float* __restrict__ out,
-             const float* __restrict__ staged, const int* __restrict__ u,
-             const float* __restrict__ w, int n, int E) {
-  __shared__ float PU[EM][EM + 1];                // PU[e][b] = P[e][u_b]
-  __shared__ __align__(16) float A[EM][kRows];    // (row i at u_e before step e) ⊗ w_e
-  __shared__ float Ps[kSlice][kCols];
-  __shared__ int us[EM];
-  __shared__ float ws[EM];
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kRows;
-  if (tid < E) {
-    us[tid] = u[tid];
-    ws[tid] = w[tid];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < E * E; idx += kApplyThreads)
-    PU[idx / E][idx % E] = staged[(size_t)(idx / E) * n + us[idx % E]];
-  __syncthreads();
-  if (tid < kRows) {  // the scalars of row i0 + tid
-    const int i = i0 + tid;
-    float y[EM];
-#pragma unroll
-    for (int b = 0; b < EM; ++b) y[b] = (b < E && i < n) ? d[(size_t)i * n + us[b]] : 0.f;
-#pragma unroll
-    for (int e = 0; e < EM; ++e) {
-      if (e < E) {
-        const float a = Op::mul(y[e], ws[e]);
-        A[e][tid] = a;
-#pragma unroll
-        for (int b = e + 1; b < EM; ++b)
-          if (b < E) y[b] = Op::relax(y[b], a, PU[e][b]);
-      }
-    }
-  }
-
-  const int tx = tid % 32, ty = tid / 32;  // rows ty*4 + m, columns tx + 32q
-  for (int j0 = 0; j0 < n; j0 += kCols) {
-    float acc[4][4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + ty * 4 + m, j = j0 + tx + 32 * q;
-        acc[m][q] = (i < n && j < n) ? d[(size_t)i * n + j] : 0.f;
-      }
-    for (int e0 = 0; e0 < E; e0 += kSlice) {
-      const int ec = min(kSlice, E - e0);
-      __syncthreads();  // A is written; the previous slice is consumed
-      for (int idx = tid; idx < ec * kCols; idx += kApplyThreads) {
-        const int j = j0 + idx % kCols;
-        Ps[idx / kCols][idx % kCols] = j < n ? staged[(size_t)(e0 + idx / kCols) * n + j] : 0.f;
-      }
-      __syncthreads();
-      for (int ee = 0; ee < ec; ++ee) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&A[e0 + ee][ty * 4]);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        float p[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) p[q] = Ps[ee][tx + 32 * q];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[m][q] = Op::relax(acc[m][q], a[m], p[q]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + ty * 4 + m, j = j0 + tx + 32 * q;
-        if (i < n && j < n) out[(size_t)i * n + j] = acc[m][q];
-      }
-  }
-}
-
-// Successor apply (min-plus): the same schedule carrying next hops.
-template <int EM>
-__global__ void __launch_bounds__(kApplyThreads)
-succ_apply_kernel(const float* __restrict__ d, const int* __restrict__ succ,
-                  float* __restrict__ out, int* __restrict__ succ_out,
-                  const float* __restrict__ staged, const int* __restrict__ u,
-                  const int* __restrict__ v, const float* __restrict__ w, int n,
-                  int E) {
-  __shared__ float PU[EM][EM + 1];
-  __shared__ __align__(16) float A[EM][kRows];  // (row i at u_e before step e) + w_e
-  __shared__ __align__(16) int H[EM][kRows];    // the hop an improvement takes
-  __shared__ float Ps[kSlice][kCols];
-  __shared__ int us[EM], vs[EM];
-  __shared__ float ws[EM];
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.x * kRows;
-  if (tid < E) {
-    us[tid] = u[tid];
-    vs[tid] = v[tid];
-    ws[tid] = w[tid];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < E * E; idx += kApplyThreads)
-    PU[idx / E][idx % E] = staged[(size_t)(idx / E) * n + us[idx % E]];
-  __syncthreads();
-  if (tid < kRows) {
-    const int i = i0 + tid;
-    float y[EM];
-    int ys[EM];
-#pragma unroll
-    for (int b = 0; b < EM; ++b) {
-      const bool in = b < E && i < n;
-      y[b] = in ? d[(size_t)i * n + us[b]] : 0.f;
-      ys[b] = in ? succ[(size_t)i * n + us[b]] : 0;
-    }
-#pragma unroll
-    for (int e = 0; e < EM; ++e) {
-      if (e < E) {
-        const float a = __fadd_rn(y[e], ws[e]);
-        const int h = i == us[e] ? vs[e] : ys[e];
-        A[e][tid] = a;
-        H[e][tid] = h;
-#pragma unroll
-        for (int b = e + 1; b < EM; ++b) {
-          if (b < E) relax_succ(y[b], ys[b], a, h, PU[e][b]);
-        }
-      }
-    }
-  }
-
-  const int tx = tid % 32, ty = tid / 32;
-  for (int j0 = 0; j0 < n; j0 += kCols) {
-    float acc[4][4];
-    int sacc[4][4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + ty * 4 + m, j = j0 + tx + 32 * q;
-        const bool in = i < n && j < n;
-        acc[m][q] = in ? d[(size_t)i * n + j] : 0.f;
-        sacc[m][q] = in ? succ[(size_t)i * n + j] : 0;
-      }
-    for (int e0 = 0; e0 < E; e0 += kSlice) {
-      const int ec = min(kSlice, E - e0);
-      __syncthreads();
-      for (int idx = tid; idx < ec * kCols; idx += kApplyThreads) {
-        const int j = j0 + idx % kCols;
-        Ps[idx / kCols][idx % kCols] = j < n ? staged[(size_t)(e0 + idx / kCols) * n + j] : 0.f;
-      }
-      __syncthreads();
-      for (int ee = 0; ee < ec; ++ee) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&A[e0 + ee][ty * 4]);
-        const int4 h4 = *reinterpret_cast<const int4*>(&H[e0 + ee][ty * 4]);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const int h[4] = {h4.x, h4.y, h4.z, h4.w};
-        float p[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) p[q] = Ps[ee][tx + 32 * q];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) relax_succ(acc[m][q], sacc[m][q], a[m], h[m], p[q]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + ty * 4 + m, j = j0 + tx + 32 * q;
-        if (i < n && j < n) {
-          out[(size_t)i * n + j] = acc[m][q];
-          succ_out[(size_t)i * n + j] = sacc[m][q];
-        }
-      }
-  }
-}
-
-// ------------------------------------------------------------- launching
-// EM, the compile-time edge capacity, is the smallest of 8/16/32/64 >= E.
-#define REPAIR_DISPATCH_EM(E, LAUNCH) \
-  do {                                \
-    if ((E) <= 8) {                   \
-      LAUNCH(8);                      \
-    } else if ((E) <= 16) {           \
-      LAUNCH(16);                     \
-    } else if ((E) <= 32) {           \
-      LAUNCH(32);                     \
-    } else {                          \
-      LAUNCH(64);                     \
-    }                                 \
-  } while (0)
+constexpr int kMaxEdges = 64;  // edges one launch pair carries
 
 template <class Op>
-int launch_stage(const float* d, float* staged, const int* u, const int* v,
-                 const float* w, int n, int E, cudaStream_t st) {
-  const int grid = (n + kStageThreads - 1) / kStageThreads;
-#define STAGE(EMV) \
-  stage_kernel<EMV, Op><<<grid, kStageThreads, 0, st>>>(d, staged, u, v, w, n, E)
-  REPAIR_DISPATCH_EM(E, STAGE);
-#undef STAGE
-  return (int)cudaGetLastError();
-}
-
-template <class Op>
-int launch_repair(int phase, const float* d, float* out, float* staged,
-                  const int* u, const int* v, const float* w, int n, int E,
-                  cudaStream_t st) {
-  if (phase == 0) return launch_stage<Op>(d, staged, u, v, w, n, E, st);
-  const int grid = (n + kRows - 1) / kRows;
-#define APPLY(EMV) \
-  apply_kernel<EMV, Op><<<grid, kApplyThreads, 0, st>>>(d, out, staged, u, w, n, E)
-  REPAIR_DISPATCH_EM(E, APPLY);
-#undef APPLY
-  return (int)cudaGetLastError();
+int launch(int phase, const float* d, float* out, float* staged, const int* u, const int* v,
+           const float* w, int n, int E, cudaStream_t st) {
+  return launch_repair<Op, float, 8, 16, 32, 64>(phase, d, out, staged, u, v, w, n, E, st);
 }
 
 }  // namespace
@@ -347,11 +90,11 @@ extern "C" int fw_repair_launch(int phase, const void* d, void* out, void* stage
   const float* pw = static_cast<const float*>(w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case 0: return launch_repair<MinPlus>(phase, pd, po, ps, pu, pv, pw, n, E, st);
-    case 1: return launch_repair<MaxPlus>(phase, pd, po, ps, pu, pv, pw, n, E, st);
+    case 0: return launch<MinPlus>(phase, pd, po, ps, pu, pv, pw, n, E, st);
+    case 1: return launch<MaxPlus>(phase, pd, po, ps, pu, pv, pw, n, E, st);
     case 2:
-    case 3: return launch_repair<MaxMin>(phase, pd, po, ps, pu, pv, pw, n, E, st);
-    case 4: return launch_repair<PlusMul>(phase, pd, po, ps, pu, pv, pw, n, E, st);
+    case 3: return launch<MaxMin>(phase, pd, po, ps, pu, pv, pw, n, E, st);
+    case 4: return launch<PlusMul>(phase, pd, po, ps, pu, pv, pw, n, E, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -365,22 +108,9 @@ extern "C" int fw_repair_succ_launch(int phase, const void* d, const void* succ,
                                      int n, int E, void* stream) {
   if (E < 1 || E > kMaxEdges || n < 1 || phase < 0 || phase > 1)
     return (int)cudaErrorInvalidValue;
-  const float* pd = static_cast<const float*>(d);
-  float* ps = static_cast<float*>(staged);
-  const int* pu = static_cast<const int*>(u);
-  const int* pv = static_cast<const int*>(v);
-  const float* pw = static_cast<const float*>(w);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (phase == 0)
-    return launch_stage<StrictMinPlus>(pd, ps, pu, pv, pw, n, E, st);
-  const int grid = (n + kRows - 1) / kRows;
-  const int* psu = static_cast<const int*>(succ);
-  float* po = static_cast<float*>(out);
-  int* pso = static_cast<int*>(succ_out);
-#define SUCC_APPLY(EMV)                                                \
-  succ_apply_kernel<EMV><<<grid, kApplyThreads, 0, st>>>(pd, psu, po, pso, \
-                                                         ps, pu, pv, pw, n, E)
-  REPAIR_DISPATCH_EM(E, SUCC_APPLY);
-#undef SUCC_APPLY
-  return (int)cudaGetLastError();
+  return launch_repair_succ<MinPlus, float, 8, 16, 32, 64>(
+      phase, static_cast<const float*>(d), static_cast<const int*>(succ),
+      static_cast<float*>(out), static_cast<int*>(succ_out), static_cast<float*>(staged),
+      static_cast<const int*>(u), static_cast<const int*>(v), static_cast<const float*>(w), n,
+      E, static_cast<cudaStream_t>(stream));
 }

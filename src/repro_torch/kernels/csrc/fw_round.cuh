@@ -16,22 +16,6 @@ namespace {
 
 constexpr int kRelaxThreads = 256;  // 16 x 16, each owning TM x TM outputs
 
-// Register type of a storage type.
-template <class T>
-struct RegOf {
-  using type = float;
-};
-template <>
-struct RegOf<short> {
-  using type = int;
-};
-template <>
-struct RegOf<int> {
-  using type = int;
-};
-template <class T>
-using Reg = typename RegOf<T>::type;
-
 // ------------------------------------------------------------------ diag
 // Thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c.
 template <int S, class Op, class T>

@@ -10,6 +10,10 @@
 //     max_min_i16 and or_and_i16,
 //   * the bit-packed or_and_packed: 32 graphs per int32 word, ⊕ = OR,
 //     ⊗ = AND,
+//   * the integer storages of or_and and plus_mul (bool, int8, uint8,
+//     int16, int32, uint32 inputs; src/repro/apsp/api.py:_coerce keeps
+//     their dtype), computed on an int32 carrier: or_and as integer
+//     max/min, plus_mul as wrapping add and multiply (PlusMulI32),
 //   * the successor round on bf16 / f16 distances with int32 next hops.
 //
 // The launches are fw_round.cu's three (diag, bands, relax; fw_round.cuh),
@@ -29,7 +33,8 @@
 // plus_mul 4: mul, round, add, round), an int16 tropical one 6 integer ops
 // (add, clamp ×2, the two sentinel selects, min; each sentinel test looks
 // at one operand, so it is made once per (i, k) or (k, j), not per
-// triple), a packed one 1 LOP3 for 32 graphs.  Tensor cores do not apply:
+// triple), a packed one 1 LOP3 for 32 graphs, an int32 one 2 (min, max or
+// mul, add).  Tensor cores do not apply:
 // the tropical ⊕ is not a sum, and plus_mul rounds per op in 16 bits,
 // which no MMA reproduces.
 //
@@ -80,19 +85,24 @@ int dispatch_lowered(int phase, int storage, int sid, void* w, void* rowband, vo
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (storage == 3 && sid == 3) {
-    return dispatch_s<OrAndPacked>(phase, static_cast<int*>(w), static_cast<int*>(rowband),
-                                   static_cast<int*>(colband), B, n, n, s, b, -1, -1, bk, st);
-  }
+  int* pw = static_cast<int*>(w);
+  int* rb = static_cast<int*>(rowband);
+  int* cb = static_cast<int*>(colband);
+  if (storage == 3 && sid == 3)
+    return dispatch_s<OrAndPacked>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+  if (storage == 4 && sid == 3)
+    return dispatch_s<MaxMinI16>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+  if (storage == 4 && sid == 4)
+    return dispatch_s<PlusMulI32>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // phase: 0 = diag, 1 = bands, 2 = relax.  storage: 0 bf16, 1 f16, 2 int16,
-// 3 packed int32 words.  semiring: 0 min_plus, 1 max_plus, 2 max_min,
-// 3 or_and, 4 plus_mul (bf16 / f16); int16 takes 0-3 (the *_i16
-// lowerings), packed 3 only.  s in {16, 32, 64, 128}; bk divides s.  w
+// 3 packed int32 words, 4 int32 integers.  semiring: 0 min_plus,
+// 1 max_plus, 2 max_min, 3 or_and, 4 plus_mul (bf16 / f16); int16 takes
+// 0-3 (the *_i16 lowerings), packed 3 only, int32 3 and 4.  s in {16, 32, 64, 128}; bk divides s.  w
 // (B,n,n), rowband (B,s,n), colband (B,n,s), contiguous, in the storage type.
 extern "C" int fw_round_lowered_launch(int phase, int storage, int semiring, void* w,
                                        void* rowband, void* colband, int B, int n, int s,

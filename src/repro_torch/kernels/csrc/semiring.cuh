@@ -32,6 +32,11 @@
 // or_and_i16 are integer max/min, which cannot overflow.
 //
 // Packed or_and.  32 graphs per int32 word: relax = acc | (a & b).
+//
+// int32 (the integer storages of or_and and plus_mul: bool, int8, uint8,
+// int16, int32, uint32, computed on an int32 carrier).  or_and is integer
+// max/min (MaxMinI16 on int storage); plus_mul's ⊗ and ⊕ are two wrapping
+// ops through unsigned (PlusMulI32), so no signed overflow occurs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +58,23 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 }
 
 // ------------------------------------------------- storage <-> registers
+// Register type of a storage type: float for f32 / bf16 / f16, int for
+// int16 and int32.
+template <class T>
+struct RegOf {
+  using type = float;
+};
+template <>
+struct RegOf<short> {
+  using type = int;
+};
+template <>
+struct RegOf<int> {
+  using type = int;
+};
+template <class T>
+using Reg = typename RegOf<T>::type;
+
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float widen(__half x) { return __half2float(x); }
@@ -90,13 +112,18 @@ struct PlusMul {
     return __fmaf_rn(a, b, acc);
   }
 };
-struct StrictMinPlus {
-  static __device__ __forceinline__ float mul(float a, float b) { return __fadd_rn(a, b); }
+// The successor twins' distance step on Op's ⊗ (MinPlus in f32,
+// MinPlusH<R> in bf16 / f16): a candidate is taken only where it is
+// strictly smaller.
+template <class Op>
+struct Strict {
+  static __device__ __forceinline__ float mul(float a, float b) { return Op::mul(a, b); }
   static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    const float cand = __fadd_rn(a, b);
+    const float cand = Op::mul(a, b);
     return cand < acc ? cand : acc;
   }
 };
+using StrictMinPlus = Strict<MinPlus>;
 
 // ------------------------------------------------------------ bf16 / f16
 struct RoundBf16 {
@@ -154,6 +181,14 @@ struct MaxPlusI16 {
 struct MaxMinI16 {  // max_min_i16 and or_and_i16
   static __device__ __forceinline__ int mul(int a, int b) { return min(a, b); }
   static __device__ __forceinline__ int relax(int acc, int a, int b) { return max(acc, min(a, b)); }
+};
+struct PlusMulI32 {  // wrapping mod 2^32, as XLA's int32 add and multiply
+  static __device__ __forceinline__ int mul(int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+  }
+  static __device__ __forceinline__ int relax(int acc, int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(acc) + static_cast<unsigned>(mul(a, b)));
+  }
 };
 struct OrAndPacked {
   static __device__ __forceinline__ int mul(int a, int b) { return a & b; }

@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 from repro_torch.kernels import ref
 from repro_torch.kernels.minplus_matmul import (
     BLOCK_SIZES,
@@ -79,7 +79,7 @@ def fw_phase1(
     launch; f32.  ``out`` (internal): the buffer to write, which must not
     overlap ``tile``."""
     check_operand(tile, "tile")
-    require_f32(semiring, where="fw_phase1")
+    require_f32_a4b(semiring, where="fw_phase1")
     if tile.shape[-1] != tile.shape[-2]:
         raise ValueError(f"diagonal tile must be (s,s) or (B,s,s), got {tuple(tile.shape)}")
     if tile.device.type == "cpu":

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 from repro_torch.kernels import ref
 from repro_torch.kernels.fw_phase1 import launch_phase
 from repro_torch.kernels.minplus_matmul import check_operand, output
@@ -45,7 +45,7 @@ def fw_phase2_row(
     with band (B,s,n), one launch.  ``out`` (internal): the buffer to
     write, which must not overlap the inputs."""
     n = _check(diag, band, -2)
-    require_f32(semiring, where="fw_phase2_row")
+    require_f32_a4b(semiring, where="fw_phase2_row")
     if diag.device.type == "cpu":
         res = ref.fw_phase2_row_ref(diag, band, semiring=semiring)
         return res if out is None else output(out, band.shape, band).copy_(res)
@@ -61,7 +61,7 @@ def fw_phase2_col(
     """Column band (n,s) ⊕= band ⊗ diag, k sequential; batched: diag
     (B,s,s) with band (B,n,s), one launch."""
     n = _check(diag, band, -1)
-    require_f32(semiring, where="fw_phase2_col")
+    require_f32_a4b(semiring, where="fw_phase2_col")
     if diag.device.type == "cpu":
         res = ref.fw_phase2_col_ref(diag, band, semiring=semiring)
         return res if out is None else output(out, band.shape, band).copy_(res)

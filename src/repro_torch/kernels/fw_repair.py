@@ -2,23 +2,33 @@
 
 ``fw_repair`` replaces ``repro.kernels.fw_repair.fw_repair`` and
 ``fw_repair_with_successors`` its next-hop twin.  Both absorb E
-⊕-improving edge updates ``(u_e, v_e, w_e)`` into a closed (n, n) f32
-matrix, in order: ``d ⊕= (d[:, u_e] ⊗ w_e) ⊗ d[v_e, :]``.  On the card a
-batch of up to ``MAX_EDGES`` edges is two launches on the current stream —
-stage (the evolved pivot rows into an (E, n) buffer) and apply (every row
-folds all E updates); ``csrc/fw_repair.cu`` says why.  Longer batches run
-one launch pair per ``MAX_EDGES`` edges, which is the same sequence of
-steps.
+⊕-improving edge updates ``(u_e, v_e, w_e)`` into a closed (n, n) matrix,
+in order: ``d ⊕= (d[:, u_e] ⊗ w_e) ⊗ d[v_e, :]``.  On the card a batch of
+up to ``MAX_EDGES`` edges is two launches on the current stream — stage
+(the evolved pivot rows into an (E, n) buffer) and apply (every row folds
+all E updates); ``csrc/fw_repair.cu`` says why.  Longer batches run one
+launch pair per ``MAX_EDGES`` edges, which is the same sequence of steps.
 
-The edges are three device vectors: ``u``, ``v`` int32 and ``w`` f32.  The
-reference's int32 bit-pattern encoding of the weights
+Storage.  ``d`` is f32 (``csrc/fw_repair.cu``) or one of the storages the
+reference compiles its repair for (``csrc/fw_repair_lowered.cu``, up to
+``MAX_EDGES_LOWERED`` edges a launch pair): bf16 or f16 with any of the
+five semirings, int16 with the saturating ``*_i16`` lowerings, one int32
+word plane of ``OR_AND_PACKED`` (w is then a lane mask), or the int32
+carrier of an integer or_and / plus_mul storage; the successor repair
+takes f32, bf16 or f16 distances.  The storage tags are
+``fw_round.LOWERINGS``'.
+
+The edges are three device vectors: ``u``, ``v`` int32 and ``w`` in d's
+dtype.  The reference's int32 bit-pattern encoding of the weights
 (``encode_weights``) served the TPU's scalar-prefetch channel and has no
-counterpart here; bf16 / int16 / packed weights are refused, not widened (ROADMAP A.4b).
+counterpart here: the weights are stored in d's dtype, as that encoding
+carries their bits.
 
 Both wrappers return new tensors and leave ``d`` (and ``succ``) as they
 were.  A tensor on the CPU goes to the plain version in ``kernels.ref``; a
 CUDA tensor goes to the kernels, and a launch that fails raises.  There is
-no fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
+no fallback between the two.  ``LAUNCHES`` counts kernel launches by kind;
+a lowered launch counts under its own kind, e.g. ``fw_repair/apply[int16]``.
 """
 from __future__ import annotations
 
@@ -28,15 +38,22 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
-from repro_torch.kernels.minplus_matmul import _raise_on, check_f32, semiring_id
+from repro_torch.kernels.fw_round import LOWERINGS, storage_tag
+from repro_torch.kernels.minplus_matmul import _raise_on, semiring_id
 
-MAX_EDGES = 64  # edges one stage + apply launch pair carries
+MAX_EDGES = 64  # edges one f32 stage + apply launch pair carries
+MAX_EDGES_LOWERED = 32  # ... and one lowered pair
 PHASES = ("stage", "apply")
-KINDS = tuple(f"{fn}/{p}" for fn in ("fw_repair", "fw_repair_with_successors")
-              for p in PHASES)
+SUCC_LOWERINGS = ("bf16", "f16")
+KINDS = (
+    tuple(f"{fn}/{p}" for fn in ("fw_repair", "fw_repair_with_successors") for p in PHASES)
+    + tuple(f"fw_repair/{p}[{tag}]" for tag in LOWERINGS for p in PHASES)
+    + tuple(f"fw_repair_with_successors/{p}[{tag}]" for tag in SUCC_LOWERINGS for p in PHASES)
+)
 LAUNCHES = dict.fromkeys(KINDS, 0)
+_SUCC_TAGS = {torch.float32: None, torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def reset_launch_counts() -> None:
@@ -57,13 +74,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(d: torch.Tensor, block_size: int, what: str = "d", dtype=torch.float32) -> int:
-    """n of a (n, n) repair input; raises on what the kernels do not take."""
+@functools.cache
+def _lowered_lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load("fw_repair_lowered")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fw_repair_lowered_launch.argtypes = [i, i, i, p, p, p, p, p, p, i, i, p]
+    lib.fw_repair_lowered_launch.restype = i
+    lib.fw_repair_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, p]
+    lib.fw_repair_lowered_succ_launch.restype = i
+    return lib
+
+
+def _check(d: torch.Tensor, block_size: int, what: str = "d", dtype=None) -> int:
+    """n of a (n, n) repair input; raises on what the kernels do not take
+    (dtype None: any dtype, checked by ``storage_tag``)."""
     if d.ndim != 2 or d.shape[0] != d.shape[1]:
         raise ValueError(f"{what} must be (n, n), got {tuple(d.shape)}")
-    if dtype == torch.float32:
-        check_f32(d, what)
-    elif d.dtype != dtype:
+    if dtype is not None and d.dtype != dtype:
         raise TypeError(f"{what} must be {dtype}, got {d.dtype}")
     n = d.shape[0]
     if block_size < 1 or n % block_size:
@@ -75,15 +104,23 @@ def _check(d: torch.Tensor, block_size: int, what: str = "d", dtype=torch.float3
     return n
 
 
-def edge_vectors(u, v, w, n: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(u, v, w) → contiguous int32 / int32 / f32 vectors on ``device``.
+def succ_tag(d: torch.Tensor) -> str | None:
+    """The storage tag of a successor repair on d (None = f32)."""
+    if d.dtype not in _SUCC_TAGS:
+        raise TypeError(f"successor repairs take float32, bfloat16 or float16 distances, "
+                        f"got {d.dtype}")
+    return _SUCC_TAGS[d.dtype]
+
+
+def edge_vectors(u, v, w, n: int, device, dtype=torch.float32):
+    """(u, v, w) → contiguous int32 / int32 / ``dtype`` vectors on ``device``.
 
     Raises unless they are equal-length, non-empty and 0 <= u, v < n: the
     kernels index with them unchecked (the reference's ``dynamic_slice``
     would clamp instead).
     """
     vecs = []
-    for x, dt in ((u, torch.int32), (v, torch.int32), (w, torch.float32)):
+    for x, dt in ((u, torch.int32), (v, torch.int32), (w, dtype)):
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
         vecs.append(t.to(dtype=dt).reshape(-1))
     u, v, w = vecs
@@ -103,9 +140,11 @@ def repair_phase(
 ) -> None:
     """Launch one phase of a repair on the card: "stage" writes the evolved
     pivot rows of d into staged (E, n); "apply" folds them into out (n, n).
-    u, v, w: ``edge_vectors`` on d's device, 1 <= E <= MAX_EDGES."""
-    sid = semiring_id(semiring)
-    _launch("fw_repair", phase, d, None, u, v, w, staged, out, None, sid)
+    u, v, w: ``edge_vectors`` on d's device in d's dtype, 1 <= E <=
+    ``MAX_EDGES`` (``MAX_EDGES_LOWERED`` for a lowered d)."""
+    tag = storage_tag(d, semiring)
+    sid = semiring_id(semiring, lowered=tag is not None)
+    _launch("fw_repair", phase, tag, d, None, u, v, w, staged, out, None, sid)
 
 
 def repair_succ_phase(
@@ -113,49 +152,52 @@ def repair_succ_phase(
     staged: torch.Tensor, out: torch.Tensor | None = None,
     succ_out: torch.Tensor | None = None,
 ) -> None:
-    """One phase of the successor repair on the card (min-plus)."""
-    _launch("fw_repair_with_successors", phase, d, succ, u, v, w, staged, out,
-            succ_out, None)
+    """One phase of the successor repair on the card (min-plus; d f32,
+    bf16 or f16)."""
+    _launch("fw_repair_with_successors", phase, succ_tag(d), d, succ, u, v, w, staged,
+            out, succ_out, None)
 
 
-def _launch(fn, phase, d, succ, u, v, w, staged, out, succ_out, sid) -> None:
+def _launch(fn, phase, tag, d, succ, u, v, w, staged, out, succ_out, sid) -> None:
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     n = _check(d, 1)
     E = len(u)
+    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     if d.device.type != "cuda":
         raise ValueError(f"{fn} phases launch a CUDA kernel; d is on the CPU")
-    if not 1 <= E <= MAX_EDGES:
-        raise ValueError(f"one launch takes 1..{MAX_EDGES} edges, got {E}")
+    if not 1 <= E <= cap:
+        raise ValueError(f"one launch takes 1..{cap} edges, got {E}")
     tensors = [d, staged, u, v, w]
     if phase == "apply":
         tensors += [out] if succ is None else [succ, out, succ_out]
     if any(t is None or t.device != d.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn}/{phase}: every tensor must be contiguous on {d.device}")
-    if tuple(staged.shape) != (E, n) or staged.dtype != torch.float32:
-        raise ValueError(f"staged must be ({E}, {n}) float32, got {tuple(staged.shape)}")
+    if tuple(staged.shape) != (E, n) or staged.dtype != d.dtype or w.dtype != d.dtype:
+        raise ValueError(f"staged must be ({E}, {n}) and w ({E},), both {d.dtype}; got "
+                         f"{tuple(staged.shape)} {staged.dtype}, w {w.dtype}")
     if phase == "apply":
-        _check(out, 1, "out")
+        _check(out, 1, "out", d.dtype)
         if succ is not None:
             _check(succ, 1, "succ", torch.int32)
             _check(succ_out, 1, "succ_out", torch.int32)
         if any(t.shape != d.shape for t in tensors[5:]):
             raise ValueError(f"{fn}/apply: outputs must match d {tuple(d.shape)}")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    tables = (d, out) if succ is None else (d, succ, out, succ_out)
+    ptrs = (*map(ptr, tables), *map(ptr, (staged, u, v, w)), n, E)
+    ph = PHASES.index(phase)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        if succ is None:
-            err = _lib().fw_repair_launch(
-                PHASES.index(phase), d.data_ptr(), ptr(out), staged.data_ptr(),
-                u.data_ptr(), v.data_ptr(), w.data_ptr(), n, E, sid, stream,
-            )
+        if tag is None and succ is None:
+            err = _lib().fw_repair_launch(ph, *ptrs, sid, stream)
+        elif tag is None:
+            err = _lib().fw_repair_succ_launch(ph, *ptrs, stream)
+        elif succ is None:
+            err = _lowered_lib().fw_repair_lowered_launch(ph, LOWERINGS[tag], sid, *ptrs, stream)
         else:
-            err = _lib().fw_repair_succ_launch(
-                PHASES.index(phase), d.data_ptr(), succ.data_ptr(), ptr(out),
-                ptr(succ_out), staged.data_ptr(), u.data_ptr(), v.data_ptr(),
-                w.data_ptr(), n, E, stream,
-            )
-    kind = f"{fn}/{phase}"
+            err = _lowered_lib().fw_repair_lowered_succ_launch(ph, LOWERINGS[tag], *ptrs, stream)
+    kind = f"{fn}/{phase}" + (f"[{tag}]" if tag else "")
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
 
@@ -164,21 +206,26 @@ def fw_repair(
     d: torch.Tensor, u, v, w, *, block_size: int = 128,
     semiring: Semiring = MIN_PLUS,
 ) -> torch.Tensor:
-    """Repair closed (n, n) f32 ``d`` for E ⊕-improving edge updates.
+    """Repair closed (n, n) ``d`` for E ⊕-improving edge updates.
 
-    u / v: (E,) endpoints; w: (E,) ⊕-deltas (the improved weight for the
-    idempotent semirings, the additive delta for plus_mul).  block_size:
-    the reference's contract, n % block_size == 0 (the engine pads to it);
-    the kernels' own tiling does not depend on it.  Returns a new tensor.
+    d: f32, bf16 or f16 with a float semiring, int16 with an ``*_i16``
+    lowering, one int32 word plane with ``OR_AND_PACKED`` (w: lane masks),
+    or the int32 carrier of an integer or_and / plus_mul storage.  u / v:
+    (E,) endpoints; w: (E,) ⊕-deltas in d's dtype (the improved weight for
+    the idempotent semirings, the additive delta for plus_mul).
+    block_size: the reference's contract, n % block_size == 0 (the engine
+    pads to it); the kernels' own tiling does not depend on it.  Returns a
+    new tensor.
     """
     n = _check(d, block_size)
-    require_f32(semiring, where="fw_repair")
-    u, v, w = edge_vectors(u, v, w, n, d.device)
+    tag = storage_tag(d, semiring)
+    u, v, w = edge_vectors(u, v, w, n, d.device, d.dtype)
     if d.device.type == "cpu":
         return ref.fw_repair_ref(d, u, v, w, semiring=semiring)
+    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     out = d
-    for c in range(0, len(u), MAX_EDGES):
-        e = slice(c, c + MAX_EDGES)
+    for c in range(0, len(u), cap):
+        e = slice(c, c + cap)
         staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)
         nxt = torch.empty_like(d)
         repair_phase("stage", out, u[e], v[e], w[e], staged, semiring=semiring)
@@ -192,24 +239,27 @@ def fw_repair_with_successors(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """min-plus repair carrying the int32 next-hop table: (dist', succ').
 
-    The strict-improvement relaxation (``cand < d``) of
-    ``fw_round_with_successors``; an improved pair (i, j) takes hop v_e
-    where i == u_e, else ``succ[i, u_e]`` as it stood before step e.
+    d: f32, bf16 or f16 (candidates ``(d[i, u] + w) + d[v, j]``, each add
+    rounded to d's dtype).  The strict-improvement relaxation (``cand <
+    d``) of ``fw_round_with_successors``; an improved pair (i, j) takes hop
+    v_e where i == u_e, else ``succ[i, u_e]`` as it stood before step e.
     Returns new tensors.
     """
     n = _check(d, block_size)
+    tag = succ_tag(d)
     _check(succ, block_size, "succ", torch.int32)
     if succ.shape != d.shape or succ.device != d.device:
         raise ValueError(
             f"succ {tuple(succ.shape)} on {succ.device} does not match "
             f"d {tuple(d.shape)} on {d.device}"
         )
-    u, v, w = edge_vectors(u, v, w, n, d.device)
+    u, v, w = edge_vectors(u, v, w, n, d.device, d.dtype)
     if d.device.type == "cpu":
         return ref.fw_repair_with_successors_ref(d, succ, u, v, w)
+    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     out, sout = d, succ
-    for c in range(0, len(u), MAX_EDGES):
-        e = slice(c, c + MAX_EDGES)
+    for c in range(0, len(u), cap):
+        e = slice(c, c + cap)
         staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)
         nxt, snxt = torch.empty_like(d), torch.empty_like(succ)
         repair_succ_phase("stage", out, sout, u[e], v[e], w[e], staged)

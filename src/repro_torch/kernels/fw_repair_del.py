@@ -18,12 +18,23 @@ Counterpart of ``repro.kernels.fw_repair_del``.  A batch of edge deletions
     the current stream — diag, panels, relax (``csrc/fw_repair_del.cu``
     says why) — through the buffers of ``sweep_buffers``.
 
+Storage.  f32 (``csrc/fw_repair_del.cu``) or a storage lowering
+(``csrc/fw_repair_del_lowered.cu``, the same three launches on
+storage-typed buffers): bf16 or f16 with the four idempotent semirings,
+int16 with the ``*_i16`` lowerings, one ``OR_AND_PACKED`` word plane, the
+int32 carrier of an integer or_and storage; the successor sweep takes f32,
+bf16 or f16 distances.  For the packed lowering the marking is per lane:
+the witness is an int32 lane mask, and the reset splices ``w1``'s bits
+into those lanes only.
+
 Both sweeps return new tensors and leave their inputs as they were.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
 tensor goes to the kernels, and a launch that fails raises.  There is no
-fallback between the two.  ``LAUNCHES`` counts kernel launches by kind.
-The sweep is sound for the ⊕-idempotent semirings only, and the kernels
-take those four; plus_mul is re-solved by ``ApspEngine.repair_del``.
+fallback between the two.  ``LAUNCHES`` counts kernel launches by kind; a
+lowered launch counts under its own kind, e.g.
+``fw_repair_del_sweep/relax[bf16]``.  The sweep is sound for the
+⊕-idempotent semirings only, and the kernels take those four; plus_mul is
+re-solved by ``ApspEngine.repair_del`` in every storage.
 """
 from __future__ import annotations
 
@@ -34,20 +45,28 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
-from repro_torch.kernels.fw_repair import _check, edge_vectors
+from repro_torch.kernels.fw_repair import SUCC_LOWERINGS, _check, edge_vectors, succ_tag
+from repro_torch.kernels.fw_round import LOWERINGS, storage_tag
 from repro_torch.kernels.minplus_matmul import (
-    _SEMIRING_IDS,
     BLOCK_SIZES,
     _fit_block,
     _raise_on,
     check_variant,
+    semiring_id,
 )
 
 PHASES = ("diag", "panels", "relax")
-KINDS = tuple(f"{fn}/{p}" for fn in ("fw_repair_del_sweep", "fw_repair_del_sweep_with_successors")
-              for p in PHASES)
+# Storages of the sweep kernels: the round's, but plus_mul has no sweep.
+SWEEP_LOWERINGS = tuple(tag for tag in LOWERINGS if tag != "plus_mul_i32")
+KINDS = (
+    tuple(f"{fn}/{p}" for fn in ("fw_repair_del_sweep", "fw_repair_del_sweep_with_successors")
+          for p in PHASES)
+    + tuple(f"fw_repair_del_sweep/{p}[{tag}]" for tag in SWEEP_LOWERINGS for p in PHASES)
+    + tuple(f"fw_repair_del_sweep_with_successors/{p}[{tag}]" for tag in SUCC_LOWERINGS
+            for p in PHASES)
+)
 LAUNCHES = dict.fromkeys(KINDS, 0)
 STRIP_ROWS = 8  # the kernels' strip tile height: strips pad to a multiple of it
 
@@ -67,6 +86,20 @@ def _lib() -> ctypes.CDLL:
     lib.fw_repair_del_launch.restype = i
     lib.fw_repair_del_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_repair_del_succ_launch.restype = i
+    return lib
+
+
+@functools.cache
+def _lowered_lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = _build.load("fw_repair_del_lowered")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fw_repair_del_lowered_launch.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.fw_repair_del_lowered_launch.restype = i
+    lib.fw_repair_del_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i,
+                                                      i, i, p]
+    lib.fw_repair_del_lowered_succ_launch.restype = i
     return lib
 
 
@@ -92,19 +125,31 @@ def _check_rows(rows, m: int) -> np.ndarray:
     return r
 
 
+def _sweep_tag(d: torch.Tensor, semiring: Semiring) -> str | None:
+    """The storage tag of a sweep on d; plus_mul has none in any storage."""
+    if semiring.name.startswith("plus_mul"):
+        raise ValueError(
+            f"no sweep kernel for semiring {semiring.name!r}: the restricted "
+            f"sweep is sound for the ⊕-idempotent semirings only"
+        )
+    return storage_tag(d, semiring)
+
+
 # ------------------------------------------------------------------- mark
 def mark_affected(dist, w1, u, v, wold, ecount, *, semiring: Semiring = MIN_PLUS):
     """Stage 1: (d_init, affected-row mask (m,), affected-entry count).
 
-    dist: the (m, m) f32 closure before the deletions; w1: the updated
-    weights (deleted edges at the ⊕-identity); u / v / wold: the deleted
-    edges and the weight each carried before, of which the first
-    ``ecount`` are live and the rest padding.  Torch ops on dist's device.
+    dist: the (m, m) closure before the deletions, in any storage the
+    sweep takes; w1: the updated weights (deleted edges at the
+    ⊕-identity); u / v / wold: the deleted edges and the weight each
+    carried before (for the packed lowering, the lanes that held the
+    edge), of which the first ``ecount`` are live and the rest padding.
+    Torch ops on dist's device.
     """
     m = _check(dist, 1, "dist")
-    require_f32(semiring, where="mark_affected")
+    storage_tag(dist, semiring)
     _check_pair(dist, w1, "w1")
-    u, v, wold = edge_vectors(u, v, wold, m, "cpu")
+    u, v, wold = edge_vectors(u, v, wold, m, "cpu", dist.dtype)
     return ref.mark_affected(dist, w1, u, v, wold, ecount, semiring=semiring)
 
 
@@ -112,10 +157,11 @@ def mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount, *,
                                   semiring: Semiring = MIN_PLUS):
     """Stage 1 with next hops: (d_init, s_init, row mask, count)."""
     m = _check(dist, 1, "dist")
+    succ_tag(dist)
     _check(succ, 1, "succ", torch.int32)
     _check_pair(dist, succ, "succ")
     _check_pair(dist, w1, "w1")
-    u, v, wold = edge_vectors(u, v, wold, m, "cpu")
+    u, v, wold = edge_vectors(u, v, wold, m, "cpu", dist.dtype)
     return ref.mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount,
                                              semiring=semiring)
 
@@ -129,7 +175,8 @@ class Sweep:
 
     rows (a_k,) int32: the matrix row of each strip row, m for padding;
     pos (m,) int32: the strip row holding each matrix row, -1 for none;
-    strip (a_k, m), band (s, m), acol (a_k, s): f32 working buffers;
+    strip (a_k, m), band (s, m), acol (a_k, s): working buffers in
+    d_init's dtype;
     real / keep: int64 indices of the real rows and their strip rows, for
     the final write-back.  With successors, s_init and the ``*_s`` int32
     next-hop twins of strip, band and acol.
@@ -187,7 +234,7 @@ def _write_back(t: torch.Tensor, strip: torch.Tensor, sw: Sweep) -> torch.Tensor
     return t.clone().index_copy_(0, sw.real, strip.index_select(0, sw.keep))
 
 
-def _launch(fn: str, phase: str, sw: Sweep, b: int, call) -> None:
+def _launch(fn: str, phase: str, tag, sw: Sweep, b: int, call) -> None:
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     if sw.d_init.device.type != "cuda":
@@ -202,7 +249,7 @@ def _launch(fn: str, phase: str, sw: Sweep, b: int, call) -> None:
         raise ValueError(f"{fn}/{phase}: every buffer must be contiguous on {sw.d_init.device}")
     with torch.cuda.device(sw.d_init.device):
         err = call(torch.cuda.current_stream(sw.d_init.device).cuda_stream)
-    kind = f"{fn}/{phase}"
+    kind = f"{fn}/{phase}" + (f"[{tag}]" if tag else "")
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
 
@@ -210,42 +257,49 @@ def _launch(fn: str, phase: str, sw: Sweep, b: int, call) -> None:
 def sweep_phase(phase: str, sw: Sweep, b: int, *, bk: int = 32,
                 semiring: Semiring = MIN_PLUS) -> None:
     """Launch one phase ("diag" | "panels" | "relax") of round b on the card."""
-    sid = _SEMIRING_IDS.get(semiring.name)
-    if sid is None or semiring.name == "plus_mul":
-        raise ValueError(
-            f"no sweep kernel for semiring {semiring.name!r}: the restricted "
-            f"sweep is sound for the ⊕-idempotent semirings only"
-        )
+    tag = _sweep_tag(sw.d_init, semiring)
+    sid = semiring_id(semiring, lowered=tag is not None)
     s = sw.block_size
-    _launch("fw_repair_del_sweep", phase, sw, b, lambda stream: _lib().fw_repair_del_launch(
-        PHASES.index(phase), sw.d_init.data_ptr(), sw.pos.data_ptr(), sw.rows.data_ptr(),
-        sw.strip.data_ptr(), sw.band.data_ptr(), sw.acol.data_ptr(), sw.d_init.shape[0],
-        sw.strip.shape[0], s, b, _fit_block(s, bk), sid, stream))
+    ptrs = (sw.d_init.data_ptr(), sw.pos.data_ptr(), sw.rows.data_ptr(), sw.strip.data_ptr(),
+            sw.band.data_ptr(), sw.acol.data_ptr(), sw.d_init.shape[0], sw.strip.shape[0], s,
+            b, _fit_block(s, bk))
+    ph = PHASES.index(phase)
+    if tag is None:
+        call = lambda stream: _lib().fw_repair_del_launch(ph, *ptrs, sid, stream)  # noqa: E731
+    else:
+        call = lambda stream: _lowered_lib().fw_repair_del_lowered_launch(  # noqa: E731
+            ph, LOWERINGS[tag], sid, *ptrs, stream)
+    _launch("fw_repair_del_sweep", phase, tag, sw, b, call)
 
 
 def sweep_succ_phase(phase: str, sw: Sweep, b: int) -> None:
     """Launch one phase of the successor sweep's round b on the card."""
     if sw.s_init is None:
         raise ValueError("the sweep carries no next hops (sweep_buffers(s_init=))")
-    ptrs = (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip, sw.strip_s, sw.band,
-            sw.band_s, sw.acol, sw.acol_s)
-    _launch("fw_repair_del_sweep_with_successors", phase, sw, b,
-            lambda stream: _lib().fw_repair_del_succ_launch(
-                PHASES.index(phase), *(t.data_ptr() for t in ptrs), sw.d_init.shape[0],
-                sw.strip.shape[0], sw.block_size, b, stream))
+    tag = succ_tag(sw.d_init)
+    ptrs = (*(t.data_ptr() for t in (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip,
+                                     sw.strip_s, sw.band, sw.band_s, sw.acol, sw.acol_s)),
+            sw.d_init.shape[0], sw.strip.shape[0], sw.block_size, b)
+    ph = PHASES.index(phase)
+    if tag is None:
+        call = lambda stream: _lib().fw_repair_del_succ_launch(ph, *ptrs, stream)  # noqa: E731
+    else:
+        call = lambda stream: _lowered_lib().fw_repair_del_lowered_succ_launch(  # noqa: E731
+            ph, LOWERINGS[tag], *ptrs, stream)
+    _launch("fw_repair_del_sweep_with_successors", phase, tag, sw, b, call)
 
 
 def fw_repair_del_sweep(
     d_init: torch.Tensor, rows, *, block_size: int, bk: int = 32,
     variant: str = "fori", semiring: Semiring = MIN_PLUS,
 ) -> torch.Tensor:
-    """The restricted row sweep of ``d_init`` (m, m) f32 from
-    ``mark_affected``: rows (a_pad,) are the affected rows, padded with m.
-    Returns the repaired closure, a new tensor.  bk: the relax launch's
-    staging depth (clamped to a divisor of block_size; the result does not
-    depend on it)."""
+    """The restricted row sweep of ``d_init`` (m, m) from ``mark_affected``
+    (f32, or a storage the lowered kernels take): rows (a_pad,) are the
+    affected rows, padded with m.  Returns the repaired closure, a new
+    tensor.  bk: the relax launch's staging depth (clamped to a divisor of
+    block_size; the result does not depend on it)."""
     m = _check(d_init, block_size, "d_init")
-    require_f32(semiring, where="fw_repair_del_sweep")
+    _sweep_tag(d_init, semiring)
     check_variant(variant)
     r = _check_rows(rows, m)
     if d_init.device.type == "cpu":
@@ -262,8 +316,10 @@ def fw_repair_del_sweep_with_successors(
     d_init: torch.Tensor, s_init: torch.Tensor, rows, *, block_size: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The min-plus sweep carrying the int32 next-hop table ``s_init`` from
-    ``mark_affected_with_successors``: (dist, succ), new tensors."""
+    ``mark_affected_with_successors`` (d_init f32, bf16 or f16): (dist,
+    succ), new tensors."""
     m = _check(d_init, block_size, "d_init")
+    succ_tag(d_init)
     _check(s_init, block_size, "s_init", torch.int32)
     _check_pair(d_init, s_init, "s_init")
     r = _check_rows(rows, m)

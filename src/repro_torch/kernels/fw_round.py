@@ -13,7 +13,8 @@ Storage.  ``w`` is f32 (``csrc/fw_round.cu``) or one of the storage
 lowerings of ``core.semiring`` (``csrc/fw_round_lowered.cu``, the same
 three launches on storage-typed tiles): bf16 or f16 with any of the five
 semirings, int16 with the saturating ``*_i16`` lowerings, int32 words with
-``OR_AND_PACKED``.  The successor round takes f32, bf16 or f16 distances.
+``OR_AND_PACKED``, and the int32 carrier of an integer or_and / plus_mul
+storage (``core.semiring.to_carrier``).  The successor round takes f32, bf16 or f16 distances.
 The bordered round is f32 only (its lowered forms are ROADMAP A.4b).
 
 The wrappers update ``w`` (and ``succ``) in place and return them.  A
@@ -29,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 from repro_torch.kernels import ref
 from repro_torch.kernels.minplus_matmul import (
     BLOCK_SIZES,
@@ -41,9 +42,12 @@ from repro_torch.kernels.minplus_matmul import (
 )
 
 PHASES = ("diag", "bands", "relax")
-# Storage lowerings of the round: tag → storage code of
-# csrc/fw_round_lowered.cu.
-LOWERINGS = {"bf16": 0, "f16": 1, "int16": 2, "packed": 3}
+# Storage lowerings of the round (and of the repair and sweep kernels):
+# tag → storage code of csrc/fw_round_lowered.cu.  The two int32 tags share
+# the integer storage; the semiring code tells them apart.
+LOWERINGS = {"bf16": 0, "f16": 1, "int16": 2, "packed": 3, "or_and_i32": 4,
+             "plus_mul_i32": 4}
+_INT32_TAGS = {"or_and": "or_and_i32", "plus_mul": "plus_mul_i32"}
 SUCC_LOWERINGS = ("bf16", "f16")
 KINDS = (
     tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors",
@@ -89,18 +93,21 @@ def _lowered_lib() -> ctypes.CDLL:
     return lib
 
 
-def _lowering(w: torch.Tensor, semiring: Semiring) -> str | None:
-    """The storage tag of a round on w (None = the f32 kernels); raises
-    TypeError where w's dtype is not the semiring's storage."""
+def storage_tag(w: torch.Tensor, semiring: Semiring) -> str | None:
+    """The storage tag of a kernel on w (None = the f32 kernels), one of
+    ``LOWERINGS``; raises TypeError where w's dtype is not the semiring's
+    storage."""
     if semiring.packed:
         want, tag = torch.int32, "packed"
     elif semiring.dtype == "int16":
         want, tag = torch.int16, "int16"
     elif w.dtype in _FLOAT_TAGS:
         return _FLOAT_TAGS[w.dtype]
+    elif w.dtype == torch.int32 and semiring.name in _INT32_TAGS:
+        return _INT32_TAGS[semiring.name]
     else:
-        raise TypeError(f"w must be float32, bfloat16 or float16 for semiring "
-                        f"{semiring.name!r}, got {w.dtype}")
+        raise TypeError(f"w must be float32, bfloat16 or float16 (int32 for or_and, "
+                        f"plus_mul) for semiring {semiring.name!r}, got {w.dtype}")
     if w.dtype != want:
         raise TypeError(f"semiring {semiring.name!r} stores {want}, got w of {w.dtype}")
     return tag
@@ -108,7 +115,7 @@ def _lowering(w: torch.Tensor, semiring: Semiring) -> str | None:
 
 def _check(w: torch.Tensor, block_size: int, b: int, dtype=None, what: str = "w"):
     """(B, n) of a (n,n) or (B,n,n) round input; raises on what the kernels
-    do not take (dtype None: any storage, checked by ``_lowering``)."""
+    do not take (dtype None: any storage, checked by ``storage_tag``)."""
     if w.ndim not in (2, 3) or w.shape[-1] != w.shape[-2]:
         raise ValueError(f"{what} must be (n,n) or (B,n,n), got {tuple(w.shape)}")
     if dtype is not None and w.dtype != dtype:
@@ -173,7 +180,7 @@ def fw_round_phase(
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     B, n = _check(w, block_size, b)
-    tag = _lowering(w, semiring)
+    tag = storage_tag(w, semiring)
     if w.device.type != "cuda":
         raise ValueError("fw_round_phase launches a CUDA kernel; w is on the CPU")
     _check_buffers(w, block_size, bands, 2)
@@ -200,14 +207,15 @@ def fw_round(
     variant: str = "fori", semiring: Semiring = MIN_PLUS, bands=None,
 ) -> torch.Tensor:
     """One fused pivot round b of w (n,n) or (B,n,n), in place: f32, bf16 or
-    f16 with a float semiring, int16 or int32 words with their lowering.
+    f16 with a float semiring, int16 or int32 words with their lowering,
+    or the int32 carrier of an integer or_and / plus_mul storage.
 
     bk: phase-3 staging depth (clamped to a divisor of block_size; the
     result does not depend on it).  bands: ``round_buffers(w, block_size)``
     to reuse across rounds (allocated here when None).
     """
     _check(w, block_size, b)
-    _lowering(w, semiring)
+    storage_tag(w, semiring)
     check_variant(variant)
     if w.device.type == "cpu":
         return w.copy_(ref.fw_round_ref(
@@ -365,7 +373,7 @@ def fw_round_bordered(
     block_size)`` to reuse across rounds (allocated here when None).
     """
     _check_bordered(w, block_size, owner_row, owner_col)
-    require_f32(semiring, where="fw_round_bordered")
+    require_f32_a4b(semiring, where="fw_round_bordered")
     check_variant(variant)
     if w.device.type == "cpu":
         return w.copy_(ref.fw_round_bordered_ref(

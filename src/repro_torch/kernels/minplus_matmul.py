@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32
+from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
 
 VARIANTS = ("fori", "unroll")
 
@@ -65,7 +65,7 @@ def _raise_on(err: int, kind: str) -> None:
         raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
 
 
-# Storage types of the lowerings that only the fused round takes so far.
+# Storage types of the lowerings, which the f32-only kernels refuse (A.4b).
 _LOWERED_STORAGE = (torch.bfloat16, torch.float16, torch.int16, torch.int32)
 
 
@@ -184,7 +184,7 @@ def semiring_matmul(
     from repro_torch.kernels import ref  # ref imports this module
 
     check_variant(variant)
-    require_f32(semiring, where="semiring_matmul")
+    require_f32_a4b(semiring, where="semiring_matmul")
     for t, what in ((a, "a"), (b, "b")) + (() if c is None else ((c, "c"),)):
         check_operand(t, what)
     B, m, k, n = _shapes(a, b)

@@ -26,12 +26,16 @@ copied.
 
 The repair is the direct per-edge loop, and beside it the two phases of
 ``kernels/csrc/fw_repair.cu``: ``repair_stage*`` (the evolved pivot rows)
-and ``repair_apply*`` (every row folds all E updates against them).
+and ``repair_apply*`` (every row folds all E updates against them).  Its
+weights are carried in the matrix's dtype, as the reference's
+``encode_weights`` carries their bits.
 
-The round twins are generic over the storage dtype: f32, bf16 and f16
-(each ⊗ and ⊕ rounded to the storage type by torch's 16-bit ops), the
-saturating int16 lowerings and the bit-packed or_and words, through the
-lowering's own ``Semiring`` ops.
+The round, repair and sweep twins are generic over the storage dtype:
+f32, bf16 and f16 (each ⊗ and ⊕ rounded to the storage type by torch's
+16-bit ops), the saturating int16 lowerings, the bit-packed or_and words
+and the int32 carrier of an integer or_and / plus_mul storage, through
+the lowering's own ``Semiring`` ops; the successor twins take f32, bf16
+and f16 distances.
 
 ``flash_decode_ref`` is the masked-softmax oracle of single-token decode
 attention and ``flash_decode_online_ref`` the block-by-block online
@@ -319,11 +323,14 @@ def fw_round_with_successors_ref(
 
 
 # ---------------------------------------------------------- rank-1 repair
-def _edge_lists(u, v, w, device):
-    """Host index lists and an f32 weight vector on ``device``."""
+def _edge_lists(u, v, w, d):
+    """Host index lists and the weight vector in d's dtype on d's device:
+    a bf16 step then rounds in bf16, and an int16 or lane-mask weight
+    stays an integer (the reference's ``encode_weights`` carries the bits
+    of the matrix dtype)."""
     as_list = lambda x: (x.tolist() if isinstance(x, torch.Tensor)  # noqa: E731
                          else [int(i) for i in x])
-    w = torch.as_tensor(w, dtype=torch.float32).to(device)
+    w = (w if isinstance(w, torch.Tensor) else torch.as_tensor(w)).to(d.device, d.dtype)
     return as_list(u), as_list(v), w
 
 
@@ -332,7 +339,7 @@ def fw_repair_ref(d, u, v, w, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
     each on the whole matrix as it stands after the previous one; batch-
     rank-agnostic.  plus_mul's step is ``addcmul(d, d[:, u] * w, d[v, :])``,
     one FMA, as XLA contracts the reference."""
-    u, v, w = _edge_lists(u, v, w, d.device)
+    u, v, w = _edge_lists(u, v, w, d)
     for e in range(len(u)):
         d = semiring.relax(d, semiring.mul(d[..., :, u[e], None], w[e]),
                            d[..., v[e], None, :])
@@ -354,7 +361,7 @@ def fw_repair_with_successors_ref(d, succ, u, v, w):
     """The min-plus repair carrying the int32 next-hop table (2-D):
     candidates ``(d[:, u] + w) + d[v, :]``, taken only where strictly
     smaller."""
-    u, v, w = _edge_lists(u, v, w, d.device)
+    u, v, w = _edge_lists(u, v, w, d)
     for e in range(len(u)):
         d, succ = _succ_step(d, succ, u[e], v[e], d[:, u[e], None] + w[e], d[None, v[e], :])
     return d, succ
@@ -366,7 +373,7 @@ def repair_stage_ref(d, u, v, w, *, semiring: Semiring = MIN_PLUS,
     e < g.  Step t folds edge t into rows g > t, whose row t is final then.
     ``strict``: the successor repair's distance step (min-plus, take the
     candidate only where it is strictly smaller)."""
-    u, v, w = _edge_lists(u, v, w, d.device)
+    u, v, w = _edge_lists(u, v, w, d)
     P = d[v, :]  # advanced indexing: a copy
     for t in range(len(u) - 1):
         rest = P[t + 1:]
@@ -382,7 +389,7 @@ def repair_stage_ref(d, u, v, w, *, semiring: Semiring = MIN_PLUS,
 def repair_apply_ref(d, staged, u, w, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
     """The apply launch: every row folds the E updates in order, with the
     staged row e in place of row v_e."""
-    u, _, w = _edge_lists(u, u, w, d.device)
+    u, _, w = _edge_lists(u, u, w, d)
     for e in range(len(u)):
         d = semiring.relax(d, semiring.mul(d[:, u[e], None], w[e]), staged[e, None, :])
     return d
@@ -390,7 +397,7 @@ def repair_apply_ref(d, staged, u, w, *, semiring: Semiring = MIN_PLUS) -> torch
 
 def repair_apply_succ_ref(d, succ, staged, u, v, w):
     """The successor apply launch (min-plus, strict ``<``)."""
-    u, v, w = _edge_lists(u, v, w, d.device)
+    u, v, w = _edge_lists(u, v, w, d)
     for e in range(len(u)):
         d, succ = _succ_step(d, succ, u[e], v[e], d[:, u[e], None] + w[e], staged[e, None, :])
     return d, succ
@@ -399,23 +406,32 @@ def repair_apply_succ_ref(d, succ, staged, u, v, w):
 # ----------------------------------------------------- decremental repair
 def _affected_mask(dist, u, v, wold, ecount, semiring: Semiring) -> torch.Tensor:
     """Bool (m, m): pairs whose closure value is witnessed through a live
-    deleted edge, ``dist[i, u] ⊗ w_old ⊗ dist[v, j] == dist[i, j] ≠ 0̄``.
-    Edges at index >= ecount are padding and skipped."""
-    u, v, wold = _edge_lists(u, v, wold, dist.device)
-    aff = torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
+    deleted edge, ``dist[i, u] ⊗ w_old ⊗ dist[v, j] == dist[i, j] ≠ 0̄``;
+    for the packed lowering an int32 lane mask (m, m), the OR of the
+    witnesses ``dist[i, u] & w_old & dist[v, j]``: the lanes whose
+    reachability went through the deleted bits.  Edges at index >= ecount
+    are padding and skipped."""
+    u, v, wold = _edge_lists(u, v, wold, dist)
+    dt = torch.int32 if semiring.packed else torch.bool
+    aff = torch.zeros(dist.shape, dtype=dt, device=dist.device)
     for e in range(min(int(ecount), len(u))):
         wit = semiring.mul(semiring.mul(dist[:, u[e], None], wold[e]), dist[None, v[e], :])
-        aff |= wit == dist
-    return aff & (dist != semiring.zero)
+        aff |= wit if semiring.packed else wit == dist
+    return aff if semiring.packed else aff & (dist != semiring.zero)
 
 
 def mark_affected(dist, w1, u, v, wold, ecount, *, semiring: Semiring = MIN_PLUS):
     """Stage 1: (d_init, affected-row mask (m,), affected-entry count).
 
     d_init resets every affected entry to its direct edge in the updated
-    weights ``w1`` and keeps the (final) closure value elsewhere."""
+    weights ``w1`` and keeps the (final) closure value elsewhere; for the
+    packed lowering, only in the affected lanes of each word."""
     aff = _affected_mask(dist, u, v, wold, ecount, semiring)
-    return torch.where(aff, w1, dist), aff.any(dim=-1), aff.sum(dtype=torch.int32)
+    if semiring.packed:
+        d_init, aff = (dist & ~aff) | (w1 & aff), aff != 0
+    else:
+        d_init = torch.where(aff, w1, dist)
+    return d_init, aff.any(dim=-1), aff.sum(dtype=torch.int32)
 
 
 def mark_affected_with_successors(dist, succ, w1, u, v, wold, ecount, *,

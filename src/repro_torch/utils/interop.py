@@ -2,7 +2,9 @@
 
 The system has no learned weights: its state is graph matrices and solved
 tables — f32, f16 or bf16 weights and distances, int16 saturating
-distances, int32 bit-packed reachability words and int32 successors.
+distances, int32 bit-packed reachability words, int32 successors, and the
+integer or_and / plus_mul storages (bool, int8, uint8, int16, int32,
+uint32).
 Both packages read and write them as numpy arrays, so these two functions
 are the whole bridge.  bfloat16 is not a numpy dtype: the reference's
 arrays carry it as ``ml_dtypes.bfloat16``, and it crosses by bit view
@@ -16,10 +18,16 @@ import torch
 _DTYPES = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float16): torch.float16,
+    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
     np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
-    np.dtype(np.bool_): torch.bool,
+    np.dtype(np.uint32): torch.uint32,
 }
+# What JAX makes of the 64-bit types (no x64): the reference's view of them.
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
 
 
 def _is_bfloat16(dtype: np.dtype) -> bool:
@@ -38,14 +46,18 @@ def host_tensor(arr) -> torch.Tensor:
 
 
 def from_numpy(arr, *, device="cuda") -> torch.Tensor:
-    """A weight matrix or solved table → a tensor on ``device``.
+    """A weight matrix or solved table → a tensor on ``device``, as the
+    reference sees it.
 
-    f32, f16, bf16, int16, int32 and bool keep their dtype; other floats
-    are cast to f32 and other integers to int32, the port's wide types.
+    f32, f16, bf16, bool, int8, uint8, int16, int32 and uint32 keep their
+    dtype; float64, int64 and uint64 narrow to their 32-bit types, as
+    ``jnp.asarray`` makes them without x64; anything else raises.
     """
     a = np.asarray(arr)
+    if a.dtype in _NARROW:
+        a = a.astype(_NARROW[a.dtype])
     if not _is_bfloat16(a.dtype) and a.dtype not in _DTYPES:
-        a = a.astype(np.int32 if a.dtype.kind in "iu" else np.float32)
+        raise TypeError(f"no port dtype for {a.dtype}")
     return host_tensor(a).to(device)
 
 

@@ -10,8 +10,8 @@ JAX reference: bucketing, caching, successors, validation.
   * bucketing groups by padded shape and keeps input order;
   * negative cycles name the offending inputs.
 
-Mirrors ``tests/test_apsp_engine.py`` without bf16 (ROADMAP A.4) and the
-serving layer (A.9).
+Mirrors ``tests/test_apsp_engine.py`` without the serving layer (A.9); the
+storage lowerings (bf16 included) are ``tests/test_torch_engine_lowered.py``.
 """
 import numpy as np
 import pytest
@@ -140,8 +140,11 @@ def test_plan_for_models_the_fused_round():
     assert (entry.key.n_padded, entry.key.block_size, entry.key.bk) == (
         jentry.key.n_padded, jentry.key.block_size, jentry.key.bk)
     assert entry.hbm_bytes_per_round == jentry.hbm_bytes_per_round
-    with pytest.raises(NotImplementedError, match="A.4"):
-        eng.plan_for(100, dtype="int16")
+    # a storage dtype is its own key, modelled in its word (once refused, A.4)
+    i16 = eng.plan_for(100, dtype="int16")
+    j16 = japsp.ApspEngine(method="fused", block_size=32).plan_for(100, dtype="int16")
+    assert i16.key.dtype == j16.key.dtype == "int16"
+    assert i16.hbm_bytes_per_round == j16.hbm_bytes_per_round
 
 
 def test_bucketing_counts_and_order():

@@ -228,6 +228,21 @@ def test_engine_repair_rejects_bad_inputs():
     (dict(mesh=object()), "A.11"),
 ])
 def test_engine_unported_options_name_their_roadmap_item(kw, item):
+    if item == "A.4":  # ported: the engine pins the lowering and repairs in
+        te = ApspEngine(device="cpu", method="fused", block_size=16, **kw)  # it
+        je = japsp.ApspEngine(method="fused", block_size=16, **kw)
+        assert te.semiring.name == je.semiring.name
+        if te.semiring.packed:
+            w = np.asarray(japsp.pack_reachability(
+                (np.random.default_rng(3).uniform(size=(32, 32)) < 0.1).astype(np.float32)))
+            upd = [(1, 2, 5)]
+        else:
+            w, upd, _ = repair_scenario("min_plus", 32)
+            w = np.where(np.isfinite(w), w % 97, w).astype(np.float32)
+        t0, j0 = te.solve(w), je.solve(w)
+        assert_same(t0.dist, np.asarray(j0.dist))
+        assert_same(te.repair(t0.dist, upd).dist, np.asarray(je.repair(j0.dist, upd).dist))
+        return
     if item == "A.11":  # ported: the mesh engine needs a mesh, and only
         if "mesh" in kw:  # method="distributed" reads it
             assert ApspEngine(device="cpu", **kw).mesh is kw["mesh"]

@@ -665,6 +665,226 @@ def test_lowered_launches_refuse_what_the_kernels_do_not_take(cuda_device):
         fmm.semiring_matmul(w.bfloat16(), w.bfloat16())
 
 
+# ------------------------------- lowered repair, sweep and the int32 round
+INT32 = {"or_and_i32": "or_and", "plus_mul_i32": "plus_mul"}
+
+
+def _int32_case(tag: str, shape, seed: int):
+    """The int32 carrier of an integer storage: or_and on small integers,
+    plus_mul on full-range ones (every product and sum wraps)."""
+    rng = np.random.default_rng(seed)
+    if tag == "or_and_i32":
+        return torch.from_numpy(rng.integers(-1000, 1000, size=shape).astype(np.int32))
+    return torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=shape).astype(np.int32))
+
+
+def _storage_case(tag: str, name: str, shape, seed: int, s: int = 16):
+    if tag in INT32:
+        return _int32_case(tag, shape, seed), SEMIRINGS[INT32[tag]]
+    return _lowered_case(tag, name, shape, seed, s)
+
+
+REPAIR_CASES = LOWERED_CASES + [("or_and_i32", "or_and"), ("plus_mul_i32", "plus_mul")]
+SWEEP_CASES = [c for c in REPAIR_CASES if c[1] != "plus_mul"]
+
+
+def _lowered_edges(d: torch.Tensor, sr, E: int, seed: int):
+    """E edges (a repeated u, a u == v edge) in d's dtype, then a no-op
+    padding edge (0, 0, ⊕-identity)."""
+    rng = np.random.default_rng(seed)
+    n = d.shape[-1]
+    u = rng.integers(0, n, E + 1).astype(np.int32)
+    v = rng.integers(0, n, E + 1).astype(np.int32)
+    if E > 2:
+        u[1], v[2] = u[0], u[2]
+    if d.dtype == torch.int32:
+        w = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, E + 1).astype(np.int32))
+    elif d.dtype == torch.int16:
+        w = torch.from_numpy(rng.integers(-5, 30, E + 1).astype(np.int16))
+    else:
+        w = torch.from_numpy(rng.uniform(1.0, 10.0, E + 1).astype(np.float32)).to(d.dtype)
+    u[-1] = v[-1] = 0
+    w[-1] = sr.zero
+    return u, v, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["or_and_i32", "plus_mul_i32"])
+@pytest.mark.parametrize("shape,s", [((256, 256), 16), ((3, 256, 256), 128)])
+def test_kernel_int32_round_matches_plain(cuda_device, tag, shape, s):
+    w = _int32_case(tag, shape, seed=s).to(cuda_device)
+    sr = SEMIRINGS[INT32[tag]]
+    before = fr.LAUNCHES[f"fw_round/relax[{tag}]"]
+    for b in (0, shape[-1] // s - 1):
+        got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
+        want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and bits_equal(got, want), (tag, b)
+    assert fr.LAUNCHES[f"fw_round/relax[{tag}]"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", REPAIR_CASES)
+@pytest.mark.parametrize("E", [1, 16, 37])
+def test_kernel_lowered_repair_matches_plain(cuda_device, tag, name, E):
+    d, sr = _storage_case(tag, name, (256, 256), seed=E)
+    d = d.to(cuda_device)
+    u, v, w = _lowered_edges(d, sr, E, seed=E)
+    kind = f"fw_repair/apply[{tag}]"
+    before = fp.LAUNCHES[kind]
+    got = fp.fw_repair(d, u, v, w, block_size=16, semiring=sr)
+    want = ref.fw_repair_ref(d, u, v, w, semiring=sr)
+    torch.cuda.synchronize()
+    assert got.dtype == d.dtype and bits_equal(got, want), (tag, name)
+    pairs = -(-(E + 1) // fp.MAX_EDGES_LOWERED)
+    assert fp.LAUNCHES[kind] == before + pairs
+    # each launch kind alone against its plain phase
+    uu, vv, ww = fp.edge_vectors(u, v, w, 256, cuda_device, d.dtype)
+    k = min(len(uu), fp.MAX_EDGES_LOWERED)
+    staged = torch.empty((k, 256), dtype=d.dtype, device=cuda_device)
+    fp.repair_phase("stage", d, uu[:k], vv[:k], ww[:k], staged, semiring=sr)
+    out = torch.empty_like(d)
+    fp.repair_phase("apply", d, uu[:k], vv[:k], ww[:k], staged, out, semiring=sr)
+    plain = ref.repair_stage_ref(d, uu[:k], vv[:k], ww[:k], semiring=sr)
+    torch.cuda.synchronize()
+    assert bits_equal(staged, plain)
+    assert bits_equal(out, ref.repair_apply_ref(d, plain, uu[:k], ww[:k], semiring=sr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["bf16", "f16"])
+@pytest.mark.parametrize("E", [1, 16, 37])
+def test_kernel_lowered_successor_repair_matches_plain(cuda_device, tag, E):
+    d, sr = _lowered_case(tag, "min_plus", (256, 256), seed=E, s=16)
+    d = d.to(cuda_device)
+    succ = _init_successors(d).contiguous()
+    u, v, w = _lowered_edges(d, sr, E, seed=E + 1)
+    kind = f"fw_repair_with_successors/apply[{tag}]"
+    before = fp.LAUNCHES[kind]
+    gd, gs = fp.fw_repair_with_successors(d, succ, u, v, w, block_size=16)
+    wd, ws = ref.fw_repair_with_successors_ref(d, succ, u, v, w)
+    torch.cuda.synchronize()
+    assert bits_equal(gd, wd) and bits_equal(gs, ws)
+    assert fp.LAUNCHES[kind] == before + -(-(E + 1) // fp.MAX_EDGES_LOWERED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", SWEEP_CASES)
+@pytest.mark.parametrize("s,a", [(16, 37), (64, 1), (128, 200)])
+def test_kernel_lowered_sweep_matches_plain(cuda_device, tag, name, s, a):
+    d, sr = _storage_case(tag, name, (256, 256), seed=a + s, s=s)
+    d = d.to(cuda_device)
+    rows = _strip_rows(256, a, seed=a)
+    kind = f"fw_repair_del_sweep/relax[{tag}]"
+    before = fd.LAUNCHES[kind]
+    got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=sr)
+    want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=sr)
+    torch.cuda.synchronize()
+    assert got.dtype == d.dtype and bits_equal(got, want), (tag, name)
+    assert fd.LAUNCHES[kind] == before + 256 // s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag", ["bf16", "f16"])
+@pytest.mark.parametrize("s,a", [(16, 5), (128, 37)])
+def test_kernel_lowered_successor_sweep_matches_plain(cuda_device, tag, s, a):
+    d, _ = _lowered_case(tag, "min_plus", (256, 256), seed=a, s=s)
+    d = d.to(cuda_device)
+    succ = _init_successors(d).contiguous()
+    rows = _strip_rows(256, a, seed=a + 1)
+    gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
+    wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows, block_size=s)
+    torch.cuda.synchronize()
+    assert bits_equal(gd, wd) and bits_equal(gs, ws)
+
+
+@pytest.mark.cuda
+def test_lowered_engine_on_the_card_matches_the_plain_path(cuda_device):
+    """solve, repair and repair_del of an engine pinned to each storage,
+    card == CPU by bits (integer weights, so repair_del sweeps)."""
+    from repro_torch.apsp import pack_reachability
+
+    rng = np.random.default_rng(5)
+    n = 100
+    w = rng.integers(1, 9, size=(n, n)).astype(np.float32)
+    w[rng.uniform(size=w.shape) < 0.7] = np.inf
+    np.fill_diagonal(w, 0.0)
+    upd = [(3, 7, 1.0), (40, 2, 2.0), (99, 98, 1.0)]
+    bits = (rng.uniform(size=(1, n, n)) < 0.05).astype(np.float32)
+    bits[:, np.arange(n), np.arange(n)] = 1.0
+    words = pack_reachability(bits).numpy()
+    cases = [(dict(dtype=torch.int16), w, upd), (dict(dtype=torch.bfloat16), w, upd),
+             (dict(dtype=torch.float16), w, upd),
+             (dict(semiring="or_and", packed=True), words, [(3, 7, 1), (40, 2, -1)]),
+             (dict(semiring="or_and"), (w < 5).astype(np.uint8), [(3, 7, 1)]),
+             (dict(semiring="or_and"), (w < 5).astype(np.uint32), [(3, 7, 1)])]
+    for kw, x, up in cases:
+        eng = ApspEngine(block_size=32, validate=False, **kw)
+        host = ApspEngine(block_size=32, validate=False, device="cpu", **kw)
+        r0, h0 = eng.solve(x), host.solve(x)
+        assert bits_equal(r0.dist.cpu(), h0.dist), kw
+        assert bits_equal(eng.repair(r0.dist, up).dist.cpu(), host.repair(h0.dist, up).dist)
+        if x.ndim == 3:
+            continue
+        x0, d0 = x.astype(np.float64), h0.dist.to(torch.float64).numpy()
+        on_path = (x0 == d0) & (x0 != 0) & np.isfinite(x0) & ~np.eye(n, dtype=bool)
+        u, v = np.argwhere(on_path)[0]
+        x1 = x.copy()
+        x1[u, v] = np.inf if x.dtype.kind == "f" else 0
+        dels = [(int(u), int(v), x[u, v].item())]
+        got = eng.repair_del(r0.dist, x1, dels, threshold=100.0)
+        want = host.repair_del(h0.dist, x1, dels, threshold=100.0)
+        assert bits_equal(got.dist.cpu(), want.dist), kw
+        assert eng.stats.repair_dels == host.stats.repair_dels == 1
+    for dtype in (torch.bfloat16, torch.float16):
+        eng = ApspEngine(block_size=32, validate=False, dtype=dtype)
+        host = ApspEngine(block_size=32, validate=False, dtype=dtype, device="cpu")
+        r0, h0 = eng.solve(w, successors=True), host.solve(w, successors=True)
+        got = eng.repair(r0.dist, upd, succ=r0.succ)
+        want = host.repair(h0.dist, upd, succ=h0.succ)
+        assert bits_equal(got.dist.cpu(), want.dist) and bits_equal(got.succ.cpu(), want.succ)
+
+
+@pytest.mark.cuda
+def test_a_build_failure_raises_rather_than_falling_back(cuda_device, tmp_path, monkeypatch):
+    """A lowered library that does not build raises from the wrapper: the
+    CUDA tensor never falls back to the plain version."""
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for h in _build.CSRC.glob("*.cuh"):
+        (csrc / h.name).write_bytes(h.read_bytes())
+    (csrc / "fw_repair_lowered.cu").write_text("#error this source does not build\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_LIBS", {})
+    fp._lowered_lib.cache_clear()
+    try:
+        d = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda_device)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fp.fw_repair(d, [0], [1], [1.0], block_size=16)
+    finally:
+        fp._lowered_lib.cache_clear()
+
+
+@pytest.mark.cuda
+def test_lowered_repair_launches_refuse_what_the_kernels_do_not_take(cuda_device):
+    d = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda_device)
+    u, v, w = fp.edge_vectors([0] * 33, [1] * 33, [1.0] * 33, 64, cuda_device, d.dtype)
+    with pytest.raises(ValueError):  # more edges than one lowered launch pair takes
+        fp.repair_phase("stage", d, u, v, w, torch.empty(33, 64, dtype=d.dtype,
+                                                         device=cuda_device))
+    with pytest.raises(ValueError):  # a staged buffer of another dtype
+        fp.repair_phase("stage", d, u[:4], v[:4], w[:4], torch.empty(4, 64, device=cuda_device))
+    with pytest.raises(TypeError):  # no int16 successor repair
+        fp.fw_repair_with_successors(d.to(torch.int16), torch.zeros_like(d, dtype=torch.int32),
+                                     [0], [1], [1], block_size=16)
+    with pytest.raises(ValueError):  # plus_mul has no sweep, in any storage
+        fd.fw_repair_del_sweep(d.to(torch.int32), [3], block_size=64,
+                               semiring=SEMIRINGS["plus_mul"])
+
+
 # ---------------------------------------------------------- flash decode
 def _qkv(shape, dtype, seed, device):
     B, S, Hkv, g, hd = shape

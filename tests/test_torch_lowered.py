@@ -30,11 +30,12 @@ from repro.apsp import api as japi
 from repro.core import paths as jpaths
 from repro.core import semiring as jsr
 from repro.core.staged import fw_staged as jfw_staged
+from repro.kernels import ref as jref
 from repro_torch.apsp import ApspEngine, api as tapi, solve
 from repro_torch.core import paths as tpaths
 from repro_torch.core import semiring as tsr
 from repro_torch.core.staged import fw_staged
-from repro_torch.kernels import fw_phase1, fw_repair, fw_round, ops
+from repro_torch.kernels import fw_phase1, fw_repair, fw_round, minplus_matmul, ops
 from repro_torch.utils.interop import host_tensor
 from test_torch_semiring import NAMES, assert_same, semiring_graph
 
@@ -351,15 +352,43 @@ def test_lift_distances_matches_reference():
 
 # ------------------------------------------------------------ A.4b refusals
 def test_f32_only_paths_refuse_lowerings_without_widening():
+    """What is still f32 only (the lowered bordered round and 4-dispatch
+    kernels, ROADMAP A.4b) refuses a lowering; the engine and the repair,
+    which refused too until their lowered kernels came, now pin the
+    lowering and match the reference."""
     w = torch.from_numpy(semiring_graph("min_plus", (64, 64), 1))
     half = w.to(torch.bfloat16)
+    wn, hn = w.numpy(), np.asarray(jnp.asarray(w.numpy(), jnp.bfloat16))
+    words = np.asarray(japi.pack_reachability(
+        (np.random.default_rng(1).uniform(size=(64, 64)) < 0.1).astype(np.float32)))
+    ported = [  # (port engine kwargs, reference engine kwargs, input)
+        (dict(dtype=torch.bfloat16), dict(dtype=jnp.bfloat16), wn),
+        (dict(semiring="min_plus_i16"), dict(semiring="min_plus_i16"), wn),
+        (dict(semiring="or_and", packed=True), dict(semiring="or_and", packed=True), words),
+        ({}, {}, hn),
+    ]
+    for tk, jk, x in ported:
+        te, je = ApspEngine(device="cpu", **tk), japsp.ApspEngine(**jk)
+        assert te.semiring.name == je.semiring.name
+        t, j = te.solve(x), je.solve(x)
+        assert_same(t.dist, np.asarray(j.dist))
+        assert te.repair(t.dist, [(0, 1, 1)]).dist.dtype == t.dist.dtype
+    key = ApspEngine(device="cpu").plan_for(64, dtype=torch.float16).key
+    assert key.dtype == japsp.ApspEngine().plan_for(64, dtype=jnp.float16).key.dtype
+    assert_same(fw_repair.fw_repair(half, [0], [1], [1.0], block_size=32),
+                np.asarray(jref.fw_repair_ref(hn, np.array([0], np.int32),
+                                              np.array([1], np.int32),
+                                              np.ones(1, jnp.bfloat16))))
     mesh = types.SimpleNamespace(R=1, C=1, device=torch.device("cpu"), signature=(1, 1))
     refusals = [
-        lambda: ApspEngine(dtype=torch.bfloat16, device="cpu"),
-        lambda: ApspEngine(semiring="min_plus_i16", device="cpu"),
-        lambda: ApspEngine(semiring="or_and", packed=True, device="cpu"),
-        lambda: ApspEngine(device="cpu").solve(half),
-        lambda: ApspEngine(device="cpu").plan_for(64, dtype=torch.float16),
+        lambda: ApspEngine(method="staged", dtype=torch.bfloat16, device="cpu"),
+        lambda: ApspEngine(method="staged", semiring="min_plus_i16", device="cpu"),
+        lambda: ApspEngine(method="staged", device="cpu").solve(half),
+        lambda: ApspEngine(method="staged", device="cpu").plan_for(64, dtype=torch.float16),
+        lambda: ApspEngine(method="distributed", mesh=mesh, dtype=torch.bfloat16,
+                           device="cpu"),
+        lambda: ApspEngine(method="distributed", mesh=mesh, semiring="or_and", packed=True,
+                           device="cpu"),
         lambda: solve(half, method="distributed", mesh=mesh, device="cpu"),
         lambda: solve(w, dtype=torch.int16, method="distributed", mesh=mesh, device="cpu"),
         lambda: solve(half, method="numpy", device="cpu"),
@@ -369,7 +398,7 @@ def test_f32_only_paths_refuse_lowerings_without_widening():
         lambda: ops.minplus_matmul(half, half),
         lambda: ops.fw_phase3(w, w, w, semiring=tsr.MIN_PLUS_I16),
         lambda: fw_phase1.fw_phase1(half[:32, :32]),
-        lambda: fw_repair.fw_repair(half, [0], [1], [1.0], block_size=32),
+        lambda: minplus_matmul.semiring_matmul(half, half),
         lambda: fw_round.fw_round_bordered(half, block_size=32),
     ]
     for refuse in refusals:

@@ -113,7 +113,7 @@ def test_lowered_semirings_are_not_ported(name):
     assert t is tsr.LOWERED_SEMIRINGS[name]
     assert (t.name, t.zero, t.one, t.dtype, t.lanes) == (j.name, j.zero, j.one, j.dtype, j.lanes)
     with pytest.raises(NotImplementedError, match="A.4b"):
-        tsr.require_f32(t, where="test")
+        tsr.require_f32_a4b(t, where="test")
 
 
 @pytest.mark.parametrize("kw", [dict(dtype="int16"), dict(dtype=torch.bfloat16),
