@@ -45,6 +45,15 @@ Phases, each of which raises (exit code 1) on any failure:
      and, apart, with off-diagonal NaN; the successor repair; the sweep at
      a in {1, 37}, each launch kind alone; the successor sweep; the int32
      round; ``repair_del`` at n=1000 through lowered engines card == CPU.
+     The lowered 4-dispatch kernels likewise (``phase_check_lowered_four``):
+     ``semiring_matmul`` on every storage with and without c at square,
+     batched and ragged shapes, ``fw_phase1`` at s = 32 / 128 single and
+     batched, both bands at (32, 96) and (128, 1024), bf16 / f16 salted with
+     ±0 and, apart, off-diagonal NaN; ``fw_staged(fused=False)`` at n = 96
+     and 1024 (s = 32 / 128, single and batched) == plain loop == lowered
+     fused.  The lowered bordered round (``phase_check_lowered_bordered``):
+     every storage, s = 32 / 128, square, tall and wide rank blocks, the
+     three echo forms.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
@@ -54,7 +63,8 @@ Phases, each of which raises (exit code 1) on any failure:
      plus_mul, the latter beside ``torch.matmul`` (TF32 off).
      The lowered launch kinds likewise at n=8192 (successors n=4096),
      the lowered repair (E=16) and sweep (a=8) kinds and the int32 round
-     kinds included.
+     kinds included; the lowered 4-dispatch kinds (``fw_phase1[int16]``,
+     ``semiring_matmul[bf16]`` …) in int16, bf16, f16 and packed words.
   4. main path: ``solve(w)`` at n=8192 (min-plus, f32, a seeded random
      digraph of density 0.5) and ``solve(w, successors=True)`` at n=4096,
      with the launch counts of that run, bitwise against the plain round
@@ -83,7 +93,9 @@ Phases, each of which raises (exit code 1) on any failure:
   7. 4-dispatch path: ``fw_staged(w, fused=False)`` at n=8192 (the main
      path's input), with the launch counts of that run (4 x 64), bitwise
      against the fused solve, timed beside the fused round loop, with its
-     device time by launch kind.
+     device time by launch kind; then in int16, bf16, f16 and on one plane
+     of 32 packed graphs, each == the lowered fused solve and timed beside
+     it.
   8. lowered engine path: ``ApspEngine`` pinned to int16, bf16, f16 and
      one packed word plane at n=8192 (integer weights in [1, 16], exact in
      every storage): solve, ``repair`` E=16 and ``repair_del`` E=1 / E=16,
@@ -101,15 +113,23 @@ Phases, each of which raises (exit code 1) on any failure:
      ``plan.dist_round_comm_bytes`` × 64, a run in chunks of 16 rounds
      restarted from the round-32 checkpoint, and a 16-link mesh ``repair``;
      a 4×2 grid at n=2048 on all five semirings and a (4,2048,2048) batch.
+     The same grids in the lowered storages: the 1×1 and 2×2 grids at
+     n=8192 in bf16, f16, int16 and on one plane of 32 packed graphs (2×2
+     timed beside 1×1, counted bytes == the model in the storage's word:
+     136,314,880 B a rank in 2-byte storages), a 16-link int16 mesh
+     repair, and the 4×2 grid at n=2048 on every lowering (int16 ×4, bf16
+     and f16 ×5, packed).
      Every rank holds its result against the single-device fused solve (or
      repair) on the card, bitwise, and reports its launch counts.
      The bordered kernel is also checked alone (phase 2: all five
      semirings, s = 16, 32, 128, square, tall and wide bordered blocks,
      single and batched, owner echo none / (1,1) / the last tile / one of
      the two, ±inf salted in) and timed alone per launch kind at the 2×2
-     rank's (4224,4224) block (phase 3).
+     rank's (4224,4224) block (phase 3), in f32 and the four lowered
+     storages.
 
-The last lines are the ``{"kernels": [...]}`` record and then
+Every kernel of the record must have been launched on its path; the
+last lines are the ``{"kernels": [...]}`` record and then
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the ``repro`` package.
 """
@@ -152,6 +172,11 @@ LOWERED_SOURCES = {
     "fw_repair_del_sweep": "src/repro_torch/kernels/csrc/fw_repair_del_lowered.cu",
     "fw_repair_del_sweep_with_successors":
         "src/repro_torch/kernels/csrc/fw_repair_del_lowered.cu",
+    "fw_round_bordered": "src/repro_torch/kernels/csrc/fw_round_lowered.cu",
+    "semiring_matmul": "src/repro_torch/kernels/csrc/minplus_matmul_lowered.cu",
+    "fw_phase1": "src/repro_torch/kernels/csrc/fw_phase_lowered.cu",
+    "fw_phase2_row": "src/repro_torch/kernels/csrc/fw_phase_lowered.cu",
+    "fw_phase2_col": "src/repro_torch/kernels/csrc/fw_phase_lowered.cu",
 }
 INT32_TAGS = ("or_and_i32", "plus_mul_i32")
 REPLACES = {
@@ -177,14 +202,18 @@ class SmokeFailure(RuntimeError):
 
 @functools.cache
 def lowered_kinds() -> frozenset:
-    """The launch kinds of the storage lowerings (``fw_round/relax[int16]``,
-    ``fw_repair/apply[bf16]``, ``fw_repair_del_sweep/relax[packed]`` …):
-    every kind of the round, repair and sweep wrappers with a tag."""
+    """The launch kinds of the storage lowerings of the square round, the
+    repair and the sweep (``fw_round/relax[int16]``, ``fw_repair/apply[bf16]``,
+    ``fw_repair_del_sweep/relax[packed]`` …): every kind of those wrappers
+    with a tag.  The lowered bordered round and 4-dispatch kinds
+    (``fw_round_bordered/relax[bf16]``, ``semiring_matmul[int16]`` …) are
+    the distributed and 4-dispatch paths' own."""
     from repro_torch.kernels import fw_repair as fp
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
 
-    return frozenset(k for k in fr.KINDS + fp.KINDS + fd.KINDS if k.endswith("]"))
+    return frozenset(k for k in fr.KINDS + fp.KINDS + fd.KINDS
+                     if k.endswith("]") and not k.startswith("fw_round_bordered/"))
 
 
 def round_lowered_kinds() -> list:
@@ -330,8 +359,8 @@ def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
     the path that launches the kind); ``store=False`` only prints it.
     ``library``: the ms of one PyTorch call computing the same function."""
     bms, by = bound(ops, nbytes)
-    fn = kind.split("/")[0]
-    source = (LOWERED_SOURCES if kind in lowered_kinds() else SOURCES)[fn]
+    fn = kind.split("/")[0].split("[")[0]
+    source = (LOWERED_SOURCES if kind.endswith("]") else SOURCES)[fn]
     if store:
         rows[kind] = dict(name=kind, route="cuda", source=source, replaces=REPLACES[fn],
                           launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1523,67 +1552,87 @@ def phase_check_dist():
 
 def phase_kernels_dist(rows: dict, n: int, s: int = 128, R: int = 2, C: int = 2):
     """Each bordered launch alone at the R×C grid's per-rank shape (s + n/R,
-    s + n/C) (min-plus, no owner echo: every band tile runs its chain),
-    against the plain version of its phase.  Work: a relaxation is 2 fp32
-    operations; bytes: each input read once, each output written once."""
+    s + n/C) (min-plus, no owner echo: every band tile runs its chain), in
+    f32 and in the lowered storages of the grid path (int16, bf16, f16 from
+    the same block; random packed words), against the plain version of its
+    phase.  Work: a relaxation is 2 fp32 operations (``LOWERED_OPS`` in a
+    lowering); bytes: each input read once, each output written once, in the
+    storage's word."""
+    import numpy as np
     import torch
 
+    from repro_torch.apsp import api
     from repro_torch.core.graph import random_digraph
-    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
 
     dev = torch.device("cuda")
     record = functools.partial(record_kernel, rows)
     nr, nc = n // R, n // C
-    w = torch.from_numpy(random_digraph(max(nr, nc) + s, density=0.5, seed=4)
-                         [:s + nr, :s + nc].copy()).to(dev)
-    bands = fr.bordered_round_buffers(w, s)
-    kw = dict(block_size=s, semiring=MIN_PLUS)
-    launch = lambda p, x: fr.fw_round_bordered_phase(p, x, -1, -1, bands, **kw)  # noqa: E731
+    w32 = torch.from_numpy(random_digraph(max(nr, nc) + s, density=0.5, seed=4)
+                           [:s + nr, :s + nc].copy()).to(dev)
+    words = np.random.default_rng(5).integers(0, 1 << 32, tuple(w32.shape), dtype=np.uint64)
+    inputs = {
+        None: (w32, MIN_PLUS),
+        "int16": (api._coerce(w32, MIN_PLUS_I16, None, dev), MIN_PLUS_I16),
+        "bf16": (w32.to(torch.bfloat16), MIN_PLUS),
+        "f16": (w32.to(torch.float16), MIN_PLUS),
+        "packed": (torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(dev),
+                   OR_AND_PACKED),
+    }
+    for tag, (w, sr) in inputs.items():
+        ops, word = (2, 4) if tag is None else (LOWERED_OPS[tag], LOWERED_WORD[tag])
+        sfx = "" if tag is None else f"[{tag}]"
+        bands = fr.bordered_round_buffers(w, s)
+        launch = functools.partial(fr.fw_round_bordered_phase, owner_row=-1, owner_col=-1,
+                                   bands=bands, block_size=s, semiring=sr)
 
-    launch("diag", w)
-    diag = ref.close_diag(w[:s, :s], MIN_PLUS)
-    sync()
-    require(same(bands[0][0, :, :s], diag) and same(bands[1][0, :s, :], diag),
-            "bordered diag launch != plain close_diag")
-    record("fw_round_bordered/diag", max_abs_err(bands[0][0, :, :s], diag),
-           event_ms(lambda: launch("diag", w), 11),
-           event_ms(lambda: ref.close_diag(w[:s, :s], MIN_PLUS), 3),
-           2.0 * s**3, 2 * s * s * 4)
+        launch("diag", w)
+        diag = ref.close_diag(w[:s, :s], sr)
+        sync()
+        require(same(bands[0][0, :, :s], diag) and same(bands[1][0, :s, :], diag),
+                f"bordered diag{sfx} launch != plain close_diag")
+        record(f"fw_round_bordered/diag{sfx}", max_abs_err(bands[0][0, :, :s], diag),
+               event_ms(lambda: launch("diag", w), 11),
+               event_ms(lambda: ref.close_diag(w[:s, :s], sr), 3),
+               ops * s**3, 2 * s * s * word)
 
-    launch("bands", w)
-    row, col = ref.close_bordered_bands(w, diag, -1, -1, MIN_PLUS)
-    sync()
-    require(same(bands[0][0], row) and same(bands[1][0], col),
-            "bordered bands launch != plain close_bordered_bands")
-    tiles = (nr + nc) // s
-    record("fw_round_bordered/bands", max(max_abs_err(bands[0][0], row),
-                                          max_abs_err(bands[1][0], col)),
-           event_ms(lambda: launch("bands", w), 11),
-           event_ms(lambda: ref.close_bordered_bands(w, diag, -1, -1, MIN_PLUS), 3),
-           2.0 * tiles * s**3, (s * s + 2 * tiles * s * s) * 4)
+        launch("bands", w)
+        row, col = ref.close_bordered_bands(w, diag, -1, -1, sr)
+        sync()
+        require(same(bands[0][0], row) and same(bands[1][0], col),
+                f"bordered bands{sfx} launch != plain close_bordered_bands")
+        tiles = (nr + nc) // s
+        record(f"fw_round_bordered/bands{sfx}", max(max_abs_err(bands[0][0], row),
+                                                    max_abs_err(bands[1][0], col)),
+               event_ms(lambda: launch("bands", w), 11),
+               event_ms(lambda: ref.close_bordered_bands(w, diag, -1, -1, sr), 3),
+               ops * tiles * s**3, (s * s + 2 * tiles * s * s) * word)
 
-    wk = w.clone()
-    launch("relax", wk)
-    want = ref.relax_bordered(w, row, col, -1, -1, semiring=MIN_PLUS)
-    sync()
-    require(same(wk, want), "bordered relax launch != plain relax_bordered")
-    r, c = w.shape
-    record("fw_round_bordered/relax", max_abs_err(wk, want),
-           event_ms(lambda: launch("relax", wk), 5),
-           event_ms(lambda: ref.relax_bordered(w, row, col, -1, -1, semiring=MIN_PLUS), 1),
-           2.0 * r * c * s, (2 * r * c + (r + c) * s) * 4)
-    print(f"kernel fw_round_bordered shape: ({r},{c}), the {R}x{C} grid's rank block "
-          f"at n={n}, s={s}")
+        wk = w.clone()
+        launch("relax", wk)
+        want = ref.relax_bordered(w, row, col, -1, -1, semiring=sr)
+        sync()
+        require(same(wk, want), f"bordered relax{sfx} launch != plain relax_bordered")
+        r, c = w.shape
+        record(f"fw_round_bordered/relax{sfx}", max_abs_err(wk, want),
+               event_ms(lambda: launch("relax", wk), 5),
+               event_ms(lambda: ref.relax_bordered(w, row, col, -1, -1, semiring=sr), 1),
+               ops * r * c * s, (2 * r * c + (r + c) * s) * word)
+        del bands, wk, want, row, col
+    print(f"kernel fw_round_bordered shape: ({s + nr},{s + nc}), the {R}x{C} grid's rank "
+          f"block at n={n}, s={s}")
 
 
 def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
     """The distributed path: ``fw_distributed`` / ``solve(method=
     "distributed")`` on ``run_grid`` processes that share the one card over
     gloo; each rank holds its result against the single-device solve on the
-    card (``launch.fw_dist_check.grid_check``).  Timed beside the fused
-    solve of the same input in this process."""
+    card (``launch.fw_dist_check.grid_check``), in f32 and in the lowered
+    storages (bf16, f16 and int16 of the main path's graph, one plane of 32
+    packed graphs).  Timed beside the fused solve of the same input in this
+    process and beside the 1×1 grid."""
     import torch
 
     from repro_torch.apsp import plan, solve
@@ -1602,7 +1651,13 @@ def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
           "collectives gloo transfers staged through pinned host memory: not a "
           "multi-card figure")
     main = dict(n=n, bs=s, semiring="min_plus", density=0.5, seed=0, reps=3)
-    bordered = [k for k in fr.KINDS if k.startswith("fw_round_bordered/")]
+    lowered = {"bf16": dict(main, dtype="bfloat16"), "f16": dict(main, dtype="float16"),
+               "int16": dict(main, dtype="int16"),
+               "packed": dict(main, semiring="or_and", packed=True)}
+
+    def bordered(tag=None):
+        sfx = "" if tag is None else f"[{tag}]"
+        return [f"fw_round_bordered/{p}{sfx}" for p in fr.PHASES]
 
     def run(R, C, cfgs, timeout=600):
         t0 = time.perf_counter()
@@ -1615,35 +1670,46 @@ def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
                         and rec.get("breakdown_ok", True), f"dist check failed: {rec}")
         return [list(x) for x in zip(*recs)]  # [check][rank]
 
-    def report(label, per_rank):
+    def report(label, per_rank, tag=None, beside=None):
         r0 = per_rank[0]
         rounds = r0["rounds"]
         counts = [r["launches"] for r in per_rank]
-        require(all(c[k] == rounds for c in counts for k in bordered),
+        require(all(c[k] == rounds for c in counts for k in bordered(tag)),
                 f"{label}: bordered launches {counts}, not {rounds} of each kind a rank")
         R, C = r0["R"], r0["C"]
+        ops = 2.0 if tag is None else LOWERED_OPS[tag]
         # every rank's bordered rounds, all on this one card
-        bms, by = bound(2.0 * R * C * (s + n // R) * (s + n // C) * s * rounds, 0)
+        bms, by = bound(ops * R * C * (s + n // R) * (s + n // C) * s * rounds, 0)
+        vs = f"f32 fused single-device {fused_ms:.2f} ms ({r0['ms'] / fused_ms:.3f}x)" \
+            if beside is None else f"1x1 grid {beside:.2f} ms ({r0['ms'] / beside:.3f}x)"
         print(f"dist {label}: median {r0['ms']:.2f} ms of {['%.2f' % t for t in r0['times']]} "
-              f"({r0['ms'] / rounds:.3f} ms a round), fused single-device {fused_ms:.2f} ms "
-              f"({r0['ms'] / fused_ms:.3f}x); bound of all ranks' rounds on the card "
-              f"{bms:.2f} ms by {by}; launches a rank {json.dumps(counts[0])}")
+              f"({r0['ms'] / rounds:.3f} ms a round), {vs}; bound of all ranks' rounds on "
+              f"the card {bms:.2f} ms by {by}; launches a rank "
+              f"{json.dumps({k: counts[0][k] for k in bordered(tag)})}")
         return counts[0]
 
     # 1x1: every round an owner round; the bordered kernel at full width
-    (one,) = run(1, 1, [dict(main, breakdown=True)])
-    report(f"1x1 n={n}", one)
-    per = one[0]["breakdown"]
+    one = run(1, 1, [dict(main, breakdown=True)] + list(lowered.values()))
+    report(f"1x1 n={n}", one[0])
+    one_ms = {}
+    for tag, per_rank in zip(lowered, one[1:]):
+        report(f"1x1 n={n} [{tag}]", per_rank, tag)
+        one_ms[tag] = per_rank[0]["ms"]
+    per = one[0][0]["breakdown"]
     span = per.pop("span")
     print(f"dist 1x1 breakdown n={n} (events between launches; each share includes the "
           f"gap after it): " + ", ".join(f"{k} {t:.2f} ms ({100 * t / span:.1f}%)"
                                           for k, t in per.items()) + f"; span {span:.2f} ms")
 
-    # 2x2: timed, bytes counted, chunked restart; then a 16-link mesh repair
-    two, rep = run(2, 2, [dict(main, chunked=True, rounds_per_call=16, restart_at=32),
-                          dict(repair=True, semiring="min_plus", n=n, edges=16, reps=3)])
+    # 2x2: timed, bytes counted, chunked restart; a 16-link mesh repair; the
+    # lowered storages timed with their bytes; a lowered 16-link mesh repair
+    two, rep, *low, low_rep = run(2, 2, [
+        dict(main, chunked=True, rounds_per_call=16, restart_at=32),
+        dict(repair=True, semiring="min_plus", n=n, edges=16, reps=3),
+        *lowered.values(),
+        dict(repair=True, semiring="min_plus", dtype="int16", n=n, edges=16, reps=3)])
     counts = report(f"2x2 n={n}", two)
-    for kind in bordered:
+    for kind in bordered():
         rows[kind]["launches"] = counts[kind]
     model = plan.dist_round_comm_bytes(n, 2, 2, s)
     summa = plan.summa_comm_bound_bytes(n, 2, 2)
@@ -1659,17 +1725,39 @@ def phase_dist(rows: dict, n: int, n_small: int, s: int = 128):
           f"of {['%.2f' % t for t in rep[0]['times']]} (the full-matrix gather included), "
           f"single-device repair {rep[0]['single_ms']:.3f} ms; == single-device repair "
           f"== re-solve on every rank; {rep[0]['comm_bytes']} collective B a rank")
+    for tag, per_rank in zip(lowered, low):
+        counts = report(f"2x2 n={n} [{tag}]", per_rank, tag, beside=one_ms[tag])
+        for kind in bordered(tag):
+            rows[kind]["launches"] = counts[kind]
+        want = model * (n // s) * LOWERED_WORD[tag] // 4
+        for r in per_rank:
+            require(r["comm_bytes"] == r["model_bytes"] == want,
+                    f"[{tag}] rank {r['rank']} counted {r['comm_bytes']} B, model {want}")
+        print(f"dist 2x2 [{tag}] ({per_rank[0]['dtype']}) collective bytes a rank: "
+              f"{[r['comm_bytes'] for r in per_rank]} (model {want} B); every rank == the "
+              f"lowered fused solve, bitwise")
+    print(f"dist 2x2 mesh repair [int16] n={n} E={low_rep[0]['edges']}: median "
+          f"{low_rep[0]['ms']:.2f} ms of {['%.2f' % t for t in low_rep[0]['times']]}, "
+          f"single-device repair {low_rep[0]['single_ms']:.3f} ms; == single-device repair "
+          f"== re-solve on every rank; {low_rep[0]['comm_bytes']} collective B a rank")
 
-    # 4x2 at n_small: five semirings and a batch, through solve(method="distributed")
+    # 4x2 at n_small: five semirings, a batch, and every lowering, through
+    # solve(method="distributed")
     names = ("min_plus", "max_plus", "max_min", "or_and", "plus_mul")
     cfgs = [dict(n=n_small, semiring=name, method="solve", seed=7) for name in names]
     cfgs.append(dict(n=n_small, semiring="min_plus", method="solve", batch=4, seed=8))
+    cfgs += [dict(n=n_small, semiring=name, dtype="int16", method="solve", seed=7)
+             for name in IDEMPOTENT]
+    cfgs += [dict(n=n_small, semiring=name, dtype=dt, method="solve", seed=7)
+             for dt in ("bfloat16", "float16") for name in names]
+    cfgs.append(dict(n=n_small, semiring="or_and", packed=True, method="solve", seed=7))
     four = run(4, 2, cfgs)
     for per_rank in four:
         r0 = per_rank[0]
-        print(f"dist 4x2 n={n_small} {r0['semiring']} batch={r0['batch']}: solve(method="
-              f"'distributed') == fused solve on all 8 ranks (s={r0['block_size']}, "
-              f"padded {r0['padded_n']}, rank block ({n_small // 4},{n_small // 2}))")
+        print(f"dist 4x2 n={n_small} {r0['semiring']} {r0['dtype']} batch={r0['batch']}: "
+              f"solve(method='distributed') == fused solve on all 8 ranks (s="
+              f"{r0['block_size']}, padded {r0['padded_n']}, rank block ({n_small // 4},"
+              f"{n_small // 2}))")
 
 
 # --------------------------------------------------- signed zero and NaN
@@ -3003,6 +3091,280 @@ def lowered_deletions(x, dist, count: int, seed: int):
     return dels, x1
 
 
+# ------------------------- lowered 4-dispatch kernels and bordered round
+FOUR_TAGS = ("int16", "bf16", "f16", "packed")  # the lowered paths' storages
+
+
+def cut_case(tag: str, name: str, shape, seed: int, s: int, salt: str):
+    """``storage_case`` of any (…, r, c) shape: cut from the square case of
+    its larger side, NaNs (salt "nan") kept off diagonal tiles of at most
+    half that side."""
+    m = max(shape[-2:])
+    x, sr = storage_case(tag, name, (*shape[:-2], m, m), seed, max(1, min(s, m // 2)), salt)
+    return x[..., :shape[-2], :shape[-1]].contiguous(), sr
+
+
+def phase_check_lowered_four():
+    """The lowered 4-dispatch kernels bitwise against their plain versions
+    on the card, on every storage (``STORAGE_CASES``: int16 ×4, packed,
+    bf16 / f16 ×5, int32 or_and / plus_mul), bf16 / f16 on both salted
+    inputs (±0 without NaN, NaN off the diagonal tiles):
+    ``semiring_matmul`` with and without c at (1024,128)·(128,1024),
+    (4,256,96)·(4,96,384), (1000,77)·(77,513) and (1,5)·(5,3);
+    ``fw_phase1`` at s = 32 and 128, single and (4, s, s);
+    ``fw_phase2_row`` / ``fw_phase2_col`` at (s, n) = (32, 96) and
+    (128, 1024), read as strided slices, against a NaN-free closed
+    diagonal; and on the ±0 input
+    ``fw_staged(fused=False)`` at n = 96 (s = 32; single and (2, n, n)) and
+    n = 1024 (s = 128 single, s = 32 as (2, n, n)) against the plain
+    4-dispatch loop and the lowered fused round.  The (1024,128)·(128,1024)
+    products with c and the n = 1024 bands keep their salt (mostly finite,
+    both zero signs for the idempotent semirings, the NaNs)."""
+    import torch
+
+    from repro_torch.core.staged import fw_staged
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    checked = pos = neg = nans = 0
+
+    def held(what, name, want, salt):
+        nonlocal pos, neg, nans
+        if salt in ("zero", "nan"):
+            p, q, r = require_salt_survives(what, name, want, zeros=salt == "zero",
+                                            nans=salt == "nan")
+            pos, neg, nans = pos + p, neg + q, nans + r
+
+    for tag, name in STORAGE_CASES:
+        for salt in salts(tag):
+            case = functools.partial(cut_case, tag, name, salt=salt)
+            for a_shape, b_shape in (((1024, 128), (128, 1024)), ((4, 256, 96), (4, 96, 384)),
+                                     ((1000, 77), (77, 513)), ((1, 5), (5, 3))):
+                a, sr = case(a_shape, 1, 32)
+                b, _ = case(b_shape, 2, 32)
+                c, _ = case((*a_shape[:-1], b_shape[-1]), 3, 32)
+                c0 = c.clone()
+                for cc in (None, c):
+                    got = fmm.semiring_matmul(a, b, cc, semiring=sr)
+                    want = ref.semiring_matmul_ref(a, b, cc, semiring=sr)
+                    sync()
+                    what = f"semiring_matmul[{tag}] {name} {a_shape}@{b_shape} c={cc is not None}"
+                    require(got.dtype == a.dtype and same(got, want), f"{what} {salt} != plain")
+                    if a_shape == (1024, 128) and cc is not None:  # without c a
+                        held(what, name, want, salt)  # fold starts from +0 or ±inf
+                    checked += 1
+                require(same(c, c0), f"semiring_matmul[{tag}] wrote into c")
+            for sz in (32, 128):
+                for shape in ((sz, sz), (4, sz, sz)):
+                    t, sr = case(shape, sz, sz)
+                    got = fph.fw_phase1(t, semiring=sr)
+                    sync()
+                    require(got.dtype == t.dtype and same(got, ref.fw_phase1_ref(t, semiring=sr)),
+                            f"fw_phase1[{tag}] {name} {shape} {salt} != plain")
+                    checked += 1
+            for sz, n in ((32, 96), (128, 1024)):
+                # the closed diagonal from NaN-free weights (a NaN in it
+                # would flood every band column)
+                diag, sr = cut_case(tag, name, (sz, sz), 4, sz, "zero" if salt == "zero" else
+                                    "domain")
+                diag = ref.fw_phase1_ref(diag, semiring=sr)
+                w, _ = case((n + sz, n + sz), n, sz)
+                if salt == "nan":  # one NaN in each band (it spreads along its column / row)
+                    w[7 + sz // 2, 3 + n // 2] = w[3 + n // 3, 7 + sz // 3] = float("nan")
+                row, col = w[7:7 + sz, 3:3 + n], w[3:3 + n, 7:7 + sz]
+                got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr)
+                got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr)
+                want_r = ref.fw_phase2_row_ref(diag, row, semiring=sr)
+                want_c = ref.fw_phase2_col_ref(diag, col, semiring=sr)
+                sync()
+                require(same(got_r, want_r) and same(got_c, want_c),
+                        f"fw_phase2_row/col[{tag}] {name} s={sz} n={n} {salt} != plain")
+                if n == 1024:
+                    held(f"fw_phase2_row[{tag}]", name, want_r, salt)
+                    held(f"fw_phase2_col[{tag}]", name, want_c, salt)
+                checked += 2
+            if salt == "nan":
+                continue  # a closure spreads a NaN over the whole output
+            for shape, sz in (((96, 96), 32), ((2, 96, 96), 32), ((1024, 1024), 128),
+                              ((2, 1024, 1024), 32)):
+                w, sr = case(shape, shape[-1] + sz, sz)
+                got = fw_staged(w, block_size=sz, semiring=sr, fused=False)
+                want = plain_four(w, block_size=sz, semiring=sr)
+                fused = fw_staged(w, block_size=sz, semiring=sr)
+                sync()
+                require(got.dtype == w.dtype and same(got, want),
+                        f"fw_staged(fused=False)[{tag}] {name} {shape} s={sz} != plain loop")
+                require(same(got, fused),
+                        f"fw_staged(fused=False)[{tag}] {name} {shape} s={sz} != fused")
+                checked += 1
+    print(f"check: {checked} lowered 4-dispatch kernel-vs-plain cases bitwise equal (bf16 / "
+          f"f16 salted with ±0 and, apart, off-diagonal NaN; the checked outputs: {pos} +0, "
+          f"{neg} -0, {nans} NaN)")
+
+
+def phase_check_lowered_bordered():
+    """The lowered bordered round bitwise against its plain twin on the
+    card: every storage (``STORAGE_CASES``; bf16 / f16 on both salted
+    inputs), s = 32 and 128, the square (s + n/2)², tall (s + n/2, s + n/4)
+    and wide (s + n/4, s + n/2) rank blocks of an n = 8s solve, single and
+    (at s = 32) (2, rows, cols), in the three echo forms: none, both, and
+    one of the two (the row echo on tall blocks, the column echo else)."""
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    checked = 0
+    for tag, name in STORAGE_CASES:
+        for salt in salts(tag):
+            for s in (32, 128):
+                n = 8 * s
+                for rows, cols in ((s + n // 2, s + n // 2), (s + n // 2, s + n // 4),
+                                   (s + n // 4, s + n // 2)):
+                    tr, tc = rows // s, cols // s
+                    one = (tr - 1, -1) if rows > cols else (-1, tc - 1)
+                    for lead in ((), (2,)) if s == 32 else ((),):
+                        w, sr = cut_case(tag, name, (*lead, rows, cols), s + rows, s, salt)
+                        for echo in ((-1, -1), (1, 1), one):
+                            got = fr.fw_round_bordered(w.clone(), *echo, block_size=s,
+                                                       semiring=sr)
+                            want = ref.fw_round_bordered_ref(w, *echo, block_size=s,
+                                                             semiring=sr)
+                            sync()
+                            require(got.dtype == w.dtype and same(got, want),
+                                    f"fw_round_bordered[{tag}] {name} {salt} s={s} "
+                                    f"{(*lead, rows, cols)} echo={echo} != plain")
+                            checked += 1
+    print(f"check: {checked} lowered bordered-round kernel-vs-plain cases bitwise equal")
+
+
+def four_inputs(n: int, seed: int = 1):
+    """{tag: (w, semiring)} at n on the card: the main path's kind of
+    random digraph in int16 (saturating min-plus), bf16 and f16, and one
+    plane of 32 ``packed_graphs`` words."""
+    import torch
+
+    from repro_torch.apsp import api
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+
+    w32 = torch.from_numpy(random_digraph(n, density=0.5, seed=seed)).cuda()
+    words = api.pack_reachability(packed_graphs(32, n, seed=seed + 50))[0]
+    return {"int16": (api._coerce(w32, MIN_PLUS_I16, None, w32.device), MIN_PLUS_I16),
+            "bf16": (w32.to(torch.bfloat16), MIN_PLUS),
+            "f16": (w32.to(torch.float16), MIN_PLUS),
+            "packed": (words, OR_AND_PACKED)}
+
+
+def phase_kernels_lowered_four(rows: dict, n: int, s: int = 128):
+    """Each lowered 4-dispatch launch alone at the path's shapes (n = 8192,
+    s = 128, round T/2) in int16, bf16, f16 and packed words, against the
+    plain version of its phase: ``fw_phase1`` (s,s), ``fw_phase2_row`` (s,n),
+    ``fw_phase2_col`` (n,s), ``semiring_matmul`` at the phase-3 shape
+    (n,s)·(s,n) + C.  Bound: ``LOWERED_OPS`` a relaxation over 67 TOP/s, or
+    bytes in the storage word over 3.35 TB/s (each input read once, each
+    output written once), whichever is larger."""
+    import torch
+
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    record = functools.partial(record_kernel, rows)
+    b = n // s // 2
+    o = slice(b * s, (b + 1) * s)
+    for tag, (w, sr) in four_inputs(n).items():
+        ops, word = LOWERED_OPS[tag], LOWERED_WORD[tag]
+        tile = w[o, o].contiguous()
+        diag = torch.empty_like(tile)
+        fph.fw_phase1(tile, semiring=sr, out=diag)
+        want = ref.fw_phase1_ref(tile, semiring=sr)
+        sync()
+        require(same(diag, want), f"fw_phase1[{tag}] launch != plain")
+        record(f"fw_phase1[{tag}]", max_abs_err(diag, want),
+               event_ms(lambda: fph.fw_phase1(tile, semiring=sr, out=diag), 11),
+               event_ms(lambda: ref.fw_phase1_ref(tile, semiring=sr), 3),
+               ops * s**3, 2 * s * s * word)
+        band_r, band_c = w[o, :].contiguous(), w[:, o].contiguous()
+        row, col = torch.empty_like(band_r), torch.empty_like(band_c)
+        for kind, fn, band, out, plain in (
+                ("fw_phase2_row", fw_phase2.fw_phase2_row, band_r, row, ref.fw_phase2_row_ref),
+                ("fw_phase2_col", fw_phase2.fw_phase2_col, band_c, col, ref.fw_phase2_col_ref)):
+            fn(diag, band, semiring=sr, out=out)
+            want = plain(diag, band, semiring=sr)
+            sync()
+            require(same(out, want), f"{kind}[{tag}] launch != plain")
+            record(f"{kind}[{tag}]", max_abs_err(out, want),
+                   event_ms(lambda: fn(diag, band, semiring=sr, out=out), 11),
+                   event_ms(lambda: plain(diag, band, semiring=sr), 3),
+                   ops * s * s * n, (s * s + 2 * s * n) * word)
+        row[:, o] = diag
+        col[o, :] = diag
+        out = torch.empty_like(w)
+        fmm.semiring_matmul(col, row, w, semiring=sr, out=out)
+        want = ref.semiring_matmul_ref(col, row, w, semiring=sr)
+        sync()
+        require(same(out, want), f"semiring_matmul[{tag}] phase-3 shape != plain")
+        err = max_abs_err(out, want)
+        del want
+        record(f"semiring_matmul[{tag}]", err,
+               event_ms(lambda: fmm.semiring_matmul(col, row, w, semiring=sr, out=out), 5),
+               event_ms(lambda: ref.semiring_matmul_ref(col, row, w, semiring=sr), 1),
+               ops * n * n * s, (2 * n * n + 2 * n * s) * word)
+        del w, out, band_r, band_c, row, col
+
+
+def phase_four_lowered(rows: dict, n: int, s: int = 128):
+    """The lowered 4-dispatch path: ``fw_staged(w, fused=False)`` at n =
+    8192 in int16, bf16 and f16 (the main path's digraph) and on one plane
+    of 32 packed graphs, with the launch counts of that run (4 kinds x n/s
+    rounds a storage), each bitwise against the lowered fused solve of the
+    same input and timed beside it (host clock around work that ends in
+    synchronize(), median of 3 after a warm-up)."""
+    from repro_torch.core.staged import fw_staged
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import minplus_matmul as fmm
+
+    inputs = four_inputs(n, seed=0)
+    fph.reset_launch_counts()
+    fmm.reset_launch_counts()
+    results = {tag: fw_staged(w, block_size=s, semiring=sr, fused=False)
+               for tag, (w, sr) in inputs.items()}
+    sync()
+    counts = {**fph.LAUNCHES, **fmm.LAUNCHES}
+    print(f"lowered 4-dispatch path launch counts: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for tag in FOUR_TAGS:
+        for kind in FOUR_KINDS:
+            k = f"{kind}[{tag}]"
+            require(counts[k] == n // s, f"{k} launched {counts[k]} times, not {n // s}")
+            rows[k]["launches"] = counts[k]
+    for tag, (w, sr) in inputs.items():
+        fused = fw_staged(w, block_size=s, semiring=sr)
+        require(results[tag].dtype == w.dtype and same(results[tag], fused),
+                f"fw_staged(fused=False)[{tag}] n={n} != the lowered fused solve")
+        del fused
+    results.clear()
+    print(f"lowered 4-dispatch check: fw_staged(fused=False) n={n} in {FOUR_TAGS} == the "
+          f"lowered fused solve, bitwise")
+
+    def timed(fn):
+        fn()
+        times = [host_ms(fn) for _ in range(3)]
+        return statistics.median(times), times
+
+    for tag, (w, sr) in inputs.items():
+        t4, all4 = timed(lambda: fw_staged(w, block_size=s, semiring=sr, fused=False))
+        tf, allf = timed(lambda: fw_staged(w, block_size=s, semiring=sr))
+        bms, by = bound(LOWERED_OPS[tag] * float(n) ** 3,
+                        (n // s) * 2.0 * n * n * LOWERED_WORD[tag])
+        print(f"lowered 4-dispatch fw_staged[{tag}] n={n}: median {t4:.2f} ms of "
+              f"{['%.2f' % t for t in all4]}, bound {bms:.2f} ms by {by}; lowered fused "
+              f"fw_staged median {tf:.2f} ms of {['%.2f' % t for t in allf]} "
+              f"({t4 / tf:.3f}x)")
+
+
 # ------------------------------------------------------------ flash decode
 def decode_tolerance(dtype, want) -> tuple[float, float]:
     """(rtol, atol) of ``flash_decode`` against a plain version: in f32 the
@@ -3129,11 +3491,14 @@ def main(argv=None) -> int:
     phase_check_dist()
     phase_check_lowered()
     phase_check_lowered_repair()
+    phase_check_lowered_four()
+    phase_check_lowered_bordered()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)
         phase_kernels_repair_del(rows, 8192, 4096)
         phase_kernels_four(rows, 8192)
+        phase_kernels_lowered_four(rows, 8192)
         phase_kernels_lowered(rows, 8192, 4096)
         phase_kernels_lowered_repair(rows, 8192, 4096)
         phase_main(rows, 8192, 4096)
@@ -3144,8 +3509,11 @@ def main(argv=None) -> int:
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)
         phase_four(rows, 8192)
+        phase_four_lowered(rows, 8192)
         phase_kernels_dist(rows, 8192)
         phase_dist(rows, 8192, 2048)
+        idle = [k for k, r in rows.items() if r["launches"] < 1]
+        require(not idle, f"kernels of the record launched no time on their paths: {idle}")
         print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

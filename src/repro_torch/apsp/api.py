@@ -12,7 +12,10 @@ Counterpart of ``repro.apsp.api.solve``:
     ``mesh=`` process grid (``launch.mesh.GridMesh``): every rank calls
     ``solve`` with the same w, the solve pads through
     ``plan.distributed_plan``, and every rank gets the full result
-    (distance only).
+    (distance only), in every storage below.  "numpy" is the host's
+    textbook loop, min-plus only, in the input's float dtype (f32, bf16,
+    f16; int16 and packed words are refused, as the reference refuses
+    them).
   * **device** — entry points run on the card (``device="cuda"``), where
     the fused round is the Hopper kernels; ``device="cpu"`` runs the plain
     versions.  Without a card, asking for "cuda" raises.
@@ -31,8 +34,7 @@ Counterpart of ``repro.apsp.api.solve``:
     ``NegativeCycleError`` when a diagonal entry is negative.
 
 Not ported yet, and refused with ``NotImplementedError``: method
-"recursive" (ROADMAP A.10), ``hbm_budget=`` (A.10), and a non-f32 or
-lowered solve on method "distributed" or "numpy" (A.4b).
+"recursive" (ROADMAP A.10) and ``hbm_budget=`` (A.10).
 """
 from __future__ import annotations
 
@@ -57,7 +59,6 @@ from repro_torch.core.semiring import (
     int_carrier,
     int_storage,
     lower_semiring,
-    require_f32_a4b,
     resolve_semiring,
     to_carrier,
 )
@@ -289,6 +290,8 @@ def _solver(
         return run
     if meth == "numpy":
         def run(wp):
+            if wp.dtype == torch.bfloat16:  # numpy has no bf16: the same loop in torch
+                return _fw_host_torch(wp.cpu()).to(wp.device)
             host = wp.cpu().numpy()
             out = np.stack([fw_numpy(g) for g in host]) if wp.ndim == 3 else fw_numpy(host)
             return torch.from_numpy(out).to(wp.device)
@@ -305,6 +308,17 @@ def _solver(
     if successors:
         return lambda wp: fw_staged_with_successors(wp, block_size=s)
     return lambda wp: fw_staged(wp, block_size=s, bk=bk, variant=variant, semiring=sr)
+
+
+def _fw_host_torch(w: torch.Tensor) -> torch.Tensor:
+    """``fw_numpy``'s loop on a host tensor in a dtype numpy lacks (bf16):
+    ``np.minimum(w, w[:, k] + w[k, :])`` as ml_dtypes computes it on
+    bfloat16 — the sum rounded to the storage, the minimum NaN-propagating
+    and, between equal operands (+0 and -0), the second one."""
+    for k in range(w.shape[-1]):
+        cand = w[..., :, k, None] + w[..., k, None, :]
+        w = torch.where((w < cand) | torch.isnan(w), w, cand)
+    return w
 
 
 def _check_negative_cycles(dist: torch.Tensor, batched: bool) -> None:
@@ -404,8 +418,6 @@ def solve(
     batched = arr.ndim == 3
     n = arr.shape[-1]
     meth, s, m = _resolve_shape(method, n, block_size, mesh)
-    if meth in ("distributed", "numpy"):
-        require_f32_a4b(sr, arr, where=f"solve(method={meth!r})")
     if meth == "distributed":
         _check_mesh_device(mesh, dev)
     if successors:

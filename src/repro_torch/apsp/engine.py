@@ -42,14 +42,15 @@ the session object for that:
     the same calls); ``repair`` runs the distributed rank-1 repair
     (``core.distributed.build_repair_shard_fn``, key method
     "repair_distributed"), ``repair_del`` the same local mark and sweep as
-    one device (its re-solve fallback is distributed).  Distance only:
-    successor requests raise.
+    one device (its re-solve fallback is distributed), in every storage
+    (the bordered round's lowerings; the repair's broadcasts move the
+    storage's bytes).  Distance only: successor requests raise, as in the
+    reference.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: method "recursive" / ``leaf`` / ``hbm_budget`` (A.10), and any
-storage but float32 under method "staged" or on a mesh (A.4b: the lowered
-4-dispatch kernels and bordered round), which is refused rather than
-widened.  The reference's
+Method "staged" runs the fused round, as the reference's engine does, in
+every storage.  Not ported yet, and refused with ``NotImplementedError``
+naming the ROADMAP item: method "recursive" / ``leaf`` / ``hbm_budget``
+(A.10).  The reference's
 TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
 no counterpart: the port has one lowering per device, chosen by
 ``device=``, and the batch of a bucket rides one launch
@@ -84,7 +85,6 @@ from repro_torch.apsp.api import (
     _solver,
 )
 from repro_torch.core.semiring import (
-    A4B,
     MIN_PLUS,
     Semiring,
     dtype_name,
@@ -202,8 +202,7 @@ class ApspEngine:
         device type must be ``device``'s).  device: "cuda" (default: the
         Hopper kernels) or "cpu" (the plain versions); without a card,
         "cuda" raises.  leaf / hbm_budget and method "recursive" are not
-        ported yet (NotImplementedError naming ROADMAP A.10), nor is a
-        lowering under method "staged" or "distributed" (A.4b).
+        ported yet (NotImplementedError naming ROADMAP A.10).
         """
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
@@ -222,10 +221,6 @@ class ApspEngine:
         check_variant(variant)
         self.method = method
         self.semiring = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
-        if self.semiring.dtype is not None or (
-                dtype is not None and dtype_name(dtype) not in ("float32", "float64")):
-            _refuse_lowered(method, f"dtype={dtype!r}, packed={packed}, semiring "
-                                    f"{self.semiring.name!r}")
         self.dtype = dtype
         self.block_size = block_size
         self.bk = bk
@@ -264,8 +259,6 @@ class ApspEngine:
         storage ``dtype``."""
         meth, s, m = _resolve_shape(self.method, n, self.block_size, self.mesh)
         dt = dtype_name(dtype)
-        if self.semiring.dtype is not None or dt != "float32":
-            _refuse_lowered(meth, f"dtype {dt}, semiring {self.semiring.name!r}")
         if successors:
             _check_successor_args(meth, self.semiring)
         if meth == "numpy" and self.semiring is not MIN_PLUS:
@@ -289,7 +282,7 @@ class ApspEngine:
         ))
         word = plan.word_for(key.dtype)
         if key.method == "distributed":
-            entry.smem_bytes = plan.round_smem_bytes(key.block_size, key.bk)
+            entry.smem_bytes = plan.round_smem_bytes(key.block_size, key.bk, word=word)
         elif key.method in ("staged", "fused"):
             entry.smem_bytes = plan.round_smem_bytes(
                 key.block_size, key.bk, successors=key.successors, word=word,
@@ -711,16 +704,6 @@ class ApspEngine:
             dist=dist, succ=succ, method=entry.key.method,
             semiring=entry.key.semiring, block_size=entry.key.block_size,
             n=n, padded_n=entry.key.n_padded,
-        )
-
-
-def _refuse_lowered(method: str, what: str) -> None:
-    """A storage lowering on a method whose lowered kernels are still to
-    port: NotImplementedError naming ROADMAP A.4b, never a silent widening."""
-    if method in ("staged", "distributed"):
-        raise NotImplementedError(
-            f"ApspEngine(method={method!r}) runs float32 only; {what} is not ported "
-            f"there yet: ROADMAP A.4b, {A4B}"
         )
 
 

@@ -22,6 +22,14 @@ the world for the pivot tile): the same bytes, and exact for every value,
 where a sum turns -0.0 into +0.0 and gloo's MIN / MAX need not propagate
 NaN as ``min.NaN`` does.
 
+Storage.  The solve runs in w's own storage: f32, or any lowering the
+fused round takes (bf16 / f16 with the five semirings, int16 with the
+``*_i16`` lowerings, packed or_and words, the int32 carrier of an integer
+or_and / plus_mul storage).  The bordered buffer, the transfer buffers
+and the band buffers are allocated in that dtype, and the broadcasts move
+its bytes (``GridMesh.broadcast``), so a rank hands 2-byte words to the
+collectives in bf16 / f16 / int16 and 4-byte ones for packed and int32.
+
 Step 2 has three lowerings, picked by ``backend``:
 
   * ``"fused"`` (default) — each rank keeps ONE bordered buffer (B, s+n_r,
@@ -39,7 +47,8 @@ Step 2 has three lowerings, picked by ``backend``:
     the tile and the panels, write the panels back on their owners, relax
     the block in k-chunks of 8, each chunk ⊕-folded from the ⊕-identity.
   * ``"pallas"`` — the same with phase 3 on the ``semiring_matmul`` kernel.
-  Both are bitwise the reference's per-phase lowerings.  They re-close the
+  Both run every storage and are bitwise the reference's per-phase
+  lowerings.  They re-close the
   pivot tile inside the panels (for plus_mul that counts its paths again)
   and fold phase 3 in another order than the fused round, so only where
   ⊕ and ⊗ round nothing (max_min, or_and) are they bitwise the fused
@@ -56,8 +65,8 @@ rounds between calls of ``checkpoint_cb`` and restarts at ``start_round``.
 ``build_repair_shard_fn`` is the distributed rank-1 repair: per edge, the
 current column u_e and row v_e are broadcast from their owners along the
 grid rows / columns and every rank applies the per-edge chain of
-``kernels.ref.fw_repair_ref`` to its block, so the result is bitwise the
-single-device repair.
+``kernels.ref.fw_repair_ref`` to its block, in the block's storage, so the
+result is bitwise the single-device repair.
 """
 from __future__ import annotations
 
@@ -65,10 +74,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import fw_round as _fr
 from repro_torch.kernels import ref
-from repro_torch.kernels.minplus_matmul import check_variant, semiring_matmul
+from repro_torch.kernels.minplus_matmul import check_variant, semiring_matmul, storage_tag
 
 BACKENDS = ("fused", "jnp", "pallas")
 
@@ -124,14 +133,30 @@ def _phase3_chunked(w, col_panel, row_panel, semiring: Semiring, chunk: int = 8)
     it does not divide s): each chunk's product is ⊕-folded from the
     ⊕-identity, k ascending, then ⊕-ed into w — the reference's
     ``_phase3_jnp``, whose mul-then-⊕-reduce XLA contracts into that FMA
-    chain for plus_mul."""
+    chain for plus_mul in f32.  In bf16 / f16 ``jnp.sum`` adds in f32 and
+    rounds once (``_sum16``)."""
     s = col_panel.shape[-1]
     chunk = chunk if s % chunk == 0 else s
+    half_sum = semiring.name == "plus_mul" and w.dtype in (torch.bfloat16, torch.float16)
     for k0 in range(0, s, chunk):
-        w = semiring.add(w, ref.semiring_matmul_ref(
-            col_panel[..., :, k0:k0 + chunk], row_panel[..., k0:k0 + chunk, :],
-            semiring=semiring, bk=chunk))
+        a, b = col_panel[..., :, k0:k0 + chunk], row_panel[..., k0:k0 + chunk, :]
+        part = (_sum16(a, b) if half_sum else
+                ref.semiring_matmul_ref(a, b, semiring=semiring, bk=chunk))
+        w = semiring.add(w, part)
     return w
+
+
+def _sum16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ_k a[:, k] · b[k, :] of 16-bit floats as XLA's CPU backend computes
+    the reference's mul-then-``jnp.sum``: the sum in f32, k ascending,
+    rounded to the storage once; each product exact in f32 for bf16 (a
+    bf16 × bf16 product fits f32's mantissa) and rounded to f16 first for
+    f16."""
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), dtype=torch.float32, device=a.device)
+    for k in range(a.shape[-1]):
+        x, y = a[..., :, k, None], b[..., k, None, :]
+        acc = acc + ((x * y).float() if a.dtype == torch.float16 else x.float() * y.float())
+    return acc.to(a.dtype)
 
 
 def build_fw_shard_fn(
@@ -150,8 +175,8 @@ def build_fw_shard_fn(
 
     ``place(w)`` copies this rank's block of the full (n, n) — or (B, n,
     n) with ``batched`` — w into a new bordered working buffer (B, s+n_r,
-    s+n_c) on the mesh's device; its ``[..., s:, s:]`` view is the local
-    block.  ``step(buf, first_round, num_rounds)`` runs rounds
+    s+n_c) in w's dtype on the mesh's device; its ``[..., s:, s:]`` view is
+    the local block.  ``step(buf, first_round, num_rounds)`` runs rounds
     [first_round, first_round + num_rounds) on it in place.  Every rank
     calls both with the same arguments (the rounds are collective).
     """
@@ -164,7 +189,6 @@ def build_fw_shard_fn(
         )
     check_variant(variant)
     s, sr = block_size, semiring
-    require_f32_a4b(sr, where="the distributed solve")
     R, C = mesh.R, mesh.C
     n_r, n_c = local_shape(n, mesh)
     if n % (R * s) or n % (C * s):
@@ -179,8 +203,8 @@ def build_fw_shard_fn(
         if w.ndim != (3 if batched else 2) or tuple(w.shape[-2:]) != (n, n):
             raise ValueError(f"w must be {'(B,n,n)' if batched else '(n,n)'} with "
                              f"n={n}, got {tuple(w.shape)}")
-        require_f32_a4b(sr, w, where="the distributed solve")
-        buf = torch.empty((*w.shape[:-2], s + n_r, s + n_c), dtype=torch.float32,
+        storage_tag(w, sr)  # the semiring's storage, never converted
+        buf = torch.empty((*w.shape[:-2], s + n_r, s + n_c), dtype=w.dtype,
                           device=mesh.device)
         buf[..., s:, s:] = local_block(w, mesh)
         return buf

@@ -255,24 +255,6 @@ def resolve_semiring(semiring: Semiring | str) -> Semiring:
     return sr
 
 
-# What of the storage lowerings is still to port (ROADMAP A.4b).
-A4B = ("the lowered bordered round (distributed solve, mesh engine) and the "
-       "lowered 4-dispatch kernels (fw_staged(fused=False), kernels.ops, engine "
-       "method='staged')")
-
-
-def require_f32_a4b(semiring: Semiring, *tensors: Tensor, where: str) -> None:
-    """The paths whose kernels are f32 only (A4B) refuse a lowering or a
-    non-f32 tensor, and never widen it: NotImplementedError naming A.4b."""
-    bad = [t.dtype for t in tensors if t.dtype != torch.float32]
-    if semiring.dtype is not None or bad:
-        what = f"semiring {semiring.name!r}" if semiring.dtype is not None else f"{bad[0]}"
-        raise NotImplementedError(
-            f"{where} runs float32 only; {what} is not ported there yet: ROADMAP "
-            f"A.4b, {A4B}"
-        )
-
-
 # ------------------------------------------------------- integer storage
 _SIGN = -(1 << 31)  # bit 31 of an int32
 

@@ -13,12 +13,12 @@ Counterpart of ``repro.core.staged.fw_staged`` and
     then ``semiring_matmul`` relaxing all of w against them.  Four kernel
     launches a round plus the splice copies, which are plain tensor copies
     as the reference's ``dynamic_update_slice`` are.  Bitwise equal to the
-    fused lowering.  f32 only: a lowered dtype or semiring raises
-    NotImplementedError (ROADMAP A.4b).
+    fused lowering.
 
-The fused round runs every storage lowering (f32, bf16, f16, the int16
-lowerings, packed or_and words) in w's own dtype; the successor round f32,
-bf16 and f16 distances.
+Both lowerings run every storage (f32, bf16, f16, the int16 lowerings,
+packed or_and words, the int32 carrier of an integer or_and / plus_mul
+storage) in w's own dtype; the successor round f32, bf16 and f16
+distances.
 
 The band buffers are allocated once per solve and reused by every round;
 a (B, n, n) input runs each launch over the whole batch.
@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.paths import _init_successors
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import fw_round as _fr
 from repro_torch.kernels.fw_phase1 import fw_phase1
 from repro_torch.kernels.fw_phase2 import fw_phase2_col, fw_phase2_row
@@ -64,7 +64,6 @@ def fw_staged(
                          f"the 4-dispatch (False) rounds")
     w = w.contiguous().clone()  # the rounds update it in place
     if fused is not None and not fused:
-        require_f32_a4b(semiring, w, where="fw_staged(fused=False)")
         return _four_dispatch(w, block_size, min(bm, n), min(bn, n), min(bk, block_size),
                               variant, semiring)
     bands = _fr.round_buffers(w, block_size) if w.is_cuda else None

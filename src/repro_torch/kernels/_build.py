@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("fw_round", "fw_round_lowered", "fw_repair", "fw_repair_lowered", "fw_repair_del",
-           "fw_repair_del_lowered", "fw_phase", "minplus_matmul", "flash_decode")
+           "fw_repair_del_lowered", "fw_phase", "fw_phase_lowered", "minplus_matmul",
+           "minplus_matmul_lowered", "flash_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

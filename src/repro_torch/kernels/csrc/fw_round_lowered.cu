@@ -22,8 +22,13 @@
 // f32 (int16, bf16, f16) or 1/32 of them per graph (packed).  Arithmetic
 // runs in 32-bit registers with the rounding or saturation of semiring.cuh
 // after every op, in the f32 chain's order (bk chunks, k ascending), so each
-// element's chain is the reference's, bit for bit.  Only the square round:
-// the lowered bordered round (distributed solve) is ROADMAP A.4b.
+// element's chain is the reference's, bit for bit.
+//
+// The bordered round of the distributed solve (fw_round.py:fw_round_bordered)
+// runs the same instantiations: the launches take the block's rows and
+// cols, the pivot and the owner-echo tiles at run time (fw_round.cu says
+// how), so the square round passes (n, n, b, -1, -1) and the bordered one
+// (rows, cols, 0, pr, pc).
 //
 // Bound on this card.  A round reads and writes n^2 words and does n^2 * s
 // relaxations.  At s = 128 the relax launch does s relaxations per word it
@@ -48,54 +53,54 @@
 namespace {
 
 // bf16 / f16: the five float semirings (or_and is max/min on {0,1}).
+#define GEOM B, rows, cols, s, b, pr, pc, bk, st
 template <class T, class R>
-int dispatch_half(int phase, int sid, T* w, T* rb, T* cb, int B, int n, int s, int b, int bk,
-                  cudaStream_t st) {
+int dispatch_half(int phase, int sid, T* w, T* rb, T* cb, int B, int rows, int cols, int s,
+                  int b, int pr, int pc, int bk, cudaStream_t st) {
   switch (sid) {
-    case 0: return dispatch_s<MinPlusH<R>>(phase, w, rb, cb, B, n, n, s, b, -1, -1, bk, st);
-    case 1: return dispatch_s<MaxPlusH<R>>(phase, w, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+    case 0: return dispatch_s<MinPlusH<R>>(phase, w, rb, cb, GEOM);
+    case 1: return dispatch_s<MaxPlusH<R>>(phase, w, rb, cb, GEOM);
     case 2:
-    case 3: return dispatch_s<MaxMin>(phase, w, rb, cb, B, n, n, s, b, -1, -1, bk, st);
-    case 4: return dispatch_s<PlusMulH<R>>(phase, w, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+    case 3: return dispatch_s<MaxMin>(phase, w, rb, cb, GEOM);
+    case 4: return dispatch_s<PlusMulH<R>>(phase, w, rb, cb, GEOM);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int dispatch_lowered(int phase, int storage, int sid, void* w, void* rowband, void* colband,
-                     int B, int n, int s, int b, int bk, cudaStream_t st) {
+                     int B, int rows, int cols, int s, int b, int pr, int pc, int bk,
+                     cudaStream_t st) {
   if (storage == 0) {
     using T = __nv_bfloat16;
     return dispatch_half<T, RoundBf16>(phase, sid, static_cast<T*>(w), static_cast<T*>(rowband),
-                                       static_cast<T*>(colband), B, n, s, b, bk, st);
+                                       static_cast<T*>(colband), GEOM);
   }
   if (storage == 1) {
     using T = __half;
     return dispatch_half<T, RoundF16>(phase, sid, static_cast<T*>(w), static_cast<T*>(rowband),
-                                      static_cast<T*>(colband), B, n, s, b, bk, st);
+                                      static_cast<T*>(colband), GEOM);
   }
   if (storage == 2) {
     short* pw = static_cast<short*>(w);
     short* rb = static_cast<short*>(rowband);
     short* cb = static_cast<short*>(colband);
     switch (sid) {
-      case 0: return dispatch_s<MinPlusI16>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
-      case 1: return dispatch_s<MaxPlusI16>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+      case 0: return dispatch_s<MinPlusI16>(phase, pw, rb, cb, GEOM);
+      case 1: return dispatch_s<MaxPlusI16>(phase, pw, rb, cb, GEOM);
       case 2:
-      case 3: return dispatch_s<MaxMinI16>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+      case 3: return dispatch_s<MaxMinI16>(phase, pw, rb, cb, GEOM);
     }
     return (int)cudaErrorInvalidValue;
   }
   int* pw = static_cast<int*>(w);
   int* rb = static_cast<int*>(rowband);
   int* cb = static_cast<int*>(colband);
-  if (storage == 3 && sid == 3)
-    return dispatch_s<OrAndPacked>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
-  if (storage == 4 && sid == 3)
-    return dispatch_s<MaxMinI16>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
-  if (storage == 4 && sid == 4)
-    return dispatch_s<PlusMulI32>(phase, pw, rb, cb, B, n, n, s, b, -1, -1, bk, st);
+  if (storage == 3 && sid == 3) return dispatch_s<OrAndPacked>(phase, pw, rb, cb, GEOM);
+  if (storage == 4 && sid == 3) return dispatch_s<MaxMinI16>(phase, pw, rb, cb, GEOM);
+  if (storage == 4 && sid == 4) return dispatch_s<PlusMulI32>(phase, pw, rb, cb, GEOM);
   return (int)cudaErrorInvalidValue;
 }
+#undef GEOM
 
 }  // namespace
 
@@ -107,8 +112,22 @@ int dispatch_lowered(int phase, int storage, int sid, void* w, void* rowband, vo
 extern "C" int fw_round_lowered_launch(int phase, int storage, int semiring, void* w,
                                        void* rowband, void* colband, int B, int n, int s,
                                        int b, int bk, void* stream) {
-  return dispatch_lowered(phase, storage, semiring, w, rowband, colband, B, n, s, b, bk,
-                          static_cast<cudaStream_t>(stream));
+  return dispatch_lowered(phase, storage, semiring, w, rowband, colband, B, n, n, s, b, -1, -1,
+                          bk, static_cast<cudaStream_t>(stream));
+}
+
+// The bordered round on the storage lowerings: w (B,rows,cols) with the
+// pivot at tile (0,0), rowband (B,s,cols), colband (B,rows,s), in the
+// storage type; pr / pc the owner-echo tile coordinates (-1 = none), shared
+// by the batch; storage and semiring as fw_round_lowered_launch.  A single
+// tile has no bands: the wrapper does not launch phase 1 when rows == cols
+// == s.
+extern "C" int fw_round_bordered_lowered_launch(int phase, int storage, int semiring, void* w,
+                                                void* rowband, void* colband, int B, int rows,
+                                                int cols, int s, int pr, int pc, int bk,
+                                                void* stream) {
+  return dispatch_lowered(phase, storage, semiring, w, rowband, colband, B, rows, cols, s, 0,
+                          pr, pc, bk, static_cast<cudaStream_t>(stream));
 }
 
 // The successor round on bf16 (storage 0) or f16 (storage 1) distances:

@@ -143,7 +143,7 @@ def repair_phase(
     u, v, w: ``edge_vectors`` on d's device in d's dtype, 1 <= E <=
     ``MAX_EDGES`` (``MAX_EDGES_LOWERED`` for a lowered d)."""
     tag = storage_tag(d, semiring)
-    sid = semiring_id(semiring, lowered=tag is not None)
+    sid = semiring_id(semiring)
     _launch("fw_repair", phase, tag, d, None, u, v, w, staged, out, None, sid)
 
 

@@ -258,7 +258,7 @@ def sweep_phase(phase: str, sw: Sweep, b: int, *, bk: int = 32,
                 semiring: Semiring = MIN_PLUS) -> None:
     """Launch one phase ("diag" | "panels" | "relax") of round b on the card."""
     tag = _sweep_tag(sw.d_init, semiring)
-    sid = semiring_id(semiring, lowered=tag is not None)
+    sid = semiring_id(semiring)
     s = sw.block_size
     ptrs = (sw.d_init.data_ptr(), sw.pos.data_ptr(), sw.rows.data_ptr(), sw.strip.data_ptr(),
             sw.band.data_ptr(), sw.acol.data_ptr(), sw.d_init.shape[0], sw.strip.shape[0], s,

@@ -14,8 +14,9 @@ lowerings of ``core.semiring`` (``csrc/fw_round_lowered.cu``, the same
 three launches on storage-typed tiles): bf16 or f16 with any of the five
 semirings, int16 with the saturating ``*_i16`` lowerings, int32 words with
 ``OR_AND_PACKED``, and the int32 carrier of an integer or_and / plus_mul
-storage (``core.semiring.to_carrier``).  The successor round takes f32, bf16 or f16 distances.
-The bordered round is f32 only (its lowered forms are ROADMAP A.4b).
+storage (``core.semiring.to_carrier``).  The bordered round takes the same
+storages (``fw_round_bordered_lowered_launch`` of the same source), the
+successor round f32, bf16 or f16 distances.
 
 The wrappers update ``w`` (and ``succ``) in place and return them.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
@@ -30,34 +31,30 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
 from repro_torch.kernels.minplus_matmul import (
+    _FLOAT_TAGS,
     BLOCK_SIZES,
+    LOWERINGS,
     _fit_block,
     _raise_on,
-    check_f32,
     check_variant,
     semiring_id,
+    storage_tag,
 )
 
 PHASES = ("diag", "bands", "relax")
-# Storage lowerings of the round (and of the repair and sweep kernels):
-# tag → storage code of csrc/fw_round_lowered.cu.  The two int32 tags share
-# the integer storage; the semiring code tells them apart.
-LOWERINGS = {"bf16": 0, "f16": 1, "int16": 2, "packed": 3, "or_and_i32": 4,
-             "plus_mul_i32": 4}
-_INT32_TAGS = {"or_and": "or_and_i32", "plus_mul": "plus_mul_i32"}
 SUCC_LOWERINGS = ("bf16", "f16")
 KINDS = (
     tuple(f"{fn}/{p}" for fn in ("fw_round", "fw_round_with_successors",
                                  "fw_round_bordered") for p in PHASES)
-    + tuple(f"fw_round/{p}[{tag}]" for tag in LOWERINGS for p in PHASES)
+    + tuple(f"{fn}/{p}[{tag}]" for fn in ("fw_round", "fw_round_bordered")
+            for tag in LOWERINGS for p in PHASES)
     + tuple(f"fw_round_with_successors/{p}[{tag}]" for tag in SUCC_LOWERINGS
             for p in PHASES)
 )
 LAUNCHES = dict.fromkeys(KINDS, 0)
-_FLOAT_TAGS = {torch.float32: None, torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def reset_launch_counts() -> None:
@@ -90,27 +87,9 @@ def _lowered_lib() -> ctypes.CDLL:
     lib.fw_round_lowered_launch.restype = i
     lib.fw_round_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_round_lowered_succ_launch.restype = i
+    lib.fw_round_bordered_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, i, i, i, p]
+    lib.fw_round_bordered_lowered_launch.restype = i
     return lib
-
-
-def storage_tag(w: torch.Tensor, semiring: Semiring) -> str | None:
-    """The storage tag of a kernel on w (None = the f32 kernels), one of
-    ``LOWERINGS``; raises TypeError where w's dtype is not the semiring's
-    storage."""
-    if semiring.packed:
-        want, tag = torch.int32, "packed"
-    elif semiring.dtype == "int16":
-        want, tag = torch.int16, "int16"
-    elif w.dtype in _FLOAT_TAGS:
-        return _FLOAT_TAGS[w.dtype]
-    elif w.dtype == torch.int32 and semiring.name in _INT32_TAGS:
-        return _INT32_TAGS[semiring.name]
-    else:
-        raise TypeError(f"w must be float32, bfloat16 or float16 (int32 for or_and, "
-                        f"plus_mul) for semiring {semiring.name!r}, got {w.dtype}")
-    if w.dtype != want:
-        raise TypeError(f"semiring {semiring.name!r} stores {want}, got w of {w.dtype}")
-    return tag
 
 
 def _check(w: torch.Tensor, block_size: int, b: int, dtype=None, what: str = "w"):
@@ -196,7 +175,7 @@ def fw_round_phase(
                                          stream)
         else:
             err = _lowered_lib().fw_round_lowered_launch(
-                PHASES.index(phase), LOWERINGS[tag], semiring_id(semiring, lowered=True),
+                PHASES.index(phase), LOWERINGS[tag], semiring_id(semiring),
                 *ptrs, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
@@ -293,12 +272,13 @@ def fw_round_with_successors(
 
 
 # ---------------------------------------------------------- bordered round
-def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col: int):
-    """(B, rows, cols) of a bordered round input; raises on what the kernels
-    do not take."""
+def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col: int,
+                    semiring: Semiring):
+    """(B, rows, cols, storage tag) of a bordered round input; raises on what
+    the kernels do not take."""
     if w.ndim not in (2, 3):
         raise ValueError(f"w must be (rows,cols) or (B,rows,cols), got {tuple(w.shape)}")
-    check_f32(w, "w of fw_round_bordered")
+    tag = storage_tag(w, semiring)
     if block_size not in BLOCK_SIZES:
         raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {block_size}")
     rows, cols = w.shape[-2:]
@@ -313,17 +293,17 @@ def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col:
         raise ValueError(f"w must lie on the CPU or a CUDA device, not {w.device}")
     if w.device.type == "cuda" and not w.is_contiguous():
         raise ValueError("w must be contiguous")
-    return (w.shape[0] if w.ndim == 3 else 1), rows, cols
+    return (w.shape[0] if w.ndim == 3 else 1), rows, cols, tag
 
 
 def bordered_round_buffers(w: torch.Tensor, block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(rowband (B,s,cols), colband (B,rows,s)) f32 buffers for
+    """(rowband (B,s,cols), colband (B,rows,s)) buffers in w's dtype for
     ``fw_round_bordered`` on w (rows, cols) or (B, rows, cols)."""
     B = w.shape[0] if w.ndim == 3 else 1
     rows, cols = w.shape[-2:]
     s = block_size
-    return (torch.empty((B, s, cols), dtype=torch.float32, device=w.device),
-            torch.empty((B, rows, s), dtype=torch.float32, device=w.device))
+    return (torch.empty((B, s, cols), dtype=w.dtype, device=w.device),
+            torch.empty((B, rows, s), dtype=w.dtype, device=w.device))
 
 
 def fw_round_bordered_phase(
@@ -334,25 +314,27 @@ def fw_round_bordered_phase(
     the card."""
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-    B, rows, cols = _check_bordered(w, block_size, owner_row, owner_col)
+    B, rows, cols, tag = _check_bordered(w, block_size, owner_row, owner_col, semiring)
     if w.device.type != "cuda":
         raise ValueError("fw_round_bordered_phase launches a CUDA kernel; w is on the CPU")
     s = block_size
     want = [(B, s, cols), (B, rows, s)]
-    if len(bands) != 2 or any(tuple(t.shape) != sh or t.device != w.device
+    if len(bands) != 2 or any(tuple(t.shape) != sh or t.dtype != w.dtype or t.device != w.device
                               or not t.is_contiguous() for t, sh in zip(bands, want)):
-        raise ValueError(f"band buffers must be {want} on {w.device}, contiguous")
+        raise ValueError(f"band buffers must be {want} {w.dtype} on {w.device}, contiguous")
     sid = semiring_id(semiring)
     if phase == "bands" and rows == cols == s:
         return  # a single tile has no bands to close
-    kind = f"fw_round_bordered/{phase}"
+    kind = f"fw_round_bordered/{phase}" + (f"[{tag}]" if tag else "")
+    geom = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, rows, cols, s,
+            owner_row, owner_col, _fit_block(s, bk))
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _lib().fw_round_bordered_launch(
-            PHASES.index(phase), w.data_ptr(), bands[0].data_ptr(),
-            bands[1].data_ptr(), B, rows, cols, s, owner_row, owner_col,
-            _fit_block(s, bk), sid, stream,
-        )
+        if tag is None:
+            err = _lib().fw_round_bordered_launch(PHASES.index(phase), *geom, sid, stream)
+        else:
+            err = _lowered_lib().fw_round_bordered_lowered_launch(
+                PHASES.index(phase), LOWERINGS[tag], sid, *geom, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
 
@@ -362,7 +344,8 @@ def fw_round_bordered(
     block_size: int = 128, bk: int = 32, variant: str = "fori",
     semiring: Semiring = MIN_PLUS, bands=None,
 ) -> torch.Tensor:
-    """One bordered round of w (rows, cols) or (B, rows, cols), f32, in place.
+    """One bordered round of w (rows, cols) or (B, rows, cols), in place: f32,
+    or any storage ``fw_round`` takes with its semiring.
 
     w is a rank's pivot-bordered block: the raw (s, s) pivot tile in the
     top-left corner, the raw pivot row / column panel slices as the first
@@ -372,8 +355,7 @@ def fw_round_bordered(
     holds none (shared by a batch).  bands: ``bordered_round_buffers(w,
     block_size)`` to reuse across rounds (allocated here when None).
     """
-    _check_bordered(w, block_size, owner_row, owner_col)
-    require_f32_a4b(semiring, where="fw_round_bordered")
+    _check_bordered(w, block_size, owner_row, owner_col, semiring)
     check_variant(variant)
     if w.device.type == "cpu":
         return w.copy_(ref.fw_round_bordered_ref(

@@ -1,15 +1,22 @@
 """The staged semiring matmul and the relaxation chain it folds.
 
 ``semiring_matmul`` replaces ``repro.kernels.minplus_matmul.semiring_matmul``:
-C [⊕=] A ⊗⊕ B for (m,k)·(k,n) or batched (B,m,k)·(B,k,n) f32 operands,
-any m, k, n >= 1.  A tensor on the CPU goes to the plain version
+C [⊕=] A ⊗⊕ B for (m,k)·(k,n) or batched (B,m,k)·(B,k,n) operands, any
+m, k, n >= 1, in f32 or a storage lowering (``storage_tag``: bf16 / f16
+with a float semiring, int16 with an ``*_i16`` lowering, int32 words with
+``OR_AND_PACKED``, the int32 carrier of an integer or_and / plus_mul
+storage).  A tensor on the CPU goes to the plain version
 (``kernels.ref.semiring_matmul_ref``), a CUDA tensor to the kernel of
-``csrc/minplus_matmul.cu``, and a launch that fails raises; there is no
-fallback between the two.  ``LAUNCHES`` counts the kernel's launches.
+``csrc/minplus_matmul.cu`` (f32) or ``csrc/minplus_matmul_lowered.cu``,
+and a launch that fails raises; there is no fallback between the two and
+no lowered input is widened.  ``LAUNCHES`` counts the kernel's launches,
+a lowered one under its own kind (``semiring_matmul[int16]``).
 
-Beside it, the torch counterparts of the reference's ``_fit_block`` and of
-the k-ascending variants of ``_stage_compute``, the chain every phase-3
-relaxation of the port folds.
+Beside it, what every kernel wrapper of the port shares: the storage tags
+and the semiring codes of the CUDA sources, operand checks, and the torch
+counterparts of the reference's ``_fit_block`` and of the k-ascending
+variants of ``_stage_compute``, the chain every phase-3 relaxation of the
+port folds.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.core.semiring import MIN_PLUS, Semiring, require_f32_a4b
+from repro_torch.core.semiring import MIN_PLUS, Semiring
 
 VARIANTS = ("fori", "unroll")
 
@@ -65,27 +72,43 @@ def _raise_on(err: int, kind: str) -> None:
         raise RuntimeError(f"{kind} launch failed: cudaError_t {err}")
 
 
-# Storage types of the lowerings, which the f32-only kernels refuse (A.4b).
-_LOWERED_STORAGE = (torch.bfloat16, torch.float16, torch.int16, torch.int32)
+# Storage lowerings of the kernels: tag → storage code of the *_lowered.cu
+# sources.  The two int32 tags share the integer storage; the semiring code
+# tells them apart.
+LOWERINGS = {"bf16": 0, "f16": 1, "int16": 2, "packed": 3, "or_and_i32": 4,
+             "plus_mul_i32": 4}
+_INT32_TAGS = {"or_and": "or_and_i32", "plus_mul": "plus_mul_i32"}
+_FLOAT_TAGS = {torch.float32: None, torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
-def check_f32(t: torch.Tensor, what: str) -> None:
-    """f32, or raise: NotImplementedError naming ROADMAP A.4b for a lowered
-    storage type (never widened), TypeError for any other."""
-    if t.dtype in _LOWERED_STORAGE:
-        raise NotImplementedError(
-            f"{what} is {t.dtype}: this kernel runs float32 only; its lowered "
-            f"forms are not ported yet (ROADMAP A.4b)"
-        )
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what} must be torch.float32, got {t.dtype}")
+def storage_tag(w: torch.Tensor, semiring: Semiring) -> str | None:
+    """The storage tag of a kernel on w (None = the f32 kernels), one of
+    ``LOWERINGS``; raises TypeError where w's dtype is not the semiring's
+    storage."""
+    if semiring.packed:
+        want, tag = torch.int32, "packed"
+    elif semiring.dtype == "int16":
+        want, tag = torch.int16, "int16"
+    elif w.dtype in _FLOAT_TAGS:
+        return _FLOAT_TAGS[w.dtype]
+    elif w.dtype == torch.int32 and semiring.name in _INT32_TAGS:
+        return _INT32_TAGS[semiring.name]
+    else:
+        raise TypeError(f"w must be float32, bfloat16 or float16 (int32 for or_and, "
+                        f"plus_mul) for semiring {semiring.name!r}, got {w.dtype}")
+    if w.dtype != want:
+        raise TypeError(f"semiring {semiring.name!r} stores {want}, got w of {w.dtype}")
+    return tag
 
 
-def check_operand(t: torch.Tensor, what: str) -> None:
-    """f32, (r, c) or (B, r, c), on the CPU or a CUDA device."""
+def check_operand(t: torch.Tensor, what: str, like: torch.Tensor | None = None) -> None:
+    """(r, c) or (B, r, c), on the CPU or a CUDA device, and (given
+    ``like``) in like's dtype: the storage is never converted."""
     if t.ndim not in (2, 3):
         raise ValueError(f"{what} must be 2-D or batched 3-D, got {tuple(t.shape)}")
-    check_f32(t, what)
+    if like is not None and t.dtype != like.dtype:
+        raise TypeError(f"{what} is {t.dtype}, the other operands {like.dtype}: one "
+                        f"storage dtype throughout")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {t.device}")
 
@@ -99,51 +122,58 @@ def view_args(t: torch.Tensor, what: str) -> tuple[int, int, int]:
 
 
 def output(out, shape, like: torch.Tensor, what: str = "out") -> torch.Tensor:
-    """``out`` checked against shape and device, or a new tensor."""
+    """``out`` checked against shape, dtype and device, or a new tensor in
+    like's dtype."""
     if out is None:
-        return torch.empty(shape, dtype=torch.float32, device=like.device)
-    if tuple(out.shape) != tuple(shape) or out.device != like.device or out.dtype != torch.float32:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if tuple(out.shape) != tuple(shape) or out.device != like.device or out.dtype != like.dtype:
         raise ValueError(f"{what} {tuple(out.shape)} {out.dtype} on {out.device} does not "
-                         f"fit a float32 result {tuple(shape)} on {like.device}")
+                         f"fit a {like.dtype} result {tuple(shape)} on {like.device}")
     return out
 
 
-def semiring_id(semiring: Semiring, *, lowered: bool = False) -> int:
-    """The kernels' semiring code.  A storage lowering raises (A.4b) unless
-    ``lowered``: the lowered round maps it to its abstract semiring's code
-    (``min_plus_i16`` → min_plus, ``or_and_packed`` → or_and), and its
-    storage code tells the two apart."""
-    name = semiring.name
-    if semiring.dtype is not None:
-        if not lowered:
-            raise NotImplementedError(
-                f"semiring {name!r} is a storage lowering: this kernel runs "
-                f"float32 only (ROADMAP A.4b)"
-            )
-        name = name.removesuffix("_i16").removesuffix("_packed")
-    sid = _SEMIRING_IDS.get(name)
+def semiring_id(semiring: Semiring) -> int:
+    """The kernels' semiring code: a lowering maps to its abstract
+    semiring's (``min_plus_i16`` → min_plus, ``or_and_packed`` → or_and),
+    and the storage code tells the two apart."""
+    sid = _SEMIRING_IDS.get(semiring.name.removesuffix("_i16").removesuffix("_packed"))
     if sid is None:
         raise ValueError(f"no CUDA kernel for semiring {semiring.name!r}")
     return sid
 
 
+def zero_bits(semiring: Semiring, dtype: torch.dtype) -> int:
+    """The bits of the semiring's ⊕-identity in the storage ``dtype``, as the
+    unsigned int the kernels take (the low 16 bits for 2-byte storages)."""
+    z = torch.tensor(semiring.zero, dtype=dtype)
+    width = z.element_size() * 8
+    return int(z.view({16: torch.int16, 32: torch.int32}[width])) & ((1 << width) - 1)
+
+
 # ------------------------------------------------------------- the kernel
-LAUNCHES = {"semiring_matmul": 0}
+KINDS = ("semiring_matmul",) + tuple(f"semiring_matmul[{tag}]" for tag in LOWERINGS)
+LAUNCHES = dict.fromkeys(KINDS, 0)
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["semiring_matmul"] = 0
+    for kind in LAUNCHES:
+        LAUNCHES[kind] = 0
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(lowered: bool = False) -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
-    lib = _build.load("minplus_matmul")
-    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.semiring_matmul_launch.argtypes = [p, q, q, p, q, q, p, q, q, p, q, q,
-                                           i, i, i, i, ctypes.c_float, i, p]
-    lib.semiring_matmul_launch.restype = i
+    p, i, q, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+    operands = [p, q, q, p, q, q, p, q, q, p, q, q, i, i, i, i, u]
+    if lowered:
+        lib = _build.load("minplus_matmul_lowered")
+        lib.semiring_matmul_lowered_launch.argtypes = [i, i] + operands + [p]
+        lib.semiring_matmul_lowered_launch.restype = i
+    else:
+        lib = _build.load("minplus_matmul")
+        lib.semiring_matmul_launch.argtypes = operands + [i, p]
+        lib.semiring_matmul_launch.restype = i
     return lib
 
 
@@ -172,8 +202,10 @@ def semiring_matmul(
     variant: str = "fori", out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """C [⊕=] A ⊗⊕ B: a (m,k) or (B,m,k), b (k,n) or (B,k,n), optional c of
-    the result's shape; f32.  Without c the fold starts from the
-    semiring's zero.  Returns a new tensor; c is left as it was.
+    the result's shape, all in one storage dtype (f32 or the semiring's
+    lowering, ``storage_tag``).  Without c the fold starts from the
+    semiring's zero.  Returns a new tensor in that dtype; c is left as it
+    was.
 
     bm / bn / bk: the reference's tile and staging depth, which choose no
     element's chain; accepted, the kernel tiles its own way.  variant:
@@ -184,9 +216,9 @@ def semiring_matmul(
     from repro_torch.kernels import ref  # ref imports this module
 
     check_variant(variant)
-    require_f32_a4b(semiring, where="semiring_matmul")
     for t, what in ((a, "a"), (b, "b")) + (() if c is None else ((c, "c"),)):
-        check_operand(t, what)
+        check_operand(t, what, a)
+    tag = storage_tag(a, semiring)
     B, m, k, n = _shapes(a, b)
     shape = (B, m, n) if a.ndim == 3 else (m, n)
     if c is not None and tuple(c.shape) != shape:
@@ -200,11 +232,16 @@ def semiring_matmul(
     if max(B, 1) > 65535 or -(-m // 128) > 65535:
         raise ValueError(f"grid too large for {tuple(a.shape)} @ {tuple(b.shape)}")
     cv = (None, 0, 0) if c is None else view_args(c, "c")
+    args = (*view_args(a, "a"), *view_args(b, "b"), *cv, *view_args(out, "out"),
+            max(B, 1), m, n, k, zero_bits(semiring, a.dtype))
+    kind = "semiring_matmul" + (f"[{tag}]" if tag else "")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib().semiring_matmul_launch(
-            *view_args(a, "a"), *view_args(b, "b"), *cv, *view_args(out, "out"),
-            max(B, 1), m, n, k, semiring.zero, semiring_id(semiring), stream)
-    _raise_on(err, "semiring_matmul")
-    LAUNCHES["semiring_matmul"] += 1
+        if tag is None:
+            err = _lib().semiring_matmul_launch(*args, semiring_id(semiring), stream)
+        else:
+            err = _lib(True).semiring_matmul_lowered_launch(
+                LOWERINGS[tag], semiring_id(semiring), *args, stream)
+    _raise_on(err, kind)
+    LAUNCHES[kind] += 1
     return out

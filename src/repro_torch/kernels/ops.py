@@ -1,12 +1,14 @@
 """Public wrappers over the kernels: counterpart of ``repro.kernels.ops``.
 
 ``minplus_matmul``, ``fw_phase3`` and ``transitive_closure`` as in the
-reference, and the same re-exports.  The matmul and phase kernels run
-float32 only: a lowered dtype or semiring raises ``NotImplementedError``
-naming ROADMAP A.4b; ``fw_round`` / ``fw_round_with_successors`` and so
-``transitive_closure`` take the storage lowerings too.  Each runs where its tensors lie: the
-CUDA kernels for tensors on the card, the plain versions for tensors on
-the CPU.  The reference's ``default_interpret`` / ``default_gpu_interpret``
+reference, and the same re-exports.  Every kernel takes f32 or a storage
+lowering and keeps it: ``fw_phase3(semiring=<lowering>)`` on int16 or
+packed words, any float semiring on bf16 / f16 tensors, the int32 carrier
+of an integer or_and / plus_mul storage (``minplus_matmul`` stays
+min-plus, as in the reference; ``fw_round_with_successors`` takes f32,
+bf16 and f16 distances).  Each runs where its tensors lie: the CUDA
+kernels for tensors on the card, the plain versions for tensors on the
+CPU.  The reference's ``default_interpret`` / ``default_gpu_interpret``
 choose Pallas's interpret mode on a machine without a TPU or GPU; the
 port's kernels have no interpret mode, so they have no counterpart here.
 """

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.fw_dist_check --devices 4 --n 256 --bs 32 --bitwise
     python -m repro_torch.launch.fw_dist_check --devices 8 --n 96 --bs 32 \\
         --method solve --bitwise --semiring plus_mul --device cpu
+    python -m repro_torch.launch.fw_dist_check --devices 4 --n 256 --bs 32 \\
+        --bitwise --dtype int16 --device cpu
 
 Counterpart of ``repro.launch.fw_dist_check``.  Spawns the R×C grid of
 ``launch.mesh.run_grid`` (R, C = ``plan.mesh_factorization(--devices)``) on
@@ -17,6 +19,14 @@ Exit code 0 on success.  Modes:
   --method solve   through ``solve(method="distributed")``, which pads any n
                    through ``plan.distributed_plan`` (e.g. --n 96); --batch B
                    closes B graphs at once.
+  --dtype D        the storage: float32 (default), bfloat16, float16, or
+                   int16 (the semiring's saturating ``*_i16`` lowering);
+                   --semiring also takes a lowering's name (min_plus_i16,
+                   or_and_packed).  Lowered checks need --bitwise: they hold
+                   against the lowered single-device fused solve.
+  --packed         or_and on bit-packed words: 32 graphs a word (``--batch``
+                   words), closed by ``OR_AND_PACKED``; with --repair the
+                   mesh repair of one word plane.
   --chunked        direct mode in chunks of a quarter of the rounds,
                    restarted from the half-way checkpoint: both runs ==
                    the single-device solve.
@@ -46,11 +56,21 @@ import numpy as np
 import torch
 
 from repro_torch.apsp import ApspEngine, plan, solve
+from repro_torch.apsp.api import _coerce
 from repro_torch.core.distributed import fw_distributed, gather, local_block
 from repro_torch.core.floyd_warshall import fw_naive
 from repro_torch.core.graph import random_digraph
-from repro_torch.core.semiring import SEMIRINGS
+from repro_torch.core.semiring import (
+    LOWERED_SEMIRINGS,
+    PACK_LANES,
+    SEMIRINGS,
+    Semiring,
+    lower_semiring,
+    resolve_semiring,
+)
 from repro_torch.kernels import fw_round as fr
+
+STORAGES = ("float32", "bfloat16", "float16", "int16")
 from repro_torch.launch.mesh import run_grid
 
 
@@ -133,12 +153,48 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
         ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def _inputs(cfg: dict, device) -> torch.Tensor:
+def storage_semiring(cfg: dict) -> Semiring:
+    """The semiring a check runs: cfg's "semiring" (a lowering's name too),
+    lowered to cfg's "dtype" / "packed" storage."""
+    sr = resolve_semiring(cfg["semiring"])
+    if cfg.get("packed"):
+        return lower_semiring(sr, packed=True)
+    return lower_semiring(sr, cfg.get("dtype"))
+
+
+def _base(sr: Semiring) -> str:
+    return sr.name.removesuffix("_i16").removesuffix("_packed")
+
+
+def packed_words(n: int, batch: int, seed: int, device) -> torch.Tensor:
+    """``batch`` planes of 32 random or_and graphs a word, (batch, n, n)
+    int32 on device: edge probability min(0.05, 4/n) (a closure that grows
+    over many rounds), self-loops set; drawn on the device, so a plane of
+    n = 8192 costs no host memory, and the same on every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    words = torch.zeros((batch, n, n), dtype=torch.int32, device=device)
+    for lane in range(PACK_LANES):
+        bit = (1 << lane) if lane < 31 else -(1 << 31)
+        edges = torch.rand((batch, n, n), generator=gen, device=device) < min(0.05, 4.0 / n)
+        words |= edges.to(torch.int32) * bit
+    idx = torch.arange(n, device=device)
+    words[:, idx, idx] = -1
+    return words
+
+
+def _inputs(cfg: dict, device, sr: Semiring) -> torch.Tensor:
+    """cfg's input in sr's storage on device: ``graph_for`` graphs cast to
+    the dtype, clipped into int16, or ``packed_words``."""
     n, B = cfg["n"], cfg.get("batch", 1)
-    graphs = [graph_for(cfg["semiring"], n, seed=cfg.get("seed", 0) + i,
-                        density=cfg.get("density", 0.3)) for i in range(B)]
-    w = graphs[0] if B == 1 else np.stack(graphs)
-    return torch.from_numpy(w).to(device)
+    seed, density = cfg.get("seed", 0), cfg.get("density", 0.3)
+    if sr.packed:
+        words = packed_words(n, B, seed, device)
+        return words[0] if B == 1 else words
+    graphs = [graph_for(_base(sr), n, seed=seed + i, density=density) for i in range(B)]
+    w = torch.from_numpy(graphs[0] if B == 1 else np.stack(graphs)).to(device)
+    if sr.dtype == "int16":
+        return _coerce(w, sr, None, device)
+    return w.to(getattr(torch, cfg.get("dtype") or "float32"))
 
 
 def _sync(device) -> None:
@@ -171,11 +227,12 @@ def _check(mesh, cfg: dict) -> dict:
     if cfg.get("repair"):
         return _check_repair(mesh, cfg)
     dev = mesh.device
-    sr = SEMIRINGS[cfg["semiring"]]
-    w = _inputs(cfg, dev)
+    sr = storage_semiring(cfg)
+    w = _inputs(cfg, dev, sr)
     s, backend = cfg.get("bs"), cfg.get("backend", "fused")
     rec = dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=cfg["n"], batch=cfg.get("batch", 1),
-               semiring=sr.name, method=cfg.get("method", "direct"), backend=backend)
+               semiring=sr.name, dtype=str(w.dtype).removeprefix("torch."),
+               method=cfg.get("method", "direct"), backend=backend)
     single = functools.partial(solve, method="fused", semiring=sr, validate=False,
                                device=dev.type)
     mesh.comm_bytes = mesh.staged_bytes = 0
@@ -192,11 +249,12 @@ def _check(mesh, cfg: dict) -> dict:
     local = run()
     _sync(dev)
     rounds = cfg["n"] // s
+    graphs = w.shape[0] if w.ndim == 3 else 1
     rec.update(block_size=s, rounds=rounds, comm_bytes=mesh.comm_bytes,
                launches={k: fr.LAUNCHES[k] for k in fr.KINDS if "bordered" in k},
                staged_bytes=mesh.staged_bytes,
                model_bytes=rounds * plan.dist_round_comm_bytes(
-                   cfg["n"], mesh.R, mesh.C, s, batch=rec["batch"]))
+                   cfg["n"], mesh.R, mesh.C, s, word=w.element_size(), batch=graphs))
     if cfg.get("bitwise", True):
         want = local_block(single(w, block_size=s).dist, mesh)
         rec["ok"] = same(local, want)
@@ -209,7 +267,7 @@ def _check(mesh, cfg: dict) -> dict:
     if cfg.get("reps"):
         rec["ms"], rec["times"] = _median_ms(run, dev, cfg["reps"])
     if cfg.get("breakdown"):
-        rec["breakdown"], rec["breakdown_ok"] = _breakdown(w, s, want)
+        rec["breakdown"], rec["breakdown_ok"] = _breakdown(w, s, want, sr)
     return rec
 
 
@@ -241,7 +299,7 @@ def _check_chunked(mesh, w, cfg, s, sr, backend, want) -> bool:
     return ckpts == want_ckpts and same(first, want) and same(again, want)
 
 
-def _breakdown(w, s, want) -> tuple[dict, bool]:
+def _breakdown(w, s, want, sr: Semiring) -> tuple[dict, bool]:
     """Device time by launch kind of a 1×1 grid's fused rounds (CUDA events
     between launches; each share includes the gap after it): the owner's
     three border copies and the three bordered launches a round."""
@@ -262,7 +320,7 @@ def _breakdown(w, s, want) -> tuple[dict, bool]:
         steps.append(("border copies", copies))
         steps += [(f"fw_round_bordered/{p}",
                    functools.partial(fr.fw_round_bordered_phase, p, buf, b + 1, b + 1, bands,
-                                     block_size=s)) for p in fr.PHASES]
+                                     block_size=s, semiring=sr)) for p in fr.PHASES]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(steps) + 1)]
     torch.cuda.synchronize()
     for (_, launch), e in zip(steps, ev):
@@ -277,24 +335,49 @@ def _breakdown(w, s, want) -> tuple[dict, bool]:
     return per, same(loc, want)
 
 
+def lowered_repair_scenario(sr: Semiring, n: int, seed: int = 0, edges: int = 2):
+    """(w, updates) of a repair that is exact in sr's storage: packed — one
+    plane of ``packed_words``, each update an int32 mask of the lanes that
+    gain the edge; otherwise min-plus integer weights in
+    [1, 16] (path sums far below 256, exact in bf16, f16 and int16), a
+    missing edge the ⊕-identity, each update an improving weight 1."""
+    rng = np.random.default_rng(seed)
+    uv = [(int(u), int(v)) for u, v in rng.integers(0, n, (edges, 2))]
+    if sr.packed:
+        masks = rng.integers(-(1 << 31), 1 << 31, edges)
+        return packed_words(n, 1, seed, "cpu"), [(u, v, int(m)) for (u, v), m in zip(uv, masks)]
+    w = rng.integers(1, 17, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) > max(0.02, min(0.3, 16.0 / n))] = np.inf
+    np.fill_diagonal(w, 0.0)
+    return w, [(u, v, 1.0) for u, v in uv]
+
+
 def _check_repair(mesh, cfg: dict) -> dict:
-    """Mesh repair == single-device repair == re-solve of the updated graph."""
+    """Mesh repair == single-device repair == re-solve of the updated graph;
+    in a lowered storage on ``lowered_repair_scenario``."""
     dev = mesh.device
     name, n = cfg["semiring"], cfg["n"]
-    sr = SEMIRINGS[name]
-    w0, upd, baseline = repair_scenario(name, n, seed=cfg.get("seed", 0),
-                                        edges=cfg.get("edges"))
-    single = ApspEngine(method=baseline, semiring=sr, validate=False, device=dev.type)
-    dist = ApspEngine(method="distributed", mesh=mesh, semiring=sr, validate=False,
-                      device=dev.type)
+    sr = storage_semiring(cfg)
+    if _lowered(cfg):
+        w0, upd = lowered_repair_scenario(sr, n, seed=cfg.get("seed", 0),
+                                          edges=cfg.get("edges") or 2)
+        w1, baseline = _apply_lowered(w0, upd, sr), "fused"
+    else:
+        w0, upd, baseline = repair_scenario(name, n, seed=cfg.get("seed", 0),
+                                            edges=cfg.get("edges"))
+        w1 = apply_updates(w0, upd, name)
+    kw = dict(semiring=sr, dtype=cfg.get("dtype"), validate=False, device=dev.type)
+    single = ApspEngine(method=baseline, **kw)
+    dist = ApspEngine(method="distributed", mesh=mesh, **kw)
     d0 = single.solve(w0).dist
     mesh.comm_bytes = 0
     rd = dist.repair(d0, upd).dist
     comm = mesh.comm_bytes
     rs = single.repair(d0, upd).dist
-    want = single.solve(apply_updates(w0, upd, name)).dist
-    rec = dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=n, semiring=name, edges=len(upd),
-               repair=True, comm_bytes=comm, ok=same(rd, rs) and same(rs, want))
+    want = single.solve(w1).dist
+    rec = dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=n, semiring=sr.name, edges=len(upd),
+               dtype=str(rd.dtype).removeprefix("torch."), repair=True, comm_bytes=comm,
+               ok=same(rd, rs) and same(rs, want))
     del rd, rs, want
     if cfg.get("reps"):
         rec["ms"], rec["times"] = _median_ms(lambda: dist.repair(d0, upd), dev, cfg["reps"])
@@ -306,6 +389,24 @@ def _check_repair(mesh, cfg: dict) -> dict:
     return rec
 
 
+def _lowered(cfg: dict) -> bool:
+    """Does cfg ask for a storage lowering (not f32)?"""
+    return (cfg.get("dtype") not in (None, "float32") or bool(cfg.get("packed"))
+            or resolve_semiring(cfg["semiring"]).dtype is not None)
+
+
+def _apply_lowered(w0, upd, sr: Semiring):
+    """The updated weights of ``lowered_repair_scenario``: the improved
+    weight (min) or the gained lanes (OR)."""
+    w1 = w0.clone() if sr.packed else np.array(w0, copy=True)
+    for u, v, x in upd:
+        if sr.packed:
+            w1[..., u, v] |= x
+        else:
+            w1[u, v] = min(w1[u, v], x)
+    return w1
+
+
 def run_cases(mesh, cases: list[dict]) -> list[dict]:
     """Raw results of each case on this rank, as numpy arrays, for a test to
     hold against the reference.  Kinds: "direct" (``fw_distributed`` of w,
@@ -315,37 +416,79 @@ def run_cases(mesh, cases: list[dict]) -> list[dict]:
     of a closure), "engine" (``ApspEngine.solve_many`` twice, with the plan
     cache's builds), "refusals" (the message of each successor request the
     mesh engine refuses), "imports" (whether the rank has loaded ``jax`` or
-    ``repro``)."""
+    ``repro``), "grid_check" (``grid_check`` of the case's "cfgs"),
+    "broadcast" (each of the case's per-rank tensors broadcast over the
+    world, the rank's grid row and its grid column, as received).
+
+    A case's "semiring" may name a lowering; "dtype" casts its float input
+    (bf16 travels as f32 numpy, which has no bf16) and pins an engine's
+    storage, "packed" runs ``solve`` / the engine on packed or_and words.
+    Results come back in their storage dtype, bf16 widened to f32 (exact)
+    and named in "dtype"."""
     return [_run_case(mesh, case) for case in cases]
+
+
+def _broadcasts(mesh, data: dict) -> dict:
+    """data: {dtype name: [each rank's numpy array]} (bf16 by its int16
+    bits).  Every rank broadcasts its own array from rank 1 over the world,
+    from column 0 along its grid row and from row 0 along its grid column;
+    returns what it received (bf16 as int16 bits) and the bytes counted."""
+    out, mesh.comm_bytes = {}, 0
+    for name, per_rank in data.items():
+        own = torch.from_numpy(per_rank[mesh.rank])
+        if name == "bfloat16":
+            own = own.view(torch.bfloat16)
+        for label, group, src in (("world", None, 1),
+                                  ("row", mesh.row_group, mesh.rank_of(mesh.my_r, 0)),
+                                  ("col", mesh.col_group, mesh.rank_of(0, mesh.my_c))):
+            t = own.clone().to(mesh.device)
+            mesh.broadcast(t, src, group)
+            t = t.cpu()
+            out[(name, label)] = (src, (t.view(torch.int16) if name == "bfloat16"
+                                        else t).numpy())
+    return dict(received=out, comm_bytes=mesh.comm_bytes)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _run_case(mesh, case: dict) -> dict:
     dev = mesh.device
     kind = case["kind"]
-    sr = SEMIRINGS[case.get("semiring", "min_plus")]
-    host = lambda t: t.cpu().numpy()  # noqa: E731
+    sr = resolve_semiring(case.get("semiring", "min_plus"))
+    dtype, packed = case.get("dtype"), case.get("packed", False)
+    host = _host
     if kind == "imports":
         return {name: name in sys.modules for name in ("jax", "repro")}
+    if kind == "grid_check":
+        return dict(recs=grid_check(mesh, case["cfgs"]))
+    if kind == "broadcast":
+        return _broadcasts(mesh, case["data"])
     if kind == "engine":
-        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr,
-                         block_size=case.get("bs"), validate=False, device=dev.type)
+        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, dtype=dtype,
+                         packed=packed, block_size=case.get("bs"), validate=False,
+                         device=dev.type)
         first = eng.solve_many(case["graphs"])
         misses = eng.stats.misses
         eng.solve_many(case["graphs"])
         return dict(dists=[host(r.dist) for r in first], misses=misses,
                     hits=eng.stats.hits, cache_size=eng.cache_size,
+                    dtype=str(first[0].dist.dtype).removeprefix("torch."),
                     traces=[e.traces for e in eng._cache.values()])
     if kind in ("repair", "repair_del", "refusals"):
-        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, validate=False,
-                         device=dev.type)
+        eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, dtype=dtype,
+                         packed=packed, validate=False, device=dev.type)
         if kind == "repair":
             res = eng.repair(case["dist"], case["updates"])
-            return dict(dist=host(res.dist), padded_n=res.padded_n)
+            return dict(dist=host(res.dist), padded_n=res.padded_n,
+                        dtype=str(res.dist.dtype).removeprefix("torch."))
         if kind == "repair_del":
             res = eng.repair_del(case["dist"], case["w1"], case["deletions"],
                                  threshold=case.get("threshold", 0.5))
             return dict(dist=host(res.dist), sweeps=eng.stats.repair_dels,
-                        fallbacks=eng.stats.repair_del_fallbacks)
+                        fallbacks=eng.stats.repair_del_fallbacks,
+                        dtype=str(res.dist.dtype).removeprefix("torch."))
         w = case["w"]
         d = eng.solve(w).dist
         calls = dict(solve=lambda: eng.solve(w, successors=True),
@@ -362,9 +505,12 @@ def _run_case(mesh, case: dict) -> dict:
     w = torch.as_tensor(case["w"]).to(dev)
     s = case.get("bs")
     if kind == "solve":
-        res = solve(w, method="distributed", mesh=mesh, semiring=sr, block_size=s,
-                    validate=False, device=dev.type)
-        return dict(dist=host(res.dist), block_size=res.block_size, padded_n=res.padded_n)
+        res = solve(w, method="distributed", mesh=mesh, semiring=sr, dtype=dtype,
+                    packed=packed, block_size=s, validate=False, device=dev.type)
+        return dict(dist=host(res.dist), block_size=res.block_size, padded_n=res.padded_n,
+                    dtype=str(res.dist.dtype).removeprefix("torch."))
+    if dtype is not None:
+        w = w.to(getattr(torch, dtype))
     kw = dict(block_size=s, semiring=sr, backend=case.get("backend", "fused"))
     if kind == "direct":
         mesh.comm_bytes = 0
@@ -385,7 +531,12 @@ def main(argv=None) -> int:
     ap.add_argument("--devices", type=int, default=4, help="ranks of the grid")
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--bs", type=int, default=32)
-    ap.add_argument("--semiring", default="min_plus", choices=sorted(SEMIRINGS))
+    ap.add_argument("--semiring", default="min_plus",
+                    choices=sorted(SEMIRINGS) + sorted(LOWERED_SEMIRINGS))
+    ap.add_argument("--dtype", default="float32", choices=STORAGES,
+                    help="the storage (int16: the semiring's saturating lowering)")
+    ap.add_argument("--packed", action="store_true",
+                    help="or_and on packed words, 32 graphs a word")
     ap.add_argument("--backend", default="fused", choices=["fused", "jnp", "pallas"])
     ap.add_argument("--method", default="direct", choices=["direct", "solve"])
     ap.add_argument("--batch", type=int, default=1,
@@ -405,27 +556,38 @@ def main(argv=None) -> int:
     R, C = plan.mesh_factorization(args.devices)
     cfg = dict(n=args.n, bs=args.bs, semiring=args.semiring, backend=args.backend,
                method=args.method, batch=args.batch, bitwise=args.bitwise,
-               chunked=args.chunked, repair=args.repair, reps=3 if args.bench else 0)
+               chunked=args.chunked, repair=args.repair, reps=3 if args.bench else 0,
+               dtype=args.dtype, packed=args.packed)
+    try:
+        sr = storage_semiring(cfg)
+    except ValueError as err:
+        ap.error(str(err))
+    if _lowered(cfg) and not (args.bitwise or args.repair):
+        ap.error("a lowered storage needs --bitwise (or --repair): it holds against the "
+                 "lowered single-device fused solve")
     if args.device == "cuda":
         from repro_torch.kernels import _build
 
         # once, before the ranks load them: the round (and the matmul of the
-        # "pallas" backend); the repair's kernels for --repair
-        _build.build_all(("fw_round", "minplus_matmul") + (("fw_repair",) if args.repair
-                                                            else ()))
+        # "pallas" backend) in f32 and the lowerings; the repair's for --repair
+        _build.build_all(("fw_round", "fw_round_lowered", "minplus_matmul",
+                          "minplus_matmul_lowered")
+                         + (("fw_repair", "fw_repair_lowered") if args.repair else ()))
     recs = [r[0] for r in run_grid(grid_check, R, C, device=args.device, args=([cfg],))]
     bad = [r["rank"] for r in recs if not (r["ok"] and r.get("chunked_ok", True))]
     mode = ("repair" if args.repair else
             f"{'bitwise' if args.bitwise else 'allclose'} method={args.method}")
     where = (f"devices={args.devices} grid={R}x{C} n={args.n} bs={recs[0].get('block_size')} "
-             f"semiring={args.semiring} backend={args.backend} device={args.device}")
+             f"semiring={sr.name} dtype={recs[0]['dtype']} backend={args.backend} "
+             f"device={args.device}")
     if bad:
         print(f"FAIL {mode} on ranks {bad}: {where}", file=sys.stderr)
         return 1
     if args.bench:
         r0 = recs[0]
         rounds = r0["rounds"]
-        dp = plan.distributed_plan(args.n, args.devices, grid=(R, C), block_size=args.bs)
+        dp = plan.distributed_plan(args.n, args.devices, grid=(R, C), block_size=args.bs,
+                                   word=plan.word_for(recs[0]["dtype"]))
         metrics = dict(
             ndev=args.devices, R=R, C=C, n=args.n, bs=args.bs, backend=args.backend,
             device=args.device, rounds=rounds, solve_ms=r0["ms"],

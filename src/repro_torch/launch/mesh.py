@@ -5,8 +5,11 @@ mesh the reference builds on it.  Here a mesh is an R×C grid of processes
 in one ``torch.distributed`` group: rank ``r·C + c`` holds the (n/R, n/C)
 block at grid row r and grid column c.  ``GridMesh`` gives a rank its
 coordinates, one group per grid row and one per grid column, its device
-and the one collective the solve needs, ``broadcast``, with a counter of
-the bytes it hands to collectives (``comm_bytes``).
+(the card unless the caller asks for the CPU) and the one collective the
+solve needs, ``broadcast``, with a counter of the bytes it hands to
+collectives (``comm_bytes``).  A broadcast moves the tensor's bytes as a
+``uint8`` view, whatever its dtype: gloo and NCCL have no int16 or uint32
+type, and a pure copy of the bytes is exact for every storage.
 
 Transport.  NCCL refuses two ranks on one card, so ranks that share a card
 (or run on the CPU) talk over ``gloo``, and ``nccl`` is used only when each
@@ -45,7 +48,10 @@ class GridMesh:
     """This rank's view of an R×C process grid over the initialized default
     ``torch.distributed`` group (world size R·C)."""
 
-    def __init__(self, R: int, C: int, *, device="cpu"):
+    def __init__(self, R: int, C: int, *, device="cuda"):
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' for a grid "
+                               "of host ranks")
         if not dist.is_initialized():
             raise RuntimeError("GridMesh needs an initialized torch.distributed group")
         if dist.get_world_size() != R * C:
@@ -64,7 +70,7 @@ class GridMesh:
         self.host_staged = self.backend == "gloo" and self.device.type == "cuda"
         self.comm_bytes = 0
         self.staged_bytes = 0
-        self._pinned: dict[tuple, torch.Tensor] = {}
+        self._pinned: dict[int, torch.Tensor] = {}
 
     @property
     def signature(self) -> tuple:
@@ -81,7 +87,8 @@ class GridMesh:
 
     def broadcast(self, t: torch.Tensor, src: int, group=None) -> torch.Tensor:
         """t ← rank ``src``'s t over ``group`` (None = the whole grid), in
-        place; t must be contiguous.  A group of one rank moves nothing and
+        place, bit for bit; t must be contiguous, of any dtype (its bytes
+        travel as a ``uint8`` view).  A group of one rank moves nothing and
         counts nothing."""
         if self.group_size(group) == 1:
             return t
@@ -89,18 +96,19 @@ class GridMesh:
             raise ValueError("broadcast needs a contiguous tensor")
         nbytes = t.numel() * t.element_size()
         self.comm_bytes += nbytes
+        raw = t.reshape(-1).view(torch.uint8)
         if not self.host_staged:
-            dist.broadcast(t, src, group=group)
+            dist.broadcast(raw, src, group=group)
             return t
-        key = (tuple(t.shape), t.dtype)
-        host = self._pinned.get(key)
+        host = self._pinned.get(nbytes)
         if host is None:
-            host = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host = self._pinned[nbytes] = torch.empty(nbytes, dtype=torch.uint8,
+                                                      pin_memory=True)
         if self.rank == src:
-            host.copy_(t)
+            host.copy_(raw)
         dist.broadcast(host, src, group=group)
         if self.rank != src:
-            t.copy_(host)
+            raw.copy_(host)
         self.staged_bytes += nbytes
         return t
 

@@ -2,7 +2,8 @@
 
 * The bordered round: ``repro_torch.kernels.fw_round.fw_round_bordered`` on
   a CPU tensor (its plain twin) == ``repro.kernels.ref.fw_round_bordered_ref``,
-  bitwise, on all five semirings, with and without owner echo.
+  bitwise, on all five semirings, with and without owner echo, and on every
+  storage lowering and integer storage (mirrors ``tests/test_fw_round.py:466``).
 * The mesh plan: ``repro_torch.apsp.plan.distributed_plan`` ==
   ``repro.apsp.plan.distributed_plan`` on every field they share.
 * Real ``torch.distributed`` grids: 2×2 and 4×2 gloo ranks spawned by
@@ -33,7 +34,17 @@ from repro_torch.core import semiring as tsr
 from repro_torch.kernels import fw_round as tfr
 from repro_torch.launch import fw_dist_check as chk
 from repro_torch.launch.mesh import run_grid
-from test_torch_semiring import NAMES, assert_same, semiring_graph
+from test_torch_semiring import (
+    NAMES,
+    REF_STORAGES,
+    assert_same,
+    from_port,
+    semiring_graph,
+    storage_data,
+    storage_id,
+    storage_semiring,
+    to_port,
+)
 
 EXACT = ("max_min", "or_and")  # ⊕ and ⊗ select, never round
 IDEMPOTENT = ("max_min", "max_plus", "min_plus", "or_and")
@@ -56,6 +67,28 @@ def test_bordered_round_matches_reference(name, shape, echo):
     got = tfr.fw_round_bordered(t, *echo, block_size=16, semiring=tsr.SEMIRINGS[name])
     assert got is t  # updated in place
     assert_same(got, want)
+
+
+@pytest.mark.parametrize("case", REF_STORAGES, ids=storage_id)
+@pytest.mark.parametrize("shape", [(96, 64), (2, 48, 80)])
+@pytest.mark.parametrize("echo", [(-1, -1), (1, 1), (2, -1)])
+def test_bordered_round_lowerings_match_reference(case, shape, echo):
+    """The bordered round in every storage, kept: tall, wide and batched
+    blocks, the three echo forms (none, both, one)."""
+    storage, name = case
+    w = storage_data(storage, name, shape, seed=21 + shape[-1])
+    want = jref.fw_round_bordered_ref(jnp.asarray(w), *echo, block_size=16, bk=8,
+                                      semiring=storage_semiring(storage, name, jsr))
+    t, sr, dt = to_port(w, storage_semiring(storage, name))
+    got = tfr.fw_round_bordered(t, *echo, block_size=16, bk=8, semiring=sr)
+    assert got is t and got.dtype == t.dtype  # in place, in its storage
+    assert_same(from_port(got, dt, storage_semiring(storage, name)), np.asarray(want))
+
+
+def test_bordered_buffers_keep_the_storage():
+    for dt in (torch.bfloat16, torch.int16, torch.int32):
+        rb, cb = tfr.bordered_round_buffers(torch.zeros(2, 48, 80, dtype=dt), 16)
+        assert rb.dtype == cb.dtype == dt and rb.shape == (2, 16, 80) and cb.shape == (2, 48, 16)
 
 
 @pytest.mark.parametrize("echo", [(4, -1), (-1, 3), (-2, 0)])

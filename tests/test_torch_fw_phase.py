@@ -9,8 +9,10 @@ inputs, on all five semirings, single and batched, at band lengths that are
 not multiples of s.  The slice as a whole, ``repro_torch.core.staged.
 fw_staged(fused=False)``, must equal ``repro.core.staged.fw_staged(
 fused=False, interpret=True)`` and the port's own fused lowering; max_plus
-gets DAG inputs (``semiring_graph``).  Mirrors the phase sweeps of
-``tests/test_kernels.py``.  The CUDA kernels are held against the plain
+gets DAG inputs (``semiring_graph``).  The same holds on every storage
+lowering (int16 ×4, bf16 / f16, packed or_and words) and integer storage
+(on the port's int32 carrier), kept in its dtype.  Mirrors the phase sweeps
+of ``tests/test_kernels.py``.  The CUDA kernels are held against the plain
 versions on the card by ``tests/test_torch_kernels_cuda.py``.
 """
 import jax.numpy as jnp
@@ -29,7 +31,17 @@ from repro_torch.kernels import fw_phase1 as tp1
 from repro_torch.kernels import fw_phase2 as tp2
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from test_torch_semiring import NAMES, assert_same, semiring_graph
+from test_torch_semiring import (
+    NAMES,
+    REF_STORAGES,
+    assert_same,
+    from_port,
+    semiring_graph,
+    storage_data,
+    storage_id,
+    storage_semiring,
+    to_port,
+)
 
 
 def _diag(name, lead, s, seed):
@@ -102,6 +114,57 @@ def test_four_dispatch_matches_pallas(name, shape, s, bm, bn, bk):
     for b in range(shape[-1] // s):
         plain = tref.fw_round4_ref(plain, b, block_size=s, bk=bk, semiring=tsr.SEMIRINGS[name])
     assert_same(plain, want)
+
+
+# ------------------------------------------------------ storage lowerings
+@pytest.mark.parametrize("case", REF_STORAGES, ids=storage_id)
+@pytest.mark.parametrize("shape", [(32, 32), (3, 16, 16)])
+def test_lowered_phase1_matches_pallas(case, shape):
+    storage, name = case
+    t = storage_data(storage, name, shape, seed=shape[-1])
+    want = jp1.fw_phase1(t, semiring=storage_semiring(storage, name, jsr), interpret=True)
+    tt, sr, dt = to_port(t, storage_semiring(storage, name))
+    got = tp1.fw_phase1(tt, semiring=sr)
+    assert got.dtype == tt.dtype
+    assert_same(from_port(got, dt, storage_semiring(storage, name)), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", REF_STORAGES, ids=storage_id)
+@pytest.mark.parametrize("lead,s,n", [((), 16, 40), ((2,), 32, 64)])
+def test_lowered_phase2_matches_pallas(case, lead, s, n):
+    """Both bands of every storage against a closed diagonal, ragged and
+    batched."""
+    storage, name = case
+    jsr_, tsr_ = storage_semiring(storage, name, jsr), storage_semiring(storage, name)
+    diag = np.asarray(jp1.fw_phase1(storage_data(storage, name, (*lead, s, s), 20 + s),
+                                    semiring=jsr_, interpret=True))
+    full = storage_data(storage, name, (*lead, n, n), 21 + n)
+    row, col = full[..., :s, :].copy(), full[..., :, :s].copy()
+    td, sr, dt = to_port(diag, tsr_)
+    for fn, jfn, band in ((tp2.fw_phase2_row, jp2.fw_phase2_row, row),
+                          (tp2.fw_phase2_col, jp2.fw_phase2_col, col)):
+        want = jfn(diag, band, bt=32, semiring=jsr_, interpret=True)
+        got = fn(td, to_port(band, tsr_)[0], semiring=sr)
+        assert_same(from_port(got, dt, tsr_), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", REF_STORAGES, ids=storage_id)
+@pytest.mark.parametrize("shape,s", [((64, 64), 16), ((2, 64, 64), 32)])
+def test_lowered_four_dispatch_matches_pallas(case, shape, s):
+    """``fw_staged(fused=False)`` in every storage == the reference's
+    4-dispatch round in interpret mode == the port's fused round."""
+    storage, name = case
+    tsr_ = storage_semiring(storage, name)
+    w = storage_data(storage, name, shape, seed=s + shape[-1])
+    want = jstaged.fw_staged(jnp.asarray(w), block_size=s, bk=8,
+                             semiring=storage_semiring(storage, name, jsr), fused=False,
+                             interpret=True)
+    t, sr, dt = to_port(w, tsr_)
+    got = tstaged.fw_staged(t, block_size=s, bk=8, semiring=sr, fused=False)
+    assert got.dtype == t.dtype
+    assert_same(from_port(got, dt, tsr_), np.asarray(want))
+    assert_same(from_port(tstaged.fw_staged(t, block_size=s, semiring=sr), dt, tsr_),
+                np.asarray(want))
 
 
 def test_transitive_closure_matches_pallas_and_the_oracle():

@@ -337,7 +337,7 @@ def test_kernel_four_dispatch_matches_plain_and_fused(cuda_device, name, shape, 
     fph.reset_launch_counts()
     fmm.reset_launch_counts()
     got = fw_staged(w, block_size=s, semiring=sr, fused=False)
-    counts = {**fph.LAUNCHES, **fmm.LAUNCHES}
+    counts = {k: v for k, v in {**fph.LAUNCHES, **fmm.LAUNCHES}.items() if "[" not in k}
     want = w
     for b in range(shape[-1] // s):
         want = ref.fw_round4_ref(want, b, block_size=s, semiring=sr)
@@ -396,7 +396,8 @@ def test_grid_solve_on_the_card_matches_fused(cuda_device, grid):
         direct, via_solve = rank_recs
         assert direct["ok"] and direct["chunked_ok"] and via_solve["ok"]
         assert direct["comm_bytes"] == (direct["model_bytes"] if grid != (1, 1) else 0)
-        assert direct["launches"] == dict.fromkeys(direct["launches"], 256 // 32)
+        f32 = {k: v for k, v in direct["launches"].items() if "[" not in k}  # not lowered
+        assert f32 == dict.fromkeys(f32, 256 // 32)
 
 
 def test_distributed_modules_import_without_jax():
@@ -659,10 +660,16 @@ def test_lowered_launches_refuse_what_the_kernels_do_not_take(cuda_device):
         fr.fw_round(w, 0, block_size=64, semiring=OR_AND_PACKED)
     with pytest.raises(ValueError):  # band buffers of another dtype
         fr.fw_round(w.float(), 0, block_size=64, bands=fr.round_buffers(w, 64))
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        fr.fw_round_bordered(w.bfloat16(), block_size=64)
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        fmm.semiring_matmul(w.bfloat16(), w.bfloat16())
+    # the bordered round and the matmul run a lowering in its storage,
+    # equal to their twins, and refuse a storage that is not the semiring's
+    x = torch.arange(128 * 128, device=cuda_device).reshape(128, 128).remainder(97).bfloat16()
+    assert bits_equal(fr.fw_round_bordered(x.clone(), block_size=64),
+                      ref.fw_round_bordered_ref(x, block_size=64))
+    assert bits_equal(fmm.semiring_matmul(x, x), ref.semiring_matmul_ref(x, x))
+    with pytest.raises(TypeError):
+        fr.fw_round_bordered(w, block_size=64)  # int16 with a float semiring
+    with pytest.raises(TypeError):
+        fmm.semiring_matmul(x, x.float())  # mixed storages are never converted
 
 
 # ------------------------------- lowered repair, sweep and the int32 round
@@ -679,9 +686,15 @@ def _int32_case(tag: str, shape, seed: int):
 
 
 def _storage_case(tag: str, name: str, shape, seed: int, s: int = 16):
+    """(x, semiring) in a kernel's storage; a non-square shape is cut from
+    the square case of its larger side."""
+    m = max(shape[-2:])
+    square = (*shape[:-2], m, m)
     if tag in INT32:
-        return _int32_case(tag, shape, seed), SEMIRINGS[INT32[tag]]
-    return _lowered_case(tag, name, shape, seed, s)
+        x, sr = _int32_case(tag, square, seed), SEMIRINGS[INT32[tag]]
+    else:  # the NaNs go off the diagonal tiles, of at most half the side
+        x, sr = _lowered_case(tag, name, square, seed, max(1, min(s, m // 2)))
+    return x[..., :shape[-2], :shape[-1]].contiguous(), sr
 
 
 REPAIR_CASES = LOWERED_CASES + [("or_and_i32", "or_and"), ("plus_mul_i32", "plus_mul")]
@@ -721,6 +734,110 @@ def test_kernel_int32_round_matches_plain(cuda_device, tag, shape, s):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and bits_equal(got, want), (tag, b)
     assert fr.LAUNCHES[f"fw_round/relax[{tag}]"] == before + 2
+
+
+# ------------------------- the lowered 4-dispatch kernels and bordered round
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", REPAIR_CASES)
+@pytest.mark.parametrize("a_shape,b_shape", [((1, 5), (5, 3)), ((1000, 77), (77, 513)),
+                                             ((3, 40, 70), (3, 70, 130))])
+def test_kernel_lowered_semiring_matmul_matches_plain(cuda_device, tag, name, a_shape, b_shape):
+    """Every storage, ragged and batched, with and without c; the
+    accumulator is left as it was."""
+    a, sr = _storage_case(tag, name, a_shape, 1)
+    b, _ = _storage_case(tag, name, b_shape, 2)
+    c, _ = _storage_case(tag, name, (*a_shape[:-1], b_shape[-1]), 3)
+    a, b, c = a.to(cuda_device), b.to(cuda_device), c.to(cuda_device)
+    c0 = c.clone()
+    kind = f"semiring_matmul[{tag}]"
+    before = fmm.LAUNCHES[kind]
+    for cc in (None, c):
+        got = fmm.semiring_matmul(a, b, cc, semiring=sr)
+        want = ref.semiring_matmul_ref(a, b, cc, semiring=sr)
+        torch.cuda.synchronize()
+        assert got.dtype == a.dtype and bits_equal(got, want), (tag, name, cc is None)
+    assert bits_equal(c, c0) and fmm.LAUNCHES[kind] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", REPAIR_CASES)
+@pytest.mark.parametrize("lead,s,n", [((), 32, 97), ((2,), 128, 300)])
+def test_kernel_lowered_phases_match_plain(cuda_device, tag, name, lead, s, n):
+    """fw_phase1 on (…, s, s) and both bands, read as strided slices."""
+    t, sr = _storage_case(tag, name, (*lead, s, s), s, s)
+    w, _ = _storage_case(tag, name, (*lead, n + s, n + s), n, s)
+    t, w = t.to(cuda_device), w.to(cuda_device)
+    diag = fph.fw_phase1(t, semiring=sr)
+    row, col = w[..., 3:3 + s, 5:5 + n], w[..., 5:5 + n, 3:3 + s]
+    got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr)
+    got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr)
+    torch.cuda.synchronize()
+    assert diag.dtype == t.dtype and bits_equal(diag, ref.fw_phase1_ref(t, semiring=sr))
+    assert bits_equal(got_r, ref.fw_phase2_row_ref(diag, row, semiring=sr))
+    assert bits_equal(got_c, ref.fw_phase2_col_ref(diag, col, semiring=sr))
+    assert fph.LAUNCHES[f"fw_phase2_col[{tag}]"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", REPAIR_CASES)
+@pytest.mark.parametrize("shape,s", [((256, 256), 32), ((2, 256, 256), 128)])
+def test_kernel_lowered_four_dispatch_matches_plain_and_fused(cuda_device, tag, name, shape, s):
+    w, sr = _storage_case(tag, name, shape, s, s)
+    w = w.to(cuda_device)
+    fph.reset_launch_counts()
+    fmm.reset_launch_counts()
+    got = fw_staged(w, block_size=s, semiring=sr, fused=False)
+    counts = {k: v for k, v in {**fph.LAUNCHES, **fmm.LAUNCHES}.items() if v}
+    want = w
+    for b in range(shape[-1] // s):
+        want = ref.fw_round4_ref(want, b, block_size=s, semiring=sr)
+    fused = fw_staged(w, block_size=s, semiring=sr)
+    torch.cuda.synchronize()
+    assert got.dtype == w.dtype and bits_equal(got, want) and bits_equal(got, fused)
+    assert counts == {f"{k}[{tag}]": shape[-1] // s for k in
+                      ("fw_phase1", "fw_phase2_row", "fw_phase2_col", "semiring_matmul")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", REPAIR_CASES)
+@pytest.mark.parametrize("shape,s", [((80, 48), 16), ((3, 96, 160), 32), ((384, 256), 128)])
+def test_kernel_lowered_bordered_round_matches_plain(cuda_device, tag, name, shape, s):
+    w, sr = _storage_case(tag, name, shape, s, s)
+    w = w.to(cuda_device)
+    tr, tc = shape[-2] // s, shape[-1] // s
+    kind = f"fw_round_bordered/relax[{tag}]"
+    before = fr.LAUNCHES[kind]
+    echoes = ((-1, -1), (1, 1), (tr - 1, tc - 1), (1, -1), (-1, tc - 1))
+    for echo in echoes:
+        got = fr.fw_round_bordered(w.clone(), *echo, block_size=s, semiring=sr)
+        want = ref.fw_round_bordered_ref(w, *echo, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert got.dtype == w.dtype and bits_equal(got, want), echo
+    assert fr.LAUNCHES[kind] == before + len(echoes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(2, 2)])
+def test_lowered_grid_solve_on_the_card_matches_fused(cuda_device, grid):
+    """Ranks sharing the card over gloo, in int16, bf16 and packed words:
+    every rank == the lowered fused solve, the bytes == the model in the
+    storage's word; a lowered mesh repair == single-device == re-solve."""
+    from repro_torch.kernels import _build
+
+    _build.build_all()  # once, before the ranks load the libraries
+    cfgs = [dict(n=256, bs=32, semiring="min_plus", dtype="int16"),
+            dict(n=256, bs=32, semiring="plus_mul", dtype="bfloat16"),
+            dict(n=256, bs=32, semiring="or_and", packed=True),
+            dict(n=200, semiring="max_min", dtype="float16", method="solve"),
+            dict(n=256, semiring="min_plus", dtype="int16", repair=True, edges=16)]
+    recs = run_grid(fdc.grid_check, *grid, device="cuda", args=(cfgs,), timeout=300)
+    for rank_recs in recs:
+        for rec in rank_recs:
+            assert rec["ok"], rec
+            if "model_bytes" in rec:
+                assert rec["comm_bytes"] == rec["model_bytes"]
+                tag = {"int16": "int16", "bfloat16": "bf16", "int32": "packed"}[rec["dtype"]]
+                assert rec["launches"][f"fw_round_bordered/relax[{tag}]"] == 256 // 32
 
 
 @pytest.mark.cuda

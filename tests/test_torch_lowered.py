@@ -13,11 +13,14 @@ equal to NaN; tolerance zero):
     and the lowered rounds, packing and int16 solves of
     ``tests/test_fw_round.py``;
   * ±0 in the inputs of the four idempotent semirings, on every method;
-  * the paths still f32-only refuse what they do not run (ROADMAP A.4b).
+  * the paths ported last (the staged and mesh engines, the distributed and
+    numpy solves, the 4-dispatch kernels, the bordered round) on the
+    lowerings, and the refusals the reference shares.
 
 The CUDA kernels of the lowerings are held against these plain versions on
 the card (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
+import re
 import types
 
 import jax.numpy as jnp
@@ -30,12 +33,14 @@ from repro.apsp import api as japi
 from repro.core import paths as jpaths
 from repro.core import semiring as jsr
 from repro.core.staged import fw_staged as jfw_staged
+from repro.kernels import fw_phase1 as jfw_phase1
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.apsp import ApspEngine, api as tapi, solve
 from repro_torch.core import paths as tpaths
 from repro_torch.core import semiring as tsr
 from repro_torch.core.staged import fw_staged
-from repro_torch.kernels import fw_phase1, fw_repair, fw_round, minplus_matmul, ops
+from repro_torch.kernels import fw_phase1, fw_repair, fw_round, ops
 from repro_torch.utils.interop import host_tensor
 from test_torch_semiring import NAMES, assert_same, semiring_graph
 
@@ -350,57 +355,90 @@ def test_lift_distances_matches_reference():
         w, i16, 0, 7)
 
 
-# ------------------------------------------------------------ A.4b refusals
+# ------------------------------------------- the last ported paths
+def _mesh_1x1():
+    """A one-rank grid in this process: every broadcast is a no-op, so the
+    distributed solve runs its bordered rounds on the whole matrix."""
+    return types.SimpleNamespace(
+        R=1, C=1, rank=0, my_r=0, my_c=0, row_group=None, col_group=None,
+        device=torch.device("cpu"), signature=("grid", 1, 1, "cpu"),
+        rank_of=lambda r, c: 0, group_size=lambda group: 1)
+
+
 def test_f32_only_paths_refuse_lowerings_without_widening():
-    """What is still f32 only (the lowered bordered round and 4-dispatch
-    kernels, ROADMAP A.4b) refuses a lowering; the engine and the repair,
-    which refused too until their lowered kernels came, now pin the
-    lowering and match the reference."""
+    """The paths that were f32 only until their lowered kernels came (the
+    staged engine, the mesh engine and the distributed solve, the numpy
+    solve, the 4-dispatch kernels and ``kernels.ops``, the bordered round)
+    now run every lowering in its storage and match the reference; what
+    the reference refuses there (numpy on int16 / packed words, next hops
+    on a mesh), the port refuses with the reference's words.  (The name is
+    the one this test had while those paths refused.)"""
     w = torch.from_numpy(semiring_graph("min_plus", (64, 64), 1))
     half = w.to(torch.bfloat16)
     wn, hn = w.numpy(), np.asarray(jnp.asarray(w.numpy(), jnp.bfloat16))
     words = np.asarray(japi.pack_reachability(
         (np.random.default_rng(1).uniform(size=(64, 64)) < 0.1).astype(np.float32)))
-    ported = [  # (port engine kwargs, reference engine kwargs, input)
+    mesh = _mesh_1x1()
+    engines = [  # (port engine kwargs, reference engine kwargs, input)
         (dict(dtype=torch.bfloat16), dict(dtype=jnp.bfloat16), wn),
         (dict(semiring="min_plus_i16"), dict(semiring="min_plus_i16"), wn),
         (dict(semiring="or_and", packed=True), dict(semiring="or_and", packed=True), words),
         ({}, {}, hn),
     ]
-    for tk, jk, x in ported:
-        te, je = ApspEngine(device="cpu", **tk), japsp.ApspEngine(**jk)
-        assert te.semiring.name == je.semiring.name
-        t, j = te.solve(x), je.solve(x)
-        assert_same(t.dist, np.asarray(j.dist))
-        assert te.repair(t.dist, [(0, 1, 1)]).dist.dtype == t.dist.dtype
-    key = ApspEngine(device="cpu").plan_for(64, dtype=torch.float16).key
+    for tk, jk, x in engines:
+        je = japsp.ApspEngine(method="fused", **jk)
+        want = np.asarray(je.solve(x).dist)
+        for method, extra in (("staged", {}), ("distributed", dict(mesh=mesh))):
+            te = ApspEngine(method=method, device="cpu", **extra, **tk)
+            assert te.semiring.name == je.semiring.name
+            t = te.solve(x)
+            assert_same(t.dist, want)
+            assert te.repair(t.dist, [(0, 1, 1)]).dist.dtype == t.dist.dtype
+    key = ApspEngine(method="staged", device="cpu").plan_for(64, dtype=torch.float16).key
     assert key.dtype == japsp.ApspEngine().plan_for(64, dtype=jnp.float16).key.dtype
     assert_same(fw_repair.fw_repair(half, [0], [1], [1.0], block_size=32),
                 np.asarray(jref.fw_repair_ref(hn, np.array([0], np.int32),
                                               np.array([1], np.int32),
                                               np.ones(1, jnp.bfloat16))))
-    mesh = types.SimpleNamespace(R=1, C=1, device=torch.device("cpu"), signature=(1, 1))
-    refusals = [
-        lambda: ApspEngine(method="staged", dtype=torch.bfloat16, device="cpu"),
-        lambda: ApspEngine(method="staged", semiring="min_plus_i16", device="cpu"),
-        lambda: ApspEngine(method="staged", device="cpu").solve(half),
-        lambda: ApspEngine(method="staged", device="cpu").plan_for(64, dtype=torch.float16),
-        lambda: ApspEngine(method="distributed", mesh=mesh, dtype=torch.bfloat16,
-                           device="cpu"),
-        lambda: ApspEngine(method="distributed", mesh=mesh, semiring="or_and", packed=True,
-                           device="cpu"),
-        lambda: solve(half, method="distributed", mesh=mesh, device="cpu"),
-        lambda: solve(w, dtype=torch.int16, method="distributed", mesh=mesh, device="cpu"),
-        lambda: solve(half, method="numpy", device="cpu"),
-        lambda: fw_staged(half, block_size=32, fused=False),
-        lambda: fw_staged(w.to(torch.int16), block_size=32, fused=False,
-                          semiring=tsr.MIN_PLUS_I16),
-        lambda: ops.minplus_matmul(half, half),
-        lambda: ops.fw_phase3(w, w, w, semiring=tsr.MIN_PLUS_I16),
-        lambda: fw_phase1.fw_phase1(half[:32, :32]),
-        lambda: minplus_matmul.semiring_matmul(half, half),
-        lambda: fw_round.fw_round_bordered(half, block_size=32),
+    i16 = np.asarray(japsp.solve(wn, dtype=jnp.int16, method="fused", block_size=32).dist)
+    for got, want in (
+        (solve(half, method="distributed", mesh=mesh, device="cpu").dist,
+         np.asarray(japsp.solve(hn, method="fused").dist)),
+        (solve(w, dtype=torch.int16, method="distributed", mesh=mesh, block_size=32,
+               device="cpu").dist, i16),
+        (solve(half, method="numpy", device="cpu").dist,
+         np.asarray(japsp.solve(hn, method="numpy").dist)),
+        (fw_staged(half, block_size=32, fused=False),
+         np.asarray(jfw_staged(jnp.asarray(hn), block_size=32, fused=False, interpret=True))),
+        (ops.minplus_matmul(half, half),
+         np.asarray(jops.minplus_matmul(hn, hn, interpret=True))),
+        (fw_phase1.fw_phase1(half[:32, :32]),
+         np.asarray(jfw_phase1.fw_phase1(hn[:32, :32], interpret=True))),
+        (fw_round.fw_round_bordered(half.clone(), 1, -1, block_size=32),
+         np.asarray(jref.fw_round_bordered_ref(jnp.asarray(hn), 1, -1, block_size=32))),
+    ):
+        assert_same(got, want)
+    t16 = torch.from_numpy(_lowered_data(tsr.MIN_PLUS_I16, (64, 64), 3))
+    assert_same(ops.fw_phase3(t16, t16[:, :16].contiguous(), t16[:16].contiguous(),
+                              semiring=tsr.MIN_PLUS_I16),
+                np.asarray(jops.fw_phase3(t16.numpy(), t16.numpy()[:, :16], t16.numpy()[:16],
+                                          semiring=jsr.MIN_PLUS_I16, interpret=True)))
+    refusals = [  # (port call, reference call, the reference's words)
+        (lambda: solve(wn, dtype=torch.int16, method="numpy", device="cpu"),
+         lambda: japsp.solve(wn, dtype=jnp.int16, method="numpy"),
+         "method='numpy' implements min_plus only"),
+        (lambda: solve(words, semiring="or_and_packed", method="numpy", device="cpu"),
+         lambda: japsp.solve(words, semiring="or_and_packed", method="numpy"),
+         "method='numpy' implements min_plus only"),
+        (lambda: solve(half, method="distributed", mesh=mesh, successors=True, device="cpu"),
+         lambda: japsp.solve(hn, method="distributed", successors=True),
+         "successors=True supports methods"),
     ]
-    for refuse in refusals:
-        with pytest.raises(NotImplementedError, match="A.4b"):
-            refuse()
+    for port, reference, words_ in refusals:
+        for call in (port, reference):
+            with pytest.raises(ValueError, match=re.escape(words_)):
+                call()
+    with pytest.raises(ValueError, match="distance-only"):
+        ApspEngine(method="distributed", mesh=mesh, dtype=torch.bfloat16,
+                   device="cpu").repair(half, [(0, 1, 1.0)], succ=torch.zeros(64, 64,
+                                                                            dtype=torch.int32))

@@ -18,10 +18,12 @@ import repro.apsp  # noqa: F401  (imported before repro.kernels: circular import
 from repro.core import floyd_warshall as jfw
 from repro.core import graph as jgraph
 from repro.core import semiring as jsr
+from repro.core import staged as jstaged
 from repro_torch.apsp import plan as tplan
 from repro_torch.core import floyd_warshall as tfw
 from repro_torch.core import graph as tgraph
 from repro_torch.core import semiring as tsr
+from repro_torch.kernels import ref as tref
 from repro_torch.utils.bits import bits_equal
 from repro_torch.utils.interop import from_numpy, to_numpy
 
@@ -48,6 +50,86 @@ def semiring_graph(name: str, shape, seed: int) -> np.ndarray:
     idx = np.arange(n)
     w[..., idx, idx] = tsr.SEMIRINGS[name].one
     return w
+
+
+# ------------------------------------------------------ storage lowerings
+# Every storage of the kernels: (storage, semiring name).  int16 runs the
+# name's saturating *_i16 lowering, "packed" OR_AND_PACKED on int32 words;
+# the integer storages run on the port's int32 carrier.
+IDEMPOTENT = ("max_min", "max_plus", "min_plus", "or_and")
+HALF_DTYPES = {"bfloat16": jnp.bfloat16, "float16": jnp.float16}
+INT_STORAGES = (("bool", "or_and"), ("uint8", "or_and"), ("uint32", "or_and"),
+                ("int8", "plus_mul"), ("int32", "plus_mul"), ("bool", "plus_mul"))
+STORAGES = ([("int16", n) for n in IDEMPOTENT]
+            + [(dt, n) for dt in HALF_DTYPES for n in NAMES]
+            + [("packed", "or_and")] + list(INT_STORAGES))
+# The storages held against the reference.  f16 plus_mul is not: XLA's CPU
+# backend turns some f16 c + a*b into one f32 FMA and not others (as LLVM
+# vectorizes a loop or not: the unbatched Pallas-interpret matmul here
+# contracts, the batched one only in part), so the reference has no one
+# rounding rule there; the port rounds each op, as in bf16, and is held to
+# a numpy chain of that rule (ROADMAP C.3).
+REF_STORAGES = tuple(c for c in STORAGES if c != ("float16", "plus_mul"))
+
+
+def storage_id(case) -> str:
+    return "-".join(case)
+
+
+def storage_semiring(storage: str, name: str, lib=tsr):
+    """The semiring of a storage case in ``lib`` (tsr or jsr)."""
+    if storage == "packed":
+        return lib.OR_AND_PACKED
+    if storage == "int16":
+        return lib.LOWERED_SEMIRINGS[name + "_i16"]
+    return lib.SEMIRINGS[name]
+
+
+def storage_data(storage: str, name: str, shape, seed: int) -> np.ndarray:
+    """A numpy input in the storage, as the reference holds it (bf16 as
+    ml_dtypes): int16 with its lowering's sentinels and near-saturation
+    values ({0,1} for or_and), random packed words, ``semiring_graph`` cast
+    to bf16 / f16 (16-bit plus_mul in [0.5/n, 1/n): no f16 subnormal, which
+    XLA flushes), {0,1} or_and integers (uint32 or_and full-range, where
+    the carrier's flipped order shows), full-range plus_mul integers."""
+    rng = np.random.default_rng(seed)
+    if storage == "packed":
+        return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32).view(
+            np.int32)
+    if storage == "int16":
+        if name == "or_and":
+            return (rng.uniform(size=shape) < 0.25).astype(np.int16)
+        v = rng.integers(-40, 40, size=shape).astype(np.int16)
+        v[rng.uniform(size=shape) < 0.03] = 32000
+        v[rng.uniform(size=shape) < 0.03] = -32000
+        v[rng.uniform(size=shape) < 0.15] = np.int16(storage_semiring("int16", name).zero)
+        return v
+    if storage in HALF_DTYPES:
+        m = max(shape[-2:])
+        w = semiring_graph(name, (*shape[:-2], m, m), seed)[..., :shape[-2], :shape[-1]].copy()
+        if name == "plus_mul":
+            w = (rng.uniform(0.5, 1.0, size=shape) / shape[-1]).astype(np.float32)
+        return np.asarray(jnp.asarray(w, HALF_DTYPES[storage]))
+    dt = np.dtype(storage)
+    if storage == "bool" or (name == "or_and" and storage != "uint32"):
+        return (rng.uniform(size=shape) < 0.25).astype(dt)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, int(info.max) + 1, size=shape, dtype=np.int64).astype(dt)
+
+
+def to_port(x, sr):
+    """(the tensor the port's kernels take, their semiring, x's dtype): x as
+    a CPU tensor, an integer or_and / plus_mul storage on its int32
+    carrier."""
+    t = from_numpy(x, device="cpu")
+    if tsr.int_storage(t.dtype, sr):
+        return tsr.to_carrier(t, sr), tsr.int_carrier(sr, t.dtype), t.dtype
+    return t, sr, t.dtype
+
+
+def from_port(t, dtype, sr):
+    """Inverse of ``to_port`` for a result in the storage ``dtype``."""
+    return tsr.from_carrier(t, dtype, sr) if tsr.int_storage(dtype, sr) else t
 
 
 def assert_same(got, want):
@@ -108,12 +190,22 @@ def test_plus_mul_relax_is_one_rounding():
 @pytest.mark.parametrize("name", sorted(jsr.LOWERED_SEMIRINGS))
 def test_lowered_semirings_are_not_ported(name):
     """Each lowering resolves by name to the reference's (identities,
-    storage, lanes), and the paths still f32-only refuse it (A.4b)."""
+    storage, lanes), and its plain 4-dispatch round (``fw_round4_ref``, the
+    twin of the lowered phase and matmul kernels) equals the reference's
+    ``fw_staged(fused=False)`` in interpret mode, in the lowering's storage.
+    (The name is the one this test had while the lowered 4-dispatch
+    kernels were still to port.)"""
     t, j = tsr.resolve_semiring(name), jsr.LOWERED_SEMIRINGS[name]
     assert t is tsr.LOWERED_SEMIRINGS[name]
     assert (t.name, t.zero, t.one, t.dtype, t.lanes) == (j.name, j.zero, j.one, j.dtype, j.lanes)
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        tsr.require_f32_a4b(t, where="test")
+    storage = "packed" if t.packed else "int16"
+    w = storage_data(storage, name.removesuffix("_i16").removesuffix("_packed"), (64, 64), 5)
+    want = jstaged.fw_staged(jnp.asarray(w), block_size=16, bk=8, semiring=j, fused=False,
+                             interpret=True)
+    got = torch.from_numpy(w)
+    for b in range(4):
+        got = tref.fw_round4_ref(got, b, block_size=16, bk=8, semiring=t)
+    assert_same(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("kw", [dict(dtype="int16"), dict(dtype=torch.bfloat16),

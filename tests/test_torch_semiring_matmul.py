@@ -6,8 +6,10 @@ equal ``repro.kernels.minplus_matmul.semiring_matmul(..., interpret=True)``
 bit for bit (``bits_equal``: bits compared, -0.0 told from +0.0, NaN equal to NaN,
 tolerance zero) on the
 same numpy inputs: all five semirings, with and without an accumulator,
-batched, at odd shapes, with ±inf among the operands.  Mirrors the matmul
-sweeps of ``tests/test_kernels.py``.  The CUDA kernel is held against the
+batched, at odd shapes, with ±inf among the operands; and every storage
+lowering (int16 ×4, bf16 / f16 ×5, packed or_and words) and integer
+storage (on the port's int32 carrier), kept in its dtype.  Mirrors the
+matmul sweeps of ``tests/test_kernels.py``.  The CUDA kernel is held against the
 plain version on the card by ``tests/test_torch_kernels_cuda.py``.
 """
 import numpy as np
@@ -22,7 +24,17 @@ from repro_torch.core import semiring as tsr
 from repro_torch.kernels import minplus_matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from test_torch_semiring import NAMES, assert_same, semiring_graph
+from test_torch_semiring import (
+    NAMES,
+    REF_STORAGES,
+    assert_same,
+    from_port,
+    semiring_graph,
+    storage_data,
+    storage_id,
+    storage_semiring,
+    to_port,
+)
 
 SHAPES = [  # (a shape, b shape, bm, bn, bk) of the reference's call
     ((64, 64), (64, 64), 32, 32, 16),
@@ -103,6 +115,63 @@ def test_fw_phase3_matches_pallas(name):
                                    semiring=tsr.SEMIRINGS[name]), want)
 
 
+LOWERED_SHAPES = [((37, 13), (13, 29)), ((3, 40, 24), (3, 24, 56))]
+
+
+@pytest.mark.parametrize("case", REF_STORAGES, ids=storage_id)
+@pytest.mark.parametrize("a_shape,b_shape", LOWERED_SHAPES)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_lowered_semiring_matmul_matches_pallas(case, a_shape, b_shape, with_c):
+    """Every storage, ragged and batched, with and without c: the port in
+    the storage (an integer one on its carrier) == the Pallas kernel in the
+    storage, dtype and bits."""
+    storage, name = case
+    a, b = storage_data(storage, name, a_shape, 1), storage_data(storage, name, b_shape, 2)
+    c = storage_data(storage, name, _out_shape(a_shape, b_shape), 3) if with_c else None
+    jsr_ = storage_semiring(storage, name, jsr)
+    want = jmm.semiring_matmul(a, b, c, semiring=jsr_, bm=16, bn=16, bk=8, interpret=True)
+    (ta, sr, dt), (tb, _, _) = to_port(a, storage_semiring(storage, name)), to_port(
+        b, storage_semiring(storage, name))
+    tc = None if c is None else to_port(c, storage_semiring(storage, name))[0]
+    got = tmm.semiring_matmul(ta, tb, tc, semiring=sr, bk=8)
+    assert got.dtype == ta.dtype
+    assert_same(from_port(got, dt, storage_semiring(storage, name)), np.asarray(want))
+
+
+@pytest.mark.parametrize("a_shape,b_shape", LOWERED_SHAPES)
+@pytest.mark.parametrize("with_c", [False, True])
+def test_f16_plus_mul_matmul_rounds_each_op(a_shape, b_shape, with_c):
+    """f16 plus_mul, where the reference on this backend has no one rule
+    (``REF_STORAGES``): each product rounds to f16, then each sum, k
+    ascending from c or +0 — a numpy chain of that rule, dtype and bits."""
+    a, b = (storage_data("float16", "plus_mul", sh, seed)
+            for sh, seed in ((a_shape, 1), (b_shape, 2)))
+    c = storage_data("float16", "plus_mul", _out_shape(a_shape, b_shape), 3) if with_c else None
+    acc = np.zeros(_out_shape(a_shape, b_shape), np.float16) if c is None else c.copy()
+    for k in range(a.shape[-1]):
+        prod = (a[..., :, k, None].astype(np.float32) * b[..., k, None, :]).astype(np.float16)
+        acc = (acc.astype(np.float32) + prod).astype(np.float16)
+    got = tmm.semiring_matmul(*(None if x is None else torch.from_numpy(x) for x in (a, b)),
+                              None if c is None else torch.from_numpy(c), semiring=tsr.PLUS_MUL)
+    assert_same(got, acc)
+
+
+@pytest.mark.parametrize("case", [c for c in REF_STORAGES if c[0] in ("int16", "bfloat16",
+                                                                      "packed")],
+                         ids=storage_id)
+def test_lowered_fw_phase3_matches_pallas(case):
+    """``kernels.ops.fw_phase3`` with a lowering's semiring on its storage."""
+    storage, name = case
+    n, s = 64, 16
+    w, cb, rb = (storage_data(storage, name, shape, seed)
+                 for shape, seed in (((n, n), 24), ((n, s), 25), ((s, n), 26)))
+    want = jops.fw_phase3(w, cb, rb, bm=32, bn=32, bk=8,
+                          semiring=storage_semiring(storage, name, jsr), interpret=True)
+    sr = storage_semiring(storage, name)
+    got = tops.fw_phase3(*(to_port(x, sr)[0] for x in (w, cb, rb)), bk=8, semiring=sr)
+    assert_same(got, np.asarray(want))
+
+
 def test_plus_mul_matches_dot():
     """plus_mul is the ordinary product, to f32 rounding (the reference's
     ``test_plus_mul_matches_dot``, same tolerance)."""
@@ -118,8 +187,16 @@ def test_semiring_matmul_refuses_what_it_does_not_take():
         tmm.semiring_matmul(a, b, variant="broadcast")
     with pytest.raises(TypeError):
         tmm.semiring_matmul(a.double(), b.double())
-    with pytest.raises(NotImplementedError, match="A.4b"):  # refused, not widened
-        tmm.semiring_matmul(a.bfloat16(), b.bfloat16())
+    # a lowered storage runs in its own dtype, equal to its twin; mixed
+    # storages and a storage that is not the semiring's are refused, never
+    # converted
+    half = tmm.semiring_matmul(a.bfloat16() + 1, b.bfloat16() + 2)
+    assert half.dtype == torch.bfloat16
+    assert_same(half, tref.semiring_matmul_ref(a.bfloat16() + 1, b.bfloat16() + 2))
+    with pytest.raises(TypeError):
+        tmm.semiring_matmul(a.bfloat16(), b)
+    with pytest.raises(TypeError):
+        tmm.semiring_matmul(a.to(torch.int16), b.to(torch.int16))  # f32 semiring
     with pytest.raises(ValueError, match="contraction"):
         tmm.semiring_matmul(a, torch.zeros(5, 6))
     with pytest.raises(ValueError, match="batched"):
