@@ -139,7 +139,6 @@ import argparse
 import functools
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -384,20 +383,16 @@ def phase_device():
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
     for built in _build.build_all():
-        regs, spills, kernels = 0, [], 0
-        func = None
-        for line in built.log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                func, kernels = m.group(1), kernels + 1
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and m.group(1) != "0" and func:
-                spills.append(f"{func} {m.group(1)}/{m.group(2)} B")
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                regs = max(regs, int(m.group(1)))
-        print(f"built {built.path.name} in {built.seconds:.1f} s: {kernels} kernels, at most "
+        infos = _build.kernel_infos(built)
+        spills = [f"{k.name} {k.spill_stores}/{k.spill_loads} B" for k in infos if k.spill_stores]
+        regs = max((k.registers for k in infos), default=0)
+        print(f"built {built.path.name} in {built.seconds:.1f} s: {len(infos)} kernels, at most "
               f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
+        if built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode"):
+            for k in infos:  # the redesigned kernels, each instantiation
+                if "matmul_kernel" in k.name or "split_kernel" in k.name:
+                    print(f"  {k.name}: {k.registers} registers, spill stores / loads "
+                          f"{k.spill_stores} / {k.spill_loads} B")
     return name
 
 
@@ -1408,6 +1403,8 @@ def phase_kernels_four(rows: dict, n: int, s: int = 128, sq: int = 4096):
         ms = event_ms(lambda: fmm.semiring_matmul(col, row, w, semiring=sr, out=out), 5)
         plain = event_ms(lambda: ref.semiring_matmul_ref(col, row, w, semiring=sr), 1)
         ops, nbytes = 2.0 * n * n * s, (2 * n * n + 2 * n * s) * 4
+        print(f"semiring_matmul {sr.name} ({n},{s})·({s},{n}) + C staging: "
+              f"{fmm.staging_name(col, row, w, out)}")
         if sr is MIN_PLUS:
             record("semiring_matmul", err, ms, plain, ops, nbytes)
             continue
@@ -1435,6 +1432,8 @@ def phase_kernels_four(rows: dict, n: int, s: int = 128, sq: int = 4096):
         sync()
         require(same(out, want), f"semiring_matmul {sr.name} {sq}^3 != plain")
         err = max_abs_err(out, want)
+        print(f"semiring_matmul {sr.name} ({sq},{sq})·({sq},{sq}) staging: "
+              f"{fmm.staging_name(a, bb, None, out)}")
         lib = None
         if sr is PLUS_MUL:
             lib_out = torch.empty_like(out)
@@ -3308,6 +3307,8 @@ def phase_kernels_lowered_four(rows: dict, n: int, s: int = 128):
         require(same(out, want), f"semiring_matmul[{tag}] phase-3 shape != plain")
         err = max_abs_err(out, want)
         del want
+        print(f"semiring_matmul[{tag}] ({n},{s})·({s},{n}) + C staging: "
+              f"{fmm.staging_name(col, row, w, out)}")
         record(f"semiring_matmul[{tag}]", err,
                event_ms(lambda: fmm.semiring_matmul(col, row, w, semiring=sr, out=out), 5),
                event_ms(lambda: ref.semiring_matmul_ref(col, row, w, semiring=sr), 1),
@@ -3369,10 +3370,13 @@ def phase_four_lowered(rows: dict, n: int, s: int = 128):
 def decode_tolerance(dtype, want) -> tuple[float, float]:
     """(rtol, atol) of ``flash_decode`` against a plain version: in f32 the
     reference's 2e-5 / 2e-5; in bf16 the reference's rtol 2e-2 with an atol
-    of two bf16 ulps of the largest |output|.  Kernel and plain version
-    both accumulate in f32 and round once to bf16, so they differ by at
-    most one ulp of an entry, and the limit shrinks with the outputs (an
-    average over kv_len rows of v, of RMS about sqrt(e / kv_len))."""
+    of two bf16 ulps of the largest |output|.  The bf16 kernel rounds each
+    softmax weight P to bf16 where it meets V (its MMA's A operand), which
+    moves a weight by at most 2^-9 of itself, and sums in f32; the plain
+    version keeps P in f32; both round the output once to bf16.  So they
+    differ by about one ulp of an entry, and the limit shrinks with the
+    outputs (an average over kv_len rows of v, of RMS about sqrt(e /
+    kv_len))."""
     import torch
 
     if dtype == torch.float32:

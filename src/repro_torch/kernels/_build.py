@@ -15,6 +15,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,6 +44,43 @@ class Built:
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelInfo:
+    """What ``-Xptxas -v`` says of one kernel of a library: its name
+    (demangled where ``c++filt`` exists), registers and spill bytes."""
+
+    name: str
+    registers: int
+    spill_stores: int
+    spill_loads: int
+
+
+def kernel_infos(built: Built) -> list[KernelInfo]:
+    """The kernels of a library built by this process, from its compiler
+    output (empty for a library found already built)."""
+    found, func, spill = [], None, (0, 0)
+    for line in built.log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            func, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and func:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            found.append((func, int(m.group(1)), spill))
+            func = None
+    names = [f for f, _, _ in found]
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        names = out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [KernelInfo(name.replace("(anonymous namespace)::", ""), regs, *sp)
+            for name, (_, regs, sp) in zip(names, found)]
 
 
 def _nvcc() -> str:

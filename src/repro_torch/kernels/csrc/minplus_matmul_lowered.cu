@@ -11,15 +11,18 @@
 // the SUMMA step of the distributed "pallas" backend.
 //
 // The kernel is minplus_matmul.cuh's, instantiated on the storage type: the
-// 32-deep A / B slices sit in shared memory in the storage type, the 8 x 8
-// register tile in 32-bit registers, and every ⊗ and ⊕ rounds (bf16 /
+// 8-deep A / B slices of the 2-byte storages, 16-deep of the int32 words
+// (double-buffered, the next one's copies in flight
+// while the current one folds, 16-byte vector copies where the operands
+// allow: minplus_matmul.cu) sit in shared memory in the storage type, the
+// 8 x 8 register tile in 32-bit registers, and every ⊗ and ⊕ rounds (bf16 /
 // f16) or saturates (int16) through semiring.cuh after each op, k
 // ascending, so each element's chain is the reference's bit for bit.  The
 // ⊕-identity (the start without c) crosses the interface by its bits in
 // the storage type: int16's sentinel and the flipped identity of a uint32
 // or_and carrier are no floats.  The ragged edges follow minplus_matmul.cu:
 // rows and columns past the end load 0 and store nothing, a short last
-// k-slice folds to its own depth.
+// k-slice folds to its own depth.  A 4-wide shared read is 8 bytes here.
 //
 // Bound on this card.  m·n·k relaxations at the ops of one lowered step
 // (bf16 / f16 min-plus 3: add, round, min; plus_mul 4; int16 6; packed 1
@@ -40,13 +43,13 @@ namespace {
 
 template <class T, class R>
 int dispatch_half(int sid, const void* a, const void* b, const void* c, void* out, int B,
-                  const Shape& sh, unsigned z, cudaStream_t st) {
+                  const Shape& sh, unsigned z, int stg, cudaStream_t st) {
   switch (sid) {
-    case 0: return launch_matmul<MinPlusH<R>, T>(a, b, c, out, B, sh, z, st);
-    case 1: return launch_matmul<MaxPlusH<R>, T>(a, b, c, out, B, sh, z, st);
+    case 0: return launch_matmul<MinPlusH<R>, T>(a, b, c, out, B, sh, z, stg, st);
+    case 1: return launch_matmul<MaxPlusH<R>, T>(a, b, c, out, B, sh, z, stg, st);
     case 2:
-    case 3: return launch_matmul<MaxMin, T>(a, b, c, out, B, sh, z, st);
-    case 4: return launch_matmul<PlusMulH<R>, T>(a, b, c, out, B, sh, z, st);
+    case 3: return launch_matmul<MaxMin, T>(a, b, c, out, B, sh, z, stg, st);
+    case 4: return launch_matmul<PlusMulH<R>, T>(a, b, c, out, B, sh, z, stg, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -58,35 +61,38 @@ int dispatch_half(int sid, const void* a, const void* b, const void* c, void* ou
 // integers.  semiring: 0 min_plus, 1 max_plus, 2 max_min, 3 or_and,
 // 4 plus_mul (bf16 / f16); int16 takes 0-3 (the *_i16 lowerings), packed 3
 // only, int32 3 and 4.  zero_bits: the ⊕-identity's bits in the storage
-// type (the low 16 bits for the 2-byte storages).
+// type (the low 16 bits for the 2-byte storages).  staging: 1 vector
+// copies, 0 scalar (launch_matmul).
 extern "C" int semiring_matmul_lowered_launch(int storage, int semiring, const void* a,
                                               long long lda, long long sa, const void* b,
                                               long long ldb, long long sb, const void* c,
                                               long long ldc, long long sc, void* out,
                                               long long ldo, long long so, int B, int m,
                                               int n, int k, unsigned zero_bits,
-                                              void* stream) {
+                                              int staging, void* stream) {
   if (B < 1 || m < 1 || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const Shape sh{m, n, k, lda, sa, ldb, sb, ldc, sc, ldo, so};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned z = zero_bits;
+  const int stg = staging;
   if (storage == 0)
-    return dispatch_half<__nv_bfloat16, RoundBf16>(semiring, a, b, c, out, B, sh, z, st);
-  if (storage == 1) return dispatch_half<__half, RoundF16>(semiring, a, b, c, out, B, sh, z, st);
+    return dispatch_half<__nv_bfloat16, RoundBf16>(semiring, a, b, c, out, B, sh, z, stg, st);
+  if (storage == 1)
+    return dispatch_half<__half, RoundF16>(semiring, a, b, c, out, B, sh, z, stg, st);
   if (storage == 2) {
     switch (semiring) {
-      case 0: return launch_matmul<MinPlusI16, short>(a, b, c, out, B, sh, z, st);
-      case 1: return launch_matmul<MaxPlusI16, short>(a, b, c, out, B, sh, z, st);
+      case 0: return launch_matmul<MinPlusI16, short>(a, b, c, out, B, sh, z, stg, st);
+      case 1: return launch_matmul<MaxPlusI16, short>(a, b, c, out, B, sh, z, stg, st);
       case 2:
-      case 3: return launch_matmul<MaxMinI16, short>(a, b, c, out, B, sh, z, st);
+      case 3: return launch_matmul<MaxMinI16, short>(a, b, c, out, B, sh, z, stg, st);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (storage == 3 && semiring == 3)
-    return launch_matmul<OrAndPacked, int>(a, b, c, out, B, sh, z, st);
+    return launch_matmul<OrAndPacked, int>(a, b, c, out, B, sh, z, stg, st);
   if (storage == 4 && semiring == 3)
-    return launch_matmul<MaxMinI16, int>(a, b, c, out, B, sh, z, st);
+    return launch_matmul<MaxMinI16, int>(a, b, c, out, B, sh, z, stg, st);
   if (storage == 4 && semiring == 4)
-    return launch_matmul<PlusMulI32, int>(a, b, c, out, B, sh, z, st);
+    return launch_matmul<PlusMulI32, int>(a, b, c, out, B, sh, z, stg, st);
   return (int)cudaErrorInvalidValue;
 }

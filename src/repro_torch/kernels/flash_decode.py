@@ -6,7 +6,8 @@ an online softmax and returns (B, Hkv, g, hd) in q's dtype (f32 or bf16).
 A tensor on the CPU goes to the plain online-softmax walk
 (``kernels.ref.flash_decode_online_ref``, bs-row blocks as the reference
 kernel walks them); a CUDA tensor goes to ``csrc/flash_decode.cu`` (a KV
-split launch and a combine launch), and a launch that fails raises.  There
+split launch, bf16 on tensor cores with P rounded to bf16 before it meets
+V, and a combine launch), and a launch that fails raises.  There
 is no fallback between the two.  ``LAUNCHES`` counts the kernel's calls,
 each a split launch and a combine launch.  Nothing in the solver calls it: it is its own entry point, as in
 the reference.
@@ -25,9 +26,14 @@ LAUNCHES = {"flash_decode": 0}  # one a call: its split and combine launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8  # q rows a KV head
-# Splits to aim for across the card: 8 a CTA, about 4096 half-warps in
-# flight over 132 SMs at the decode shapes.
-_TARGET_SPLITS = 4096
+# The kernel's split: a CTA of 4 warps takes `chunk` rows in 16-row tiles,
+# so chunk is a multiple of 64.  About 256 CTAs: one wave of two CTAs an SM
+# on the H100's 132 SMs (bf16 takes 96 KB of shared memory a CTA), long
+# enough that each CTA's ring start-up is a small share of it, and few
+# partials for the combine (its time grows with nsplit: measured 5 µs at
+# 8 splits, 20 µs at 32, at the Qwen2-7B shape).
+_SPLIT_ROWS = 64
+_TARGET_CTAS = 256
 
 
 def reset_launch_counts() -> None:
@@ -61,13 +67,15 @@ def _check(q, k, v) -> tuple[int, int, int, int, int]:
     return B, Hkv, g, hd, k.shape[1]
 
 
+@functools.cache
 def split_plan(B: int, Hkv: int, S: int) -> tuple[int, int]:
-    """(chunk, nsplit) of the kernel's KV split: chunk rows a split, a
-    multiple of 16; nsplit a multiple of 8 with nsplit * chunk >= S."""
-    want = max(1, _TARGET_SPLITS // (B * Hkv))
-    chunk = max(16, (-(-S // want) + 15) // 16 * 16)
-    nsplit = -(-S // chunk)
-    return chunk, -(-nsplit // 8) * 8
+    """(chunk, nsplit) of the kernel's KV split: chunk rows a split (one CTA
+    each), a multiple of 64; nsplit * chunk >= S, with about
+    ``_TARGET_CTAS`` CTAs over all (b, h)."""
+    want = max(1, _TARGET_CTAS // (B * Hkv))
+    rows = -(-S // want)
+    chunk = -(-rows // _SPLIT_ROWS) * _SPLIT_ROWS
+    return chunk, -(-S // chunk)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
@@ -91,21 +99,26 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len, *,
     if hd not in HEAD_DIMS or g > MAX_GROUP:
         raise ValueError(f"the kernel takes hd in {HEAD_DIMS} and g <= {MAX_GROUP}, "
                          f"got hd={hd}, g={g}")
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return flash_decode(q, k, v, kv_len, bs=bs)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    kl = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device).reshape(1)
+    if not (isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32
+            and kv_len.device == q.device and kv_len.numel() == 1):
+        kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device).reshape(1)
     chunk, nsplit = split_plan(B, Hkv, S)
-    pm = torch.empty((B * Hkv, nsplit, g), dtype=torch.float32, device=q.device)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((B * Hkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    # One scratch buffer (fewer host calls before the launch): the split
+    # partials m and l (B*Hkv, nsplit, g) and acc (B*Hkv, nsplit, g, hd), f32.
+    parts = B * Hkv * nsplit * g
+    scratch = torch.empty(parts * (hd + 2), dtype=torch.float32, device=q.device)
+    pm = scratch.data_ptr()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_decode_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kl.data_ptr(),
-            pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
-            B, Hkv, g, hd, S, chunk, nsplit, hd ** -0.5, stream)
+    err = _lib().flash_decode_launch(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        pm, pm + 4 * parts, pm + 8 * parts, out.data_ptr(), B, Hkv, g, hd, S, chunk, nsplit,
+        hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return out

@@ -168,13 +168,40 @@ def _lib(lowered: bool = False) -> ctypes.CDLL:
     operands = [p, q, q, p, q, q, p, q, q, p, q, q, i, i, i, i, u]
     if lowered:
         lib = _build.load("minplus_matmul_lowered")
-        lib.semiring_matmul_lowered_launch.argtypes = [i, i] + operands + [p]
+        lib.semiring_matmul_lowered_launch.argtypes = [i, i] + operands + [i, p]
         lib.semiring_matmul_lowered_launch.restype = i
     else:
         lib = _build.load("minplus_matmul")
-        lib.semiring_matmul_launch.argtypes = operands + [i, p]
+        lib.semiring_matmul_launch.argtypes = operands + [i, i, p]
         lib.semiring_matmul_launch.restype = i
     return lib
+
+
+STAGINGS = ("scalar", "vector")  # the kernel's staging codes, by index
+
+
+def staging(itemsize: int, pointers, strides) -> int:
+    """The kernel's staging for operands of ``itemsize`` bytes: 1 (16-byte
+    vector copies) when every pointer is 16-byte aligned and every row and
+    batch stride (in elements) spans a whole number of 16 bytes, else 0
+    (one element at a time).  Both are the same kernel and fold the same
+    chain; this only picks how the slices reach shared memory."""
+    return int(all(p % 16 == 0 for p in pointers)
+               and all(s * itemsize % 16 == 0 for s in strides))
+
+
+def operand_staging(*views: tuple[int, int, int], itemsize: int) -> int:
+    """``staging`` of the (pointer, row stride, batch stride) triples that
+    ``view_args`` gives for a, b, c (when there is one) and out."""
+    return staging(itemsize, [v[0] for v in views], [s for v in views for s in v[1:]])
+
+
+def staging_name(*operands: torch.Tensor | None) -> str:
+    """The staging ("scalar" / "vector") a launch on these operands (a, b,
+    c or None, out) takes."""
+    ts = [t for t in operands if t is not None]
+    views = [view_args(t, "operand") for t in ts]
+    return STAGINGS[operand_staging(*views, itemsize=ts[0].element_size())]
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int, int]:
@@ -231,17 +258,20 @@ def semiring_matmul(
     out = output(out, shape, a)
     if max(B, 1) > 65535 or -(-m // 128) > 65535:
         raise ValueError(f"grid too large for {tuple(a.shape)} @ {tuple(b.shape)}")
-    cv = (None, 0, 0) if c is None else view_args(c, "c")
-    args = (*view_args(a, "a"), *view_args(b, "b"), *cv, *view_args(out, "out"),
-            max(B, 1), m, n, k, zero_bits(semiring, a.dtype))
+    views = [view_args(a, "a"), view_args(b, "b")] + ([] if c is None else [view_args(c, "c")])
+    views.append(view_args(out, "out"))
+    stg = operand_staging(*views, itemsize=a.element_size())
+    cv = (None, 0, 0) if c is None else views[2]
+    args = (*views[0], *views[1], *cv, *views[-1], max(B, 1), m, n, k,
+            zero_bits(semiring, a.dtype))
     kind = "semiring_matmul" + (f"[{tag}]" if tag else "")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if tag is None:
-            err = _lib().semiring_matmul_launch(*args, semiring_id(semiring), stream)
+            err = _lib().semiring_matmul_launch(*args, semiring_id(semiring), stg, stream)
         else:
             err = _lib(True).semiring_matmul_lowered_launch(
-                LOWERINGS[tag], semiring_id(semiring), *args, stream)
+                LOWERINGS[tag], semiring_id(semiring), *args, stg, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
     return out

@@ -2,10 +2,11 @@
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
 
-Prints one JSON line: the ``fw_round/relax`` launch alone at (n, n), pivot
-round n/s/2 (median of 11 between CUDA events), and ``solve`` of the
-seeded density-0.5 digraph at n (host clock around work that ends in a
-synchronize, median of 3 after a warm-up), with the card's name.  Run it
+Prints one JSON line: each ``fw_round`` launch kind (diag, bands, relax)
+alone at (n, n), pivot round n/s/2 (median of 11 between CUDA events),
+and ``solve`` of the seeded density-0.5 digraph at n (host clock around
+work that ends in a synchronize, median of 3 after a warm-up), with the
+card's name.  Run it
 with PYTHONPATH pointing at two trees, in turns inside one chip call, to
 compare their round kernels on one card.  Only the API both trees share
 is used (``fw_round_phase``, ``round_buffers``, ``solve``).
@@ -38,17 +39,18 @@ def main(argv=None) -> int:
     w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
     b = n // s // 2
     bands = fr.round_buffers(w, s)
-    for phase in ("diag", "bands"):
-        fr.fw_round_phase(phase, w, b, bands, block_size=s)
     wk = w.clone()
-    relax = []
-    for _ in range(12):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        fr.fw_round_phase("relax", wk, b, bands, block_size=s)
-        ev[1].record()
-        ev[1].synchronize()
-        relax.append(ev[0].elapsed_time(ev[1]))
+    launch = {}
+    for phase in ("diag", "bands", "relax"):
+        times = []
+        for _ in range(12):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fr.fw_round_phase(phase, wk, b, bands, block_size=s)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        launch[phase] = statistics.median(times[1:])
     solve(w)
     times = []
     for _ in range(3):
@@ -59,7 +61,8 @@ def main(argv=None) -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps(dict(label=args.label, package=repro_torch.__file__,
                           device=torch.cuda.get_device_name(0), n=n,
-                          relax_ms=statistics.median(relax[1:]),
+                          diag_ms=launch["diag"], bands_ms=launch["bands"],
+                          relax_ms=launch["relax"],
                           solve_ms=statistics.median(times), solve_all=times)))
     return 0
 

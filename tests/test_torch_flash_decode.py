@@ -19,7 +19,7 @@ import repro.apsp  # noqa: F401  (imported before repro.kernels: circular import
 from repro.kernels.flash_decode import flash_decode as jflash_decode
 from repro.kernels.ref import flash_decode_ref as jflash_decode_ref
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_decode import LAUNCHES, flash_decode
+from repro_torch.kernels.flash_decode import LAUNCHES, flash_decode, split_plan
 from repro_torch.utils.interop import host_tensor, to_numpy
 
 
@@ -108,3 +108,92 @@ def test_flash_decode_refuses_mismatched_inputs():
         flash_decode(q, k[:, :, :1], v, 10)
     with pytest.raises(TypeError):
         flash_decode(q.double(), k, v, 10)
+
+
+# ------------------------------------------- the bf16 kernel's arithmetic
+def emulate_bf16_kernel(q, k, v, kv_len: int) -> torch.Tensor:
+    """Plain torch of ``csrc/flash_decode.cu``'s bf16 arithmetic: the
+    splits of ``split_plan``, each CTA's 4 warps taking 16-row tiles in
+    turn; f32 logits from bf16 q and k; a per-tile online softmax (f32 m,
+    l); P rounded to bf16 before it meets V (the MMA's A operand), the
+    products summed in f32; the warps merged, then the splits."""
+    B, Hkv, g, hd = q.shape
+    S = k.shape[1]
+    warps, rows = 4, 16
+    chunk, nsplit = split_plan(B, Hkv, S)
+    L = min(kv_len, S) if kv_len >= 1 else S
+    qf, scale = q.float(), hd ** -0.5
+    parts = []
+    for sp in range(nsplit):
+        r0, r1 = sp * chunk, min(sp * chunk + chunk, L)
+        merged = []
+        for w in range(warps):
+            m = torch.full((B, Hkv, g), NEG, dtype=torch.float32)
+            l = torch.zeros((B, Hkv, g))
+            acc = torch.zeros((B, Hkv, g, hd))
+            for row0 in range(r0 + w * rows, r1, warps * rows):
+                idx = torch.arange(row0, row0 + rows)
+                ok = idx < r1
+                kt = torch.zeros((B, rows, Hkv, hd), dtype=k.dtype)
+                vt = torch.zeros_like(kt)
+                kt[:, ok] = k[:, idx[ok]]
+                vt[:, ok] = v[:, idx[ok]]
+                s = torch.einsum("bhgd,bshd->bhgs", qf, kt.float())
+                x = torch.where(idx < kv_len, s * scale, NEG)
+                m_new = torch.maximum(m, torch.where(ok, x, NEG).amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(x - m_new[..., None]), 0.0)
+                l = l * alpha + p.sum(-1)
+                m = m_new
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgs,bshd->bhgd", p.bfloat16().float(), vt.float())
+            merged.append((m, l, acc))
+        parts.append(_merge(merged))
+    m, l, acc = _merge(parts)
+    return (acc / l[..., None]).to(q.dtype)
+
+
+NEG = -1e30
+
+
+def _merge(parts):
+    """(m, l, acc) of several partials, weighted by exp(m_i - max m)."""
+    M = torch.stack([p[0] for p in parts]).amax(0)
+    wgt = [torch.exp(p[0] - M) for p in parts]
+    return (M, sum(p[1] * w_ for p, w_ in zip(parts, wgt)),
+            sum(p[2] * w_[..., None] for p, w_ in zip(parts, wgt)))
+
+
+def _decode_case(kind: str, seed: int = 21):
+    """B 1, Hkv 2, g 7, hd 128, S 4096 in bf16: uniform logits (q = 0),
+    one row's logit ~20 above the rest (q = e0, k = 0 but that row's k0 =
+    226, bf16-exact), or random."""
+    q, k, v = mk(1, 4096, 2, 7, 128, seed=seed, dtype=jnp.bfloat16)
+    if kind == "uniform":
+        q = np.zeros_like(q)
+    elif kind == "peak":
+        q, k = np.zeros_like(q), np.zeros_like(k)
+        q[..., 0] = 1.0
+        k[:, 1234, :, 0] = 226.0  # logit 226 / sqrt(128) = 19.98
+    return q, k, v
+
+
+@pytest.mark.parametrize("kind,kv_len", [("uniform", 4096), ("peak", 4096), ("random", 0),
+                                         ("random", 1), ("random", 4095)])
+def test_bf16_kernel_arithmetic_fits_the_limit(kind, kv_len):
+    """The bf16 kernel's rounding (P in bf16 before V, f32 sums, split
+    merges) stays within ``_decode_tolerance`` of the reference's kernel
+    in interpret mode and of the plain masked softmax."""
+    from test_torch_kernels_cuda import _decode_tolerance
+
+    q, k, v = _decode_case(kind)
+    got = emulate_bf16_kernel(*(host_tensor(x) for x in (q, k, v)), kv_len)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    want = tref.flash_decode_ref(*(host_tensor(x) for x in (q, k, v)), kv_len)
+    rtol, atol = _decode_tolerance(torch.bfloat16, want)
+    assert rtol == 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    for ref_out in (jflash_decode(q, k, v, jnp.int32(kv_len), bs=256, interpret=True),
+                    jflash_decode_ref(q, k, v, jnp.int32(kv_len))):
+        np.testing.assert_allclose(to_numpy(got).astype(np.float32),
+                                   np.asarray(ref_out, np.float32), rtol=rtol, atol=atol)

@@ -1013,8 +1013,10 @@ def _qkv(shape, dtype, seed, device):
 
 def _decode_tolerance(dtype, want):
     """(rtol, atol): f32 the reference's 2e-5; bf16 its rtol 2e-2 with an
-    atol of two bf16 ulps of the largest |output| (kernel and plain version
-    both round once from f32, and the outputs shrink as kv_len grows)."""
+    atol of two bf16 ulps of the largest |output| (the kernel rounds each
+    softmax weight P to bf16 where it meets V, at most 2^-9 of the weight,
+    and sums in f32; both versions round the output once to bf16; the
+    outputs shrink as kv_len grows)."""
     if dtype == torch.float32:
         return 2e-5, 2e-5
     top = float(want.float().abs().max())
@@ -1042,6 +1044,102 @@ def test_kernel_flash_decode_matches_plain(cuda_device, dtype, tol, shape, kv_le
                                rtol=rtol, atol=atol)
     assert fdec.LAUNCHES["flash_decode"] == before + 1
     if 0 < kv_len < shape[1]:  # the masked tail does not leak in
+        k2, v2 = k.clone(), v.clone()
+        k2[:, kv_len:] = 99.0
+        v2[:, kv_len:] = -99.0
+        torch.testing.assert_close(fdec.flash_decode(q, k2, v2, kv_len), got, rtol=1e-6,
+                                   atol=1e-6)
+
+
+# ------------------------- semiring_matmul's stagings, every storage
+MATMUL_STORAGES = [(None, n) for n in NAMES] + REPAIR_CASES
+
+
+def _mm_operand(tag, name, shape, seed):
+    """(x on the CPU, semiring) in the storage; f32 salted with ±inf."""
+    if tag is None:
+        return _salted(name, shape, seed), SEMIRINGS[name]
+    return _storage_case(tag, name, shape, seed)
+
+
+def _mm_case(case, tag, name, dev):
+    """(a, b, c, out or None, staging) of a named card case on dev; views
+    are cut on the card from wider tensors, so their row stride is not
+    their width."""
+    def x(shape, seed):
+        return _mm_operand(tag, name, shape, seed)[0].to(dev)
+
+    if case == "ragged_n":  # (257,128)·(128,1031)
+        return x((257, 128), 1), x((128, 1031), 2), x((257, 1031), 3), None, "scalar"
+    if case == "k77_view":  # an aligned column slice: lda = 80 != k = 77
+        return x((300, 80), 1)[:, :77], x((77, 136), 2), x((300, 136), 3), None, "vector"
+    if case == "k77_shifted":  # the slice 3 columns in: no 16-byte rows
+        return x((300, 80), 1)[:, 3:80], x((77, 136), 2), x((300, 136), 3), None, "scalar"
+    if case == "k1000":
+        return x((200, 1000), 1), x((1000, 136), 2), x((200, 136), 3), None, "vector"
+    if case == "n130_strided_out":  # partial 4-wide column groups, out a view
+        b = x((64, 136), 2)
+        out = torch.empty((200, 136), dtype=b.dtype, device=dev)[:, :130]
+        return x((200, 64), 1), b[:, :130], x((200, 136), 3)[:, :130], out, "vector"
+    if case == "batched":
+        return x((3, 40, 70), 1), x((3, 70, 130), 2), x((3, 40, 130), 3), None, "scalar"
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", MATMUL_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("case", ["ragged_n", "k77_view", "k77_shifted", "k1000",
+                                  "n130_strided_out", "batched", "alias"])
+def test_kernel_semiring_matmul_stagings_match_plain(cuda_device, tag, name, case):
+    """Both stagings of the kernel, by bits against the plain version, with
+    and without c: ragged n, k not a multiple of the slice depth (77,
+    1000), column-slice views with lda != k, a strided out, batched, and
+    ``out`` aliasing ``c`` (the accumulator is otherwise left as it was)."""
+    sr = _mm_operand(tag, name, (8, 8), 0)[1]
+    kind = "semiring_matmul" + (f"[{tag}]" if tag else "")
+    before = fmm.LAUNCHES[kind]
+    if case == "alias":
+        a, b, c = (_mm_operand(tag, name, sh, s)[0].to(cuda_device)
+                   for sh, s in (((256, 128), 1), ((128, 384), 2), ((256, 384), 3)))
+        want = ref.semiring_matmul_ref(a, b, c, semiring=sr)
+        assert fmm.staging_name(a, b, c, c) == "vector"
+        got = fmm.semiring_matmul(a, b, c, semiring=sr, out=c)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == c.data_ptr() and bits_equal(c, want)
+        assert fmm.LAUNCHES[kind] == before + 1
+        return
+    a, b, c, out, staging = _mm_case(case, tag, name, cuda_device)
+    c0 = c.clone()
+    for cc in (None, c):
+        o = fmm.output(out, (*a.shape[:-1], b.shape[-1]), a)
+        assert fmm.staging_name(a, b, cc, o) == staging, case
+        got = fmm.semiring_matmul(a, b, cc, semiring=sr, out=out)
+        want = ref.semiring_matmul_ref(a, b, cc, semiring=sr)
+        torch.cuda.synchronize()
+        assert got.dtype == a.dtype and bits_equal(got, want), (tag, name, case, cc is None)
+    assert bits_equal(c, c0) and fmm.LAUNCHES[kind] == before + 2
+
+
+# -------------------------------------- flash_decode's tiles and splits
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("g", [1, 2, 7, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 65, 1000])
+def test_kernel_flash_decode_tiles(cuda_device, dtype, g, hd, kv_len):
+    """S = 1000, not a multiple of the 16-row KV tile or the 64-row split
+    step; kv_len at tile edges and S: within ``_decode_tolerance`` of both
+    plain versions, the masked tail poisoned without effect."""
+    S = 1000
+    q, k, v = _qkv((2, S, 2, g, hd), dtype, g * 1000 + hd + kv_len, cuda_device)
+    got = fdec.flash_decode(q, k, v, torch.tensor(kv_len, device=cuda_device))
+    want = ref.flash_decode_online_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    rtol, atol = _decode_tolerance(dtype, want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(got.float(), ref.flash_decode_ref(q, k, v, kv_len).float(),
+                               rtol=rtol, atol=atol)
+    if 0 < kv_len < S:
         k2, v2 = k.clone(), v.clone()
         k2[:, kv_len:] = 99.0
         v2[:, kv_len:] = -99.0

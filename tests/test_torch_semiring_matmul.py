@@ -205,3 +205,43 @@ def test_semiring_matmul_refuses_what_it_does_not_take():
         tmm.semiring_matmul(a, b, torch.zeros(8, 7))
     with pytest.raises(ValueError, match="empty"):
         tmm.semiring_matmul(torch.zeros(8, 0), torch.zeros(0, 6))
+
+
+# ------------------------------------------------ the kernel's staging rule
+STAGING_TAGS = {None: torch.float32, "bf16": torch.bfloat16, "f16": torch.float16,
+                "int16": torch.int16, "packed": torch.int32, "or_and_i32": torch.int32,
+                "plus_mul_i32": torch.int32}
+
+
+@pytest.mark.parametrize("tag", list(STAGING_TAGS), ids=lambda t: t or "f32")
+def test_staging_rule(tag):
+    """Vector staging (16-byte copies) exactly where every pointer is
+    16-byte aligned and every row / batch stride spans whole 16 bytes, in
+    the tag's storage; the card tests' shapes: the square and phase-3
+    products and an aligned column-slice view take it, the ragged
+    (1000,77)·(77,513), (1,5)·(5,3), (257,128)·(128,1031), the batched
+    (3,40,70)·(3,70,130) and a view shifted by 3 columns do not."""
+    dt = STAGING_TAGS[tag]
+    size = torch.empty((), dtype=dt).element_size()
+    epc = 16 // size  # elements a 16-byte chunk
+    assert tag is None or tag in tmm.LOWERINGS
+    assert tmm.staging(size, [0, 4096, 256], [8 * epc, 0, 3 * epc, 64 * epc]) == 1
+    assert tmm.staging(size, [0, 4096 + size], [8 * epc]) == 0  # pointer one element off
+    assert tmm.staging(size, [0, 4096], [8 * epc + 1]) == 0     # row stride
+    assert tmm.staging(size, [0, 4096], [8 * epc, 5]) == 0      # batch stride
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dt)
+
+    def name(a, b, c=None):
+        out = z(*a.shape[:-1], b.shape[-1])
+        return tmm.staging_name(a, b, c, out)
+
+    assert name(z(256, 128), z(128, 384), z(256, 384)) == "vector"
+    assert name(z(512, 128), z(128, 512), z(512, 512)) == "vector"  # phase 3, cut
+    wide = z(200, 1040)
+    assert name(wide[:, :77], z(77, 136), z(200, 136)) == "vector"  # lda != k
+    assert name(wide[:, 3:80], z(77, 136)) == "scalar"
+    for a_shape, b_shape in [((1000, 77), (77, 513)), ((1, 5), (5, 3)),
+                             ((257, 128), (128, 1031)), ((3, 40, 70), (3, 70, 130))]:
+        assert name(z(*a_shape), z(*b_shape)) == "scalar", (a_shape, b_shape)
