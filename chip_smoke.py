@@ -8,7 +8,8 @@ Phases, each of which raises (exit code 1) on any failure:
 
   1. device: the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
-     each library's build seconds, registers and spills.
+     each library's build seconds, registers and spills (each instantiation
+     of the redesigned kernels: matmul, relax, successor relax, decode).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -59,8 +60,10 @@ Phases, each of which raises (exit code 1) on any failure:
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
      3.35 TB/s, the H100 SXM's published peaks); the sweep kinds at a = 8,
      64 and 256 affected rows; ``semiring_matmul`` also in plus_mul beside
-     ``torch.addmm`` at the phase-3 shape and at 4096³ in min-plus and
-     plus_mul, the latter beside ``torch.matmul`` (TF32 off).
+     ``torch.addmm`` at the phase-3 shape, with the fused round's relax
+     timed beside both on that shape (min-plus and plus_mul), and at 4096³
+     in min-plus and plus_mul, the latter beside ``torch.matmul`` (TF32
+     off).
      The lowered launch kinds likewise at n=8192 (successors n=4096),
      the lowered repair (E=16) and sweep (a=8) kinds and the int32 round
      kinds included; the lowered 4-dispatch kinds (``fw_phase1[int16]``,
@@ -126,7 +129,7 @@ Phases, each of which raises (exit code 1) on any failure:
      single and batched, owner echo none / (1,1) / the last tile / one of
      the two, ±inf salted in) and timed alone per launch kind at the 2×2
      rank's (4224,4224) block (phase 3), in f32 and the four lowered
-     storages.
+     storages, and plus_mul's relax there beside ``torch.addmm``.
 
 Every kernel of the record must have been launched on its path; the
 last lines are the ``{"kernels": [...]}`` record and then
@@ -388,9 +391,10 @@ def phase_device():
         regs = max((k.registers for k in infos), default=0)
         print(f"built {built.path.name} in {built.seconds:.1f} s: {len(infos)} kernels, at most "
               f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
-        if built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode"):
+        if built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
+                          "fw_round", "fw_round_lowered"):
             for k in infos:  # the redesigned kernels, each instantiation
-                if "matmul_kernel" in k.name or "split_kernel" in k.name:
+                if any(x in k.name for x in ("matmul_kernel", "split_kernel", "relax_kernel")):
                     print(f"  {k.name}: {k.registers} registers, spill stores / loads "
                           f"{k.spill_stores} / {k.spill_loads} B")
     return name
@@ -490,7 +494,8 @@ def phase_check_repair():
 
 def phase_kernels(n: int, n_succ: int, s: int = 128):
     """Each launch kind alone at the main path's shapes: error vs its plain
-    phase, median ms, plain ms, bound."""
+    phase, median ms, plain ms, bound (a relaxation 2 fp32 operations, a
+    successor one 3: add, compare, select, as the lowered rows count it)."""
     import torch
 
     from repro_torch.core.graph import random_digraph
@@ -560,7 +565,7 @@ def phase_kernels(n: int, n_succ: int, s: int = 128):
            event_ms(lambda: fr.fw_round_with_successors_phase(
                "diag", w, succ, b, bands, block_size=s), 11),
            event_ms(lambda: ref.close_diag_succ(w[o, o], succ[o, o]), 3),
-           2.0 * s**3, 2 * s * s * 8)
+           3.0 * s**3, 2 * s * s * 8)
 
     fr.fw_round_with_successors_phase("bands", w, succ, b, bands, block_size=s)
     want_b = ref.close_bands_succ(w, succ, diag, dsucc, b)
@@ -575,7 +580,7 @@ def phase_kernels(n: int, n_succ: int, s: int = 128):
            event_ms(lambda: fr.fw_round_with_successors_phase(
                "bands", w, succ, b, bands, block_size=s), 11),
            event_ms(lambda: ref.close_bands_succ(w, succ, diag, dsucc, b), 3),
-           2.0 * tiles * s**3, (s * s + 2 * tiles * s * s) * 8)
+           3.0 * tiles * s**3, (s * s + 2 * tiles * s * s) * 8)
 
     wk, sk = w.clone(), succ.clone()
     fr.fw_round_with_successors_phase("relax", wk, sk, b, bands, block_size=s)
@@ -586,7 +591,7 @@ def phase_kernels(n: int, n_succ: int, s: int = 128):
            event_ms(lambda: fr.fw_round_with_successors_phase(
                "relax", wk, sk, b, bands, block_size=s), 5),
            event_ms(lambda: ref.relax_succ_tiles(w, succ, *want_b, b), 1),
-           2.0 * n_succ * n_succ * s, (2 * n_succ * n_succ + 2 * n_succ * s) * 8)
+           3.0 * n_succ * n_succ * s, (2 * n_succ * n_succ + 2 * n_succ * s) * 8)
     return rows
 
 
@@ -1344,8 +1349,9 @@ def phase_kernels_four(rows: dict, n: int, s: int = 128, sq: int = 4096):
     """Each 4-dispatch launch alone at the path's shapes (n = 8192, s =
     128, round T/2): ``fw_phase1`` (s,s), ``fw_phase2_row`` (s,n),
     ``fw_phase2_col`` (n,s), ``semiring_matmul`` at the phase-3 shape
-    (n,s)·(s,n) + C (min-plus, the record); then plus_mul at that shape
-    beside ``torch.addmm`` and the fused round's relax launch, and the
+    (n,s)·(s,n) + C (min-plus, the record) beside the fused round's relax
+    launch on the same shape; then plus_mul at that shape beside
+    ``torch.addmm`` and the fused round's plus_mul relax, and the
     square (sq,sq)·(sq,sq) product in min-plus and plus_mul, the latter
     beside ``torch.matmul`` (TF32 off: full f32, not bitwise, not checked).
     Work: a relaxation is 2 fp32 operations; bytes: each input read once,
@@ -1405,23 +1411,27 @@ def phase_kernels_four(rows: dict, n: int, s: int = 128, sq: int = 4096):
         ops, nbytes = 2.0 * n * n * s, (2 * n * n + 2 * n * s) * 4
         print(f"semiring_matmul {sr.name} ({n},{s})·({s},{n}) + C staging: "
               f"{fmm.staging_name(col, row, w, out)}")
+        # The fused round's relax folds the same product onto a spliced C.
+        bands = fr.round_buffers(w, s)
+        wk = w.clone()
+        kw = dict(block_size=s, semiring=sr)
+        fr.fw_round_phase("diag", wk, b, bands, **kw)
+        fr.fw_round_phase("bands", wk, b, bands, **kw)
+        relax = event_ms(lambda: fr.fw_round_phase("relax", wk, b, bands, **kw), 5)
+        del bands, wk
         if sr is MIN_PLUS:
             record("semiring_matmul", err, ms, plain, ops, nbytes)
+            print(f"fused relax min_plus at the phase-3 shape: fw_round/relax {relax:.4f} ms; "
+                  f"semiring_matmul {ms:.4f} ms ({relax / ms:.3f}x)")
             continue
         lib_out = torch.empty_like(out)
         lib = event_ms(lambda: torch.addmm(w, col, row, out=lib_out), 5)
         del lib_out
-        bands = fr.round_buffers(w, s)
-        wk = w.clone()
-        kw = dict(block_size=s, semiring=PLUS_MUL)
-        fr.fw_round_phase("diag", wk, b, bands, **kw)
-        fr.fw_round_phase("bands", wk, b, bands, **kw)
-        relax = event_ms(lambda: fr.fw_round_phase("relax", wk, b, bands, **kw), 5)
         record("semiring_matmul", err, ms, plain, ops, nbytes, store=False,
                note=f" plus_mul ({n},{s})·({s},{n}) + C", library=lib)
         print(f"library plus_mul at the phase-3 shape: torch.addmm {lib:.4f} ms; "
-              f"semiring_matmul {ms:.4f} ms; fw_round/relax {relax:.4f} ms")
-        del bands, wk
+              f"semiring_matmul {ms:.4f} ms; fw_round/relax {relax:.4f} ms "
+              f"({relax / lib:.3f}x addmm)")
     del w, out
 
     for sr in (MIN_PLUS, PLUS_MUL):
@@ -1556,13 +1566,14 @@ def phase_kernels_dist(rows: dict, n: int, s: int = 128, R: int = 2, C: int = 2)
     the same block; random packed words), against the plain version of its
     phase.  Work: a relaxation is 2 fp32 operations (``LOWERED_OPS`` in a
     lowering); bytes: each input read once, each output written once, in the
-    storage's word."""
+    storage's word.  Then plus_mul's f32 relax at that block beside
+    ``torch.addmm`` computing the same product onto the same C."""
     import numpy as np
     import torch
 
     from repro_torch.apsp import api
     from repro_torch.core.graph import random_digraph
-    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED, PLUS_MUL
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
 
@@ -1620,6 +1631,23 @@ def phase_kernels_dist(rows: dict, n: int, s: int = 128, R: int = 2, C: int = 2)
                event_ms(lambda: ref.relax_bordered(w, row, col, -1, -1, semiring=sr), 1),
                ops * r * c * s, (2 * r * c + (r + c) * s) * word)
         del bands, wk, want, row, col
+
+    # plus_mul's bordered relax beside torch.addmm on the same product.
+    bands = fr.bordered_round_buffers(w32, s)
+    kw = dict(owner_row=-1, owner_col=-1, bands=bands, block_size=s, semiring=PLUS_MUL)
+    for phase in ("diag", "bands"):
+        fr.fw_round_bordered_phase(phase, w32, **kw)
+    wk = w32.clone()
+    fr.fw_round_bordered_phase("relax", wk, **kw)
+    want = ref.relax_bordered(w32, bands[0][0], bands[1][0], -1, -1, semiring=PLUS_MUL)
+    sync()
+    require(same(wk, want), "bordered plus_mul relax launch != plain relax_bordered")
+    relax = event_ms(lambda: fr.fw_round_bordered_phase("relax", wk, **kw), 5)
+    lib_out = torch.empty_like(w32)
+    lib = event_ms(lambda: torch.addmm(w32, bands[1][0], bands[0][0], out=lib_out), 5)
+    print(f"library plus_mul at the bordered shape {tuple(w32.shape)}: torch.addmm {lib:.4f} ms; "
+          f"fw_round_bordered/relax {relax:.4f} ms ({relax / lib:.3f}x addmm)")
+    del bands, wk, want, lib_out
     print(f"kernel fw_round_bordered shape: ({s + nr},{s + nc}), the {R}x{C} grid's rank "
           f"block at n={n}, s={s}")
 

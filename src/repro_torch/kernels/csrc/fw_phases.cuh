@@ -1,5 +1,6 @@
 // The per-thread chains of the blocked Floyd-Warshall phases, shared by
-// fw_round.cu (the full round) and fw_repair_del.cu (the restricted sweep).
+// fw_round.cu (the full round's diag and bands) and fw_repair_del.cu (the
+// restricted sweep).
 // The kernels differ only in where their tiles come from and go to: each
 // loads its registers and stages its closed diagonal, calls one of these
 // bodies, and stores the result.
@@ -13,10 +14,11 @@
 // shared memory (DS = S + 1, a padded row stride).  A caller syncs after
 // staging d and before the chain.
 //
-// relax_chunk is the relax launches' inner loop: thread (ty, tx) owns rows
-// ty + TY·m and columns tx + 16q, and relaxes them over one bk-deep chunk
-// staged in shared memory, k ascending.  As is rows x bk with row stride
-// bk + 1, Bs is bk x S.
+// relax_chunk is the sweep's strip relax inner loop (fw_repair_del.cuh;
+// the fused round's relax runs on the matmul's mainloop instead): thread
+// (ty, tx) owns rows ty + TY·m and columns tx + 16q, and relaxes them over
+// one bk-deep chunk staged in shared memory, k ascending.  As is rows x bk
+// with row stride bk + 1, Bs is bk x S.
 //
 // The _succ forms carry an int32 next hop beside each distance and take a
 // candidate only where it is strictly smaller (relax_succ, min-plus).
@@ -109,8 +111,8 @@ __device__ __forceinline__ void relax_chunk(V (&acc)[RM][S / 16], const T* As,
 
 // ------------------------------------------------------------- successors
 // The a-side next hop: diag the tile's own column k, row panel the closed
-// diagonal's successor tile ds, col panel the tile's own column k, relax
-// the staged successor slice ASs.  Op is the distance step of relax_succ
+// diagonal's successor tile ds, col panel the tile's own column k, the
+// sweep's relax the staged successor slice ASs.  Op is the distance step of relax_succ
 // (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
 template <int S, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void close_tile_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],

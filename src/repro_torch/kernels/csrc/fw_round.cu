@@ -18,14 +18,15 @@
 //   2. bands — (tc-1)+(tr-1) CTAs per graph close the row tiles
 //              (_close_row_panel) and col tiles (_close_col_panel) of round
 //              b against it.
-//   3. relax — tr*tc CTAs per graph relax every (s,s) tile against bk-deep
-//              band slices staged through shared memory (_relax_tile).
-//              Tiles in row band b start from the row band, then tiles in
-//              col band b from the col band, else from w (the splice of
-//              fw_round.py:266-269).  Every tile is re-relaxed, pivot bands
-//              included, k ascending, so plus_mul matches the reference.
-//              Phase 3 writes w in place: it reads bands only from the
-//              band buffers.  The batch rides gridDim.z.
+//   3. relax — one CTA per 128 x 128 output tile per graph relaxes every
+//              element against the closed bands, k ascending (_relax_tile):
+//              the semiring matmul colband ⊗ rowband folded onto a spliced
+//              C.  Rows in row band b start from the row band, then
+//              columns in col band b from the col band, else from w (the
+//              splice of fw_round.py:266-269).  Every tile is re-relaxed,
+//              pivot bands included, k ascending, so plus_mul matches the
+//              reference.  Phase 3 writes w in place: it reads bands only
+//              from the band buffers.  The batch rides gridDim.z.
 //
 // The square round runs the three kernels on (n,n) with rows = cols = n,
 // pivot b and no owner echo.  The bordered round of the distributed solve
@@ -51,14 +52,21 @@
 // one FMA): n^3 relaxations per solve against the 67 TFLOP/s non-tensor
 // pipe, versus 2*n^2 words of traffic per round at 3.35 TB/s.  At s = 128
 // the relax launch does s relaxations per word it moves, so it is bound by
-// operations, not bytes.  Its design: each thread keeps a TMxTM
-// accumulator in registers (TM = s/16, 256 threads), and reads TM + TM
-// operands from shared memory per TM*TM relaxations.  The diag and bands
-// launches are short serial chains of s steps; they are bound by latency,
-// which their registers-resident tiles and single barrier per step keep
-// small.  tensor cores (wgmma) do not apply to a tropical ⊕.  A bordered
-// round does rows*cols*s relaxations on its (rows, cols) block and is
-// bound the same way.
+// operations.  Its design is semiring_matmul's mainloop (minplus_matmul.cuh,
+// whose note says why): each thread keeps an 8 x 8 tile as 2 x 2 blocks of
+// 4 x 4 and reads 4-wide from k-major A and row-major B slices, 16 deep (8
+// in the 2-byte storages), double-buffered by cp.async and a register
+// prefetch, one barrier a slice, two CTAs an SM.  The relax differs from
+// the matmul only in where each element starts, so the 128 x 128 tile does
+// not depend on s and one instantiation a semiring and storage serves every
+// s.  The successor relax keeps, in place of a next-hop tile, the k of the
+// last strict improvement as a byte an element, and gathers the next hop
+// once after the fold (fw_round.cuh).  The diag and bands launches are
+// short serial chains of s steps; they are bound by latency, which their
+// registers-resident tiles and single barrier per step keep small.  Tensor
+// cores (wgmma) do not apply to a tropical ⊕.  A bordered round does
+// rows*cols*s relaxations on its (rows, cols) block and is bound the same
+// way.
 //
 // The kernels themselves live in fw_round.cuh, templated on the storage
 // type; this file instantiates them for f32 (fw_round_lowered.cu for the
@@ -74,18 +82,17 @@
 namespace {
 
 int dispatch_round(int phase, void* w, void* rowband, void* colband, int B, int rows,
-                   int cols, int s, int b, int pr, int pc, int bk, int semiring,
-                   void* stream) {
+                   int cols, int s, int b, int pr, int pc, int semiring, void* stream) {
   float* pw = static_cast<float*>(w);
   float* rb = static_cast<float*>(rowband);
   float* cb = static_cast<float*>(colband);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case 0: return dispatch_s<MinPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
-    case 1: return dispatch_s<MaxPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
+    case 0: return dispatch_s<MinPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, st);
+    case 1: return dispatch_s<MaxPlus>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, st);
     case 2:
-    case 3: return dispatch_s<MaxMin>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
-    case 4: return dispatch_s<PlusMul>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, bk, st);
+    case 3: return dispatch_s<MaxMin>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, st);
+    case 4: return dispatch_s<PlusMul>(phase, pw, rb, cb, B, rows, cols, s, b, pr, pc, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -93,13 +100,12 @@ int dispatch_round(int phase, void* w, void* rowband, void* colband, int B, int 
 }  // namespace
 
 // phase: 0 = diag, 1 = bands, 2 = relax.  semiring: 0 min_plus,
-// 1 max_plus, 2 max_min, 3 or_and, 4 plus_mul.  s in {16, 32, 64, 128};
-// bk divides s.  w (B,n,n), rowband (B,s,n), colband (B,n,s), contiguous f32.
+// 1 max_plus, 2 max_min, 3 or_and, 4 plus_mul.  s in {16, 32, 64, 128}.
+// w (B,n,n), rowband (B,s,n), colband (B,n,s), contiguous f32, 16-byte
+// aligned.
 extern "C" int fw_round_launch(int phase, void* w, void* rowband, void* colband,
-                               int B, int n, int s, int b, int bk, int semiring,
-                               void* stream) {
-  return dispatch_round(phase, w, rowband, colband, B, n, n, s, b, -1, -1, bk, semiring,
-                        stream);
+                               int B, int n, int s, int b, int semiring, void* stream) {
+  return dispatch_round(phase, w, rowband, colband, B, n, n, s, b, -1, -1, semiring, stream);
 }
 
 // The bordered round: w (B,rows,cols) with the pivot at tile (0,0), rowband
@@ -108,9 +114,9 @@ extern "C" int fw_round_launch(int phase, void* w, void* rowband, void* colband,
 // wrapper does not launch phase 1 when rows == cols == s.
 extern "C" int fw_round_bordered_launch(int phase, void* w, void* rowband, void* colband,
                                         int B, int rows, int cols, int s, int pr, int pc,
-                                        int bk, int semiring, void* stream) {
-  return dispatch_round(phase, w, rowband, colband, B, rows, cols, s, 0, pr, pc, bk,
-                        semiring, stream);
+                                        int semiring, void* stream) {
+  return dispatch_round(phase, w, rowband, colband, B, rows, cols, s, 0, pr, pc, semiring,
+                        stream);
 }
 
 // The successor round: w f32 and succ int32 (B,n,n); distance bands rw

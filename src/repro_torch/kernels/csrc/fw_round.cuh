@@ -2,19 +2,19 @@
 // successor round, templated on the storage type T of w and of the band
 // buffers: fw_round.cu instantiates them for f32 (square and bordered),
 // fw_round_lowered.cu for bf16, f16, int16 and packed int32 words.  What the
-// launches do and why is in fw_round.cu; the per-thread chains are in
-// fw_phases.cuh, the steps in semiring.cuh.  Registers hold V = float (f32,
-// bf16, f16) or int (int16, packed): each value is widened from T on load
-// and put back in T on store, exactly.
+// launches do and why is in fw_round.cu; the diag and bands chains are in
+// fw_phases.cuh, the relax kernels run on the mainloop of
+// minplus_matmul.cuh, the steps are semiring.cuh's.  Registers hold V =
+// float (f32, bf16, f16) or int (int16, packed): each value is widened from
+// T on load and put back in T on store, exactly.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "fw_phases.cuh"
+#include "minplus_matmul.cuh"
 
 namespace {
-
-constexpr int kRelaxThreads = 256;  // 16 x 16, each owning TM x TM outputs
 
 // ------------------------------------------------------------------ diag
 // Thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c.
@@ -91,61 +91,80 @@ bands_kernel(const T* __restrict__ w, T* __restrict__ rowband, T* __restrict__ c
 }
 
 // ----------------------------------------------------------------- relax
-// One CTA per (s,s) tile; thread (ty, tx) owns rows ty + 16m, cols tx + 16q.
-// Shared memory: A slice (S x bk, row stride bk+1) from colband, B slice
-// (bk x S) from rowband.
-template <int S, class Op, class T>
-__global__ void __launch_bounds__(kRelaxThreads)
-relax_kernel(T* __restrict__ w, const T* __restrict__ rowband, const T* __restrict__ colband,
-             int rows, int cols, int b, int pr, int pc, int bk) {
-  constexpr int TM = S / 16;
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  T* As = reinterpret_cast<T*>(dyn_smem);  // S x (bk + 1)
-  T* Bs = As + S * (bk + 1);               // bk x S
-  const int TC = cols / S;
-  const int ti = blockIdx.x / TC, tj = blockIdx.x % TC;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t g = blockIdx.z;
-  T* wg = w + g * rows * cols;
-  const T* rb = rowband + g * S * cols;
-  const T* cb = colband + g * rows * S;
+// Where the 4-wide group at row r, columns col .. col+3 of a round starts:
+// the row band in row block b (or the owner echo pr), else the col band in
+// column block b (or pc), else w; the same for the successor buffers.  For
+// s >= 16 the four columns lie in one column block.  ls = log2(s).
+template <class U>
+__device__ __forceinline__ const U* start_of(const U* w, const U* rb, const U* cb, int r,
+                                             int col, int cols, int ls, int b, int pr, int pc) {
+  const int rblk = r >> ls, cblk = col >> ls;
+  if (rblk == b || rblk == pr) return rb + ((r - (rblk << ls)) * cols + col);
+  if (cblk == b || cblk == pc) return cb + ((r << ls) + col - (cblk << ls));
+  return w + ((long long)r * cols + col);
+}
 
-  const T* src;
-  size_t ld;
-  if (ti == b || ti == pr) {
-    src = rb + (size_t)tj * S;
-    ld = cols;
-  } else if (tj == b || tj == pc) {
-    src = cb + (size_t)ti * S * S;
-    ld = S;
-  } else {
-    src = wg + (size_t)ti * S * cols + (size_t)tj * S;
-    ld = cols;
-  }
-  Reg<T> acc[TM][TM];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < TM; ++q) acc[m][q] = widen(src[(ty + 16 * m) * ld + tx + 16 * q]);
+// Whether the tile at t0 (a row or column offset; at most 128 wide) meets
+// block blk (-1: none).
+__device__ __forceinline__ bool meets(int t0, int s, int blk) {
+  return blk >= 0 && blk * s < t0 + kTile && (blk + 1) * s > t0;
+}
 
-  for (int k0 = 0; k0 < S; k0 += bk) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < S * bk; idx += kRelaxThreads) {
-      const int r = idx / bk, kk = idx % bk;
-      As[r * (bk + 1) + kk] = cb[((size_t)ti * S + r) * S + k0 + kk];
-    }
-    for (int idx = threadIdx.x; idx < S * bk; idx += kRelaxThreads) {
-      const int kk = idx / S, cc = idx % S;
-      Bs[kk * S + cc] = rb[(size_t)(k0 + kk) * cols + (size_t)tj * S + cc];
-    }
-    __syncthreads();
-    relax_chunk<S, TM, 16, Op>(acc, As, Bs, bk, ty, tx);
-  }
-  T* dst = wg + (size_t)ti * S * cols + (size_t)tj * S;
+// The thread's 8 x C tile from start(r, c): a tile that meets no band block
+// (most of them) loads w as the matmul loads C, the others pick each
+// group's source by start_of.  Rows and columns past the block (whole
+// groups: rows and cols are multiples of s) start from 0 and are never
+// stored.  The relax kernels issue it before their first slice, so its
+// addresses are dead before the slice's prefetch registers are live; the
+// loads of both are in flight together all the same.
+template <int C = 8, class T, class V>
+__device__ __forceinline__ void start_tile(V (&acc)[8][C], const T* w, const T* rb,
+                                           const T* cb, int rows, int cols, int s, int b,
+                                           int pr, int pc, int i0, int j0, int ty, int tx) {
+  const bool banded = meets(i0, s, b) || meets(i0, s, pr) || meets(j0, s, b) || meets(j0, s, pc);
+  const int ls = __ffs(s) - 1;
+  for_groups<C / 4>(i0, j0, ty, tx, [&](int i, int h, int r, int col) {
+    V* v = &acc[i][4 * h];
+    if (r >= rows || col >= cols) {
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int q = 0; q < TM; ++q) put(dst[(size_t)(ty + 16 * m) * cols + tx + 16 * q], acc[m][q]);
+      for (int e = 0; e < 4; ++e) v[e] = V(0);
+    } else if (!banded) {
+      load4(w + ((long long)r * cols + col), v);
+    } else {
+      load4(start_of(w, rb, cb, r, col, cols, ls, b, pr, pc), v);
+    }
+  });
+}
+
+// The relax of round b: w[r, c] = start(r, c) ⊕ ⊕_k colband[r, k] ⊗
+// rowband[k, c], k = 0 .. s-1 ascending, on matmul_kernel's mainloop: one
+// CTA a 128 x 128 output tile of (rows, cols), A = colband (lda s), B =
+// rowband (ldb cols), C and out = w in place (each element is read by the
+// thread that writes it, before it writes it).  Only the C load differs
+// from the matmul's: each group starts from start_of.  The tile does not
+// depend on s (k = s, a whole number of slices at run time).  The round's
+// buffers always meet the vector staging (fw_round.py checks it).
+template <class Op, class T>
+__global__ void __launch_bounds__(kThreads, 2)
+relax_kernel(T* w, const T* __restrict__ rowband, const T* __restrict__ colband, int rows,
+             int cols, int s, int b, int pr, int pc) {
+  __shared__ Slices<T> sm;
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int ty = lane_ty(), tx = lane_tx();
+  const long long g = blockIdx.z, rc = (long long)rows * cols;
+  T pad;
+  put(pad, Reg<T>(0));
+
+  Reg<T> acc[8][8];
+  start_tile(acc, w + g * rc, rowband + g * s * cols, colband + g * s * rows, rows, cols, s, b,
+             pr, pc, i0, j0, ty, tx);
+
+  const Shape sh{rows, cols, s, s, 0, cols, 0, cols, 0, cols, 0};
+  Stage<T, true> st(colband + g * s * rows, rowband + g * s * cols, sh, i0, j0);
+  st.load(rowband, sh, sm.B[0], pad);
+  fold_slices(st, rowband, sh, sm, pad,
+              [&](const T* as, const T* bs, int) { fold_k<Op>(acc, as, bs, ty, tx); });
+  store_tile<true>(w + g * rc, cols, rows, cols, i0, j0, ty, tx, acc);
 }
 
 // ------------------------------------------------------- successor round
@@ -240,78 +259,83 @@ succ_bands_kernel(const T* __restrict__ w, const int* __restrict__ succ,
   }
 }
 
-template <int S, class Op, class T>
-__global__ void __launch_bounds__(kRelaxThreads)
-succ_relax_kernel(T* __restrict__ w, int* __restrict__ succ,
-                  const T* __restrict__ rw, const T* __restrict__ cw,
-                  const int* __restrict__ rs, const int* __restrict__ cs,
-                  int n, int b, int bk) {
-  constexpr int TM = S / 16;
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  int* ASs = reinterpret_cast<int*>(dyn_smem);  // S x (bk + 1) successors
-  T* As = reinterpret_cast<T*>(ASs + S * (bk + 1));  // S x (bk + 1)
-  T* Bs = As + S * (bk + 1);                         // bk x S
-  const int TT = n / S;
-  const int ti = blockIdx.x / TT, tj = blockIdx.x % TT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t g = blockIdx.z;
-  T* wg = w + g * n * n;
-  int* sg = succ + g * n * n;
-  const T* rwg = rw + g * S * n;
-  const int* rsg = rs + g * S * n;
-  const T* cwg = cw + g * n * S;
-  const int* csg = cs + g * n * S;
+// The relax of the successor round (min-plus; Op the distance step:
+// StrictMinPlus in f32, MinPlusH<R> in bf16 / f16) on the same mainloop.
+// The next hop of an element is the a-side hop cs[r, k] of the last k whose
+// candidate was strictly smaller than the running distance, or the start's
+// where none was.  So a thread keeps, beside each distance, only that k
+// (kKept = none), and gathers cs[r, k] once after the fold: no successor
+// slice is staged or read per k.  A relaxation is then a compare and two
+// selects (distance, k), the fewest that strict < allows: a k packed a
+// byte an element would free registers but take a second instruction to
+// insert it.  So the thread tile is 8 x 4 (64 registers of distances and
+// k), on a 128 x 64 output tile, 8-deep slices.
+constexpr int kSuccCols = 64;  // output tile width
+constexpr int kKept = -1;
 
-  const T* src;
-  const int* ssrc;
-  size_t ld;
-  if (ti == b) {
-    src = rwg + (size_t)tj * S;
-    ssrc = rsg + (size_t)tj * S;
-    ld = n;
-  } else if (tj == b) {
-    src = cwg + (size_t)ti * S * S;
-    ssrc = csg + (size_t)ti * S * S;
-    ld = S;
-  } else {
-    src = wg + (size_t)ti * S * n + (size_t)tj * S;
-    ssrc = sg + (size_t)ti * S * n + (size_t)tj * S;
-    ld = n;
-  }
-  float acc[TM][TM];
-  int sacc[TM][TM];
+template <class Op, class T>
+__device__ __forceinline__ void fold_k_succ(float (&acc)[8][4], int (&ks)[8][4], const T* as,
+                                            const T* bs, int ty, int tx, int k) {
+  float av[8], bv[4];
+  load4(as + 4 * ty, av);
+  load4(as + 64 + 4 * ty, av + 4);
+  load4(bs + 4 * tx, bv);
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int q = 0; q < TM; ++q) {
-      acc[m][q] = widen(src[(ty + 16 * m) * ld + tx + 16 * q]);
-      sacc[m][q] = ssrc[(ty + 16 * m) * ld + tx + 16 * q];
+    for (int j = 0; j < 4; ++j) {
+      const float cand = Op::mul(av[i], bv[j]);
+      const bool better = cand < acc[i][j];
+      acc[i][j] = better ? cand : acc[i][j];
+      ks[i][j] = better ? k : ks[i][j];
     }
+}
 
-  for (int k0 = 0; k0 < S; k0 += bk) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < S * bk; idx += kRelaxThreads) {
-      const int r = idx / bk, kk = idx % bk;
-      const size_t at = ((size_t)ti * S + r) * S + k0 + kk;
-      As[r * (bk + 1) + kk] = cwg[at];
-      ASs[r * (bk + 1) + kk] = csg[at];
-    }
-    for (int idx = threadIdx.x; idx < S * bk; idx += kRelaxThreads) {
-      const int kk = idx / S, cc = idx % S;
-      Bs[kk * S + cc] = rwg[(size_t)(k0 + kk) * n + (size_t)tj * S + cc];
-    }
-    __syncthreads();
-    relax_chunk_succ<S, TM, 16, Op>(acc, sacc, As, ASs, Bs, bk, ty, tx);
-  }
-  T* dst = wg + (size_t)ti * S * n + (size_t)tj * S;
-  int* sdst = sg + (size_t)ti * S * n + (size_t)tj * S;
+template <class Op, class T>
+__global__ void __launch_bounds__(kThreads, 2)
+succ_relax_kernel(T* w, int* succ, const T* __restrict__ rw, const T* __restrict__ cw,
+                  const int* __restrict__ rs, const int* __restrict__ cs, int n, int s, int b) {
+  constexpr int BK = 8;
+  __shared__ Slices<T, BK, kSuccCols> sm;
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kSuccCols;
+  const int ty = lane_ty(), tx = lane_tx();
+  const long long nn = (long long)n * n, sn = (long long)s * n, g = blockIdx.z;
+  T pad;
+  put(pad, 0.0f);
+
+  float acc[8][4];
+  start_tile<4>(acc, w + g * nn, rw + g * sn, cw + g * sn, n, n, s, b, -1, -1, i0, j0, ty, tx);
+
+  const Shape sh{n, n, s, s, 0, n, 0, n, 0, n, 0};
+  Stage<T, true, BK, kSuccCols> st(cw + g * sn, rw + g * sn, sh, i0, j0);
+  st.load(rw, sh, sm.B[0], pad);
+  int ks[8][4];
 #pragma unroll
-  for (int m = 0; m < TM; ++m)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int q = 0; q < TM; ++q) {
-      put(dst[(size_t)(ty + 16 * m) * n + tx + 16 * q], acc[m][q]);
-      sdst[(size_t)(ty + 16 * m) * n + tx + 16 * q] = sacc[m][q];
-    }
+    for (int j = 0; j < 4; ++j) ks[i][j] = kKept;
+  fold_slices(st, rw, sh, sm, pad, [&](const T* as, const T* bs, int k) {
+    fold_k_succ<Op>(acc, ks, as, bs, ty, tx, k);
+  });
+  store_tile<true, 4>(w + g * nn, n, n, n, i0, j0, ty, tx, acc);
+
+  // The next hops: the start's where no k improved, else cs[r, k].
+  succ += g * nn;
+  rs += g * sn;
+  cs += g * sn;
+  const int ls = __ffs(s) - 1;
+  const bool banded = meets(i0, s, b) || meets(j0, s, b);
+  for_groups<1>(i0, j0, ty, tx, [&](int i, int, int r, int col) {
+    if (r >= n || col >= n) return;
+    const int* from = banded ? start_of<int>(succ, rs, cs, r, col, n, ls, b, -1, -1)
+                             : succ + ((long long)r * n + col);
+    int4 hop = *reinterpret_cast<const int4*>(from);
+    int* e4 = reinterpret_cast<int*>(&hop);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (ks[i][e] != kKept) e4[e] = cs[(r << ls) + ks[i][e]];
+    *reinterpret_cast<int4*>(succ + (long long)r * n + col) = hop;
+  });
 }
 
 // ------------------------------------------------------------- launching
@@ -324,58 +348,56 @@ cudaError_t prepare(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// Phase 0 (diag) or 1 (bands): the chains, one instantiation per s.
 template <int S, class Op, class T>
-int launch_round(int phase, T* w, T* rb, T* cb, int B, int rows, int cols, int b, int pr,
-                 int pc, int bk, cudaStream_t st) {
+int launch_chain(int phase, T* w, T* rb, T* cb, int B, int rows, int cols, int b, int pr,
+                 int pc, cudaStream_t st) {
   const int TR = rows / S, TC = cols / S;
-  cudaError_t err;
   if (phase == 0) {
     diag_kernel<S, Op, T><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, rb, cb, rows, cols, b, pr, pc);
-  } else if (phase == 1) {
+  } else {
     const size_t smem = (size_t)S * (S + 1) * sizeof(T);
-    if ((err = prepare(bands_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
+    const cudaError_t err = prepare(bands_kernel<S, Op, T>, smem);
+    if (err != cudaSuccess) return (int)err;
     bands_kernel<S, Op, T><<<dim3((TC - 1) + (TR - 1), 1, B), 8 * S, smem, st>>>(
         w, rb, cb, rows, cols, b, pr, pc);
-  } else {
-    const size_t smem = ((size_t)S * (bk + 1) + (size_t)bk * S) * sizeof(T);
-    if ((err = prepare(relax_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
-    relax_kernel<S, Op, T><<<dim3(TR * TC, 1, B), kRelaxThreads, smem, st>>>(
-        w, rb, cb, rows, cols, b, pr, pc, bk);
   }
   return (int)cudaGetLastError();
 }
 
 template <class Op, class T>
 int dispatch_s(int phase, T* w, T* rb, T* cb, int B, int rows, int cols, int s, int b,
-               int pr, int pc, int bk, cudaStream_t st) {
-  switch (s) {
-    case 16: return launch_round<16, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
-    case 32: return launch_round<32, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
-    case 64: return launch_round<64, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
-    case 128: return launch_round<128, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, bk, st);
+               int pr, int pc, cudaStream_t st) {
+  if (s != 16 && s != 32 && s != 64 && s != 128) return (int)cudaErrorInvalidValue;
+  switch (phase) {
+    case 2:
+      relax_kernel<Op, T><<<dim3((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile, B),
+                            kThreads, 0, st>>>(w, rb, cb, rows, cols, s, b, pr, pc);
+      return (int)cudaGetLastError();
+    case 0:
+    case 1:
+      switch (s) {
+        case 16: return launch_chain<16, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, st);
+        case 32: return launch_chain<32, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, st);
+        case 64: return launch_chain<64, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, st);
+        case 128: return launch_chain<128, Op>(phase, w, rb, cb, B, rows, cols, b, pr, pc, st);
+      }
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int S, class Op, class T>
-int launch_succ(int phase, T* w, int* su, T* rw, T* cw, int* rs, int* cs, int B, int n,
-                int b, cudaStream_t st) {
+int launch_succ_chain(int phase, T* w, int* su, T* rw, T* cw, int* rs, int* cs, int B, int n,
+                      int b, cudaStream_t st) {
   const int TT = n / S;
-  const int bk = S < 32 ? S : 32;
-  cudaError_t err;
   if (phase == 0) {
     succ_diag_kernel<S, Op, T><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, su, rw, cw, rs, cs, n, b);
-  } else if (phase == 1) {
+  } else {
     const size_t smem = (size_t)S * (S + 1) * (sizeof(int) + sizeof(T));
-    if ((err = prepare(succ_bands_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
+    const cudaError_t err = prepare(succ_bands_kernel<S, Op, T>, smem);
+    if (err != cudaSuccess) return (int)err;
     succ_bands_kernel<S, Op, T><<<dim3(2 * (TT - 1), 1, B), 8 * S, smem, st>>>(
         w, su, rw, cw, rs, cs, n, b);
-  } else {
-    const size_t smem =
-        (size_t)S * (bk + 1) * (sizeof(int) + sizeof(T)) + (size_t)bk * S * sizeof(T);
-    if ((err = prepare(succ_relax_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
-    succ_relax_kernel<S, Op, T><<<dim3(TT * TT, 1, B), kRelaxThreads, smem, st>>>(
-        w, su, rw, cw, rs, cs, n, b, bk);
   }
   return (int)cudaGetLastError();
 }
@@ -389,11 +411,22 @@ int dispatch_succ(int phase, void* w, void* succ, void* rw, void* cw, void* rs, 
   T* pcw = static_cast<T*>(cw);
   int* prs = static_cast<int*>(rs);
   int* pcs = static_cast<int*>(cs);
-  switch (s) {
-    case 16: return launch_succ<16, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
-    case 32: return launch_succ<32, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
-    case 64: return launch_succ<64, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
-    case 128: return launch_succ<128, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
+  if (s != 16 && s != 32 && s != 64 && s != 128) return (int)cudaErrorInvalidValue;
+  switch (phase) {
+    case 2:
+      succ_relax_kernel<Op, T><<<dim3((n + kSuccCols - 1) / kSuccCols, (n + kTile - 1) / kTile,
+                                      B),
+                                 kThreads, 0, st>>>(pw, su, prw, pcw, prs, pcs, n, s, b);
+      return (int)cudaGetLastError();
+    case 0:
+    case 1:
+      switch (s) {
+        case 16: return launch_succ_chain<16, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
+        case 32: return launch_succ_chain<32, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
+        case 64: return launch_succ_chain<64, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
+        case 128:
+          return launch_succ_chain<128, Op>(phase, pw, su, prw, pcw, prs, pcs, B, n, b, st);
+      }
   }
   return (int)cudaErrorInvalidValue;
 }

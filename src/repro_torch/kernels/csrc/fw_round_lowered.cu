@@ -21,7 +21,7 @@
 // buffers are held in the storage type, so a round moves half the bytes of
 // f32 (int16, bf16, f16) or 1/32 of them per graph (packed).  Arithmetic
 // runs in 32-bit registers with the rounding or saturation of semiring.cuh
-// after every op, in the f32 chain's order (bk chunks, k ascending), so each
+// after every op, in the f32 chain's order (k ascending), so each
 // element's chain is the reference's, bit for bit.
 //
 // The bordered round of the distributed solve (fw_round.py:fw_round_bordered)
@@ -53,10 +53,10 @@
 namespace {
 
 // bf16 / f16: the five float semirings (or_and is max/min on {0,1}).
-#define GEOM B, rows, cols, s, b, pr, pc, bk, st
+#define GEOM B, rows, cols, s, b, pr, pc, st
 template <class T, class R>
 int dispatch_half(int phase, int sid, T* w, T* rb, T* cb, int B, int rows, int cols, int s,
-                  int b, int pr, int pc, int bk, cudaStream_t st) {
+                  int b, int pr, int pc, cudaStream_t st) {
   switch (sid) {
     case 0: return dispatch_s<MinPlusH<R>>(phase, w, rb, cb, GEOM);
     case 1: return dispatch_s<MaxPlusH<R>>(phase, w, rb, cb, GEOM);
@@ -68,8 +68,7 @@ int dispatch_half(int phase, int sid, T* w, T* rb, T* cb, int B, int rows, int c
 }
 
 int dispatch_lowered(int phase, int storage, int sid, void* w, void* rowband, void* colband,
-                     int B, int rows, int cols, int s, int b, int pr, int pc, int bk,
-                     cudaStream_t st) {
+                     int B, int rows, int cols, int s, int b, int pr, int pc, cudaStream_t st) {
   if (storage == 0) {
     using T = __nv_bfloat16;
     return dispatch_half<T, RoundBf16>(phase, sid, static_cast<T*>(w), static_cast<T*>(rowband),
@@ -107,13 +106,14 @@ int dispatch_lowered(int phase, int storage, int sid, void* w, void* rowband, vo
 // phase: 0 = diag, 1 = bands, 2 = relax.  storage: 0 bf16, 1 f16, 2 int16,
 // 3 packed int32 words, 4 int32 integers.  semiring: 0 min_plus,
 // 1 max_plus, 2 max_min, 3 or_and, 4 plus_mul (bf16 / f16); int16 takes
-// 0-3 (the *_i16 lowerings), packed 3 only, int32 3 and 4.  s in {16, 32, 64, 128}; bk divides s.  w
-// (B,n,n), rowband (B,s,n), colband (B,n,s), contiguous, in the storage type.
+// 0-3 (the *_i16 lowerings), packed 3 only, int32 3 and 4.  s in {16, 32,
+// 64, 128}.  w (B,n,n), rowband (B,s,n), colband (B,n,s), contiguous, in the
+// storage type, 16-byte aligned.
 extern "C" int fw_round_lowered_launch(int phase, int storage, int semiring, void* w,
                                        void* rowband, void* colband, int B, int n, int s,
-                                       int b, int bk, void* stream) {
+                                       int b, void* stream) {
   return dispatch_lowered(phase, storage, semiring, w, rowband, colband, B, n, n, s, b, -1, -1,
-                          bk, static_cast<cudaStream_t>(stream));
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The bordered round on the storage lowerings: w (B,rows,cols) with the
@@ -124,10 +124,9 @@ extern "C" int fw_round_lowered_launch(int phase, int storage, int semiring, voi
 // == s.
 extern "C" int fw_round_bordered_lowered_launch(int phase, int storage, int semiring, void* w,
                                                 void* rowband, void* colband, int B, int rows,
-                                                int cols, int s, int pr, int pc, int bk,
-                                                void* stream) {
+                                                int cols, int s, int pr, int pc, void* stream) {
   return dispatch_lowered(phase, storage, semiring, w, rowband, colband, B, rows, cols, s, 0,
-                          pr, pc, bk, static_cast<cudaStream_t>(stream));
+                          pr, pc, static_cast<cudaStream_t>(stream));
 }
 
 // The successor round on bf16 (storage 0) or f16 (storage 1) distances:

@@ -3,7 +3,9 @@
 // (Vec: 16-byte vector copies, or one element at a time):
 // minplus_matmul.cu instantiates it for f32, minplus_matmul_lowered.cu for
 // the storage lowerings.  What the launch does and why is in
-// minplus_matmul.cu; the steps are semiring.cuh's.
+// minplus_matmul.cu; the steps are semiring.cuh's.  Its mainloop (Stage,
+// fold_k, the slice loop fold_slices, the lane layout and store_tile) also
+// carries the fused round's relax kernels (fw_round.cuh).
 //
 // The A / B slices sit in shared memory in the storage type and the 8 x 8
 // register tile in Reg<T> (float for f32 / bf16 / f16, int for int16 and
@@ -108,19 +110,21 @@ __device__ __forceinline__ void load_vec(T (&dst)[N], const T* src) {
 
 // One slice: A rows i0 .. i0+127 by k0 .. k0+kBK-1, stored k-major (As[kk *
 // kAS + r], A transposed on its way in), and B rows k0 .. k0+kBK-1 by
-// columns j0 .. j0+127, stored as it lies (Bs[kk * kTile + c]).  Elements
+// columns j0 .. j0+N-1 (N = 128, or 64 for the successor relax), stored as
+// it lies (Bs[kk * N + c]).  Elements
 // past m, n or k are 0 (the pad); those past k are never folded.  A passes
 // through registers (ra) so that its global loads of the next slice stay
 // in flight while the current slice folds.  Vec: B by cp.async 16-byte
 // copies (zero-filled past n and k), A by vector loads of kAE consecutive k
 // of one row a thread; else B through registers (rb) too, one element at a
 // time.  Each thread's pointers are set once and step a slice at a time.
-template <class T, bool Vec>
+template <class T, bool Vec, int BK = kBKOf<T>, int N = kTile>
 struct Stage {
-  static constexpr int kBK = kBKOf<T>;
+  static_assert(Vec || N == kTile, "the scalar staging is the matmul's, 128 wide");
+  static constexpr int kBK = BK;
   static constexpr int kEPC = 16 / sizeof(T);         // elements a 16-byte chunk
   static constexpr int kAE = kTile * kBK / kThreads;  // A (or B) elements a thread: 8 or 4
-  static constexpr int kBCPR = kTile / kEPC;          // B chunks a slice row
+  static constexpr int kBCPR = N / kEPC;              // B chunks a slice row
   static constexpr int kBQ = kBK * kBCPR;             // B chunks a slice: 512 or 128
   static constexpr int kBPer = kBQ > kThreads ? kBQ / kThreads : 1;  // a thread's: 2 or 1
   static constexpr int kBRows = kThreads / kBCPR;     // slice rows between them
@@ -171,7 +175,7 @@ struct Stage {
         const bool live = b_bytes > 0 && k0 + kk < sh.k;
         const T* src = bp + (long long)(k0 + c * kBRows) * sh.ldb;
         if (tid < kBQ)  // 2-byte storages: half the threads copy B
-          cp_async16(Bs + kk * kTile + (tid % kBCPR) * kEPC, live ? src : b, live ? b_bytes : 0);
+          cp_async16(Bs + kk * N + (tid % kBCPR) * kEPC, live ? src : b, live ? b_bytes : 0);
       }
       cp_async_commit();
     } else {
@@ -234,21 +238,100 @@ __device__ __forceinline__ void fold_k(Reg<T> (&acc)[8][8], const T* as, const T
 // Row i (0..7) of the register tile, as an offset in the output tile.
 __device__ __forceinline__ int tile_row(int i, int ty) { return (i / 4) * 64 + 4 * ty + i % 4; }
 
+// -------------------------------------------------------------- mainloop
+// What every kernel on a 128 x 128 output tile shares: matmul_kernel here,
+// the fused round's relax_kernel and succ_relax_kernel (fw_round.cuh).
+//
+// A warp covers 4 ty by 8 tx, lane l at (ty + l / 8, tx + l % 8): each
+// 4-wide read of a k row is then 4 distinct A and 8 distinct B addresses
+// a warp, 64 and 128 bytes.
+__device__ __forceinline__ int lane_ty() {
+  return (threadIdx.x / 64) * 4 + (threadIdx.x % 32) / 8;
+}
+__device__ __forceinline__ int lane_tx() {
+  return ((threadIdx.x / 32) % 2) * 8 + threadIdx.x % 8;
+}
+
+// The two slice buffers of a CTA, BK deep, B N wide: A k-major, B as it
+// lies.
+template <class T, int BK = kBKOf<T>, int N = kTile>
+struct Slices {
+  __align__(16) T A[2][BK * kAS];
+  __align__(16) T B[2][BK * N];
+};
+
+// f(i, h, r, col) for each 4-wide group of the thread's tile (H groups a
+// row: 2 on a 128-wide tile, 1 on a 64-wide one): register row i, columns
+// 4h .. 4h+3, at output row r and columns col .. col+3.
+template <int H = 2, class F>
+__device__ __forceinline__ void for_groups(int i0, int j0, int ty, int tx, F&& f) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < H; ++h) f(i, h, i0 + tile_row(i, ty), j0 + h * 64 + 4 * tx);
+}
+
+// The slice loop.  The caller has issued slice 0 (st.load into sm.B[0])
+// and started its tile meanwhile; fold(as, bs, k) folds depth k, whose A
+// and B rows are at as and bs, for k ascending.  One barrier a slice:
+// slice s + 1 loads (A into registers, B by cp.async into the other
+// buffer) while slice s folds; the barrier after the fold both publishes
+// slice s + 1 and frees slice s's buffers.  A last slice shorter than the
+// depth folds to its own depth, never padded.
+template <class T, bool Vec, int BK, int N, class Fold>
+__device__ __forceinline__ void fold_slices(Stage<T, Vec, BK, N>& st, const T* b,
+                                            const Shape& sh, Slices<T, BK, N>& sm, T pad,
+                                            Fold&& fold) {
+  constexpr int kBK = BK;
+  st.store(sm.A[0], sm.B[0]);
+  __syncthreads();
+  const int slices = (sh.k + kBK - 1) / kBK;
+  for (int s = 0; s < slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < slices;
+    if (more) st.load(b, sh, sm.B[cur ^ 1], pad);
+    const T* as = sm.A[cur];
+    const T* bs = sm.B[cur];
+    if (more || sh.k % kBK == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) fold(as + kk * kAS, bs + kk * N, s * kBK + kk);
+    } else {
+      const int kc = sh.k - s * kBK;
+#pragma unroll 1
+      for (int kk = 0; kk < kc; ++kk) fold(as + kk * kAS, bs + kk * N, s * kBK + kk);
+    }
+    if (more) st.store(sm.A[cur ^ 1], sm.B[cur ^ 1]);
+    __syncthreads();
+  }
+}
+
+// The tile (8 x C a thread) into out (row stride ldo), rows below m and
+// columns below n.
+template <bool Vec, int C = 8, class T>
+__device__ __forceinline__ void store_tile(T* out, long long ldo, int m, int n, int i0, int j0,
+                                           int ty, int tx, const Reg<T> (&acc)[8][C]) {
+  for_groups<C / 4>(i0, j0, ty, tx, [&](int i, int h, int r, int col) {
+    if (r >= m) return;
+    T* dst = out + (long long)r * ldo + col;
+    if (Vec && col + 4 <= n) {
+      store4(dst, &acc[i][4 * h]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < n) put(dst[e], acc[i][4 * h + e]);
+    }
+  });
+}
+
 // Two CTAs an SM: at most 128 registers a thread, no spills in the vector
 // instantiations (chip_smoke.py's device phase prints them).
 template <class Op, class T, bool Vec>
 __global__ void __launch_bounds__(kThreads, 2)
 matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* c, T* out, Shape sh,
               T zero) {
-  constexpr int kBK = kBKOf<T>;
-  __shared__ __align__(16) T As[2][kBK * kAS];
-  __shared__ __align__(16) T Bs[2][kBK * kTile];
+  __shared__ Slices<T> sm;
   const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  // A warp covers 4 ty by 8 tx, lane l at (ty + l / 8, tx + l % 8): each
-  // 4-wide read of a k row is then 4 distinct A and 8 distinct B addresses
-  // a warp, 64 and 128 bytes.
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;
+  const int ty = lane_ty(), tx = lane_tx();
   const long long g = blockIdx.z;
   a += g * sh.sa;
   b += g * sh.sb;
@@ -258,72 +341,28 @@ matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* c, T* o
   put(pad, Reg<T>(0));
 
   Stage<T, Vec> st(a, b, sh, i0, j0);
-  st.load(b, sh, Bs[0], pad);
+  st.load(b, sh, sm.B[0], pad);
 
   // The tile starts from C_in, or from the ⊕-identity without c.
   Reg<T> acc[8][8];
   const Reg<T> z = widen(zero);
+  for_groups(i0, j0, ty, tx, [&](int i, int h, int r, int col) {
+    Reg<T>* v = &acc[i][4 * h];
+    if (c == nullptr || r >= sh.m) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = i0 + tile_row(i, ty);
+      for (int e = 0; e < 4; ++e) v[e] = z;
+    } else if (Vec && col + 4 <= sh.n) {
+      load4(c + (long long)r * sh.ldc + col, v);
+    } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = j0 + h * 64 + 4 * tx;
-      Reg<T>* v = &acc[i][4 * h];
-      if (c == nullptr || r >= sh.m) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = z;
-      } else if (Vec && col + 4 <= sh.n) {
-        load4(c + (long long)r * sh.ldc + col, v);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = col + e < sh.n ? widen(c[(long long)r * sh.ldc + col + e]) : z;
-      }
+      for (int e = 0; e < 4; ++e)
+        v[e] = col + e < sh.n ? widen(c[(long long)r * sh.ldc + col + e]) : z;
     }
-  }
+  });
 
-  st.store(As[0], Bs[0]);
-  __syncthreads();
-  // One barrier a slice: slice s + 1 loads (A into registers, B by
-  // cp.async into the other buffer) while slice s folds; the barrier after
-  // the fold both publishes slice s + 1 and frees slice s's buffers.
-  const int slices = (sh.k + kBK - 1) / kBK;
-  for (int s = 0; s < slices; ++s) {
-    const int cur = s & 1;
-    const bool more = s + 1 < slices;
-    if (more) st.load(b, sh, Bs[cur ^ 1], pad);
-    const T* as = As[cur];
-    const T* bs = Bs[cur];
-    if (more || sh.k % kBK == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) fold_k<Op>(acc, as + kk * kAS, bs + kk * kTile, ty, tx);
-    } else {  // the last slice folds to its own depth, never padded
-      const int kc = sh.k - s * kBK;
-#pragma unroll 1
-      for (int kk = 0; kk < kc; ++kk) fold_k<Op>(acc, as + kk * kAS, bs + kk * kTile, ty, tx);
-    }
-    if (more) st.store(As[cur ^ 1], Bs[cur ^ 1]);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = i0 + tile_row(i, ty);
-    if (r >= sh.m) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = j0 + h * 64 + 4 * tx;
-      T* dst = out + (long long)r * sh.ldo + col;
-      if (Vec && col + 4 <= sh.n) {
-        store4(dst, &acc[i][4 * h]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (col + e < sh.n) put(dst[e], acc[i][4 * h + e]);
-      }
-    }
-  }
+  fold_slices(st, b, sh, sm, pad,
+              [&](const T* as, const T* bs, int) { fold_k<Op>(acc, as, bs, ty, tx); });
+  store_tile<Vec>(out, sh.ldo, sh.m, sh.n, i0, j0, ty, tx, acc);
 }
 
 // staging: 1 = 16-byte vector copies (every pointer 16-byte aligned, every

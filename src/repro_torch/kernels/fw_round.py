@@ -37,10 +37,10 @@ from repro_torch.kernels.minplus_matmul import (
     _FLOAT_TAGS,
     BLOCK_SIZES,
     LOWERINGS,
-    _fit_block,
     _raise_on,
     check_variant,
     semiring_id,
+    staging,
     storage_tag,
 )
 
@@ -68,9 +68,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fw_round")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fw_round_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, p]
+    lib.fw_round_launch.argtypes = [i, p, p, p, i, i, i, i, i, p]
     lib.fw_round_launch.restype = i
-    lib.fw_round_bordered_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.fw_round_bordered_launch.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p]
     lib.fw_round_bordered_launch.restype = i
     lib.fw_round_succ_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_round_succ_launch.restype = i
@@ -83,11 +83,11 @@ def _lowered_lib() -> ctypes.CDLL:
 
     lib = _build.load("fw_round_lowered")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fw_round_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
+    lib.fw_round_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, p]
     lib.fw_round_lowered_launch.restype = i
     lib.fw_round_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_round_lowered_succ_launch.restype = i
-    lib.fw_round_bordered_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, i, i, i, p]
+    lib.fw_round_bordered_lowered_launch.argtypes = [i, i, i, p, p, p, i, i, i, i, i, i, p]
     lib.fw_round_bordered_lowered_launch.restype = i
     return lib
 
@@ -151,11 +151,24 @@ def _check_buffers(w, block_size, bufs, count):
             )
 
 
+def _require_vector(kind: str, tensors) -> None:
+    """The relax kernels stage their slices by 16-byte copies only
+    (``minplus_matmul.staging`` = vector): raise where w or a band buffer
+    is not 16-byte aligned.  Their shapes make every row stride whole
+    16 bytes (rows and cols are multiples of s >= 16)."""
+    for t in tensors:
+        strides = [t.stride(-2)] + ([t.stride(0)] if t.ndim == 3 else [])
+        if not staging(t.element_size(), [t.data_ptr()], strides):
+            raise ValueError(f"{kind}: {tuple(t.shape)} {t.dtype} at {t.data_ptr():#x} is not "
+                             f"16-byte aligned, which the relax kernels need")
+
+
 def fw_round_phase(
     phase: str, w: torch.Tensor, b: int, bands, *, block_size: int = 128,
     bk: int = 32, semiring: Semiring = MIN_PLUS,
 ) -> None:
-    """Launch one phase ("diag" | "bands" | "relax") of round b on the card."""
+    """Launch one phase ("diag" | "bands" | "relax") of round b on the card
+    (bk: accepted as ``fw_round``'s; the kernel folds its own slices)."""
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     B, n = _check(w, block_size, b)
@@ -166,8 +179,9 @@ def fw_round_phase(
     if phase == "bands" and n == block_size:
         return  # a single tile has no bands to close
     kind = f"fw_round/{phase}" + (f"[{tag}]" if tag else "")
-    ptrs = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, n, block_size, b,
-            _fit_block(block_size, bk))
+    if phase == "relax":
+        _require_vector(kind, (w, *bands))
+    ptrs = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, n, block_size, b)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         if tag is None:
@@ -189,8 +203,9 @@ def fw_round(
     f16 with a float semiring, int16 or int32 words with their lowering,
     or the int32 carrier of an integer or_and / plus_mul storage.
 
-    bk: phase-3 staging depth (clamped to a divisor of block_size; the
-    result does not depend on it).  bands: ``round_buffers(w, block_size)``
+    bk: the reference's phase-3 staging depth, which chooses no element's
+    chain: the plain version stages by it, the kernel folds its own fixed
+    slices, and the result does not depend on it.  bands: ``round_buffers(w, block_size)``
     to reuse across rounds (allocated here when None).
     """
     _check(w, block_size, b)
@@ -231,6 +246,8 @@ def fw_round_with_successors_phase(
     if phase == "bands" and n == block_size:
         return
     kind = f"fw_round_with_successors/{phase}" + (f"[{tag}]" if tag else "")
+    if phase == "relax":
+        _require_vector(kind, (w, succ, *bands))
     ptrs = (w.data_ptr(), succ.data_ptr(), *(t.data_ptr() for t in bands), B, n,
             block_size, b)
     with torch.cuda.device(w.device):
@@ -311,7 +328,8 @@ def fw_round_bordered_phase(
     block_size: int = 128, bk: int = 32, semiring: Semiring = MIN_PLUS,
 ) -> None:
     """Launch one phase ("diag" | "bands" | "relax") of a bordered round on
-    the card."""
+    the card (bk: accepted as ``fw_round``'s; the kernel folds its own
+    slices)."""
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     B, rows, cols, tag = _check_bordered(w, block_size, owner_row, owner_col, semiring)
@@ -326,8 +344,10 @@ def fw_round_bordered_phase(
     if phase == "bands" and rows == cols == s:
         return  # a single tile has no bands to close
     kind = f"fw_round_bordered/{phase}" + (f"[{tag}]" if tag else "")
+    if phase == "relax":
+        _require_vector(kind, (w, *bands))
     geom = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, rows, cols, s,
-            owner_row, owner_col, _fit_block(s, bk))
+            owner_row, owner_col)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         if tag is None:

@@ -1,70 +1,211 @@
-"""Time the square fused round of the ``repro_torch`` package on the path.
+"""Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
+        [--label L] [--build-only]
 
-Prints one JSON line: each ``fw_round`` launch kind (diag, bands, relax)
-alone at (n, n), pivot round n/s/2 (median of 11 between CUDA events),
-and ``solve`` of the seeded density-0.5 digraph at n (host clock around
-work that ends in a synchronize, median of 3 after a warm-up), with the
-card's name.  Run it
-with PYTHONPATH pointing at two trees, in turns inside one chip call, to
-compare their round kernels on one card.  Only the API both trees share
-is used (``fw_round_phase``, ``round_buffers``, ``solve``).
+Prints one JSON line with the card's name and power limit: each
+``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
+f32, pivot round n/s/2 (median of 11 between CUDA events); the relax in
+plus_mul beside ``torch.addmm`` and in min-plus beside ``semiring_matmul``
+on the same (n,s)·(s,n) + C product; the int16 and bf16 relax; the
+successor relax at (n/2, n/2) in f32 and bf16; and, by host clock around
+work that ends in a synchronize (median of 3 after a warm-up), ``solve`` at
+n, ``solve(successors=True)`` at n/2 and
+``fw_staged(fused=False)`` at n, on the seeded density-0.5 digraph.  Each
+timed relax is first held by bits against its plain phase (``*_ok``).
+
+``--build-only`` builds the libraries those calls load and prints one JSON
+line of their build seconds and the registers and spills of each relax,
+successor relax and vector f32 ``matmul_kernel`` instantiation
+(``_build.kernel_infos``) and, in each f32 relax kernel's SASS
+(``cuobjdump -sass`` of the f32 round library), the count of the opcodes a
+relaxation is made of and of the spill instructions, then exits: run it
+for every tree at once, then the timings in turns.
+
+Run it with PYTHONPATH pointing at two trees, in turns inside one chip
+call (parent, change, change, parent), to compare them on one card.  Only
+the API both trees share is used (``fw_round_phase``,
+``fw_round_with_successors_phase``, the band buffers, ``semiring_matmul``,
+``solve``, ``fw_staged``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import statistics
+import subprocess
 import sys
 import time
+from pathlib import Path
+
+
+def event_ms(fn, reps: int = 11) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(times)
+
+
+def host_ms(fn) -> float:
+    import torch
+
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STL", "LDL")
+
+
+def sass_counts(lib_path) -> dict:
+    """Per relax kernel (mangled name) of a library: how many of its SASS
+    instructions have each opcode of ``SASS_OPS`` (modifiers dropped)."""
+    import re
+
+    text = subprocess.run([str(Path(_nvcc_dir()) / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=600).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if "relax_kernel" in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+        if name and m and m.group(1) in counts[name]:
+            counts[name][m.group(1)] += 1
+    return counts
+
+
+def _nvcc_dir() -> str:
+    from repro_torch.kernels import _build
+
+    return str(Path(_build._nvcc()).parent)
+
+
+def build_report(label: str) -> int:
+    import repro_torch
+    from repro_torch.kernels import _build
+
+    out = dict(label=label, package=repro_torch.__file__, seconds={}, kernels=[])
+    for built in _build.build_all(("fw_round", "fw_round_lowered", "minplus_matmul",
+                                   "fw_phase")):
+        out["seconds"][built.name] = built.seconds
+        out["kernels"] += [
+            dict(name=k.name, registers=k.registers, spill_stores=k.spill_stores,
+                 spill_loads=k.spill_loads)
+            for k in _build.kernel_infos(built)
+            if "relax_kernel" in k.name or ("matmul_kernel" in k.name and "float, true" in k.name)]
+        if built.name == "fw_round" and built.seconds:  # built here: its SASS is fresh
+            out["sass"] = sass_counts(built.path)
+    print(json.dumps(out))
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--label", default="")
+    ap.add_argument("--build-only", action="store_true")
     args = ap.parse_args(argv)
     import torch
 
+    if args.build_only:
+        return build_report(args.label)
+
     import repro_torch
-    from repro_torch.apsp import solve
+    from repro_torch.apsp import api, solve
     from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, PLUS_MUL
+    from repro_torch.core.staged import fw_staged
     from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
 
     if not torch.cuda.is_available():
         print("round_bench: no CUDA device available", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    out = dict(label=args.label, package=repro_torch.__file__, nvidia_smi=smi, n=args.n)
     n, s = args.n, 128
-    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
     b = n // s // 2
-    bands = fr.round_buffers(w, s)
-    wk = w.clone()
-    launch = {}
-    for phase in ("diag", "bands", "relax"):
-        times = []
-        for _ in range(12):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            fr.fw_round_phase(phase, wk, b, bands, block_size=s)
-            ev[1].record()
-            ev[1].synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-        launch[phase] = statistics.median(times[1:])
-    solve(w)
-    times = []
-    for _ in range(3):
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
+
+    def round_case(x, sr, key, *, phases=("relax",)):
+        """Close the bands of round b of x, check the relax launch against
+        its plain phase, time the launches named."""
+        bands = fr.round_buffers(x, s)
+        kw = dict(block_size=s, semiring=sr)
+        for phase in ("diag", "bands"):
+            fr.fw_round_phase(phase, x, b, bands, **kw)
+        got = x.clone()
+        fr.fw_round_phase("relax", got, b, bands, **kw)
+        want = ref.relax(x, bands[0][0], bands[1][0], b, semiring=sr)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solve(w)
+        out[f"{key}_ok"] = bits_equal(got, want)
+        del want
+        for phase in phases:
+            out[f"{key}_{phase}_ms"] = event_ms(
+                lambda: fr.fw_round_phase(phase, got, b, bands, **kw))
+        return bands
+
+    bands = round_case(w, MIN_PLUS, "f32", phases=("diag", "bands", "relax"))
+    mm = torch.empty_like(w)
+    out["f32_matmul_ms"] = event_ms(
+        lambda: fmm.semiring_matmul(bands[1][0], bands[0][0], w, semiring=MIN_PLUS, out=mm))
+    bands = round_case(w, PLUS_MUL, "plus_mul")
+    out["plus_mul_matmul_ms"] = event_ms(
+        lambda: fmm.semiring_matmul(bands[1][0], bands[0][0], w, semiring=PLUS_MUL, out=mm))
+    out["plus_mul_addmm_ms"] = event_ms(
+        lambda: torch.addmm(w, bands[1][0], bands[0][0], out=mm))
+    del bands, mm
+    round_case(api._coerce(w, MIN_PLUS_I16, None, w.device), MIN_PLUS_I16, "int16")
+    round_case(w.to(torch.bfloat16), MIN_PLUS, "bf16")
+
+    ns = n // 2
+    bs = ns // s // 2
+    ws = torch.from_numpy(random_digraph(ns, density=0.5, seed=2)).cuda()
+    for dt, key in ((torch.float32, "succ_f32"), (torch.bfloat16, "succ_bf16")):
+        x = ws.to(dt)
+        succ = _init_successors(x).contiguous()
+        bands = fr.succ_round_buffers(x, s)
+        for phase in ("diag", "bands"):
+            fr.fw_round_with_successors_phase(phase, x, succ, bs, bands, block_size=s)
+        gd, gs = x.clone(), succ.clone()
+        fr.fw_round_with_successors_phase("relax", gd, gs, bs, bands, block_size=s)
+        rw, cw, rs, cs = (t[0] for t in bands)
+        wd, wsu = ref.relax_succ_tiles(x, succ, rw, rs, cw, cs, bs)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(json.dumps(dict(label=args.label, package=repro_torch.__file__,
-                          device=torch.cuda.get_device_name(0), n=n,
-                          diag_ms=launch["diag"], bands_ms=launch["bands"],
-                          relax_ms=launch["relax"],
-                          solve_ms=statistics.median(times), solve_all=times)))
-    return 0
+        out[f"{key}_ok"] = bits_equal(gd, wd) and bits_equal(gs, wsu)
+        out[f"{key}_relax_ms"] = event_ms(lambda: fr.fw_round_with_successors_phase(
+            "relax", gd, gs, bs, bands, block_size=s))
+        del bands, gd, gs, wd, wsu
+
+    out["solve_ms"] = host_ms(lambda: solve(w))
+    out["succ_solve_ms"] = host_ms(lambda: solve(ws, successors=True))
+    out["four_dispatch_ms"] = host_ms(lambda: fw_staged(w, block_size=s, fused=False))
+    print(json.dumps(out))
+    return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
 
 
 if __name__ == "__main__":

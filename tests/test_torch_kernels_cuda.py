@@ -1145,3 +1145,125 @@ def test_kernel_flash_decode_tiles(cuda_device, dtype, g, hd, kv_len):
         v2[:, kv_len:] = -99.0
         torch.testing.assert_close(fdec.flash_decode(q, k2, v2, kv_len), got, rtol=1e-6,
                                    atol=1e-6)
+
+
+# ------------------------------------------------- the relax launches alone
+# The relax kernels fold 128 x 128 output tiles on the matmul's mainloop,
+# whatever s, in their own fixed slices: each launch alone against its plain
+# phase, by bits, at every bk the wrappers accept, every pivot position,
+# every s and a batch.
+def _bands_of(w, bands):
+    """The band buffers as the plain phase takes them: batched like w."""
+    return tuple(t if w.ndim == 3 else t[0] for t in bands)
+
+
+def _relax_input(tag, name, shape, seed, s, salt):
+    """(w on the CPU, semiring): f32 salted with ±0 or, apart, with NaN off
+    the diagonal tiles; the 16-bit floats likewise; int16, packed and the
+    int32 carrier as ``_storage_case`` makes them."""
+    if tag in (None, "bf16", "f16"):
+        m = max(shape[-2:])  # a non-square block is cut from the square case
+        square = (*shape[:-2], m, m)
+        w = (_signed_zero_graph(name, square, seed) if salt == "zero"
+             else _nan_salted(_domain_graph(name, square, seed), seed, 2, s))
+        w = w[..., :shape[-2], :shape[-1]].copy()
+        dt = {None: torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[tag]
+        return torch.from_numpy(w).to(dt), SEMIRINGS[name]
+    return _storage_case(tag, name, shape, seed, s)
+
+
+RELAX_SHAPES = [((3, 256, 256), 16), ((3, 256, 256), 32), ((3, 256, 256), 64),
+                ((3, 384, 384), 128)]
+RELAX_STORAGES = ([(None, n, salt) for n in NAMES for salt in ("zero", "nan")]
+                  + [(t, n, salt) for t in ("bf16", "f16") for n in NAMES
+                     for salt in ("zero", "nan")]
+                  + [c + ("-",) for c in REPAIR_CASES if c[0] not in ("bf16", "f16")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name,salt", RELAX_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("shape,s", RELAX_SHAPES)
+def test_kernel_relax_alone_matches_plain(cuda_device, tag, name, salt, shape, s):
+    w, sr = _relax_input(tag, name, shape, s, s, salt)
+    w = w.to(cuda_device)
+    T = shape[-1] // s
+    kind = "fw_round/relax" + (f"[{tag}]" if tag else "")
+    before = fr.LAUNCHES[kind]
+    for b in (0, T // 2, T - 1):
+        bands = fr.round_buffers(w, s)
+        fr.fw_round_phase("diag", w, b, bands, block_size=s, semiring=sr)
+        fr.fw_round_phase("bands", w, b, bands, block_size=s, semiring=sr)
+        want = ref.relax(w, *_bands_of(w, bands), b, semiring=sr)
+        for bk in (8, 16, 32, s):
+            got = w.clone()
+            fr.fw_round_phase("relax", got, b, bands, block_size=s, bk=bk, semiring=sr)
+            torch.cuda.synchronize()
+            assert got.dtype == w.dtype and bits_equal(got, want), (b, bk)
+        if salt != "-":
+            _assert_salt_survives(name, want, zeros=salt == "zero", nans=salt == "nan")
+    assert fr.LAUNCHES[kind] == before + 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name,salt", [(None, "min_plus", "zero"), (None, "plus_mul", "nan"),
+                                           ("bf16", "max_plus", "zero"), ("f16", "plus_mul", "nan"),
+                                           ("int16", "min_plus", "-"), ("packed", "or_and", "-"),
+                                           ("plus_mul_i32", "plus_mul", "-")],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("shape,s", [((80, 48), 16), ((3, 96, 160), 32), ((384, 256), 128),
+                                     ((3, 272, 400), 16)])
+def test_kernel_bordered_relax_alone_matches_plain(cuda_device, tag, name, salt, shape, s):
+    """Ragged bordered blocks (rows, cols multiples of s, not of 128) with
+    the owner echo off the pivot (pr / pc != 0)."""
+    w, sr = _relax_input(tag, name, shape, s, s, salt)
+    w = w.to(cuda_device)
+    tr, tc = shape[-2] // s, shape[-1] // s
+    for echo in ((-1, -1), (1, 1), (tr - 1, tc - 1), (1, -1), (-1, tc - 1)):
+        bands = fr.bordered_round_buffers(w, s)
+        for phase in ("diag", "bands"):
+            fr.fw_round_bordered_phase(phase, w, *echo, bands, block_size=s, semiring=sr)
+        want = ref.relax_bordered(w, *_bands_of(w, bands), *echo, semiring=sr)
+        for bk in (8, 16, 32, s):
+            got = w.clone()
+            fr.fw_round_bordered_phase("relax", got, *echo, bands, block_size=s, bk=bk,
+                                       semiring=sr)
+            torch.cuda.synchronize()
+            assert bits_equal(got, want), (echo, bk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,s", RELAX_SHAPES + [((96, 96), 16), ((160, 160), 32)])
+def test_kernel_successor_relax_alone_matches_plain(cuda_device, dtype, shape, s):
+    """Integer weights in [1, 4], so that equal candidates are everywhere
+    (only a strictly smaller one takes its hop), and an isolated node's row
+    and column, which no k improves."""
+    rng = np.random.default_rng(s)
+    w = rng.integers(1, 5, size=shape).astype(np.float32)
+    w[rng.uniform(size=shape) < 0.3] = np.inf
+    w[..., 5, :] = np.inf
+    w[..., :, 5] = np.inf
+    idx = np.arange(shape[-1])
+    w[..., idx, idx] = 0.0
+    w = torch.from_numpy(w).to(dtype).to(cuda_device)
+    succ = _init_successors(w).contiguous()
+    T = shape[-1] // s
+    for b in (0, T // 2, T - 1):
+        bands = fr.succ_round_buffers(w, s)
+        for phase in ("diag", "bands"):
+            fr.fw_round_with_successors_phase(phase, w, succ, b, bands, block_size=s)
+        rw, cw, rs, cs = _bands_of(w, bands)
+        wd, ws = ref.relax_succ_tiles(w, succ, rw, rs, cw, cs, b)
+        gd, gs = w.clone(), succ.clone()
+        fr.fw_round_with_successors_phase("relax", gd, gs, b, bands, block_size=s)
+        torch.cuda.synchronize()
+        assert bits_equal(gd, wd) and bits_equal(gs, ws), b
+        assert bool((ws != succ).any()) and bool((ws == succ).any())
+
+
+@pytest.mark.cuda
+def test_relax_refuses_unaligned_buffers(cuda_device):
+    w = torch.zeros(64 * 64 + 1, device=cuda_device)[1:].view(64, 64)
+    bands = fr.round_buffers(w, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fr.fw_round_phase("relax", w, 0, bands, block_size=16)
