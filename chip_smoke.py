@@ -9,7 +9,8 @@ Phases, each of which raises (exit code 1) on any failure:
   1. device: the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
      each library's build seconds, registers and spills (each instantiation
-     of the redesigned kernels: matmul, relax, successor relax, decode).
+     of the redesigned kernels: matmul, relax, successor relax, decode,
+     diag and bands; a diag or bands instantiation that spills fails).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -18,8 +19,9 @@ Phases, each of which raises (exit code 1) on any failure:
   2. check: every kernel held bitwise (by bit view, -0.0 told from +0.0,
      NaN equal to NaN; ``repro_torch.utils.bits.bits_equal``) against its plain
      torch version on the same card tensors — the fused round on all five
-     semirings at (1024,1024) s=128, (4,512,512) batched, n=1000 through
-     ``solve`` (padded to 1024), n=100 (s=32) and n=60 (s=16); the
+     semirings at (1024,1024) s=128 and s=64, (4,512,512) batched, n=1000
+     through ``solve`` (padded to 1024), n=300 (s=64), n=100 (s=32) and
+     n=60 (s=16); the
      successor round at (1024,1024) and (3,512,512).  The small solves are
      also held against ``solve(device="cpu")``, the plain path the CPU
      tests hold bitwise against the JAX reference.
@@ -37,7 +39,7 @@ Phases, each of which raises (exit code 1) on any failure:
      (4,512,512) against the plain 4-dispatch loop and the fused round.
      The lowered rounds likewise: every storage lowering (int16 ×4,
      packed or_and, bf16 and f16 ×5, ±0 and NaN salted in the floats) at
-     n=96 (s=32) and n=1024 (s=32, 128), single and batched, the bf16 / f16
+     n=96 (s=32) and n=1024 (s=32, 64, 128), single and batched, the bf16 / f16
      successor round, and each lowered ``solve`` at n=90 against the plain
      path on the CPU.  The lowered repair and sweep kernels and the int32
      round likewise (``phase_check_lowered_repair``): the repair on every
@@ -53,8 +55,13 @@ Phases, each of which raises (exit code 1) on any failure:
      ±0 and, apart, off-diagonal NaN; ``fw_staged(fused=False)`` at n = 96
      and 1024 (s = 32 / 128, single and batched) == plain loop == lowered
      fused.  The lowered bordered round (``phase_check_lowered_bordered``):
-     every storage, s = 32 / 128, square, tall and wide rank blocks, the
-     three echo forms.
+     every storage, s = 32 / 64 / 128, square, tall and wide rank blocks,
+     the three echo forms.  The chains (``phase_check_chains``): every
+     diag and bands instantiation alone against its plain phase, f32 and
+     every storage, s = 16 .. 128, square (the band tiles cut into CTAs or
+     whole), batched and bordered with the owner echo.  f16 plus_mul
+     (``phase_check_f16_plus_mul``): the round, bordered round, matmul,
+     phase 1 and a solve, one f16 FMA a step, card == twin.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
@@ -125,7 +132,7 @@ Phases, each of which raises (exit code 1) on any failure:
      Every rank holds its result against the single-device fused solve (or
      repair) on the card, bitwise, and reports its launch counts.
      The bordered kernel is also checked alone (phase 2: all five
-     semirings, s = 16, 32, 128, square, tall and wide bordered blocks,
+     semirings, s = 16, 32, 64, 128, square, tall and wide bordered blocks,
      single and batched, owner echo none / (1,1) / the last tile / one of
      the two, ±inf salted in) and timed alone per launch kind at the 2×2
      rank's (4224,4224) block (phase 3), in f32 and the four lowered
@@ -142,6 +149,7 @@ import argparse
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -394,9 +402,15 @@ def phase_device():
         if built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
                           "fw_round", "fw_round_lowered"):
             for k in infos:  # the redesigned kernels, each instantiation
-                if any(x in k.name for x in ("matmul_kernel", "split_kernel", "relax_kernel")):
+                if any(x in k.name for x in ("matmul_kernel", "split_kernel", "relax_kernel",
+                                             "diag_kernel", "bands_kernel")):
                     print(f"  {k.name}: {k.registers} registers, spill stores / loads "
                           f"{k.spill_stores} / {k.spill_loads} B")
+        if built.name in ("fw_round", "fw_round_lowered") and built.seconds:
+            chains = [k for k in infos if re.match(r"(void )?(diag|bands)_kernel<", k.name)]
+            require(len(chains) >= 32, f"{built.name}: {len(chains)} diag / bands kernels")
+            spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
+            require(not spilled, f"the diag / bands chains spill: {spilled}")
     return name
 
 
@@ -412,14 +426,15 @@ def phase_check():
     dev = torch.device("cuda")
     checked = 0
     for name, sr in sorted(SEMIRINGS.items()):
-        for shape, b in (((1024, 1024), 3), ((4, 512, 512), 1)):
+        for shape, b, s in (((1024, 1024), 3, 128), ((4, 512, 512), 1, 128),
+                            ((1024, 1024), 5, 64)):
             w = torch.from_numpy(graph(name, shape, 7)).to(dev)
-            got = fr.fw_round(w.clone(), b, block_size=128, semiring=sr)
-            want = ref.fw_round_ref(w, b, block_size=128, semiring=sr)
+            got = fr.fw_round(w.clone(), b, block_size=s, semiring=sr)
+            want = ref.fw_round_ref(w, b, block_size=s, semiring=sr)
             sync()
-            require(same(got, want), f"fw_round {name} {shape} b={b} != plain")
+            require(same(got, want), f"fw_round {name} {shape} s={s} b={b} != plain")
             checked += 1
-        for n, s in ((1000, 128), (100, 32), (60, 16)):
+        for n, s in ((1000, 128), (300, 64), (100, 32), (60, 16)):
             w_np = graph(name, (n, n), n)
             w = torch.from_numpy(w_np).to(dev)
             got = solve(w, method="fused", semiring=sr, block_size=s).dist
@@ -1284,7 +1299,7 @@ def phase_check_four():
     on the card, on all five semirings: ``semiring_matmul`` with and
     without c at (1024,128)·(128,1024), (4,256,96)·(4,96,384) batched,
     (1000,77)·(77,513) and (1,5)·(5,3), operands salted with ±inf;
-    ``fw_phase1`` at s = 16, 32, 128, single and (4,s,s); ``fw_phase2_row``
+    ``fw_phase1`` at s = 16, 32, 64, 128, single and (4,s,s); ``fw_phase2_row``
     / ``fw_phase2_col`` at (128,1024) / (1024,128) and at band length 1000,
     read as strided slices of a matrix; ``fw_staged(fused=False)`` at
     n = 1024, s = 128 and (4,512,512) against the plain 4-dispatch loop and
@@ -1315,7 +1330,7 @@ def phase_check_four():
                         f"{'with' if cc is not None else 'without'} c != plain")
                 checked += 1
             require(same(c, c0), "semiring_matmul wrote into c")
-        for s in (16, 32, 128):
+        for s in (16, 32, 64, 128):
             for shape in ((s, s), (4, s, s)):
                 t = on(graph(name, shape, s))
                 require(same(fph.fw_phase1(t, semiring=sr), ref.fw_phase1_ref(t, semiring=sr)),
@@ -1528,7 +1543,7 @@ def phase_four(rows: dict, n: int, s: int = 128):
 # ------------------------------------------------------------- distributed
 def phase_check_dist():
     """The bordered round's kernel bitwise against its plain twin on the
-    card: all five semirings, s = 16, 32, 128; square (s + n/2)², tall
+    card: all five semirings, s = 16, 32, 64, 128; square (s + n/2)², tall
     (s + n/2, s + n/4) and wide (s + n/4, s + n/2) bordered blocks of an
     n = 8s solve; single and (4, rows, cols) batched; owner echo none,
     (1, 1), the last tile, and only one of the two; operands salted with
@@ -1542,7 +1557,7 @@ def phase_check_dist():
     dev = torch.device("cuda")
     checked = 0
     for name, sr in sorted(SEMIRINGS.items()):
-        for s in (16, 32, 128):
+        for s in (16, 32, 64, 128):
             n = 8 * s
             for rows, cols in ((s + n // 2, s + n // 2), (s + n // 2, s + n // 4),
                                (s + n // 4, s + n // 2)):
@@ -2090,7 +2105,8 @@ def lowered_case(tag: str, name: str, shape, seed: int, s: int):
 def phase_check_lowered():
     """The lowered round kernels bitwise against their plain versions on the
     card: every lowering (int16 ×4, packed, bf16 and f16 ×5) at n = 96 (s =
-    32) and n = 1024 (s = 32, 128), single and batched, the middle round;
+    32) and n = 1024 (s = 32, 64, 128; n = 512 batched at 64), single and
+    batched, the middle round;
     the successor round on bf16 and f16 likewise; and each lowered
     ``solve`` at n = 90 (padded) on the card against the plain path on the
     CPU."""
@@ -2104,7 +2120,8 @@ def phase_check_lowered():
 
     checked = 0
     shapes = [((96, 96), 32), ((3, 96, 96), 32), ((1024, 1024), 32), ((2, 1024, 1024), 32),
-              ((1024, 1024), 128), ((2, 1024, 1024), 128)]
+              ((1024, 1024), 64), ((2, 512, 512), 64), ((1024, 1024), 128),
+              ((2, 1024, 1024), 128)]
     pos = neg = nans = 0
     for tag, name in LOWERED_CASES:
         for shape, s in shapes:
@@ -3234,7 +3251,7 @@ def phase_check_lowered_four():
 def phase_check_lowered_bordered():
     """The lowered bordered round bitwise against its plain twin on the
     card: every storage (``STORAGE_CASES``; bf16 / f16 on both salted
-    inputs), s = 32 and 128, the square (s + n/2)², tall (s + n/2, s + n/4)
+    inputs), s = 32, 64 and 128, the square (s + n/2)², tall (s + n/2, s + n/4)
     and wide (s + n/4, s + n/2) rank blocks of an n = 8s solve, single and
     (at s = 32) (2, rows, cols), in the three echo forms: none, both, and
     one of the two (the row echo on tall blocks, the column echo else)."""
@@ -3244,7 +3261,7 @@ def phase_check_lowered_bordered():
     checked = 0
     for tag, name in STORAGE_CASES:
         for salt in salts(tag):
-            for s in (32, 128):
+            for s in (32, 64, 128):
                 n = 8 * s
                 for rows, cols in ((s + n // 2, s + n // 2), (s + n // 2, s + n // 4),
                                    (s + n // 4, s + n // 2)):
@@ -3263,6 +3280,117 @@ def phase_check_lowered_bordered():
                                     f"{(*lead, rows, cols)} echo={echo} != plain")
                             checked += 1
     print(f"check: {checked} lowered bordered-round kernel-vs-plain cases bitwise equal")
+
+
+def phase_check_chains():
+    """Every instantiation of the fused round's diag and bands kernels
+    (csrc/fw_round.cuh) alone, bitwise against its plain phase
+    (``close_diag``, ``close_bands`` / ``close_bordered_bands``): the five
+    semirings in f32 (salted with ±inf) and every storage
+    (``STORAGE_CASES``; bf16 / f16 salted with ±0 at s = 32 and 128, with
+    off-diagonal NaN at s = 16 and 64), s = 16, 32, 64 and 128; square
+    n = 5s (each band
+    tile cut into 2 or 4 CTAs) and at s = 128 n = 5120 (kept whole), a
+    batch of 3, and a (6s, 4s) bordered block with the owner echo at both
+    bands, at each alone and at none."""
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    cases = [(None, n) for n in sorted(SEMIRINGS)] + STORAGE_CASES
+    checked = 0
+    for tag, name in cases:
+        for s in (16, 32, 64, 128):
+            geoms = [("square", (5 * s, 5 * s), 2, (-1, -1)),
+                     ("square", (3, 5 * s, 5 * s), 4, (-1, -1))]
+            if s == 128:
+                geoms.append(("square", (40 * s, 40 * s), 21, (-1, -1)))
+            geoms += [("bordered", (6 * s, 4 * s), 0, e)
+                      for e in ((-1, -1), (2, 1), (5, -1), (-1, 3))]
+            for kind, shape, b, echo in geoms:
+                if tag is None:
+                    w = torch.from_numpy(salted(name, shape, s + b)).cuda()
+                    sr = SEMIRINGS[name]
+                else:
+                    salt = salts(tag)[s.bit_length() % len(salts(tag))]  # NaN at 16, 64
+                    w, sr = cut_case(tag, name, shape, s + b, s, salt)
+                o = slice(b * s, (b + 1) * s)
+                diag = ref.close_diag(w[..., o, o], sr)
+                if kind == "bordered":
+                    bands = fr.bordered_round_buffers(w, s)
+                    for phase in ("diag", "bands"):
+                        fr.fw_round_bordered_phase(phase, w, *echo, bands, block_size=s,
+                                                   semiring=sr)
+                    row, col = ref.close_bordered_bands(w, diag, *echo, sr)
+                else:
+                    bands = fr.round_buffers(w, s)
+                    for phase in ("diag", "bands"):
+                        fr.fw_round_phase(phase, w, b, bands, block_size=s, semiring=sr)
+                    row, col = ref.close_bands(w, diag, b, sr)
+                got_row, got_col = (t if w.ndim == 3 else t[0] for t in bands)
+                sync()
+                require(same(got_row[..., :, o], diag) and same(got_col[..., o, :], diag),
+                        f"diag[{tag}] {name} s={s} {shape} != plain close_diag")
+                require(same(got_row, row) and same(got_col, col),
+                        f"bands[{tag}] {name} s={s} {shape} echo={echo} != plain")
+                checked += 1
+    print(f"check: {checked} diag / bands kernel-vs-plain cases bitwise equal (f32 and "
+          f"{len(STORAGE_CASES)} storages, s = 16 .. 128, square, batched, bordered)")
+
+
+def phase_check_f16_plus_mul():
+    """f16 plus_mul's step is one f16 FMA rounded once (HFMA on the card,
+    ``core.semiring._plus_mul_relax`` in the twin): the fused round, the
+    bordered round, ``semiring_matmul``, ``fw_phase1`` and a solve on
+    signed operands, card == twin on the card == twin on the CPU, by bits,
+    where a chain that rounds the product and the sum apart differs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import solve
+    from repro_torch.core.semiring import PLUS_MUL, Semiring
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    per_op = Semiring("plus_mul_per_op", torch.add, torch.mul, 0.0, 1.0,
+                      lambda c, a, b: c + a * b)
+    checked = differ = 0
+    for shape, s in (((256, 256), 32), ((2, 512, 512), 128), ((384, 384), 64)):
+        rng = np.random.default_rng(shape[-1] + s)
+        x = torch.from_numpy((rng.standard_normal(shape) * (0.5 / math.sqrt(shape[-1])))
+                             .astype(np.float16))
+        w = x.cuda()
+        b = shape[-1] // s // 2
+        cases = [
+            ("fw_round", lambda t: fr.fw_round(t.clone(), b, block_size=s, semiring=PLUS_MUL),
+             lambda t, sr: ref.fw_round_ref(t, b, block_size=s, semiring=sr)),
+            ("fw_round_bordered",
+             lambda t: fr.fw_round_bordered(t.clone(), 1, 1, block_size=s, semiring=PLUS_MUL),
+             lambda t, sr: ref.fw_round_bordered_ref(t, 1, 1, block_size=s, semiring=sr)),
+            ("semiring_matmul",
+             lambda t: fmm.semiring_matmul(t[..., :, :s], t[..., :s, :], t, semiring=PLUS_MUL),
+             lambda t, sr: ref.semiring_matmul_ref(t[..., :, :s], t[..., :s, :], t, semiring=sr)),
+            ("fw_phase1", lambda t: fph.fw_phase1(t[..., :s, :s], semiring=PLUS_MUL),
+             lambda t, sr: ref.fw_phase1_ref(t[..., :s, :s], semiring=sr)),
+        ]
+        for what, kernel, plain in cases:
+            got, want = kernel(w), plain(w, PLUS_MUL)
+            sync()
+            require(same(got, want) and same(got.cpu(), plain(x, PLUS_MUL)),
+                    f"f16 plus_mul {what} {shape} s={s}: card != twin")
+            differ += not same(want.cpu(), plain(x, per_op))
+            checked += 1
+        got = solve(w, semiring="plus_mul", method="fused", block_size=s).dist
+        want = solve(x, semiring="plus_mul", method="fused", block_size=s, device="cpu").dist
+        require(same(got.cpu(), want), f"f16 plus_mul solve {shape} s={s}: card != CPU")
+        checked += 1
+    require(differ >= 8, f"f16 plus_mul: the per-op chain differs in {differ} cases only")
+    print(f"check: {checked} f16 plus_mul cases (one f16 FMA a step) card == twin bitwise; "
+          f"the per-op chain differs in {differ} of {checked - 3}")
 
 
 def four_inputs(n: int, seed: int = 1):
@@ -3525,6 +3653,8 @@ def main(argv=None) -> int:
     phase_check_lowered_repair()
     phase_check_lowered_four()
     phase_check_lowered_bordered()
+    phase_check_chains()
+    phase_check_f16_plus_mul()
     if not args.quick:
         rows = phase_kernels(8192, 4096)
         phase_kernels_repair(rows, 8192, 4096)

@@ -28,10 +28,13 @@ and multiply are OR and AND).
 ``relax(acc, a, b)`` is the one step every kernel chain is built from,
 ``add(acc, mul(a, b))``.  For plus_mul in f32 it is ``torch.addcmul``: a
 single rounded fused multiply-add, as XLA contracts ``c + a*b`` inside
-``jit`` and the CUDA kernels compute with ``__fmaf_rn``.  In bf16 / f16 XLA
-does not contract: ⊗ rounds to the storage type and ⊕ rounds again, and so
-does the port (``acc + a * b`` in torch's 16-bit ops, which compute in f32
-and round each result).
+``jit`` and the CUDA kernels compute with ``__fmaf_rn``.  In bf16 XLA does
+not contract: ⊗ rounds to the storage type and ⊕ rounds again, and so does
+the port (``acc + a * b`` in torch's 16-bit ops, which compute in f32 and
+round each result).  In f16 it is one f16 FMA again, rounded once from
+the exact ``c + a*b``: what XLA's CPU backend makes of the reference's
+jitted f16 ``c + a*b`` on a CPU with AVX-512 FP16, and ``__hfma`` on the
+card.
 
 min and max are XLA's: NaN propagates, and between equal operands the
 result's sign bit is the OR of the two sign bits for min and their AND for
@@ -121,10 +124,34 @@ def _relax_with(add, mul):
     return relax
 
 
+def _round_f16(x: Tensor) -> Tensor:
+    """f64 → f16 rounded once, to nearest even.  ``x.to(torch.float16)``
+    rounds through f32 (twice, which can land on an f16 tie that x is not
+    on), so round to odd at f32 first: 24 bits, at least two more than
+    f16's 11, make the second rounding the correct one."""
+    r = x.to(torch.float32)
+    inexact = (r.to(torch.float64) != x) & ~torch.isnan(x)
+    bits = r.view(torch.int32)
+    # r even and inexact: the odd neighbour on x's side (bits count up
+    # with the magnitude in either sign).
+    toward = torch.where(r.abs().to(torch.float64) > x.abs(), -1, 1).to(torch.int32)
+    bits = torch.where(inexact & (bits & 1 == 0), bits + toward, bits)
+    return bits.view(torch.float32).to(torch.float16)
+
+
 def _plus_mul_relax(acc: Tensor, a: Tensor, b: Tensor) -> Tensor:
-    """One FMA in f32 (and f64); two rounded ops in bf16 / f16."""
+    """One FMA in f32 (and f64) and in f16; two rounded ops in bf16.
+
+    f16: round(c + a·b) from the exact value, as XLA's CPU backend
+    contracts the reference's jitted f16 ``c + a*b`` into one f16 FMA on a
+    CPU with AVX-512 FP16 (and HFMA does on the card).  In f64 the product
+    of two f16 values is exact and so is the sum wherever the f16 rounding
+    can tell (the f16 range spans fewer than 53 bits), so one correct
+    rounding of the f64 result is that FMA."""
     if acc.element_size() >= 4:
         return torch.addcmul(acc, a, b)
+    if acc.dtype == torch.float16:
+        return _round_f16(acc.double() + a.double() * b.double())
     return acc + a * b
 
 

@@ -14,8 +14,9 @@
 // closed diagonal is staged in shared memory in the storage type (as the
 // round's bands kernel stages it, fw_round.cuh), the chains' published
 // row / column k in double-buffered shared vectors of the storage type,
-// the tile in 32-bit registers; every ⊗ and ⊕ rounds (bf16 / f16) or
-// saturates (int16) through semiring.cuh after each op, k ascending, so
+// the tile in 32-bit registers; every step rounds (bf16 / f16: each ⊗
+// and ⊕, f16 plus_mul's FMA once) or saturates (int16) through
+// semiring.cuh after each op, k ascending, so
 // each element's chain is the reference's, bit for bit.
 //
 // Bound on this card.  As in f32: s steps of one barrier each, on one CTA

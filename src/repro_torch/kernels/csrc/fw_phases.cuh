@@ -1,11 +1,40 @@
 // The per-thread chains of the blocked Floyd-Warshall phases, shared by
-// fw_round.cu (the full round's diag and bands) and fw_repair_del.cu (the
-// restricted sweep).
+// fw_round.cuh (the fused round's diag and bands, and its successor
+// round), fw_phase.cuh (the 4-dispatch closure and bands) and
+// fw_repair_del.cuh (the restricted sweep).
 // The kernels differ only in where their tiles come from and go to: each
 // loads its registers and stages its closed diagonal, calls one of these
 // bodies, and stores the result.
 //
-// Closure chains (diag, row and col panels) run on 8·S threads; thread
+// Register-block chains (the fused round's diag and bands).  The diag,
+// close_tile_blocks: DiagShape<S>::T x T threads, thread (ty, tx) holding
+// an M x M block (M = 4H) in 4-wide groups interleaved across the threads
+// (rows 4ty + 4T·h + e, columns 4tx + 4T·h + e, h < H, e < 4), so that a
+// warp's 16-byte shared loads of one vector fall on distinct banks.  Step
+// k's row and column (as they stood at the start of step k) are written by
+// their owners into double-buffered shared vectors as 16-byte stores, then
+// one barrier, then each thread reads its M + M operands as 16-byte loads
+// and does its M·M relaxations.  k = 4T·h + 4·t + e is unrolled over h and
+// e, so the owner's register index (4h + e) and the buffer (e & 1) are
+// constants; the loop over t is not, which keeps the code to 4H steps.
+// The bands, close_band_lanes: each column of a row panel (and each row of
+// a col panel) is an independent chain, so a warp owns 16 whole columns
+// (rows) and needs no barrier.  Lane (rg, cg) = (lane / 4, lane % 4) holds
+// S/8 consecutive rows by 4 columns of the panel, the col panel's
+// transposed (x[i][j] = q[c0 + j][r0 + i]).  At step k it takes p[k][c]
+// (q[r][k]) by __shfl_sync from the lane holding row k, before any lane
+// updates it, and its S/8 operands d[r][k] (d[k][c]) as 16-byte loads from
+// the closed diagonal staged in shared memory, transposed for the row
+// panel (dS[k][r] = d[r][k]) and as it lies for the col panel, with row
+// stride S + 4.  k = (S/8)·kb + kk is unrolled over kk: the register index
+// kk is a constant, the source lane 4kb + cg a register.  Both chains keep
+// their values lifted (semiring.cuh:Lifted: each operand lifted once, the
+// published vectors, the staged diagonal and each shuffled value), which
+// takes int16's sentinel tests and the 16-bit min-plus / max-plus round
+// out of the relaxation.
+//
+// Closure chains of one thread a column (the successor round, fw_phase.cuh
+// and the sweep) run on 8·S threads; thread
 // (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c in t[].  The
 // tile updates in place, so step k's operands (row k and column k as they
 // stood at the start of step k) are published by their owners into a
@@ -26,12 +55,127 @@
 // Every chain is generic over the register type V (float or int) and the
 // storage type T of its shared-memory operands (float, __nv_bfloat16,
 // __half, short, int), both deduced from the arguments: shared operands
-// cross through widen() / put() of semiring.cuh, which are exact.
+// cross through widen() / put() of semiring.cuh, which are exact.  The
+// register-block chains keep their shared operands in V, widened once.
 #pragma once
+
+#include <cstring>
 
 #include "semiring.cuh"
 
 namespace {
+
+// ------------------------------------------------- register-block chains
+// N consecutive 4-byte values between shared memory and registers: 16-byte
+// moves (8-byte for N = 2), at addresses aligned to them.
+template <int N, class V>
+__device__ __forceinline__ void lds_n(const V* p, V* v) {
+  static_assert(sizeof(V) == 4 && (N % 4 == 0 || N == 2), "4-byte values, whole moves");
+  if constexpr (N == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    memcpy(v, &u, 8);
+  } else {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[q];
+      memcpy(v + 4 * q, &u, 16);
+    }
+  }
+}
+
+template <class V>
+__device__ __forceinline__ void sts4(V* p, const V* v) {
+  uint4 u;
+  memcpy(&u, v, 16);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+template <int S>
+struct DiagShape {
+  static constexpr int H = S == 128 ? 2 : 1;  // 4-wide groups a thread, each way
+  static constexpr int T = S / (4 * H);       // threads each way
+  static constexpr int M = 4 * H;             // elements a thread, each way
+  static constexpr int kThreads = T * T;      // 256, 256, 64, 16 at S = 128 .. 16
+};
+
+// _close_diag: t[r][c] ⊕= t[r][k] ⊗ t[k][c] on DiagShape<S>'s blocks.
+template <int S, class Op, class V>
+__device__ __forceinline__ void close_tile_blocks(V (&t)[DiagShape<S>::M][DiagShape<S>::M],
+                                                  V (*rowbuf)[S], V (*colbuf)[S], int ty,
+                                                  int tx) {
+  constexpr int H = DiagShape<S>::H, T = DiagShape<S>::T, M = DiagShape<S>::M;
+  constexpr int kThreads = DiagShape<S>::kThreads;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll 1
+    for (int tk = 0; tk < T; ++tk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 4 * h + e, p = e & 1;  // k = 4T·h + 4·tk + e
+        if (ty == tk) {
+          V row[M];
+#pragma unroll
+          for (int j = 0; j < M; ++j) row[j] = Lifted<Op>::lift(t[m][j]);
+#pragma unroll
+          for (int q = 0; q < H; ++q) sts4(&rowbuf[p][4 * tx + 4 * T * q], &row[4 * q]);
+        }
+        if (tx == tk) {
+          V col[M];
+#pragma unroll
+          for (int i = 0; i < M; ++i) col[i] = Lifted<Op>::lift(t[i][m]);
+#pragma unroll
+          for (int q = 0; q < H; ++q) sts4(&colbuf[p][4 * ty + 4 * T * q], &col[4 * q]);
+        }
+        if constexpr (kThreads <= 32) {
+          __syncwarp(kThreads == 32 ? 0xffffffffu : (1u << kThreads) - 1);
+        } else {
+          __syncthreads();
+        }
+        V rv[M], cv[M];
+#pragma unroll
+        for (int q = 0; q < H; ++q) {
+          lds_n<4>(&rowbuf[p][4 * tx + 4 * T * q], &rv[4 * q]);
+          lds_n<4>(&colbuf[p][4 * ty + 4 * T * q], &cv[4 * q]);
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+#pragma unroll
+          for (int j = 0; j < M; ++j) t[i][j] = Lifted<Op>::relax(t[i][j], cv[i], rv[j]);
+      }
+    }
+  }
+}
+
+// _close_row_panel (Col false: p[r][c] ⊕= d[r][k] ⊗ p[k][c]) or
+// _close_col_panel (Col true: q[r][c] ⊕= q[r][k] ⊗ d[k][c], on the
+// transpose x = q^T) of the lane's S/8 x 4 block; dS the staged diagonal,
+// lifted (Lifted<Op>).
+template <int S, bool Col, class Op, class V>
+__device__ __forceinline__ void close_band_lanes(V (&x)[S / 8][4], const V* dS, int rg,
+                                                 int cg) {
+  constexpr int RL = S / 8, DSt = S + 4;
+#pragma unroll 1
+  for (int kb = 0; kb < 8; ++kb) {
+    const int src = 4 * kb + cg;
+    const V* drow = dS + kb * RL * DSt + rg * RL;
+#pragma unroll
+    for (int kk = 0; kk < RL; ++kk) {
+      V sh[4], dv[RL];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sh[j] = Lifted<Op>::lift(__shfl_sync(0xffffffffu, x[kk][j], src));
+      lds_n<RL>(drow + kk * DSt, dv);
+#pragma unroll
+      for (int i = 0; i < RL; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          x[i][j] = Col ? Lifted<Op>::relax(x[i][j], sh[j], dv[i])
+                        : Lifted<Op>::relax(x[i][j], dv[i], sh[j]);
+    }
+  }
+}
+
+// ------------------------------------------------ one thread a column
 
 // _close_diag: t[r][c] ⊕= t[r][k] ⊗ t[k][c].
 template <int S, class Op, class V, class T>

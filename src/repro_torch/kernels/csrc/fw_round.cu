@@ -15,9 +15,9 @@
 //
 //   1. diag  — one CTA per graph closes the (s,s) pivot tile (_close_diag)
 //              and writes it into both band buffers at block b.
-//   2. bands — (tc-1)+(tr-1) CTAs per graph close the row tiles
-//              (_close_row_panel) and col tiles (_close_col_panel) of round
-//              b against it.
+//   2. bands — (tc-1)+(tr-1) band tiles per graph, each cut into 1, 2 or 4
+//              CTAs, close the row tiles (_close_row_panel) and col tiles
+//              (_close_col_panel) of round b against it.
 //   3. relax — one CTA per 128 x 128 output tile per graph relaxes every
 //              element against the closed bands, k ascending (_relax_tile):
 //              the semiring matmul colband ⊗ rowband folded onto a spliced
@@ -40,11 +40,13 @@
 //
 // Exactness.  Each element sees the reference's ⊕/⊗ chain in the
 // reference's order, built from the steps of semiring.cuh by the chains of
-// fw_phases.cuh (shared with fw_repair_del.cu).  Phases 1-2 update in
-// place, so step k's operands are published into a double-buffered shared
-// vector before a barrier and read after it: one __syncthreads per step.
-// plus_mul's step is one single-rounded __fmaf_rn, as XLA contracts it in
-// the reference.  min and max propagate NaN (min.NaN / max.NaN), as
+// fw_phases.cuh.  The diag updates in place, so step k's row and column
+// are published into double-buffered shared vectors before a barrier and
+// read after it: one barrier a step.  A band tile's columns (rows) are
+// independent chains, so the bands read p[k][c] (q[r][k]) from the lane
+// that holds it by a shuffle, before that lane updates it, and need no
+// barrier.  plus_mul's step is one single-rounded __fmaf_rn, as XLA
+// contracts it in the reference.  min and max propagate NaN (min.NaN / max.NaN), as
 // torch.minimum and jnp.minimum do; fminf/fmaxf would drop it.  The
 // successor round takes a candidate only where cand < t, strictly.
 //
@@ -62,8 +64,18 @@
 // s.  The successor relax keeps, in place of a next-hop tile, the k of the
 // last strict improvement as a byte an element, and gathers the next hop
 // once after the fold (fw_round.cuh).  The diag and bands launches are
-// short serial chains of s steps; they are bound by latency, which their
-// registers-resident tiles and single barrier per step keep small.  Tensor
+// serial chains of s dependent steps on one tile, so a tile runs on one
+// SM: their floor is s·s² relaxations at one SM's rate, 64 a clock for
+// f32 min-plus (FADD and FMNMX issued on 4 schedulers), 32,768 clocks at
+// s = 128.  Their designs keep every cycle an issue slot of a relaxation:
+// the diag holds an 8 x 8 register block a thread (256 threads), so a step
+// is 4 shared 16-byte loads and one barrier for 64 relaxations a thread;
+// the bands hold 16 rows x 4 columns a lane and take their operands by 4
+// shuffles and 4 shared 16-byte loads a step, with no barrier, and a
+// launch of fewer tiles than SMs cuts each tile into 2 or 4 CTAs.  Both
+// keep their values lifted (semiring.cuh:Lifted): an int16 min-plus or
+// max-plus relaxation is then three instructions and a bf16 / f16 one
+// two, as f32's, in place of the step's sentinel tests or round.  Tensor
 // cores (wgmma) do not apply to a tropical ⊕.  A bordered round does
 // rows*cols*s relaxations on its (rows, cols) block and is bound the same
 // way.

@@ -16,77 +16,153 @@
 
 namespace {
 
+// N consecutive elements of T to / from registers: 4-wide moves (load4 /
+// store4) where N is a multiple of 4, else one at a time (N = 2, s = 16).
+template <int N, class T>
+__device__ __forceinline__ void load_n(const T* p, Reg<T>* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) load4(p + 4 * q, v + 4 * q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = widen(p[e]);
+  }
+}
+
+template <int N, class T>
+__device__ __forceinline__ void store_n(T* p, const Reg<T>* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) store4(p + 4 * q, v + 4 * q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) put(p[e], v[e]);
+  }
+}
+
 // ------------------------------------------------------------------ diag
-// Thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c.
+// One CTA a graph closes the pivot tile on DiagShape<S>'s register blocks
+// (close_tile_blocks, fw_phases.cuh): thread (ty, tx) holds rows 4ty + 4T·h
+// + e and columns 4tx + 4T·h + e of the tile.  The closed tile goes to
+// block b of both band buffers, and to the owner-echo blocks pc / pr.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(DiagShape<S>::kThreads)
 diag_kernel(const T* __restrict__ w, T* __restrict__ rowband, T* __restrict__ colband,
             int rows, int cols, int b, int pr, int pc) {
-  constexpr int R = S / 8;
-  __shared__ T rowbuf[2][S];
-  __shared__ T colbuf[2][S];
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  using V = Reg<T>;
+  constexpr int H = DiagShape<S>::H, TT = DiagShape<S>::T, M = DiagShape<S>::M;
+  __shared__ __align__(16) V rowbuf[2][S];
+  __shared__ __align__(16) V colbuf[2][S];
+  const int ty = threadIdx.x / TT, tx = threadIdx.x % TT;
   const size_t g = blockIdx.z;
   const size_t o = (size_t)b * S;
   const T* wg = w + g * rows * cols;
-  Reg<T> t[R];
+  V t[M][M];
 #pragma unroll
-  for (int m = 0; m < R; ++m) t[m] = widen(wg[(o + rg + 8 * m) * cols + o + c]);
-  close_tile_chain<S, Op>(t, rowbuf, colbuf, rg, c);
+  for (int i = 0; i < M; ++i) {
+    const size_t r = 4 * ty + 4 * TT * (i / 4) + i % 4;
+#pragma unroll
+    for (int q = 0; q < H; ++q) load4(wg + (o + r) * cols + o + 4 * tx + 4 * TT * q, &t[i][4 * q]);
+  }
+  close_tile_blocks<S, Op>(t, rowbuf, colbuf, ty, tx);
   T* rb = rowband + g * S * cols;
   T* cb = colband + g * rows * S;
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    const int r = rg + 8 * m;
-    put(rb[(size_t)r * cols + o + c], t[m]);
-    put(cb[(o + r) * S + c], t[m]);
-    if (pc >= 0) put(rb[(size_t)r * cols + (size_t)pc * S + c], t[m]);
-    if (pr >= 0) put(cb[((size_t)pr * S + r) * S + c], t[m]);
+  for (int i = 0; i < M; ++i) {
+    const size_t r = 4 * ty + 4 * TT * (i / 4) + i % 4;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      const int c = 4 * tx + 4 * TT * q;
+      store4(rb + r * cols + o + c, &t[i][4 * q]);
+      store4(cb + (o + r) * S + c, &t[i][4 * q]);
+      if (pc >= 0) store4(rb + r * cols + (size_t)pc * S + c, &t[i][4 * q]);
+      if (pr >= 0) store4(cb + ((size_t)pr * S + r) * S + c, &t[i][4 * q]);
+    }
   }
 }
 
 // ----------------------------------------------------------------- bands
-// blockIdx.x < tc-1: row tile (b, j); otherwise col tile (i, b); j, i skip
-// b.  The owner-echo tiles (j == pc, i == pr) already hold the closed
-// corner (diag launch) and return at once.  The closed diagonal comes from
-// rowband's block b, staged in shared memory with a padded row stride.
+// Tile u = blockIdx.x / split < tc-1: row tile (b, j); otherwise col tile
+// (i, b); j, i skip b.  The owner-echo tiles (j == pc, i == pr) already
+// hold the closed corner (diag launch) and return at once.  A tile's S
+// chains (its columns, or its rows) are independent: warp v of the tile
+// owns 16 of them (close_band_lanes, fw_phases.cuh) and runs them with no
+// barrier, and the tile's S/16 warps are cut into split CTAs
+// (blockIdx.x % split), each staging the closed diagonal (rowband's block
+// b, its operands lifted) in shared memory for itself, so that a launch of
+// few tiles still fills the card.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(2 * S)
 bands_kernel(const T* __restrict__ w, T* __restrict__ rowband, T* __restrict__ colband,
-             int rows, int cols, int b, int pr, int pc) {
-  constexpr int R = S / 8, DS = S + 1;
+             int rows, int cols, int b, int pr, int pc, int split) {
+  using V = Reg<T>;
+  constexpr int RL = S / 8, DSt = S + 4;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  T* d = reinterpret_cast<T*>(dyn_smem);  // S x DS
-  __shared__ T buf[2][S];
+  V* dS = reinterpret_cast<V*>(dyn_smem);  // S x DSt
   const int TC = cols / S;
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
-  const size_t g = blockIdx.z;
-  const size_t o = (size_t)b * S;
-  const bool is_row = blockIdx.x < TC - 1;
-  int x = is_row ? blockIdx.x : blockIdx.x - (TC - 1);
+  const int u = blockIdx.x / split;
+  const bool is_row = u < TC - 1;
+  int x = is_row ? u : u - (TC - 1);
   x = x < b ? x : x + 1;
   if (x == (is_row ? pc : pr)) return;
+  const size_t g = blockIdx.z;
+  const size_t o = (size_t)b * S, xo = (size_t)x * S;
   const T* wg = w + g * rows * cols;
   T* rb = rowband + g * S * cols;
   T* cb = colband + g * rows * S;
+  const int lane = threadIdx.x % 32, rg = lane / 4, cg = lane % 4;
+  const int v = (blockIdx.x % split) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int r0 = rg * RL, c0 = 16 * v + 4 * cg;  // the lane's block: rows r0.., columns c0..
 
-  for (int idx = threadIdx.x; idx < S * S; idx += 8 * S)
-    d[(idx / S) * DS + idx % S] = rb[(size_t)(idx / S) * cols + o + idx % S];
-  Reg<T> t[R];
-  const size_t r0 = is_row ? o : (size_t)x * S;
-  const size_t c0 = is_row ? (size_t)x * S : o;
+  // xr[i][j]: row panel p[r0 + i][c0 + j] = w[o + r0 + i][xo + c0 + j];
+  // col panel q[c0 + j][r0 + i] = w[xo + c0 + j][o + r0 + i].
+  V xr[RL][4];
+  if (is_row) {
 #pragma unroll
-  for (int m = 0; m < R; ++m) t[m] = widen(wg[(r0 + rg + 8 * m) * cols + c0 + c]);
+    for (int i = 0; i < RL; ++i) load4(wg + (o + r0 + i) * cols + xo + c0, xr[i]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      V run[RL];
+      load_n<RL>(wg + (xo + c0 + j) * cols + o + r0, run);
+#pragma unroll
+      for (int i = 0; i < RL; ++i) xr[i][j] = run[i];
+    }
+  }
+  // The closed diagonal, lifted (Lifted<Op>): 4 elements of a row a load,
+  // eight loads a thread in flight; a warp takes 32 rows of the transposed
+  // copy (its stores then fall on distinct banks), 32 groups of a row of
+  // the other.
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < S * S / 4; idx += blockDim.x) {
+    const int r = is_row ? idx % S : idx / (S / 4);
+    const int c = 4 * (is_row ? idx / S : idx % (S / 4));
+    V e4[4];
+    load4(rb + (size_t)r * cols + o + c, e4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) e4[e] = Lifted<Op>::lift(e4[e]);
+    if (is_row) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dS[(c + e) * DSt + r] = e4[e];
+    } else {
+      sts4(dS + r * DSt + c, e4);
+    }
+  }
   __syncthreads();
 
   if (is_row) {
-    close_row_chain<S, Op>(t, d, buf, rg, c);
+    close_band_lanes<S, false, Op>(xr, dS, rg, cg);
 #pragma unroll
-    for (int m = 0; m < R; ++m) put(rb[(size_t)(rg + 8 * m) * cols + c0 + c], t[m]);
+    for (int i = 0; i < RL; ++i) store4(rb + (size_t)(r0 + i) * cols + xo + c0, xr[i]);
   } else {
-    close_col_chain<S, R, Op>(t, d, buf, rg, c);
+    close_band_lanes<S, true, Op>(xr, dS, rg, cg);
 #pragma unroll
-    for (int m = 0; m < R; ++m) put(cb[(r0 + rg + 8 * m) * S + c], t[m]);
+    for (int j = 0; j < 4; ++j) {
+      V run[RL];
+#pragma unroll
+      for (int i = 0; i < RL; ++i) run[i] = xr[i][j];
+      store_n<RL>(cb + (xo + c0 + j) * S + r0, run);
+    }
   }
 }
 
@@ -348,19 +424,38 @@ cudaError_t prepare(K kernel, size_t smem) {
                               (int)smem);
 }
 
+// CTAs a band tile is cut into: the most of 1, 2 or 4 (at most its S/16
+// warps) that keeps the launch within one CTA an SM, so that a round of
+// few tiles (n = 4096, a rank's bordered block) spreads over the card.
+template <int S>
+cudaError_t band_split(int tiles, int B, int* split) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *split = 1;
+  while (2 * *split <= (S / 16 < 4 ? S / 16 : 4) && (long long)tiles * B * 2 * *split <= sms)
+    *split *= 2;
+  return err;
+}
+
 // Phase 0 (diag) or 1 (bands): the chains, one instantiation per s.
 template <int S, class Op, class T>
 int launch_chain(int phase, T* w, T* rb, T* cb, int B, int rows, int cols, int b, int pr,
                  int pc, cudaStream_t st) {
   const int TR = rows / S, TC = cols / S;
   if (phase == 0) {
-    diag_kernel<S, Op, T><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, rb, cb, rows, cols, b, pr, pc);
+    diag_kernel<S, Op, T><<<dim3(1, 1, B), DiagShape<S>::kThreads, 0, st>>>(w, rb, cb, rows,
+                                                                           cols, b, pr, pc);
   } else {
-    const size_t smem = (size_t)S * (S + 1) * sizeof(T);
-    const cudaError_t err = prepare(bands_kernel<S, Op, T>, smem);
+    const int tiles = (TC - 1) + (TR - 1);
+    int split = 1;
+    cudaError_t err = band_split<S>(tiles, B, &split);
     if (err != cudaSuccess) return (int)err;
-    bands_kernel<S, Op, T><<<dim3((TC - 1) + (TR - 1), 1, B), 8 * S, smem, st>>>(
-        w, rb, cb, rows, cols, b, pr, pc);
+    const size_t smem = (size_t)S * (S + 4) * sizeof(Reg<T>);
+    err = prepare(bands_kernel<S, Op, T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    bands_kernel<S, Op, T><<<dim3(tiles * split, 1, B), 2 * S / split, smem, st>>>(
+        w, rb, cb, rows, cols, b, pr, pc, split);
   }
   return (int)cudaGetLastError();
 }

@@ -35,13 +35,14 @@
 // moves, so it is bound by operations.  Counted as for f32 (min-plus: add,
 // min = 2), one operation for each arithmetic op, rounding or select made
 // per (i, j, k): a bf16 / f16 min-plus relaxation is 3 (add, round, min;
-// plus_mul 4: mul, round, add, round), an int16 tropical one 6 integer ops
+// plus_mul 4 in bf16: mul, round, add, round; 1 HFMA in f16), an int16
+// tropical one 6 integer ops
 // (add, clamp ×2, the two sentinel selects, min; each sentinel test looks
 // at one operand, so it is made once per (i, k) or (k, j), not per
 // triple), a packed one 1 LOP3 for 32 graphs, an int32 one 2 (min, max or
 // mul, add).  Tensor cores do not apply:
-// the tropical ⊕ is not a sum, and plus_mul rounds per op in 16 bits,
-// which no MMA reproduces.
+// the tropical ⊕ is not a sum, and plus_mul rounds after every step in
+// 16 bits (bf16 twice), which no MMA reproduces.
 //
 // Interface: plain C, pointers and the stream as void*, each entry point
 // returns the cudaError_t of its launch (0 = launched).

@@ -15,8 +15,9 @@
 // (double-buffered, the next one's copies in flight
 // while the current one folds, 16-byte vector copies where the operands
 // allow: minplus_matmul.cu) sit in shared memory in the storage type, the
-// 8 x 8 register tile in 32-bit registers, and every ⊗ and ⊕ rounds (bf16 /
-// f16) or saturates (int16) through semiring.cuh after each op, k
+// 8 x 8 register tile in 32-bit registers, and every step rounds (bf16 / f16:
+// each ⊗ and ⊕, f16 plus_mul's FMA once) or saturates (int16) through
+// semiring.cuh after each op, k
 // ascending, so each element's chain is the reference's bit for bit.  The
 // ⊕-identity (the start without c) crosses the interface by its bits in
 // the storage type: int16's sentinel and the flipped identity of a uint32

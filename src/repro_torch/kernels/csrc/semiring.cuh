@@ -17,13 +17,17 @@
 // strictly smaller.
 //
 // bf16 / f16 (RoundBf16 / RoundF16).  XLA computes each 16-bit op in f32
-// and rounds the result to the storage type, and does not contract c + a*b
-// there: every ⊗ and every ⊕ rounds on its own.  So each step here is an
-// explicit __fadd_rn / __fmul_rn (never contracted into an FMA by nvcc)
-// followed by a round to nearest even into the storage type.  min / max
-// are exact in any width and reuse the f32 steps.  No native 16-bit
-// arithmetic (__hadd, __hfma, __hmin): a 16-bit add rounds once from the
-// exact sum, which can differ from f32-then-round.
+// and rounds the result to the storage type: min-plus and max-plus add in
+// f32 and round (__fadd_rn, never contracted by nvcc, then a round to
+// nearest even); min / max are exact in any width and reuse the f32 steps.
+// plus_mul differs by storage.  bf16: XLA does not contract c + a*b, so ⊗
+// rounds and ⊕ rounds again (__fmul_rn, round, __fadd_rn, round).  f16:
+// XLA's CPU backend, on a CPU with AVX-512 FP16, contracts the reference's
+// jitted f16 c + a*b into one f16 FMA, rounded once from the exact value;
+// here that is __hfma (HFMA: one rounding, subnormals kept) on the f16
+// values, which the float registers hold exactly.  No other native 16-bit
+// arithmetic (__hadd, __hmin): a 16-bit add rounds once from the exact sum,
+// which can differ from f32-then-round.
 //
 // int16 (the saturating tropical lowerings).  Widen to int32, add, clamp to
 // [-32768, 32767], then the sentinels override: the other sentinel first,
@@ -130,10 +134,18 @@ struct RoundBf16 {
   static __device__ __forceinline__ float round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
+  // plus_mul's step: ⊗ rounded, then ⊕ rounded.
+  static __device__ __forceinline__ float fma(float a, float b, float acc) {
+    return round(__fadd_rn(acc, round(__fmul_rn(a, b))));
+  }
 };
 struct RoundF16 {
   static __device__ __forceinline__ float round(float x) {
     return __half2float(__float2half_rn(x));
+  }
+  // plus_mul's step: one f16 FMA (the conversions in are exact).
+  static __device__ __forceinline__ float fma(float a, float b, float acc) {
+    return __half2float(__hfma(__float2half_rn(a), __float2half_rn(b), __float2half_rn(acc)));
   }
 };
 
@@ -155,7 +167,7 @@ template <class R>
 struct PlusMulH {
   static __device__ __forceinline__ float mul(float a, float b) { return R::round(__fmul_rn(a, b)); }
   static __device__ __forceinline__ float relax(float acc, float a, float b) {
-    return R::round(__fadd_rn(acc, mul(a, b)));
+    return R::fma(a, b, acc);
   }
 };
 
@@ -193,6 +205,70 @@ struct PlusMulI32 {  // wrapping mod 2^32, as XLA's int32 add and multiply
 struct OrAndPacked {
   static __device__ __forceinline__ int mul(int a, int b) { return a & b; }
   static __device__ __forceinline__ int relax(int acc, int a, int b) { return acc | (a & b); }
+};
+
+// ------------------------------------------------------- lifted operands
+// A chain that reuses each operand for many relaxations (the fused round's
+// register-block diag and band lanes) may keep its values lifted: every
+// value it takes as an operand passes through Lifted<Op>::lift once (the
+// published vectors, the staged diagonal, each shuffled value), its
+// accumulators step by Lifted<Op>::relax, and put() of an accumulator, or
+// lift() of it as an operand, is Op's chain value, bit for bit.  For
+// most steps lift is the identity and relax Op's.  Two differ:
+//
+// int16 min-plus / max-plus: the sentinel tests leave the relaxation.  The
+// dominant sentinel lifts to ±2^20 and the other to ∓2^17, so that a sum
+// holding the dominant one lies past it, one holding only the other past
+// that, and a sum of two finite values is the plain one; one clamp against
+// the other sentinel then gives sat_mul's value, and the accumulator (an
+// int16 value) bounds the dominant side: min(acc, clamp(x)) =
+// max(min(acc, x), NINF).
+//
+// bf16 / f16 min-plus / max-plus: the round after min / max moves to the
+// operands.  Rounding R is monotone and R(v) = v on the storage's values,
+// so R(min(acc, x)) = min(R(acc), R(x)) (NaN and the ±0 rule of min.NaN /
+// max.NaN included: -0 < +0 in both): an accumulator kept unrounded in f32
+// rounds to the chain's value, lift rounds it where it becomes an operand,
+// and put() rounds it on store.  A relaxation is then __fadd_rn and one
+// min / max, as in f32.
+template <class Op>
+struct Lifted {
+  template <class V>
+  static __device__ __forceinline__ V lift(V v) { return v; }
+  template <class V>
+  static __device__ __forceinline__ V relax(V acc, V a, V b) { return Op::relax(acc, a, b); }
+};
+template <>
+struct Lifted<MinPlusI16> {
+  static __device__ __forceinline__ int lift(int v) {
+    return v == kI16Inf ? (1 << 20) : v == kI16NInf ? -(1 << 17) : v;
+  }
+  static __device__ __forceinline__ int relax(int acc, int a, int b) {
+    return max(min(acc, a + b), kI16NInf);
+  }
+};
+template <>
+struct Lifted<MaxPlusI16> {
+  static __device__ __forceinline__ int lift(int v) {
+    return v == kI16NInf ? -(1 << 20) : v == kI16Inf ? (1 << 17) : v;
+  }
+  static __device__ __forceinline__ int relax(int acc, int a, int b) {
+    return min(max(acc, a + b), kI16Inf);
+  }
+};
+template <class R>
+struct Lifted<MinPlusH<R>> {
+  static __device__ __forceinline__ float lift(float v) { return R::round(v); }
+  static __device__ __forceinline__ float relax(float acc, float a, float b) {
+    return min_nan(acc, __fadd_rn(a, b));
+  }
+};
+template <class R>
+struct Lifted<MaxPlusH<R>> {
+  static __device__ __forceinline__ float lift(float v) { return R::round(v); }
+  static __device__ __forceinline__ float relax(float acc, float a, float b) {
+    return max_nan(acc, __fadd_rn(a, b));
+  }
 };
 
 // ------------------------------------------------------------ successors

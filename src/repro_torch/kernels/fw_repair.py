@@ -26,9 +26,11 @@ carries their bits.
 
 Both wrappers return new tensors and leave ``d`` (and ``succ``) as they
 were.  A tensor on the CPU goes to the plain version in ``kernels.ref``; a
-CUDA tensor goes to the kernels, and a launch that fails raises.  There is
-no fallback between the two.  ``LAUNCHES`` counts kernel launches by kind;
-a lowered launch counts under its own kind, e.g. ``fw_repair/apply[int16]``.
+CUDA tensor goes to the kernels, and a launch that fails raises (a strided
+or unaligned one through a contiguous, aligned copy:
+``fw_round.contiguous_aligned``).  There is no fallback between the two.
+``LAUNCHES`` counts kernel launches by kind; a lowered launch counts under
+its own kind, e.g. ``fw_repair/apply[int16]``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
-from repro_torch.kernels.fw_round import LOWERINGS, storage_tag
+from repro_torch.kernels.fw_round import LOWERINGS, contiguous_aligned, storage_tag
 from repro_torch.kernels.minplus_matmul import _raise_on, semiring_id
 
 MAX_EDGES = 64  # edges one f32 stage + apply launch pair carries
@@ -99,8 +101,6 @@ def _check(d: torch.Tensor, block_size: int, what: str = "d", dtype=None) -> int
         raise ValueError(f"{what} must be (n, n) with n % {block_size} == 0, got {n}")
     if d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {d.device}")
-    if d.device.type == "cuda" and not d.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
     return n
 
 
@@ -223,7 +223,7 @@ def fw_repair(
     if d.device.type == "cpu":
         return ref.fw_repair_ref(d, u, v, w, semiring=semiring)
     cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
-    out = d
+    out = d = contiguous_aligned(d)
     for c in range(0, len(u), cap):
         e = slice(c, c + cap)
         staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)
@@ -257,7 +257,7 @@ def fw_repair_with_successors(
     if d.device.type == "cpu":
         return ref.fw_repair_with_successors_ref(d, succ, u, v, w)
     cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
-    out, sout = d, succ
+    out, sout = d, succ = contiguous_aligned(d), contiguous_aligned(succ)
     for c in range(0, len(u), cap):
         e = slice(c, c + cap)
         staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)

@@ -29,7 +29,9 @@ into those lanes only.
 
 Both sweeps return new tensors and leave their inputs as they were.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
-tensor goes to the kernels, and a launch that fails raises.  There is no
+tensor goes to the kernels (a strided or unaligned one through a
+contiguous, aligned copy: ``fw_round.contiguous_aligned``), and a launch
+that fails raises.  There is no
 fallback between the two.  ``LAUNCHES`` counts kernel launches by kind; a
 lowered launch counts under its own kind, e.g.
 ``fw_repair_del_sweep/relax[bf16]``.  The sweep is sound for the
@@ -48,7 +50,7 @@ import torch
 from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
 from repro_torch.kernels.fw_repair import SUCC_LOWERINGS, _check, edge_vectors, succ_tag
-from repro_torch.kernels.fw_round import LOWERINGS, storage_tag
+from repro_torch.kernels.fw_round import LOWERINGS, contiguous_aligned, storage_tag
 from repro_torch.kernels.minplus_matmul import (
     BLOCK_SIZES,
     _fit_block,
@@ -305,7 +307,7 @@ def fw_repair_del_sweep(
     if d_init.device.type == "cpu":
         return ref.fw_repair_del_sweep_ref(d_init, r, block_size=block_size, bk=bk,
                                            variant=variant, semiring=semiring)
-    sw = sweep_buffers(d_init, r, block_size=block_size)
+    sw = sweep_buffers(contiguous_aligned(d_init), r, block_size=block_size)
     for b in range(m // block_size):
         for phase in PHASES:
             sweep_phase(phase, sw, b, bk=bk, semiring=semiring)
@@ -326,7 +328,8 @@ def fw_repair_del_sweep_with_successors(
     if d_init.device.type == "cpu":
         return ref.fw_repair_del_sweep_with_successors_ref(d_init, s_init, r,
                                                            block_size=block_size)
-    sw = sweep_buffers(d_init, r, block_size=block_size, s_init=s_init)
+    sw = sweep_buffers(contiguous_aligned(d_init), r, block_size=block_size,
+                       s_init=contiguous_aligned(s_init))
     for b in range(m // block_size):
         for phase in PHASES:
             sweep_succ_phase(phase, sw, b)

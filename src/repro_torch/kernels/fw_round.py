@@ -20,7 +20,10 @@ successor round f32, bf16 or f16 distances.
 
 The wrappers update ``w`` (and ``succ``) in place and return them.  A
 tensor on the CPU goes to the plain version in ``kernels.ref``; a CUDA
-tensor goes to the kernel, and a launch that fails raises.  There is no
+tensor goes to the kernel, and a launch that fails raises.  A card tensor
+the kernels cannot take as it lies (a strided view, or an address not
+16-byte aligned) goes through a contiguous, aligned copy
+(``contiguous_aligned``), and the result is written back into it.  There is no
 fallback between the two.  ``LAUNCHES`` counts kernel launches by kind;
 a lowered launch counts under its own kind, e.g. ``fw_round/relax[int16]``.
 """
@@ -40,7 +43,6 @@ from repro_torch.kernels.minplus_matmul import (
     _raise_on,
     check_variant,
     semiring_id,
-    staging,
     storage_tag,
 )
 
@@ -108,8 +110,6 @@ def _check(w: torch.Tensor, block_size: int, b: int, dtype=None, what: str = "w"
         raise ValueError(f"pivot round {b} outside [0, {n // block_size})")
     if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {w.device}")
-    if w.device.type == "cuda" and not w.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
     return (w.shape[0] if w.ndim == 3 else 1), n
 
 
@@ -151,16 +151,25 @@ def _check_buffers(w, block_size, bufs, count):
             )
 
 
-def _require_vector(kind: str, tensors) -> None:
-    """The relax kernels stage their slices by 16-byte copies only
-    (``minplus_matmul.staging`` = vector): raise where w or a band buffer
-    is not 16-byte aligned.  Their shapes make every row stride whole
-    16 bytes (rows and cols are multiples of s >= 16)."""
+def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where the kernels take it as it lies (contiguous, 16-byte
+    aligned), else a contiguous, aligned copy of it (a new allocation),
+    whose result the caller writes back into t."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def _require_staged(kind: str, tensors) -> None:
+    """The round's kernels move w and the band buffers 4 elements at a time
+    and the relax stages its slices by 16-byte copies only: raise where one
+    of them is not contiguous and 16-byte aligned (the public wrappers pass
+    ``contiguous_aligned`` copies).  Their shapes make every row stride
+    whole 16 bytes (rows and cols are multiples of s >= 16)."""
     for t in tensors:
-        strides = [t.stride(-2)] + ([t.stride(0)] if t.ndim == 3 else [])
-        if not staging(t.element_size(), [t.data_ptr()], strides):
+        if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{kind}: {tuple(t.shape)} {t.dtype} at {t.data_ptr():#x} is not "
-                             f"16-byte aligned, which the relax kernels need")
+                             f"contiguous and 16-byte aligned, which the kernels need")
 
 
 def fw_round_phase(
@@ -179,8 +188,7 @@ def fw_round_phase(
     if phase == "bands" and n == block_size:
         return  # a single tile has no bands to close
     kind = f"fw_round/{phase}" + (f"[{tag}]" if tag else "")
-    if phase == "relax":
-        _require_vector(kind, (w, *bands))
+    _require_staged(kind, (w, *bands))
     ptrs = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, n, block_size, b)
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
@@ -215,12 +223,13 @@ def fw_round(
         return w.copy_(ref.fw_round_ref(
             w, b, block_size=block_size, bk=bk, variant=variant, semiring=semiring
         ))
+    x = contiguous_aligned(w)
     if bands is None:
-        bands = round_buffers(w, block_size)
+        bands = round_buffers(x, block_size)
     for phase in PHASES:
-        fw_round_phase(phase, w, b, bands, block_size=block_size, bk=bk,
+        fw_round_phase(phase, x, b, bands, block_size=block_size, bk=bk,
                        semiring=semiring)
-    return w
+    return w if x is w else w.copy_(x)
 
 
 def _succ_lowering(w: torch.Tensor) -> str | None:
@@ -246,8 +255,7 @@ def fw_round_with_successors_phase(
     if phase == "bands" and n == block_size:
         return
     kind = f"fw_round_with_successors/{phase}" + (f"[{tag}]" if tag else "")
-    if phase == "relax":
-        _require_vector(kind, (w, succ, *bands))
+    _require_staged(kind, (w, succ, *bands))
     ptrs = (w.data_ptr(), succ.data_ptr(), *(t.data_ptr() for t in bands), B, n,
             block_size, b)
     with torch.cuda.device(w.device):
@@ -280,12 +288,13 @@ def fw_round_with_successors(
         w.copy_(d)
         succ.copy_(s)
         return w, succ
+    x, xs = contiguous_aligned(w), contiguous_aligned(succ)
     if bands is None:
-        bands = succ_round_buffers(w, block_size)
+        bands = succ_round_buffers(x, block_size)
     for phase in PHASES:
-        fw_round_with_successors_phase(phase, w, succ, b, bands,
+        fw_round_with_successors_phase(phase, x, xs, b, bands,
                                        block_size=block_size)
-    return w, succ
+    return (w if x is w else w.copy_(x)), (succ if xs is succ else succ.copy_(xs))
 
 
 # ---------------------------------------------------------- bordered round
@@ -308,8 +317,6 @@ def _check_bordered(w: torch.Tensor, block_size: int, owner_row: int, owner_col:
                          f"{tr}x{tc} tile grid (-1 = none)")
     if w.device.type not in ("cpu", "cuda"):
         raise ValueError(f"w must lie on the CPU or a CUDA device, not {w.device}")
-    if w.device.type == "cuda" and not w.is_contiguous():
-        raise ValueError("w must be contiguous")
     return (w.shape[0] if w.ndim == 3 else 1), rows, cols, tag
 
 
@@ -344,8 +351,7 @@ def fw_round_bordered_phase(
     if phase == "bands" and rows == cols == s:
         return  # a single tile has no bands to close
     kind = f"fw_round_bordered/{phase}" + (f"[{tag}]" if tag else "")
-    if phase == "relax":
-        _require_vector(kind, (w, *bands))
+    _require_staged(kind, (w, *bands))
     geom = (w.data_ptr(), bands[0].data_ptr(), bands[1].data_ptr(), B, rows, cols, s,
             owner_row, owner_col)
     with torch.cuda.device(w.device):
@@ -382,9 +388,10 @@ def fw_round_bordered(
             w, owner_row, owner_col, block_size=block_size, bk=bk, variant=variant,
             semiring=semiring,
         ))
+    x = contiguous_aligned(w)
     if bands is None:
-        bands = bordered_round_buffers(w, block_size)
+        bands = bordered_round_buffers(x, block_size)
     for phase in PHASES:
-        fw_round_bordered_phase(phase, w, owner_row, owner_col, bands,
+        fw_round_bordered_phase(phase, x, owner_row, owner_col, bands,
                                 block_size=block_size, bk=bk, semiring=semiring)
-    return w
+    return w if x is w else w.copy_(x)

@@ -32,7 +32,8 @@ weights are carried in the matrix's dtype, as the reference's
 
 The round, repair and sweep twins are generic over the storage dtype:
 f32, bf16 and f16 (each ⊗ and ⊕ rounded to the storage type by torch's
-16-bit ops), the saturating int16 lowerings, the bit-packed or_and words
+16-bit ops, f16 plus_mul's step one FMA rounded once), the saturating
+int16 lowerings, the bit-packed or_and words
 and the int32 carrier of an integer or_and / plus_mul storage, through
 the lowering's own ``Semiring`` ops; the successor twins take f32, bf16
 and f16 distances.

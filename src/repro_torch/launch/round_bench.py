@@ -5,28 +5,36 @@
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
-f32, pivot round n/s/2 (median of 11 between CUDA events); the relax in
+f32, pivot round n/s/2 (median of 11 between CUDA events); the diag and
+bands launches in every storage (f32, int16, bf16, f16 min-plus, packed
+or_and words) at (n, n), at (n/2, n/2) and on the 2×2 grid's bordered
+rank block (s + n/2, s + n/2) with no owner echo, each first held by bits
+against its plain phase (``chains_*_ok``), timed between CUDA events and
+as device time (``*_dev_ms``, ``torch.profiler``: a launch this short on
+an idle stream otherwise waits for its wrapper's host work); the relax in
 plus_mul beside ``torch.addmm`` and in min-plus beside ``semiring_matmul``
 on the same (n,s)·(s,n) + C product; the int16 and bf16 relax; the
 successor relax at (n/2, n/2) in f32 and bf16; and, by host clock around
 work that ends in a synchronize (median of 3 after a warm-up), ``solve`` at
-n, ``solve(successors=True)`` at n/2 and
-``fw_staged(fused=False)`` at n, on the seeded density-0.5 digraph.  Each
-timed relax is first held by bits against its plain phase (``*_ok``).
+n in f32, int16, bf16 and f16 and of 32 packed graphs, ``solve(successors=True)``
+at n/2 and ``fw_staged(fused=False)`` at n, on the seeded density-0.5
+digraph.  Each timed relax is first held by bits against its plain phase
+(``*_ok``).
 
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
-successor relax and vector f32 ``matmul_kernel`` instantiation
-(``_build.kernel_infos``) and, in each f32 relax kernel's SASS
-(``cuobjdump -sass`` of the f32 round library), the count of the opcodes a
-relaxation is made of and of the spill instructions, then exits: run it
-for every tree at once, then the timings in turns.
+successor relax, diag, bands and vector f32 ``matmul_kernel``
+instantiation (``_build.kernel_infos``) and, in each f32 relax, diag and
+bands kernel's SASS (``cuobjdump -sass`` of the f32 round library), the
+count of the opcodes a relaxation is made of, of the shared-memory,
+shuffle and barrier instructions and of the spill instructions, then
+exits: run it for every tree at once, then the timings in turns.
 
 Run it with PYTHONPATH pointing at two trees, in turns inside one chip
 call (parent, change, change, parent), to compare them on one card.  Only
 the API both trees share is used (``fw_round_phase``,
-``fw_round_with_successors_phase``, the band buffers, ``semiring_matmul``,
-``solve``, ``fw_staged``).
+``fw_round_with_successors_phase``, ``fw_round_bordered_phase``, the band
+buffers, ``semiring_matmul``, ``solve``, ``fw_staged``).
 """
 from __future__ import annotations
 
@@ -55,6 +63,25 @@ def event_ms(fn, reps: int = 11) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms a call: the time of its kernels in a ``torch.profiler``
+    trace of reps calls (nan where the profiler records no device time).
+    Unlike ``event_ms`` it leaves out the wrapper's host work before a
+    launch, which a short launch on an idle stream waits for."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+             for ev in prof.key_averages())
+    return us / reps / 1e3 if us else float("nan")
+
+
 def host_ms(fn) -> float:
     import torch
 
@@ -69,12 +96,15 @@ def host_ms(fn) -> float:
     return statistics.median(times)
 
 
-SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STL", "LDL")
+SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STS",
+            "SHFL", "BAR", "STL", "LDL")
+KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel")
 
 
 def sass_counts(lib_path) -> dict:
-    """Per relax kernel (mangled name) of a library: how many of its SASS
-    instructions have each opcode of ``SASS_OPS`` (modifiers dropped)."""
+    """Per relax, diag and bands kernel (mangled name) of a library: how many
+    of its SASS instructions have each opcode of ``SASS_OPS`` (modifiers
+    dropped)."""
     import re
 
     text = subprocess.run([str(Path(_nvcc_dir()) / "cuobjdump"), "-sass", str(lib_path)],
@@ -83,7 +113,7 @@ def sass_counts(lib_path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if "relax_kernel" in m.group(1) else None
+            name = m.group(1) if any(k in m.group(1) for k in KERNELS) else None
             if name:
                 counts[name] = dict.fromkeys(SASS_OPS, 0)
             continue
@@ -111,11 +141,64 @@ def build_report(label: str) -> int:
             dict(name=k.name, registers=k.registers, spill_stores=k.spill_stores,
                  spill_loads=k.spill_loads)
             for k in _build.kernel_infos(built)
-            if "relax_kernel" in k.name or ("matmul_kernel" in k.name and "float, true" in k.name)]
+            if any(x in k.name for x in KERNELS)
+            or ("matmul_kernel" in k.name and "float, true" in k.name)]
         if built.name == "fw_round" and built.seconds:  # built here: its SASS is fresh
             out["sass"] = sass_counts(built.path)
     print(json.dumps(out))
     return 0
+
+
+def chain_cases(w, n: int, s: int) -> dict:
+    """The diag and bands launches in every storage at (n, n), (n/2, n/2)
+    and the 2×2 grid's bordered rank block (s + n/2, s + n/2): each held by
+    bits against its plain phase, then timed."""
+    import torch
+
+    from repro_torch.apsp import api
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    g = torch.Generator(device=w.device).manual_seed(3)
+    storages = {
+        "f32": lambda x: (x, MIN_PLUS),
+        "int16": lambda x: (api._coerce(x, MIN_PLUS_I16, None, x.device), MIN_PLUS_I16),
+        "bf16": lambda x: (x.to(torch.bfloat16), MIN_PLUS),
+        "f16": lambda x: (x.to(torch.float16), MIN_PLUS),
+        "packed": lambda x: (torch.randint(-(1 << 31), 1 << 31, x.shape, generator=g,
+                                           device=x.device, dtype=torch.int32), OR_AND_PACKED),
+    }
+    half = n // 2
+    geoms = {"n": (w, n // s // 2, False), "n2": (w[:half, :half].contiguous(), half // s // 2,
+                                                 False),
+             "bordered": (w[:s + half, :s + half].contiguous(), 0, True)}
+    for key, make in storages.items():
+        for gname, (base, b, bordered) in geoms.items():
+            x, sr = make(base)
+            o = slice(b * s, (b + 1) * s)
+            kw = dict(block_size=s, semiring=sr)
+            if bordered:
+                bands = fr.bordered_round_buffers(x, s)
+                launch = lambda p: fr.fw_round_bordered_phase(p, x, -1, -1, bands, **kw)  # noqa: E731
+            else:
+                bands = fr.round_buffers(x, s)
+                launch = lambda p: fr.fw_round_phase(p, x, b, bands, **kw)  # noqa: E731
+            launch("diag")
+            launch("bands")
+            diag = ref.close_diag(x[o, o], sr)
+            row, col = (ref.close_bordered_bands(x, diag, -1, -1, sr) if bordered
+                        else ref.close_bands(x, diag, b, sr))
+            torch.cuda.synchronize()
+            out[f"chains_{key}_{gname}_ok"] = bits_equal(bands[0][0], row) and bits_equal(
+                bands[1][0], col)
+            for phase in ("diag", "bands"):
+                out[f"{phase}_{key}_{gname}_ms"] = event_ms(lambda: launch(phase))
+                out[f"{phase}_{key}_{gname}_dev_ms"] = device_ms(lambda: launch(phase))
+            del bands, row, col, diag, x
+    return out
 
 
 def main(argv=None) -> int:
@@ -169,6 +252,8 @@ def main(argv=None) -> int:
                 lambda: fr.fw_round_phase(phase, got, b, bands, **kw))
         return bands
 
+    chains = chain_cases(w, n, s)
+    out.update(chains)
     bands = round_case(w, MIN_PLUS, "f32", phases=("diag", "bands", "relax"))
     mm = torch.empty_like(w)
     out["f32_matmul_ms"] = event_ms(
@@ -202,6 +287,12 @@ def main(argv=None) -> int:
         del bands, gd, gs, wd, wsu
 
     out["solve_ms"] = host_ms(lambda: solve(w))
+    for key, kw in (("int16", dict(dtype=torch.int16)), ("bf16", dict(dtype=torch.bfloat16)),
+                    ("f16", dict(dtype=torch.float16))):
+        out[f"solve_{key}_ms"] = host_ms(lambda: solve(w, **kw))
+    planes = torch.rand((32, n, n), device=w.device) < 2.0 / n
+    out["solve_packed_ms"] = host_ms(lambda: solve(planes, semiring="or_and", packed=True))
+    del planes
     out["succ_solve_ms"] = host_ms(lambda: solve(ws, successors=True))
     out["four_dispatch_ms"] = host_ms(lambda: fw_staged(w, block_size=s, fused=False))
     print(json.dumps(out))

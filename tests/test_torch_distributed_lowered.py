@@ -21,7 +21,9 @@ no JAX) is spawned once, in a module fixture, and runs every case:
 * ``launch.fw_dist_check``'s checks with ``--dtype`` / ``--packed``
   configurations, and its command line.
 
-f16 plus_mul is held elsewhere (``test_torch_semiring.REF_STORAGES``).
+f16 plus_mul is held here too: its step is one f16 FMA on both sides, and
+the "jnp" backend's phase 3 (``core.distributed._sum16``: f16 products,
+summed in f32, rounded once) is the reference's.
 """
 import inspect
 import re
@@ -54,10 +56,11 @@ N, S = 64, 16  # 4 rounds; per-rank blocks of 2 × 2 tiles
 KERNEL_STORAGES = ([("int16", n) for n in ("max_min", "max_plus", "min_plus", "or_and")]
                    + [("bfloat16", n) for n in ("max_min", "max_plus", "min_plus", "or_and",
                                                  "plus_mul")]
-                   + [("float16", n) for n in ("max_min", "max_plus", "min_plus", "or_and")]
+                   + [("float16", n) for n in ("max_min", "max_plus", "min_plus", "or_and",
+                                                "plus_mul")]
                    + [("packed", "or_and")])
 BACKEND_STORAGES = [("int16", "min_plus"), ("bfloat16", "plus_mul"), ("bfloat16", "max_min"),
-                    ("float16", "min_plus"), ("packed", "or_and")]
+                    ("float16", "min_plus"), ("float16", "plus_mul"), ("packed", "or_and")]
 ENGINE_STORAGES = [("int16", "min_plus"), ("bfloat16", "min_plus"), ("packed", "or_and")]
 
 

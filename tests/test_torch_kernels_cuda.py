@@ -174,8 +174,15 @@ def test_launches_refuse_what_the_kernels_do_not_take(cuda_device):
     bands = fr.round_buffers(w, 64)
     with pytest.raises(ValueError):
         fr.fw_round_phase("relax", w, 0, bands, block_size=32)  # buffers for s=64
-    with pytest.raises(ValueError):
-        fr.fw_round(w.t(), 0, block_size=64)  # not contiguous
+    # a strided view is staged through an aligned copy, launched, and
+    # written back in place (C.7): the plain answer, not a refusal
+    wt = torch.from_numpy(_graph("min_plus", (128, 128), seed=3)).to(cuda_device).t()
+    want = ref.fw_round_ref(wt.contiguous(), 0, block_size=64)
+    before = fr.LAUNCHES["fw_round/relax"]
+    assert fr.fw_round(wt, 0, block_size=64) is wt
+    torch.cuda.synchronize()
+    assert not wt.is_contiguous() and bits_equal(wt, want)
+    assert fr.LAUNCHES["fw_round/relax"] == before + 1
     with pytest.raises(ValueError):
         fr.fw_round(w, 0, block_size=64, semiring=SEMIRINGS["min_plus"].__class__(
             "tropical", torch.minimum, torch.add, 0.0, 0.0, torch.addcmul))
@@ -1267,3 +1274,158 @@ def test_relax_refuses_unaligned_buffers(cuda_device):
     bands = fr.round_buffers(w, 16)
     with pytest.raises(ValueError, match="16-byte"):
         fr.fw_round_phase("relax", w, 0, bands, block_size=16)
+
+
+# ------------------------------------ the chains: diag and bands at every s
+CHAIN_STORAGES = [(None, n) for n in NAMES] + REPAIR_CASES
+
+
+def _chain_input(tag, name, shape, seed, s):
+    """(w on the CPU, semiring): f32 salted with ±inf, or a storage case."""
+    if tag is None:
+        return _salted(name, shape, seed), SEMIRINGS[name]
+    return _storage_case(tag, name, shape, seed, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", CHAIN_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("s", [16, 32, 64, 128])
+@pytest.mark.parametrize("geometry", ["square", "batched", "bordered"])
+def test_chain_kernels_match_plain_phases(cuda_device, tag, name, s, geometry):
+    """The diag and bands launches alone, by bits against the plain phases
+    (close_diag, close_bands / close_bordered_bands): square at the first
+    and a middle pivot, a batch of 3, and a tall bordered block with the
+    owner echo at both bands, at one at a time and at none.  n = 5s cuts
+    each band tile into 2 or 4 CTAs (fw_round.cuh:band_split); n = 40s at
+    s = 128 keeps it whole."""
+    if geometry == "bordered":
+        shape, b, echoes = (6 * s, 4 * s), 0, ((-1, -1), (2, 1), (5, -1), (-1, 3))
+    elif geometry == "batched":
+        shape, b, echoes = (3, 5 * s, 5 * s), 4, ((-1, -1),)
+    else:
+        n = 40 * s if s == 128 else 5 * s
+        shape, b, echoes = (n, n), 2, ((-1, -1),)
+    w, sr = _chain_input(tag, name, shape, seed=s, s=s)
+    w = w.to(cuda_device)
+    kinds = {p: f"fw_round{'_bordered' if geometry == 'bordered' else ''}/{p}"
+                + (f"[{tag}]" if tag else "") for p in ("diag", "bands")}
+    before = {p: fr.LAUNCHES[k] for p, k in kinds.items()}
+    o = slice(b * s, (b + 1) * s)
+    diag = ref.close_diag(w[..., o, o], sr)
+    for echo in echoes:
+        if geometry == "bordered":
+            bands = fr.bordered_round_buffers(w, s)
+            for phase in ("diag", "bands"):
+                fr.fw_round_bordered_phase(phase, w, *echo, bands, block_size=s, semiring=sr)
+            row, col = ref.close_bordered_bands(w, diag, *echo, sr)
+        else:
+            bands = fr.round_buffers(w, s)
+            for phase in ("diag", "bands"):
+                fr.fw_round_phase(phase, w, b, bands, block_size=s, semiring=sr)
+            row, col = ref.close_bands(w, diag, b, sr)
+        got_row, got_col = _bands_of(w, bands)
+        torch.cuda.synchronize()
+        assert bits_equal(got_row[..., :, o], diag) and bits_equal(got_col[..., o, :], diag)
+        assert bits_equal(got_row, row) and bits_equal(got_col, col), echo
+    assert all(fr.LAUNCHES[k] == before[p] + len(echoes) for p, k in kinds.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", [(None, "min_plus"), (None, "plus_mul"),
+                                      ("bf16", "plus_mul"), ("f16", "plus_mul"),
+                                      ("int16", "min_plus"), ("packed", "or_and")],
+                         ids=lambda v: str(v))
+def test_public_wrappers_take_strided_and_unaligned_views(cuda_device, tag, name):
+    """C.7: a transposed view and a view 2 elements into its storage (not
+    16-byte aligned) go through the kernels (launch counts) and give the
+    plain answer, in place for the rounds, as new tensors for the repair
+    and the sweep, whose inputs are left as they were."""
+    s, n = 32, 96
+    w, sr = _chain_input(tag, name, (n, n), seed=5, s=s)
+    w = w.to(cuda_device)
+    suffix = f"[{tag}]" if tag else ""
+
+    def views():
+        t = w.t().contiguous().t()  # w's values, column-major
+        flat = torch.empty(n * n + 2, dtype=w.dtype, device=cuda_device)
+        shifted = flat[2:].view(n, n)
+        shifted.copy_(w)
+        return t, shifted
+
+    for v in views():
+        x = v.clone()
+        want = ref.fw_round_ref(x, 1, block_size=s, semiring=sr)
+        before = fr.LAUNCHES["fw_round/relax" + suffix]
+        assert fr.fw_round(v, 1, block_size=s, semiring=sr) is v
+        torch.cuda.synchronize()
+        assert bits_equal(v, want) and fr.LAUNCHES["fw_round/relax" + suffix] == before + 1
+    for v in views():
+        want = ref.fw_round_bordered_ref(v.clone(), 1, 2, block_size=s, semiring=sr)
+        before = fr.LAUNCHES["fw_round_bordered/relax" + suffix]
+        assert fr.fw_round_bordered(v, 1, 2, block_size=s, semiring=sr) is v
+        torch.cuda.synchronize()
+        assert bits_equal(v, want) and fr.LAUNCHES["fw_round_bordered/relax" + suffix] == before + 1
+    if tag in ("packed", "int16"):
+        return
+    d = solve(w, semiring=name, method="fused", block_size=s, validate=False,
+              device=cuda_device.type).dist
+    d = d.to(w.dtype) if d.dtype != w.dtype else d
+    u, vv, ew = _lowered_edges(d, sr, 3, seed=1) if tag else _edges(name, n, 3, seed=1)
+    for v in (d.t().contiguous().t(), d.t()):
+        keep = v.clone()
+        want = ref.fw_repair_ref(keep, u, vv, ew, semiring=sr)
+        before = fp.LAUNCHES["fw_repair/apply" + suffix]
+        got = fp.fw_repair(v, u, vv, ew, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert bits_equal(got, want) and bits_equal(v, keep)
+        assert fp.LAUNCHES["fw_repair/apply" + suffix] == before + 1
+    if name in ("min_plus", "max_plus", "max_min", "or_and"):
+        rows = _strip_rows(n, 5, seed=2)
+        v = d.t().contiguous().t()
+        want = ref.fw_repair_del_sweep_ref(v.contiguous(), rows, block_size=s, semiring=sr)
+        before = fd.LAUNCHES["fw_repair_del_sweep/relax" + suffix]
+        got = fd.fw_repair_del_sweep(v, rows, block_size=s, semiring=sr)
+        torch.cuda.synchronize()
+        assert bits_equal(got, want)
+        assert fd.LAUNCHES["fw_repair_del_sweep/relax" + suffix] == before + n // s
+    if name == "min_plus" and tag in (None, "bf16", "f16"):
+        dist = d.t().contiguous().t()
+        succ = _init_successors(dist.contiguous()).t().contiguous().t()
+        want = ref.fw_round_with_successors_ref(dist.clone(), succ.clone(), 1, block_size=s)
+        gd, gs = fr.fw_round_with_successors(dist, succ, 1, block_size=s)
+        torch.cuda.synchronize()
+        assert gd is dist and gs is succ
+        assert bits_equal(dist, want[0]) and bits_equal(succ, want[1])
+        e = _lowered_edges(dist, sr, 3, seed=4) if tag else _edges("min_plus", n, 3, seed=4)
+        want = ref.fw_repair_with_successors_ref(dist.contiguous(), succ.contiguous(), *e)
+        got = fp.fw_repair_with_successors(dist, succ, *e, block_size=s)
+        torch.cuda.synchronize()
+        assert bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])
+        want = ref.fw_repair_del_sweep_with_successors_ref(
+            dist.contiguous(), succ.contiguous(), _strip_rows(n, 5, seed=3), block_size=s)
+        got = fd.fw_repair_del_sweep_with_successors(dist, succ, _strip_rows(n, 5, seed=3),
+                                                     block_size=s)
+        torch.cuda.synchronize()
+        assert bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,s", [((64, 64), 16), ((2, 256, 256), 128)])
+def test_f16_plus_mul_kernels_are_one_fma(cuda_device, shape, s):
+    """f16 plus_mul: the round, the matmul and a solve on the card == the
+    plain twin's one rounded f16 FMA a step, on signed operands, where a
+    chain rounding the product and the sum apart differs."""
+    rng = np.random.default_rng(s)
+    scale = 0.5 / np.sqrt(shape[-1])  # a closure that stays finite
+    w = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float16)).to(cuda_device)
+    sr = SEMIRINGS["plus_mul"]
+    got = fr.fw_round(w.clone(), 0, block_size=s, semiring=sr)
+    want = ref.fw_round_ref(w, 0, block_size=s, semiring=sr)
+    per_op = SEMIRINGS["plus_mul"].__class__("plus_mul_per_op", torch.add, torch.mul, 0.0, 1.0,
+                                              lambda c, a, b: c + a * b)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want)
+    assert not bits_equal(want, ref.fw_round_ref(w, 0, block_size=s, semiring=per_op))
+    a, b = w[..., :, : s], w[..., : s, :]
+    assert bits_equal(fmm.semiring_matmul(a, b, w, semiring=sr),
+                      ref.semiring_matmul_ref(a, b, w, semiring=sr))

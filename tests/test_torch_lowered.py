@@ -109,9 +109,12 @@ def test_half_round_bitwise(dtype, name):
 
 @pytest.mark.parametrize("dtype", sorted(HALF))
 def test_dense_plus_mul_rounds_per_op(dtype):
-    """A dense (64, 64) plus_mul solve in 16 bits: one FMA (addcmul) would
-    differ from the reference almost everywhere; mul-then-add, each
-    rounded, matches it everywhere."""
+    """A dense (64, 64) plus_mul solve in 16 bits matches the reference
+    everywhere: in bf16 each ⊗ and ⊕ rounds on its own (mul-then-add), in
+    f16 each step is one f16 FMA rounded once from the exact c + a·b (XLA's
+    CPU backend on a CPU with AVX-512 FP16).  torch.addcmul on the 16-bit
+    tensors, which rounds its f32 result to the storage, differs from it
+    in more than a quarter of the elements in both."""
     rng = np.random.default_rng(1)
     x = np.asarray(jnp.asarray((rng.standard_normal((64, 64)) * 0.05).astype(np.float32),
                                HALF[dtype][0]))

@@ -41,6 +41,16 @@ from test_torch_semiring import (
 )
 
 TILE = 128  # the relax kernels' output tile edge
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The emulations are many small torch ops: run them on one thread, as
+    a pool of threads each would only wait on them beside other workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 SUCC_COLS, SUCC_DEPTH = 64, 8  # the successor relax's tile width and slice depth
 KEPT = -1  # the successor relax's "no k improved"
 
