@@ -10,7 +10,8 @@ Phases, each of which raises (exit code 1) on any failure:
      ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
      each library's build seconds, registers and spills (each instantiation
      of the redesigned kernels: matmul, relax, successor relax, decode,
-     diag and bands; a diag or bands instantiation that spills fails).
+     the round's diag and bands, the sweep's diag and panels; a diag,
+     bands or panels instantiation that spills fails).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -59,7 +60,11 @@ Phases, each of which raises (exit code 1) on any failure:
      the three echo forms.  The chains (``phase_check_chains``): every
      diag and bands instantiation alone against its plain phase, f32 and
      every storage, s = 16 .. 128, square (the band tiles cut into CTAs or
-     whole), batched and bordered with the owner echo.  f16 plus_mul
+     whole), batched and bordered with the owner echo; every diag and
+     panels instantiation of the restricted sweep alone against its plain
+     phase (``phase_check_sweep_chains``), f32 and every sweep storage,
+     s = 16 .. 128, n = 2s and 5s, strips of 8, 16 and 64 rows, ±0 / NaN
+     salted, planted diagonals.  f16 plus_mul
      (``phase_check_f16_plus_mul``): the round, bordered round, matmul,
      phase 1 and a solve, one f16 FMA a step, card == twin.
   3. kernels: each launch kind alone at the main paths' shapes, against
@@ -99,7 +104,8 @@ Phases, each of which raises (exit code 1) on any failure:
      plus_mul deletion (re-solved) and an off-path one (a no-op), with the
      sweep and round launch counts of that run; checked bitwise against a
      re-solve of the updated graph and timed beside it, marking and sweep
-     apart, with the sweep's device time by launch kind.
+     apart, with the sweep's time by launch kind (events between launches
+     and device time by ``torch.profiler``) and its host time a launch.
   7. 4-dispatch path: ``fw_staged(w, fused=False)`` at n=8192 (the main
      path's input), with the launch counts of that run (4 x 64), bitwise
      against the fused solve, timed beside the fused round loop, with its
@@ -399,18 +405,24 @@ def phase_device():
         regs = max((k.registers for k in infos), default=0)
         print(f"built {built.path.name} in {built.seconds:.1f} s: {len(infos)} kernels, at most "
               f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
-        if built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
-                          "fw_round", "fw_round_lowered"):
-            for k in infos:  # the redesigned kernels, each instantiation
-                if any(x in k.name for x in ("matmul_kernel", "split_kernel", "relax_kernel",
-                                             "diag_kernel", "bands_kernel")):
-                    print(f"  {k.name}: {k.registers} registers, spill stores / loads "
-                          f"{k.spill_stores} / {k.spill_loads} B")
-        if built.name in ("fw_round", "fw_round_lowered") and built.seconds:
-            chains = [k for k in infos if re.match(r"(void )?(diag|bands)_kernel<", k.name)]
-            require(len(chains) >= 32, f"{built.name}: {len(chains)} diag / bands kernels")
+        shown = []  # the redesigned kernels, each instantiation
+        if built.name in ("fw_repair_del", "fw_repair_del_lowered"):
+            shown = [k for k in infos if re.match(r"(void )?(diag|panels)_kernel<", k.name)]
+        elif built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
+                            "fw_round", "fw_round_lowered"):
+            shown = [k for k in infos if any(x in k.name for x in (
+                "matmul_kernel", "split_kernel", "relax_kernel", "diag_kernel", "bands_kernel"))]
+        for k in shown:
+            print(f"  {k.name}: {k.registers} registers, spill stores / loads "
+                  f"{k.spill_stores} / {k.spill_loads} B")
+        least = {"fw_round": 32, "fw_round_lowered": 32,  # diag / bands (panels) kernels
+                 "fw_repair_del": 24, "fw_repair_del_lowered": 88}.get(built.name)
+        if least and built.seconds:
+            chains = [k for k in infos if re.match(r"(void )?(diag|bands|panels)_kernel<", k.name)]
+            require(len(chains) >= least, f"{built.name}: {len(chains)} diag / bands / panels "
+                    f"kernels")
             spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
-            require(not spilled, f"the diag / bands chains spill: {spilled}")
+            require(not spilled, f"the diag / bands / panels chains spill: {spilled}")
     return name
 
 
@@ -698,6 +710,44 @@ def launch_breakdown(label: str, steps) -> None:
     parts = ", ".join(f"{p} {t:.2f} ms ({100 * t / span:.1f}%)" for p, t in per.items())
     print(f"{label} (events between launches; each share includes the gap after "
           f"it): {parts}; span {span:.2f} ms")
+
+
+def host_device_split(label: str, fn, launches: int) -> None:
+    """Whether the host or the device sets the pace of ``fn`` (a sequence
+    of ``launches`` launches that returns once they are queued, far fewer
+    than the queue holds): its host time, from the call until it returns
+    (median of 3; the device is idle at the call), a launch; its device
+    time by kernel kind (diag, panels, relax, other; the sum of the
+    kernels' times in a ``torch.profiler`` trace of one call); and its wall
+    time to a synchronize, of which the device is idle for 1 - device /
+    wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    host = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        sync()
+    t_host = statistics.median(host)
+    t_wall = statistics.median(host_ms(fn) for _ in range(3))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    per: dict[str, float] = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        kind = next((k for k in ("diag", "panels", "relax") if f"{k}_kernel" in ev.key), "other")
+        per[kind] = per.get(kind, 0.0) + us / 1e3
+    dev = sum(per.values())
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
+    print(f"{label}: host {t_host:.3f} ms to queue {launches} launches "
+          f"({1e3 * t_host / launches:.1f} us a launch); device {dev:.3f} ms ({parts}); wall "
+          f"{t_wall:.3f} ms, device idle {100 * (1 - dev / t_wall):.1f} %: "
+          f"{'host' if t_host > dev else 'device'}-bound")
 
 
 def phase_kernels_repair(rows: dict, n: int, n_succ: int, E: int = 16):
@@ -993,6 +1043,7 @@ def phase_check_repair_del():
     from repro_torch.core.semiring import SEMIRINGS
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import ref
+    from repro_torch.launch.round_bench import deletion_batch, ranked_deletions
 
     dev = torch.device("cuda")
     n, s, checked = 1024, 128, 0
@@ -1092,43 +1143,6 @@ def phase_kernels_repair_del(rows: dict, n: int, n_succ: int, s: int = 128):
         del d, succ, sw
 
 
-def ranked_deletions(w, dist, count: int, seed: int, sample: int = 256):
-    """On-path edges (w == dist, u != v) ranked by how many pairs deleting
-    each one affects, fewest first, zero excluded — the ranking of
-    ``benchmarks/run.py:bench_fw_repair_del``: ``sample`` candidates drawn
-    with a seeded rng, each scored by count(dist[:, u] + w[u, v] +
-    dist[v, :] == dist, dist finite).  Returns [(pairs, u, v)]."""
-    import numpy as np
-    import torch
-
-    d = torch.as_tensor(dist).cuda()
-    wt = torch.as_tensor(w).cuda()
-    n = d.shape[-1]
-    on = (wt == d) & torch.isfinite(wt) & ~torch.eye(n, dtype=torch.bool, device=d.device)
-    cand = torch.nonzero(on).cpu().numpy()
-    require(len(cand) > 0, "no on-path edge to delete")
-    rng = np.random.default_rng(seed)
-    fin = torch.isfinite(d)
-    scored = []
-    for u, v in cand[rng.choice(len(cand), size=min(sample, len(cand)), replace=False)]:
-        pairs = int((((d[:, u, None] + wt[u, v]) + d[None, v, :] == d) & fin).sum())
-        if pairs:
-            scored.append((pairs, int(u), int(v)))
-    return sorted(scored)[:count]
-
-
-def deletion_batch(w, ranked):
-    """(deletions, updated weights): each ranked edge removed."""
-    import numpy as np
-
-    w1 = w.copy()
-    dels = []
-    for _, u, v in ranked:
-        dels.append((u, v, float(w[u, v])))
-        w1[u, v] = np.inf
-    return dels, w1
-
-
 def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     """This slice's path: ``ApspEngine.repair_del`` on the card.
 
@@ -1151,6 +1165,7 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     from repro_torch.apsp import ApspEngine, plan
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
+    from repro_torch.launch.round_bench import deletion_batch, ranked_deletions
 
     eng = ApspEngine()
     w = integer_graph(n, 10, hi=10**4 - 1, density=0.5)
@@ -1261,6 +1276,7 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
         phase = fd.sweep_phase if succ is None else fd.sweep_succ_phase
         launch_breakdown(f"sweep breakdown {label}", [
             (p, functools.partial(phase, p, sw, b)) for b in range(nn // 128) for p in fd.PHASES])
+        host_device_split(f"sweep host / device {label}", sweep, 3 * (nn // 128))
 
     for label, (dels, w1) in batches.items():
         report(f"n={n} {label}", n, r0.dist, w1, dels)
@@ -3340,6 +3356,83 @@ def phase_check_chains():
           f"{len(STORAGE_CASES)} storages, s = 16 .. 128, square, batched, bordered)")
 
 
+def sweep_chain_rows(n: int, s: int, a_pad: int, b: int, seed: int):
+    """a_pad strip rows: min(a_pad - 1, n / 2) distinct real rows, sorted,
+    two of them inside pivot block b; padding rows (index n) after them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = min(a_pad - 1, n // 2)
+    inside = b * s + rng.choice(s, 2, replace=False)
+    rest = rng.choice(np.setdiff1d(np.arange(n), inside), a - 2, replace=False)
+    rows = np.full(a_pad, n, np.int32)
+    rows[:a] = np.sort(np.concatenate([inside, rest]))
+    return rows
+
+
+def phase_check_sweep_chains():
+    """Every instantiation of the restricted sweep's diag and panels kernels
+    (csrc/fw_repair_del.cuh) alone, bitwise against its plain phase
+    (``sweep_diag_ref``, ``sweep_panels_ref``): the four idempotent
+    semirings in f32 and bf16 / f16 (salted with ±0 and, apart, with
+    off-diagonal NaN) and the other sweep storages (``SWEEP_STORAGE_CASES``),
+    s = 16, 32, 64 and 128; n = 2s (one band tile, cut into CTAs by
+    ``band_split``) and 5s; strips of 8, 16 and 64 rows (two inside the
+    pivot block, padding rows) holding other values than d_init's rows, so
+    that a read of the overlay shows; under min_plus / max_plus also planted
+    non-identity diagonals (-3 / 3 on every third)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+
+    def case(tag, name, n, s, salt, seed):
+        if tag is not None:
+            return storage_case(tag, name, (n, n), seed, s, salt)
+        w = (signed_zero_graph(name, (n, n), seed) if salt == "zero" else nan_salted(
+            domain_graph(name, (n, n), seed), seed, 2, [(b * s, b * s + s) for b in range(n // s)]))
+        return torch.from_numpy(w).cuda(), SEMIRINGS[name]
+
+    def planted(x, name):
+        x = x.clone()
+        idx = torch.arange(0, x.shape[-1], 3, device=x.device)
+        x[idx, idx] = torch.tensor(-3.0 if name == "min_plus" else 3.0).to(x.dtype)
+        return x
+
+    cases = ([(None, n, salt) for n in IDEMPOTENT for salt in ("zero", "nan")]
+             + [(t, n, salt) for t, n in SWEEP_STORAGE_CASES for salt in salts(t)])
+    checked = 0
+    for tag, name, salt in cases:
+        plants = (False, True) if name in ("min_plus", "max_plus") and tag != "packed" else (False,)
+        for s in (16, 32, 64, 128):
+            for n, b in ((2 * s, 1), (5 * s, 2)):
+                o = slice(b * s, (b + 1) * s)
+                (x, sr), (other, _) = (case(tag, name, n, s, salt, s + n + i) for i in (0, 1))
+                for plant in plants:
+                    d, src = (planted(x, name), planted(other, name)) if plant else (x, other)
+                    for a_pad in (8, 16, 64):
+                        rows = sweep_chain_rows(n, s, a_pad, b, seed=a_pad + n)
+                        sw = fd.sweep_buffers(d, rows, block_size=s)
+                        sw.strip.copy_(src[torch.from_numpy(np.minimum(rows, n - 1)).long().cuda()])
+                        fd.sweep_phase("diag", sw, b, semiring=sr)
+                        fd.sweep_phase("panels", sw, b, semiring=sr)
+                        diag = ref.sweep_diag_ref(d, sw.strip, sw.rows, b, block_size=s,
+                                                  semiring=sr)
+                        band, acol = ref.sweep_panels_ref(d, sw.strip, sw.rows, diag, b,
+                                                          semiring=sr)
+                        sync()
+                        what = f"[{tag}] {name} {salt} s={s} n={n} a={a_pad} planted={plant}"
+                        require(same(sw.band[:, o], diag), f"sweep diag{what} != plain")
+                        require(same(sw.band, band) and same(sw.acol, acol),
+                                f"sweep panels{what} != plain")
+                        checked += 1
+    print(f"check: {checked} sweep diag / panels kernel-vs-plain cases bitwise equal (f32 and "
+          f"{len(SWEEP_STORAGE_CASES)} storages, s = 16 .. 128, n = 2s / 5s, a = 8 / 16 / 64, "
+          f"±0 / NaN salted, planted diagonals)")
+
+
 def phase_check_f16_plus_mul():
     """f16 plus_mul's step is one f16 FMA rounded once (HFMA on the card,
     ``core.semiring._plus_mul_relax`` in the twin): the fused round, the
@@ -3654,6 +3747,7 @@ def main(argv=None) -> int:
     phase_check_lowered_four()
     phase_check_lowered_bordered()
     phase_check_chains()
+    phase_check_sweep_chains()
     phase_check_f16_plus_mul()
     if not args.quick:
         rows = phase_kernels(8192, 4096)

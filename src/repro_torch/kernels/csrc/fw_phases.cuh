@@ -6,9 +6,9 @@
 // loads its registers and stages its closed diagonal, calls one of these
 // bodies, and stores the result.
 //
-// Register-block chains (the fused round's diag and bands).  The diag,
-// close_tile_blocks: DiagShape<S>::T x T threads, thread (ty, tx) holding
-// an M x M block (M = 4H) in 4-wide groups interleaved across the threads
+// Register-block chains (the fused round's diag and bands, the sweep's diag
+// and panels).  The diag, close_tile_blocks: DiagShape<S>::T x T threads,
+// thread (ty, tx) holding an M x M block (M = 4H) in 4-wide groups interleaved across the threads
 // (rows 4ty + 4T·h + e, columns 4tx + 4T·h + e, h < H, e < 4), so that a
 // warp's 16-byte shared loads of one vector fall on distinct banks.  Step
 // k's row and column (as they stood at the start of step k) are written by
@@ -33,8 +33,8 @@
 // takes int16's sentinel tests and the 16-bit min-plus / max-plus round
 // out of the relaxation.
 //
-// Closure chains of one thread a column (the successor round, fw_phase.cuh
-// and the sweep) run on 8·S threads; thread
+// Closure chains of one thread a column (the successor round and sweep,
+// fw_phase.cuh) run on 8·S threads; thread
 // (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c in t[].  The
 // tile updates in place, so step k's operands (row k and column k as they
 // stood at the start of step k) are published by their owners into a
@@ -173,6 +173,22 @@ __device__ __forceinline__ void close_band_lanes(V (&x)[S / 8][4], const V* dS, 
                         : Lifted<Op>::relax(x[i][j], dv[i], sh[j]);
     }
   }
+}
+
+// CTAs a band tile of close_band_lanes is cut into (the fused round's
+// bands, the sweep's panels): the most of 1, 2 or 4 (at most its S/16
+// warps) that keeps the launch within one CTA an SM, so that a launch of
+// few tiles (n = 4096, a rank's bordered block, the sweep's T - 1 band
+// tiles at n = 8192) spreads over the card.
+template <int S>
+cudaError_t band_split(int tiles, int B, int* split) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *split = 1;
+  while (2 * *split <= (S / 16 < 4 ? S / 16 : 4) && (long long)tiles * B * 2 * *split <= sms)
+    *split *= 2;
+  return err;
 }
 
 // ------------------------------------------------ one thread a column

@@ -15,10 +15,13 @@
 //               built: band row r is the strip row that holds matrix row
 //               o + r where there is one (pos[o + r] >= 0), else row o + r
 //               of d_init.
-//   2. panels — T-1 CTAs close the band's other tiles against the diag
-//               (_close_row_panel) into band; a / 8 CTAs close the strip's
-//               block column b (_close_col_panel) into acol (a, s), 8 rows
-//               each.
+//   2. panels — the band's other T-1 tiles are closed against the diag
+//               (_close_row_panel) into band, and the strip's block column
+//               b (_close_col_panel) into acol (a, s): every column of a
+//               band tile and every row of the strip is a chain of its own,
+//               16 of them a warp; a tile is cut into 1-4 CTAs, the strip
+//               into CTAs of s / split rows, so that the launch fills the
+//               card.
 //   3. relax  — (a / 8) * T CTAs relax every (8, s) strip tile against
 //               acol ⊗ band in bk chunks, k ascending (_relax_tile).  Tiles
 //               of block column b start from acol, the others from the
@@ -27,13 +30,16 @@
 // The TPU kernel runs a round as one sequential grid and keeps the band and
 // acol in VMEM scratch; here they are device buffers the wrapper allocates
 // once per sweep, and the three launches run in order on one stream.
-// The strip tile is 8 rows high at every a (the wrapper pads the strip to
-// a multiple of 8 with inert rows).
+// The relax's strip tile is 8 rows high at every a (the wrapper pads the
+// strip to a multiple of 8 with inert rows); the panels' strip CTAs hold
+// 16 rows a warp, the rows past a masked.
 //
 // Exactness.  Each element sees the chain of the reference's XLA twin
 // fw_repair_del_sweep_ref, in its order, through the chains of
-// fw_phases.cuh that fw_round.cu runs too: only the loads (the overlay,
-// the strip) and the stores (band, acol, the splice) are this file's.
+// fw_phases.cuh that fw_round.cu runs too (the diag's register blocks, the
+// panels' band lanes, on the operands of semiring.cuh:Lifted): only the
+// loads (the overlay, the strip) and the stores (band, acol, the splice)
+// are this file's.
 // The twin re-relaxes the strip's block column b after splicing acol in
 // (the Pallas kernel skips that tile); so does the relax launch.  Padding
 // strip rows (index n) hold a copy of row n-1, are relaxed like the others
@@ -47,8 +53,12 @@
 // (s + 2a)·n words, so the sweep is bound by operations: n²(s + a) · 2 /
 // 67e12 s, 0.27 ms at n = 8192, s = 128, a = 8.  At small a the band
 // closure dominates, and its diag and panels launches are serial chains of
-// s barrier-separated steps on 1 and T-1 CTAs: latency, not the card's
-// rates, sets their time.
+// s steps: one SM's issue rate, not the card's, bounds them (s · s²
+// relaxations at 64 a clock an SM, 16.5 µs in f32 at s = 128; half that
+// for a band tile cut in two).  So the diag keeps an 8 x 8 block a thread
+// (four 16-byte shared loads and one barrier for 64 relaxations a step),
+// and the panels need no barrier at all (operands by shuffle and 16-byte
+// loads of the staged diagonal).
 //
 // The kernels are fw_repair_del.cuh's, templated on the storage type; this
 // file instantiates them for f32, fw_repair_del_lowered.cu for the storage

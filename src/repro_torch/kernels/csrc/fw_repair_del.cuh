@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 
 #include "fw_phases.cuh"
+#include "minplus_matmul.cuh"
 
 namespace {
 
@@ -26,61 +27,130 @@ __device__ __forceinline__ const T* band_row(const T* d_init, const T* strip, co
 }
 
 // ------------------------------------------------------------------ diag
-// Thread (rg, c) owns rows rg + 8m of column c in registers.
+// One CTA closes the overlaid pivot tile on DiagShape<S>'s register blocks
+// (close_tile_blocks, fw_phases.cuh), as the fused round's diag does:
+// thread (ty, tx) loads rows 4ty + 4T·h + e of the overlay (band_row), at
+// columns 4tx + 4T·h + e, four elements a load, and stores its closed
+// blocks into band block b.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(DiagShape<S>::kThreads)
 diag_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
             const int* __restrict__ pos, T* __restrict__ band, int n, int b) {
-  constexpr int R = S / 8;
-  __shared__ T rowbuf[2][S];
-  __shared__ T colbuf[2][S];
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  using V = Reg<T>;
+  constexpr int H = DiagShape<S>::H, TT = DiagShape<S>::T, M = DiagShape<S>::M;
+  __shared__ __align__(16) V rowbuf[2][S];
+  __shared__ __align__(16) V colbuf[2][S];
+  const int ty = threadIdx.x / TT, tx = threadIdx.x % TT;
   const size_t o = (size_t)b * S;
-  Reg<T> t[R];
+  V t[M][M];
 #pragma unroll
-  for (int m = 0; m < R; ++m) t[m] = widen(band_row(d_init, strip, pos, o, rg + 8 * m, n)[o + c]);
-  close_tile_chain<S, Op>(t, rowbuf, colbuf, rg, c);
+  for (int i = 0; i < M; ++i) {
+    const T* row = band_row(d_init, strip, pos, o, 4 * ty + 4 * TT * (i / 4) + i % 4, n) + o;
 #pragma unroll
-  for (int m = 0; m < R; ++m) put(band[(size_t)(rg + 8 * m) * n + o + c], t[m]);
+    for (int q = 0; q < H; ++q) load4(row + 4 * tx + 4 * TT * q, &t[i][4 * q]);
+  }
+  close_tile_blocks<S, Op>(t, rowbuf, colbuf, ty, tx);
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const size_t r = 4 * ty + 4 * TT * (i / 4) + i % 4;
+#pragma unroll
+    for (int q = 0; q < H; ++q) store4(band + r * n + o + 4 * tx + 4 * TT * q, &t[i][4 * q]);
+  }
 }
 
 // ---------------------------------------------------------------- panels
-// blockIdx.x < T-1: band tile x (skipping b), rows of the overlay;
-// otherwise strip tile blockIdx.x - (T-1), 8 rows of block column b.  The
-// closed diagonal comes from band block b, staged in shared memory with a
-// padded row stride.
+// Every chain of the launch is independent: a column of a band tile (a row
+// panel), or a row of the strip's block column b (a col panel).  So they
+// run on close_band_lanes (fw_phases.cuh), a warp owning 16 of them with no
+// barrier, as the fused round's bands do; every CTA stages the closed
+// diagonal (band block b, its operands lifted) in shared memory for itself.
+// CTA u = blockIdx.x / split < T-1 holds warps (blockIdx.x % split)·W ..
+// of band tile x (u, skipping b), rows of the overlay (band_row); the CTAs
+// after them hold 16·W strip rows each, W = blockDim.x / 32 warps, a lane
+// 4 of them (the col panel's transpose), into acol.  Strip rows past a
+// (the last CTA's, at most 16·W - 8 of them) load 0 and are never stored;
+// a warp that has none of the strip's rows leaves after the staging.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(2 * S)
 panels_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
               const int* __restrict__ pos, T* __restrict__ band, T* __restrict__ acol, int n,
-              int b) {
-  constexpr int R = S / 8, DS = S + 1;
+              int a, int b, int split) {
+  using V = Reg<T>;
+  constexpr int RL = S / 8, DSt = S + 4;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  T* d = reinterpret_cast<T*>(dyn_smem);  // S x DS
-  __shared__ T buf[2][S];
-  const int TT = n / S;
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  V* dS = reinterpret_cast<V*>(dyn_smem);  // S x DSt
+  const int tiles = (n / S - 1) * split;   // the band's CTAs
+  const bool is_row = (int)blockIdx.x < tiles;
   const size_t o = (size_t)b * S;
-  for (int idx = threadIdx.x; idx < S * S; idx += 8 * S)
-    d[(idx / S) * DS + idx % S] = band[(size_t)(idx / S) * n + o + idx % S];
-
-  if (blockIdx.x < TT - 1) {
-    const int x = blockIdx.x < b ? blockIdx.x : blockIdx.x + 1;
-    const size_t c0 = (size_t)x * S;
-    Reg<T> t[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-      t[m] = widen(band_row(d_init, strip, pos, o, rg + 8 * m, n)[c0 + c]);
-    __syncthreads();
-    close_row_chain<S, Op>(t, d, buf, rg, c);
-#pragma unroll
-    for (int m = 0; m < R; ++m) put(band[(size_t)(rg + 8 * m) * n + c0 + c], t[m]);
+  const int lane = threadIdx.x % 32, rg = lane / 4, cg = lane % 4;
+  const int warps = blockDim.x / 32, wv = threadIdx.x / 32;
+  const int r0 = rg * RL;  // the lane's rows (row panel), columns (col panel)
+  size_t xo = 0;           // the band tile's column offset
+  int c0;                  // the lane's columns (row panel), strip rows (col panel)
+  if (is_row) {
+    const int u = blockIdx.x / split;
+    xo = (size_t)(u < b ? u : u + 1) * S;
+    c0 = 16 * ((blockIdx.x % split) * warps + wv) + 4 * cg;
   } else {
-    const size_t r = (size_t)(blockIdx.x - (TT - 1)) * kStripRows + rg;
-    Reg<T> t[1] = {widen(strip[r * n + o + c])};
-    __syncthreads();
-    close_col_chain<S, 1, Op>(t, d, buf, rg, c);
-    put(acol[r * S + c], t[0]);
+    c0 = 16 * (((int)blockIdx.x - tiles) * warps + wv) + 4 * cg;
+  }
+  const bool live = is_row || c0 < a;  // a % 8 == 0: a lane's 4 rows all or none
+
+  // xr[i][j]: row panel p[r0 + i][c0 + j] = overlay[r0 + i][xo + c0 + j];
+  // col panel q[c0 + j][r0 + i] = strip[c0 + j][o + r0 + i].
+  V xr[RL][4];
+  if (is_row) {
+#pragma unroll
+    for (int i = 0; i < RL; ++i)
+      load4(band_row(d_init, strip, pos, o, r0 + i, n) + xo + c0, xr[i]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      V run[RL];
+      if (live) {
+        load_n<RL>(strip + (size_t)(c0 + j) * n + o + r0, run);
+      } else {
+#pragma unroll
+        for (int i = 0; i < RL; ++i) run[i] = V(0);
+      }
+#pragma unroll
+      for (int i = 0; i < RL; ++i) xr[i][j] = run[i];
+    }
+  }
+  // The closed diagonal, lifted, as bands_kernel stages it: transposed for
+  // the row panels (dS[k][r] = d[r][k]), as it lies for the strip's.
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < S * S / 4; idx += blockDim.x) {
+    const int r = is_row ? idx % S : idx / (S / 4);
+    const int c = 4 * (is_row ? idx / S : idx % (S / 4));
+    V e4[4];
+    load4(band + (size_t)r * n + o + c, e4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) e4[e] = Lifted<Op>::lift(e4[e]);
+    if (is_row) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dS[(c + e) * DSt + r] = e4[e];
+    } else {
+      sts4(dS + r * DSt + c, e4);
+    }
+  }
+  __syncthreads();
+
+  if (is_row) {
+    close_band_lanes<S, false, Op>(xr, dS, rg, cg);
+#pragma unroll
+    for (int i = 0; i < RL; ++i) store4(band + (size_t)(r0 + i) * n + xo + c0, xr[i]);
+  } else if (c0 - 4 * cg < a) {  // the warp's first row: it holds some of the strip's
+    close_band_lanes<S, true, Op>(xr, dS, rg, cg);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        V run[RL];
+#pragma unroll
+        for (int i = 0; i < RL; ++i) run[i] = xr[i][j];
+        store_n<RL>(acol + (size_t)(c0 + j) * S + r0, run);
+      }
+    }
   }
 }
 
@@ -305,12 +375,19 @@ int launch_sweep(int phase, const Bufs<T>& x, int n, int a, int b, int bk, cudaS
   const int TT = n / S, A = a / kStripRows;
   cudaError_t err;
   if (phase == 0) {
-    diag_kernel<S, Op, T><<<1, 8 * S, 0, st>>>(x.d_init, x.strip, x.pos, x.band, n, b);
+    diag_kernel<S, Op, T><<<1, DiagShape<S>::kThreads, 0, st>>>(x.d_init, x.strip, x.pos,
+                                                                 x.band, n, b);
   } else if (phase == 1) {
-    const size_t smem = (size_t)S * (S + 1) * sizeof(T);
+    // The band's T-1 tiles and the strip's a / S (rounded up) cut into
+    // split CTAs each: a CTA holds S / split strip rows.
+    int split = 1;
+    if ((err = band_split<S>(TT - 1 + (a + S - 1) / S, 1, &split)) != cudaSuccess)
+      return (int)err;
+    const int strip_ctas = (a * split + S - 1) / S;
+    const size_t smem = (size_t)S * (S + 4) * sizeof(Reg<T>);
     if ((err = prepare(panels_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
-    panels_kernel<S, Op, T><<<TT - 1 + A, 8 * S, smem, st>>>(x.d_init, x.strip, x.pos, x.band,
-                                                             x.acol, n, b);
+    panels_kernel<S, Op, T><<<(TT - 1) * split + strip_ctas, 2 * S / split, smem, st>>>(
+        x.d_init, x.strip, x.pos, x.band, x.acol, n, a, b, split);
   } else {
     const size_t smem = ((size_t)kStripRows * (bk + 1) + (size_t)bk * S) * sizeof(T);
     if ((err = prepare(relax_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;

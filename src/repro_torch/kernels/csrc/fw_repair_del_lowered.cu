@@ -21,7 +21,10 @@
 // strip, the band and acol are held in the storage type, registers in 32
 // bits with the rounding or saturation of semiring.cuh after every op, in
 // the reference's order, so each element's chain is the XLA twin's, bit
-// for bit.
+// for bit.  The diag and panels keep their operands lifted
+// (semiring.cuh:Lifted: int16 sentinels past the int16 range, 16-bit
+// min-plus / max-plus rounded where an operand is taken), which gives the
+// same values with fewer instructions a relaxation.
 //
 // Bound on this card.  As in fw_repair_del.cu a round does n·s·(s + a)
 // relaxations and moves ~(s + 2a)·n words: bound by operations, at 3 a

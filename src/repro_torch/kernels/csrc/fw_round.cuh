@@ -16,30 +16,6 @@
 
 namespace {
 
-// N consecutive elements of T to / from registers: 4-wide moves (load4 /
-// store4) where N is a multiple of 4, else one at a time (N = 2, s = 16).
-template <int N, class T>
-__device__ __forceinline__ void load_n(const T* p, Reg<T>* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) load4(p + 4 * q, v + 4 * q);
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) v[e] = widen(p[e]);
-  }
-}
-
-template <int N, class T>
-__device__ __forceinline__ void store_n(T* p, const Reg<T>* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) store4(p + 4 * q, v + 4 * q);
-  } else {
-#pragma unroll
-    for (int e = 0; e < N; ++e) put(p[e], v[e]);
-  }
-}
-
 // ------------------------------------------------------------------ diag
 // One CTA a graph closes the pivot tile on DiagShape<S>'s register blocks
 // (close_tile_blocks, fw_phases.cuh): thread (ty, tx) holds rows 4ty + 4T·h
@@ -422,20 +398,6 @@ cudaError_t prepare(K kernel, size_t smem) {
   if (smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
-}
-
-// CTAs a band tile is cut into: the most of 1, 2 or 4 (at most its S/16
-// warps) that keeps the launch within one CTA an SM, so that a round of
-// few tiles (n = 4096, a rank's bordered block) spreads over the card.
-template <int S>
-cudaError_t band_split(int tiles, int B, int* split) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *split = 1;
-  while (2 * *split <= (S / 16 < 4 ? S / 16 : 4) && (long long)tiles * B * 2 * *split <= sms)
-    *split *= 2;
-  return err;
 }
 
 // Phase 0 (diag) or 1 (bands): the chains, one instantiation per s.

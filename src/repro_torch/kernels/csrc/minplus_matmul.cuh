@@ -78,6 +78,30 @@ __device__ __forceinline__ void store4(T* p, const Reg<T>* v) {
   *reinterpret_cast<Word4<T>*>(p) = w;
 }
 
+// N consecutive elements of T to / from registers: 4-wide moves (load4 /
+// store4) where N is a multiple of 4, else one at a time (N = 2, s = 16).
+template <int N, class T>
+__device__ __forceinline__ void load_n(const T* p, Reg<T>* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) load4(p + 4 * q, v + 4 * q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = widen(p[e]);
+  }
+}
+
+template <int N, class T>
+__device__ __forceinline__ void store_n(T* p, const Reg<T>* v) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) store4(p + 4 * q, v + 4 * q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) put(p[e], v[e]);
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)

@@ -205,7 +205,10 @@ class Sweep:
 def sweep_buffers(d_init: torch.Tensor, rows, *, block_size: int,
                   s_init: torch.Tensor | None = None) -> Sweep:
     """Gather the strip of ``rows`` (padding index m clipped to row m-1)
-    and allocate the round buffers on d_init's device."""
+    and allocate the round buffers on d_init's device.  The diag and panels
+    kernels load d_init four elements at a time, so the sweep keeps d_init
+    as it lies where it is contiguous and 16-byte aligned, else a
+    contiguous, aligned copy (``fw_round.contiguous_aligned``)."""
     m = _check(d_init, block_size, "d_init")
     if s_init is not None:
         _check(s_init, block_size, "s_init", torch.int32)
@@ -215,6 +218,7 @@ def sweep_buffers(d_init: torch.Tensor, rows, *, block_size: int,
     keep = np.flatnonzero(r < m)
     pos = np.full(m, -1, np.int32)
     pos[r[keep]] = keep
+    d_init = contiguous_aligned(d_init)
     dev = d_init.device
     idx = torch.from_numpy(np.minimum(r, m - 1)).to(dev)
     new = functools.partial(torch.empty, device=dev)
@@ -236,42 +240,76 @@ def _write_back(t: torch.Tensor, strip: torch.Tensor, sw: Sweep) -> torch.Tensor
     return t.clone().index_copy_(0, sw.real, strip.index_select(0, sw.keep))
 
 
-def _launch(fn: str, phase: str, tag, sw: Sweep, b: int, call) -> None:
-    if phase not in PHASES:
-        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+def _require_buffers(fn: str, sw: Sweep) -> None:
+    """Raise unless the kernels take sw's buffers: on one CUDA device,
+    contiguous, s one of BLOCK_SIZES, and d_init, the strip, the band and
+    acol 16-byte aligned (the diag and panels move them four elements at a
+    time; ``sweep_buffers`` allocates them so)."""
     if sw.d_init.device.type != "cuda":
         raise ValueError(f"{fn} phases launch a CUDA kernel; the sweep is on the CPU")
-    s, m = sw.block_size, sw.d_init.shape[0]
+    s = sw.block_size
     if s not in BLOCK_SIZES:
         raise ValueError(f"block_size must be one of {BLOCK_SIZES}, got {s}")
-    if not 0 <= b < m // s:
-        raise ValueError(f"pivot round {b} outside [0, {m // s})")
     bufs = [t for t in (getattr(sw, f.name) for f in dataclasses.fields(sw)) if t is not None]
     if any(t.device != sw.d_init.device or not t.is_contiguous() for t in bufs):
-        raise ValueError(f"{fn}/{phase}: every buffer must be contiguous on {sw.d_init.device}")
+        raise ValueError(f"{fn}: every buffer must be contiguous on {sw.d_init.device}")
+    if any(t.data_ptr() % 16 for t in (sw.d_init, sw.strip, sw.band, sw.acol)):
+        raise ValueError(f"{fn}: d_init, the strip, the band and acol must be 16-byte aligned")
+
+
+def _launcher(sw: Sweep, tag, semiring: Semiring | None, bk: int):
+    """launch(ph, b, stream) → cudaError_t: round b's launch of phase index
+    ph on sw's buffers, their pointers taken once (semiring None: the
+    successor sweep)."""
+    n, a, s = sw.d_init.shape[0], sw.strip.shape[0], sw.block_size
+    if semiring is None:
+        ptrs = tuple(t.data_ptr() for t in (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip,
+                                            sw.strip_s, sw.band, sw.band_s, sw.acol, sw.acol_s))
+        if tag is None:
+            fn = _lib().fw_repair_del_succ_launch
+            return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, stream)
+        fn, code = _lowered_lib().fw_repair_del_lowered_succ_launch, LOWERINGS[tag]
+        return lambda ph, b, stream: fn(ph, code, *ptrs, n, a, s, b, stream)
+    ptrs = tuple(t.data_ptr() for t in (sw.d_init, sw.pos, sw.rows, sw.strip, sw.band, sw.acol))
+    sid, bk = semiring_id(semiring), _fit_block(s, bk)
+    if tag is None:
+        fn = _lib().fw_repair_del_launch
+        return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, bk, sid, stream)
+    fn, code = _lowered_lib().fw_repair_del_lowered_launch, LOWERINGS[tag]
+    return lambda ph, b, stream: fn(ph, code, sid, *ptrs, n, a, s, b, bk, stream)
+
+
+def _run(fn: str, tag, sw: Sweep, launch, rounds, phases=PHASES) -> None:
+    """Launch ``phases`` of each round of ``rounds`` in order on the current
+    stream of sw's device, raising on the first launch that fails; counts
+    each launch."""
+    steps = [(PHASES.index(p), f"{fn}/{p}" + (f"[{tag}]" if tag else "")) for p in phases]
     with torch.cuda.device(sw.d_init.device):
-        err = call(torch.cuda.current_stream(sw.d_init.device).cuda_stream)
-    kind = f"{fn}/{phase}" + (f"[{tag}]" if tag else "")
-    _raise_on(err, kind)
-    LAUNCHES[kind] += 1
+        stream = torch.cuda.current_stream(sw.d_init.device).cuda_stream
+        for b in rounds:
+            for ph, kind in steps:
+                _raise_on(launch(ph, b, stream), kind)
+                LAUNCHES[kind] += 1
+
+
+def _one_phase(fn: str, phase: str, tag, sw: Sweep, b: int, launcher) -> None:
+    """One launch of the public per-phase entry points, every check first
+    (``launcher()`` makes the launch, after them)."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    _require_buffers(fn, sw)
+    m, s = sw.d_init.shape[0], sw.block_size
+    if not 0 <= b < m // s:
+        raise ValueError(f"pivot round {b} outside [0, {m // s})")
+    _run(fn, tag, sw, launcher(), [b], [phase])
 
 
 def sweep_phase(phase: str, sw: Sweep, b: int, *, bk: int = 32,
                 semiring: Semiring = MIN_PLUS) -> None:
     """Launch one phase ("diag" | "panels" | "relax") of round b on the card."""
     tag = _sweep_tag(sw.d_init, semiring)
-    sid = semiring_id(semiring)
-    s = sw.block_size
-    ptrs = (sw.d_init.data_ptr(), sw.pos.data_ptr(), sw.rows.data_ptr(), sw.strip.data_ptr(),
-            sw.band.data_ptr(), sw.acol.data_ptr(), sw.d_init.shape[0], sw.strip.shape[0], s,
-            b, _fit_block(s, bk))
-    ph = PHASES.index(phase)
-    if tag is None:
-        call = lambda stream: _lib().fw_repair_del_launch(ph, *ptrs, sid, stream)  # noqa: E731
-    else:
-        call = lambda stream: _lowered_lib().fw_repair_del_lowered_launch(  # noqa: E731
-            ph, LOWERINGS[tag], sid, *ptrs, stream)
-    _launch("fw_repair_del_sweep", phase, tag, sw, b, call)
+    _one_phase("fw_repair_del_sweep", phase, tag, sw, b,
+               lambda: _launcher(sw, tag, semiring, bk))
 
 
 def sweep_succ_phase(phase: str, sw: Sweep, b: int) -> None:
@@ -279,16 +317,8 @@ def sweep_succ_phase(phase: str, sw: Sweep, b: int) -> None:
     if sw.s_init is None:
         raise ValueError("the sweep carries no next hops (sweep_buffers(s_init=))")
     tag = succ_tag(sw.d_init)
-    ptrs = (*(t.data_ptr() for t in (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip,
-                                     sw.strip_s, sw.band, sw.band_s, sw.acol, sw.acol_s)),
-            sw.d_init.shape[0], sw.strip.shape[0], sw.block_size, b)
-    ph = PHASES.index(phase)
-    if tag is None:
-        call = lambda stream: _lib().fw_repair_del_succ_launch(ph, *ptrs, stream)  # noqa: E731
-    else:
-        call = lambda stream: _lowered_lib().fw_repair_del_lowered_succ_launch(  # noqa: E731
-            ph, LOWERINGS[tag], *ptrs, stream)
-    _launch("fw_repair_del_sweep_with_successors", phase, tag, sw, b, call)
+    _one_phase("fw_repair_del_sweep_with_successors", phase, tag, sw, b,
+               lambda: _launcher(sw, tag, None, 0))
 
 
 def fw_repair_del_sweep(
@@ -301,16 +331,15 @@ def fw_repair_del_sweep(
     tensor.  bk: the relax launch's staging depth (clamped to a divisor of
     block_size; the result does not depend on it)."""
     m = _check(d_init, block_size, "d_init")
-    _sweep_tag(d_init, semiring)
+    tag = _sweep_tag(d_init, semiring)
     check_variant(variant)
     r = _check_rows(rows, m)
     if d_init.device.type == "cpu":
         return ref.fw_repair_del_sweep_ref(d_init, r, block_size=block_size, bk=bk,
                                            variant=variant, semiring=semiring)
-    sw = sweep_buffers(contiguous_aligned(d_init), r, block_size=block_size)
-    for b in range(m // block_size):
-        for phase in PHASES:
-            sweep_phase(phase, sw, b, bk=bk, semiring=semiring)
+    sw = sweep_buffers(d_init, r, block_size=block_size)
+    _require_buffers("fw_repair_del_sweep", sw)
+    _run("fw_repair_del_sweep", tag, sw, _launcher(sw, tag, semiring, bk), range(m // block_size))
     return _write_back(sw.d_init, sw.strip, sw)
 
 
@@ -321,16 +350,15 @@ def fw_repair_del_sweep_with_successors(
     ``mark_affected_with_successors`` (d_init f32, bf16 or f16): (dist,
     succ), new tensors."""
     m = _check(d_init, block_size, "d_init")
-    succ_tag(d_init)
+    tag = succ_tag(d_init)
     _check(s_init, block_size, "s_init", torch.int32)
     _check_pair(d_init, s_init, "s_init")
     r = _check_rows(rows, m)
     if d_init.device.type == "cpu":
         return ref.fw_repair_del_sweep_with_successors_ref(d_init, s_init, r,
                                                            block_size=block_size)
-    sw = sweep_buffers(contiguous_aligned(d_init), r, block_size=block_size,
-                       s_init=contiguous_aligned(s_init))
-    for b in range(m // block_size):
-        for phase in PHASES:
-            sweep_succ_phase(phase, sw, b)
+    sw = sweep_buffers(d_init, r, block_size=block_size, s_init=contiguous_aligned(s_init))
+    fn = "fw_repair_del_sweep_with_successors"
+    _require_buffers(fn, sw)
+    _run(fn, tag, sw, _launcher(sw, tag, None, 0), range(m // block_size))
     return _write_back(sw.d_init, sw.strip, sw), _write_back(sw.s_init, sw.strip_s, sw)

@@ -1,7 +1,7 @@
 """Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
-        [--label L] [--build-only]
+        [--label L] [--build-only] [--sweep]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -21,20 +21,34 @@ at n/2 and ``fw_staged(fused=False)`` at n, on the seeded density-0.5
 digraph.  Each timed relax is first held by bits against its plain phase
 (``*_ok``).
 
+``--sweep`` times the restricted sweep of ``ApspEngine.repair_del``
+instead: its diag and panels launches at (n, n), pivot round n/s/2, strips
+of 8 and 64 rows, in f32, int16, bf16 and f16 min-plus and packed or_and
+words, each first held by bits against its plain phase (``sweep_*_ok``),
+then timed between CUDA events and as device time (``*_dev_ms``), and the
+f32 relax beside them; then, by host clock (median of 3 after a warm-up),
+``fw_repair_del_sweep`` of 8 rows of the f32 graph (``*_host_ms``: until
+the call returns, its launches queued; ``*_dev_ms``: device time) and
+``repair_del`` of 1 and of 16 on-path deletions of the seeded integer graph
+at n (the deletions ``chip_smoke.py`` takes), each first checked by bits
+against a re-solve of the updated graph, and that re-solve.
+
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
-successor relax, diag, bands and vector f32 ``matmul_kernel``
-instantiation (``_build.kernel_infos``) and, in each f32 relax, diag and
-bands kernel's SASS (``cuobjdump -sass`` of the f32 round library), the
-count of the opcodes a relaxation is made of, of the shared-memory,
-shuffle and barrier instructions and of the spill instructions, then
-exits: run it for every tree at once, then the timings in turns.
+successor relax, diag, bands (with ``--sweep``: panels) and vector f32
+``matmul_kernel`` instantiation (``_build.kernel_infos``) and, in each f32
+relax, diag and bands (panels) kernel's SASS (``cuobjdump -sass`` of the
+f32 round (sweep) library), the count of the opcodes a relaxation is made
+of, of the shared-memory, shuffle and barrier instructions and of the
+spill instructions, then exits: run it for every tree at once, then the
+timings in turns.
 
 Run it with PYTHONPATH pointing at two trees, in turns inside one chip
 call (parent, change, change, parent), to compare them on one card.  Only
 the API both trees share is used (``fw_round_phase``,
 ``fw_round_with_successors_phase``, ``fw_round_bordered_phase``, the band
-buffers, ``semiring_matmul``, ``solve``, ``fw_staged``).
+buffers, ``semiring_matmul``, ``solve``, ``fw_staged``; ``sweep_buffers``,
+``sweep_phase``, ``ApspEngine.repair_del``).
 """
 from __future__ import annotations
 
@@ -96,9 +110,26 @@ def host_ms(fn) -> float:
     return statistics.median(times)
 
 
+def queue_ms(fn) -> float:
+    """Host ms from the call until it returns, the device idle at the call
+    (median of 3): the host work of a sequence of launches that fits the
+    launch queue, which the device does not hold back."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STS",
             "SHFL", "BAR", "STL", "LDL")
-KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel")
+KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel", "panels_kernel")
 
 
 def sass_counts(lib_path) -> dict:
@@ -129,13 +160,17 @@ def _nvcc_dir() -> str:
     return str(Path(_build._nvcc()).parent)
 
 
-def build_report(label: str) -> int:
+def build_report(label: str, sweep: bool = False) -> int:
     import repro_torch
     from repro_torch.kernels import _build
 
     out = dict(label=label, package=repro_torch.__file__, seconds={}, kernels=[])
-    for built in _build.build_all(("fw_round", "fw_round_lowered", "minplus_matmul",
-                                   "fw_phase")):
+    names = (("fw_repair_del", "fw_repair_del_lowered") if sweep
+             else ("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"))
+    extra = ("fw_round",) if sweep else ()  # the engine's solve: built, not reported
+    for built in _build.build_all(names + extra):
+        if built.name not in names:
+            continue
         out["seconds"][built.name] = built.seconds
         out["kernels"] += [
             dict(name=k.name, registers=k.registers, spill_stores=k.spill_stores,
@@ -143,10 +178,29 @@ def build_report(label: str) -> int:
             for k in _build.kernel_infos(built)
             if any(x in k.name for x in KERNELS)
             or ("matmul_kernel" in k.name and "float, true" in k.name)]
-        if built.name == "fw_round" and built.seconds:  # built here: its SASS is fresh
+        if built.name == names[0] and built.seconds:  # built here: its SASS is fresh
             out["sass"] = sass_counts(built.path)
     print(json.dumps(out))
     return 0
+
+
+def storages(w) -> dict:
+    """key → make(x) = (x in the storage, its semiring): f32, int16, bf16
+    and f16 min-plus of x, and random packed or_and words of x's shape."""
+    import torch
+
+    from repro_torch.apsp import api
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+
+    g = torch.Generator(device=w.device).manual_seed(3)
+    return {
+        "f32": lambda x: (x, MIN_PLUS),
+        "int16": lambda x: (api._coerce(x, MIN_PLUS_I16, None, x.device), MIN_PLUS_I16),
+        "bf16": lambda x: (x.to(torch.bfloat16), MIN_PLUS),
+        "f16": lambda x: (x.to(torch.float16), MIN_PLUS),
+        "packed": lambda x: (torch.randint(-(1 << 31), 1 << 31, x.shape, generator=g,
+                                           device=x.device, dtype=torch.int32), OR_AND_PACKED),
+    }
 
 
 def chain_cases(w, n: int, s: int) -> dict:
@@ -155,27 +209,16 @@ def chain_cases(w, n: int, s: int) -> dict:
     bits against its plain phase, then timed."""
     import torch
 
-    from repro_torch.apsp import api
-    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
     from repro_torch.utils.bits import bits_equal
 
     out = {}
-    g = torch.Generator(device=w.device).manual_seed(3)
-    storages = {
-        "f32": lambda x: (x, MIN_PLUS),
-        "int16": lambda x: (api._coerce(x, MIN_PLUS_I16, None, x.device), MIN_PLUS_I16),
-        "bf16": lambda x: (x.to(torch.bfloat16), MIN_PLUS),
-        "f16": lambda x: (x.to(torch.float16), MIN_PLUS),
-        "packed": lambda x: (torch.randint(-(1 << 31), 1 << 31, x.shape, generator=g,
-                                           device=x.device, dtype=torch.int32), OR_AND_PACKED),
-    }
     half = n // 2
     geoms = {"n": (w, n // s // 2, False), "n2": (w[:half, :half].contiguous(), half // s // 2,
                                                  False),
              "bordered": (w[:s + half, :s + half].contiguous(), 0, True)}
-    for key, make in storages.items():
+    for key, make in storages(w).items():
         for gname, (base, b, bordered) in geoms.items():
             x, sr = make(base)
             o = slice(b * s, (b + 1) * s)
@@ -201,16 +244,137 @@ def chain_cases(w, n: int, s: int) -> dict:
     return out
 
 
+def sweep_rows(n: int, a: int, seed: int):
+    """a distinct rows, sorted (a a multiple of 8: no padding)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(n, a, replace=False)).astype(np.int32)
+
+
+def sweep_cases(w, n: int, s: int) -> dict:
+    """The sweep's diag and panels launches in every storage at (n, n),
+    round n/s/2, strips of 8 and 64 rows: each held by bits against its
+    plain phase, then timed; the f32 relax at a = 8 beside them."""
+    import torch
+
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    b = n // s // 2
+    o = slice(b * s, (b + 1) * s)
+    for key, make in storages(w).items():
+        x, sr = make(w)
+        for a in (8, 64):
+            sw = fd.sweep_buffers(x, sweep_rows(n, a, seed=a), block_size=s)
+            launch = lambda p: fd.sweep_phase(p, sw, b, semiring=sr)  # noqa: E731
+            launch("diag")
+            launch("panels")
+            diag = ref.sweep_diag_ref(x, sw.strip, sw.rows, b, block_size=s, semiring=sr)
+            band, acol = ref.sweep_panels_ref(x, sw.strip, sw.rows, diag, b, semiring=sr)
+            torch.cuda.synchronize()
+            out[f"sweep_{key}_a{a}_ok"] = (bits_equal(sw.band[:, o], diag)
+                                           and bits_equal(sw.band, band)
+                                           and bits_equal(sw.acol, acol))
+            phases = ("diag", "panels", "relax") if key == "f32" and a == 8 else ("diag", "panels")
+            for phase in phases:
+                out[f"sweep_{phase}_{key}_a{a}_ms"] = event_ms(lambda: launch(phase))
+                out[f"sweep_{phase}_{key}_a{a}_dev_ms"] = device_ms(lambda: launch(phase))
+            del sw, band, acol, diag
+        del x
+    rows = sweep_rows(n, 8, seed=8)
+    sweep = lambda: fd.fw_repair_del_sweep(w, rows, block_size=s)  # noqa: E731
+    out["sweep_f32_a8_ms"] = host_ms(sweep)
+    out["sweep_f32_a8_host_ms"] = queue_ms(sweep)
+    out["sweep_f32_a8_dev_ms"] = device_ms(sweep, reps=3)
+    return out
+
+
+def ranked_deletions(w, dist, count: int, seed: int, sample: int = 256):
+    """On-path edges (w == dist, u != v) ranked by how many pairs deleting
+    each one affects, fewest first, zero excluded — the ranking of
+    ``benchmarks/run.py:bench_fw_repair_del``: ``sample`` candidates drawn
+    with a seeded rng, each scored by count(dist[:, u] + w[u, v] +
+    dist[v, :] == dist, dist finite), on the card.  Returns [(pairs, u, v)].
+    ``chip_smoke.py`` deletes the same edges."""
+    import numpy as np
+    import torch
+
+    d = torch.as_tensor(dist).cuda()
+    wt = torch.as_tensor(w).cuda()
+    n = d.shape[-1]
+    on = (wt == d) & torch.isfinite(wt) & ~torch.eye(n, dtype=torch.bool, device=d.device)
+    cand = torch.nonzero(on).cpu().numpy()
+    if len(cand) == 0:
+        raise RuntimeError("no on-path edge to delete")
+    rng = np.random.default_rng(seed)
+    fin = torch.isfinite(d)
+    scored = []
+    for u, v in cand[rng.choice(len(cand), size=min(sample, len(cand)), replace=False)]:
+        pairs = int((((d[:, u, None] + wt[u, v]) + d[None, v, :] == d) & fin).sum())
+        if pairs:
+            scored.append((pairs, int(u), int(v)))
+    return sorted(scored)[:count]
+
+
+def deletion_batch(w, ranked):
+    """(deletions, updated weights): each ranked edge removed."""
+    import numpy as np
+
+    w1 = w.copy()
+    dels = []
+    for _, u, v in ranked:
+        dels.append((u, v, float(w[u, v])))
+        w1[u, v] = np.inf
+    return dels, w1
+
+
+def repair_del_cases(n: int) -> dict:
+    """``ApspEngine.repair_del`` of the fewest-pairs on-path edge and of the
+    16 fewest at n (min-plus, integer weights in [1, 1e4), density 0.5: the
+    graph and deletions of ``chip_smoke.py``'s repair_del path), threshold
+    100 so that the sweep runs, weights on the card; each checked by bits
+    against a re-solve, then timed beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.utils.bits import bits_equal
+
+    rng = np.random.default_rng(10)
+    w = rng.integers(1, 10**4, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) >= 0.5] = np.inf
+    np.fill_diagonal(w, 0.0)
+    eng = ApspEngine()
+    r0 = eng.solve(w)
+    ranked = ranked_deletions(w, r0.dist, 256, seed=15)
+    out = {}
+    for label, batch in (("E1", ranked[:1]), ("E16", ranked[:16])):
+        dels, w1 = deletion_batch(w, batch)
+        w1 = torch.from_numpy(w1).cuda()
+        got = eng.repair_del(r0.dist, w1, dels, threshold=100.0)
+        out[f"repair_del_{label}_ok"] = (got.method == "repair_del"
+                                         and bits_equal(got.dist, eng.solve(w1).dist))
+        out[f"repair_del_{label}_ms"] = host_ms(
+            lambda: eng.repair_del(r0.dist, w1, dels, threshold=100.0))
+        out[f"resolve_{label}_ms"] = host_ms(lambda: eng.solve(w1))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--label", default="")
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the restricted sweep and repair_del instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
-        return build_report(args.label)
+        return build_report(args.label, args.sweep)
 
     import repro_torch
     from repro_torch.apsp import api, solve
@@ -233,6 +397,12 @@ def main(argv=None) -> int:
     n, s = args.n, 128
     b = n // s // 2
     w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
+    if args.sweep:
+        out.update(sweep_cases(w, n, s))
+        del w
+        out.update(repair_del_cases(n))
+        print(json.dumps(out))
+        return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
 
     def round_case(x, sr, key, *, phases=("relax",)):
         """Close the bands of round b of x, check the relax launch against

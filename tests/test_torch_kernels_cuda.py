@@ -1330,6 +1330,77 @@ def test_chain_kernels_match_plain_phases(cuda_device, tag, name, s, geometry):
     assert all(fr.LAUNCHES[k] == before[p] + len(echoes) for p, k in kinds.items())
 
 
+# ------------------------- the sweep's chains: diag and panels at every s
+SWEEP_CHAIN_STORAGES = ([(None, n, salt) for n in IDEMPOTENT for salt in ("zero", "nan")]
+                        + [(t, n, salt) for t in ("bf16", "f16") for n in IDEMPOTENT
+                           for salt in ("zero", "nan")]
+                        + [c + ("-",) for c in SWEEP_CASES if c[0] not in ("bf16", "f16")])
+
+
+def _planted_diagonal(x, name):
+    """x with every third diagonal element off the ⊗-identity: -3 under
+    min_plus (negative cycles), 3 under max_plus."""
+    x = x.clone()
+    idx = torch.arange(0, x.shape[-1], 3)
+    x[idx, idx] = torch.tensor(-3.0 if name == "min_plus" else 3.0).to(x.dtype)
+    return x
+
+
+def _sweep_chain_rows(n, s, a_pad, b, seed):
+    """a_pad strip rows: min(a_pad - 1, n / 2) distinct real rows, sorted,
+    two of them inside pivot block b; padding rows (index n) after them."""
+    rng = np.random.default_rng(seed)
+    a = min(a_pad - 1, n // 2)
+    inside = b * s + rng.choice(s, 2, replace=False)
+    rest = rng.choice(np.setdiff1d(np.arange(n), inside), a - 2, replace=False)
+    rows = np.full(a_pad, n, np.int32)
+    rows[:a] = np.sort(np.concatenate([inside, rest]))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name,salt", SWEEP_CHAIN_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("s", [16, 32, 64, 128])
+def test_sweep_chain_kernels_match_plain_phases(cuda_device, tag, name, salt, s):
+    """The sweep's diag and panels launches alone, by bits against
+    ``sweep_diag_ref`` / ``sweep_panels_ref``: strips of 8, 16 and 64 rows
+    (two inside the pivot block, padding rows), n = 2s (one band tile, cut
+    into CTAs by fw_phases.cuh:band_split) and n = 5s, the strip holding
+    other values than d_init's rows (the overlay must read it); f32 and
+    bf16 / f16 salted with ±0 or, apart, off-diagonal NaN; and, under
+    min_plus / max_plus, planted non-identity diagonals."""
+    kinds = {p: f"fw_repair_del_sweep/{p}" + (f"[{tag}]" if tag else "")
+             for p in ("diag", "panels")}
+    before = {p: fd.LAUNCHES[k] for p, k in kinds.items()}
+    launches = 0
+    for n, b in ((2 * s, 1), (5 * s, 2)):
+        o = slice(b * s, (b + 1) * s)
+
+        def case(seed):
+            return (_storage_case(tag, name, (n, n), seed, s) if salt == "-"
+                    else _relax_input(tag, name, (n, n), seed, s, salt))
+
+        (x, sr), (other, _) = case(s + n), case(s + n + 1)
+        plant = (False, True) if name in ("min_plus", "max_plus") and tag != "packed" else (False,)
+        for planted in plant:
+            d = (_planted_diagonal(x, name) if planted else x).to(cuda_device)
+            src = (_planted_diagonal(other, name) if planted else other).to(cuda_device)
+            for a_pad in (8, 16, 64):
+                rows = _sweep_chain_rows(n, s, a_pad, b, seed=a_pad + n)
+                sw = fd.sweep_buffers(d, rows, block_size=s)
+                sw.strip.copy_(src[torch.from_numpy(np.minimum(rows, n - 1)).long().to(cuda_device)])
+                fd.sweep_phase("diag", sw, b, semiring=sr)
+                fd.sweep_phase("panels", sw, b, semiring=sr)
+                diag = ref.sweep_diag_ref(d, sw.strip, sw.rows, b, block_size=s, semiring=sr)
+                band, acol = ref.sweep_panels_ref(d, sw.strip, sw.rows, diag, b, semiring=sr)
+                torch.cuda.synchronize()
+                what = (n, a_pad, planted)
+                assert bits_equal(sw.band[:, o], diag), what
+                assert bits_equal(sw.band, band) and bits_equal(sw.acol, acol), what
+                launches += 1
+    assert all(fd.LAUNCHES[k] == before[p] + launches for p, k in kinds.items())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tag,name", [(None, "min_plus"), (None, "plus_mul"),
                                       ("bf16", "plus_mul"), ("f16", "plus_mul"),
