@@ -10,8 +10,9 @@ Phases, each of which raises (exit code 1) on any failure:
      ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
      each library's build seconds, registers and spills (each instantiation
      of the redesigned kernels: matmul, relax, successor relax, decode,
-     the round's diag and bands, the sweep's diag and panels; a diag,
-     bands or panels instantiation that spills fails).
+     the round's diag and bands, the sweep's diag and panels, the
+     4-dispatch closure and bands; a diag, bands, panels, closure or band
+     instantiation that spills fails).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -64,7 +65,11 @@ Phases, each of which raises (exit code 1) on any failure:
      panels instantiation of the restricted sweep alone against its plain
      phase (``phase_check_sweep_chains``), f32 and every sweep storage,
      s = 16 .. 128, n = 2s and 5s, strips of 8, 16 and 64 rows, ±0 / NaN
-     salted, planted diagonals.  f16 plus_mul
+     salted, planted diagonals; every closure and band instantiation of
+     the 4-dispatch round alone against its plain phase
+     (``phase_check_phase_chains``), f32 and every storage, s = 16 .. 128,
+     a batch of 3, band lengths 1, s - 3 and 1000, aligned, odd-strided
+     and unaligned views, ±0 / NaN salted, planted diagonals.  f16 plus_mul
      (``phase_check_f16_plus_mul``): the round, bordered round, matmul,
      phase 1 and a solve, one f16 FMA a step, card == twin.
   3. kernels: each launch kind alone at the main paths' shapes, against
@@ -408,6 +413,8 @@ def phase_device():
         shown = []  # the redesigned kernels, each instantiation
         if built.name in ("fw_repair_del", "fw_repair_del_lowered"):
             shown = [k for k in infos if re.match(r"(void )?(diag|panels)_kernel<", k.name)]
+        elif built.name in ("fw_phase", "fw_phase_lowered"):
+            shown = [k for k in infos if re.match(r"(void )?(closure|band)_kernel<", k.name)]
         elif built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
                             "fw_round", "fw_round_lowered"):
             shown = [k for k in infos if any(x in k.name for x in (
@@ -415,14 +422,16 @@ def phase_device():
         for k in shown:
             print(f"  {k.name}: {k.registers} registers, spill stores / loads "
                   f"{k.spill_stores} / {k.spill_loads} B")
-        least = {"fw_round": 32, "fw_round_lowered": 32,  # diag / bands (panels) kernels
-                 "fw_repair_del": 24, "fw_repair_del_lowered": 88}.get(built.name)
+        # the chain kernels: diag / bands, diag / panels, closure / band
+        least = {"fw_round": 32, "fw_round_lowered": 32, "fw_repair_del": 24,
+                 "fw_repair_del_lowered": 88, "fw_phase": 48,
+                 "fw_phase_lowered": 168}.get(built.name)
         if least and built.seconds:
-            chains = [k for k in infos if re.match(r"(void )?(diag|bands|panels)_kernel<", k.name)]
-            require(len(chains) >= least, f"{built.name}: {len(chains)} diag / bands / panels "
-                    f"kernels")
+            chains = [k for k in infos
+                      if re.match(r"(void )?(diag|bands|panels|closure|band)_kernel<", k.name)]
+            require(len(chains) >= least, f"{built.name}: {len(chains)} chain kernels")
             spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
-            require(not spilled, f"the diag / bands / panels chains spill: {spilled}")
+            require(not spilled, f"the chain kernels spill: {spilled}")
     return name
 
 
@@ -3433,6 +3442,86 @@ def phase_check_sweep_chains():
           f"±0 / NaN salted, planted diagonals)")
 
 
+def odd_strided(x):
+    """x's values as a view at an odd row stride, 3 rows and 5 elements into
+    its storage: no operand of it meets the 4-wide moves."""
+    import torch
+
+    B, r, c = x.shape
+    v = torch.zeros((B, r + 3, c + 5 + c % 2), dtype=x.dtype, device=x.device)[:, 3:, 5:5 + c]
+    v.copy_(x)
+    return v
+
+
+def phase_check_phase_chains():
+    """Every instantiation of the 4-dispatch round's closure and band kernels
+    (csrc/fw_phase.cuh: ``closure_kernel``, ``band_kernel<S, Col>``) alone,
+    bitwise against its plain phase (``fw_phase1_ref``, ``fw_phase2_row_ref``
+    / ``fw_phase2_col_ref``): the five semirings in f32 and bf16 / f16
+    (salted with ±0 and, apart, with NaN off the diagonal tiles) and every
+    other storage (``STORAGE_CASES``), s = 16, 32, 64 and 128, a batch of 3,
+    band lengths 1, s - 3 and 1000, the pivot's own tile inside the band where
+    it fits; the operands as aligned slices of one matrix (4-wide moves), as
+    slices at an odd row stride and an unaligned base (one element at a
+    time), and aligned with outputs into such slices; under min_plus /
+    max_plus also planted non-identity diagonals (-3 / 3 on every third),
+    aligned."""
+    import torch
+
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import ref
+
+    def case(tag, name, m, s, salt, seed):
+        if tag is not None:
+            return storage_case(tag, name, (3, m, m), seed, s, salt)
+        w = (signed_zero_graph(name, (3, m, m), seed) if salt == "zero" else nan_salted(
+            domain_graph(name, (3, m, m), seed), seed, 2,
+            [(b * s, b * s + s) for b in range(m // s)]))
+        return torch.from_numpy(w).cuda(), SEMIRINGS[name]
+
+    cases = ([(None, n, salt) for n in sorted(SEMIRINGS) for salt in ("zero", "nan")]
+             + [(t, n, salt) for t, n in STORAGE_CASES for salt in salts(t)])
+    checked = 0
+    for tag, name, salt in cases:
+        plants = (False, True) if name in ("min_plus", "max_plus") and tag != "packed" else (False,)
+        for s in (16, 32, 64, 128):
+            for n in (1, s - 3, 1000):
+                m = max(n, 2 * s)
+                o = slice(s, 2 * s) if n >= 2 * s else slice(0, s)
+                x, sr = case(tag, name, m, s, salt, s + n)
+                for plant in plants:
+                    if plant:
+                        x = x.clone()
+                        idx = torch.arange(0, m, 3, device=x.device)
+                        x[..., idx, idx] = torch.tensor(-3.0 if name == "min_plus" else 3.0).to(
+                            x.dtype)
+                    for layout in ("aligned",) if plant else ("aligned", "strided", "out"):
+                        xs = odd_strided(x) if layout == "strided" else x
+                        outs = {} if layout != "out" else {
+                            k: odd_strided(torch.empty(shape, dtype=x.dtype, device=x.device))
+                            for k, shape in (("d", (3, s, s)), ("r", (3, s, n)), ("c", (3, n, s)))}
+                        tile, row, col = xs[:, o, o], xs[:, o, :n], xs[:, :n, o]
+                        got_d = fph.fw_phase1(tile, semiring=sr, out=outs.get("d"))
+                        diag = ref.fw_phase1_ref(tile, semiring=sr)
+                        diag = odd_strided(diag) if layout == "strided" else diag
+                        got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr, out=outs.get("r"))
+                        got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr, out=outs.get("c"))
+                        want_r = ref.fw_phase2_row_ref(diag, row, semiring=sr)
+                        want_c = ref.fw_phase2_col_ref(diag, col, semiring=sr)
+                        sync()
+                        what = f"[{tag}] {name} {salt} s={s} n={n} planted={plant} {layout}"
+                        require(got_d.dtype == x.dtype and same(got_d, diag),
+                                f"fw_phase1{what} != plain")
+                        require(same(got_r, want_r), f"fw_phase2_row{what} != plain")
+                        require(same(got_c, want_c), f"fw_phase2_col{what} != plain")
+                        checked += 1
+    print(f"check: {checked} closure / band kernel-vs-plain cases bitwise equal (f32 and "
+          f"{len(STORAGE_CASES)} storages, s = 16 .. 128, B = 3, n = 1 / s - 3 / 1000, aligned, "
+          f"odd-strided and unaligned operands, ±0 / NaN salted, planted diagonals)")
+
+
 def phase_check_f16_plus_mul():
     """f16 plus_mul's step is one f16 FMA rounded once (HFMA on the card,
     ``core.semiring._plus_mul_relax`` in the twin): the fused round, the
@@ -3748,6 +3837,7 @@ def main(argv=None) -> int:
     phase_check_lowered_bordered()
     phase_check_chains()
     phase_check_sweep_chains()
+    phase_check_phase_chains()
     phase_check_f16_plus_mul()
     if not args.quick:
         rows = phase_kernels(8192, 4096)

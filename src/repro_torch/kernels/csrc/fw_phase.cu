@@ -6,11 +6,12 @@
 // minplus_matmul.cu.
 //
 //   closure  — one CTA per graph closes an (s,s) tile: s sequential steps
-//              t ⊕= t[:,k] ⊗ t[k,:] (close_tile_chain).
-//   row band — one CTA per S-wide tile of an (s,n) band closes it against
-//              the closed diagonal: p ⊕= d[:,k] ⊗ p[k,:] (close_row_chain).
-//   col band — one CTA per S-high tile of an (n,s) band: p ⊕= p[:,k] ⊗
-//              d[k,:] (close_col_chain).
+//              t ⊕= t[:,k] ⊗ t[k,:] (closure_kernel on close_tile_blocks).
+//   row band — the (s,n) band's columns closed against the closed diagonal:
+//              p ⊕= d[:,k] ⊗ p[k,:] (band_kernel<S, false> on
+//              close_band_lanes).
+//   col band — the (n,s) band's rows: p ⊕= p[:,k] ⊗ d[k,:]
+//              (band_kernel<S, true>).
 //
 // Unlike fw_round.cu's bands launch, the band launches cover every tile of
 // the band, the pivot's own included, as the TPU kernels grid over all n/bt
@@ -18,28 +19,37 @@
 // plus_mul the recompute is not a no-op).  A band tile holds S columns (row
 // band) or S rows (col band) whatever the reference's bt, which chooses no
 // element's chain.  The band length n is any value >= 1: the last tile's
-// lanes past n load 0 and store nothing.  That is exact because a column of
-// a row band (a row of a col band) evolves from its own values and the
+// chains past n load 0 and store nothing, and a warp with none of them
+// leaves after staging the diagonal.  That is exact because a column of a
+// row band (a row of a col band) evolves from its own values and the
 // diagonal only.
 //
-// Exactness.  The chains are fw_round.cu's, from fw_phases.cuh, built from
-// the steps of semiring.cuh: k ascending, step k's operands published into
-// a double-buffered shared vector before one barrier a step; plus_mul one
-// __fmaf_rn a step; min.NaN / max.NaN.  The closed diagonal sits in shared
-// memory with a padded row stride (S + 1).
+// Exactness.  The chains are the fused round's (fw_round.cu), from
+// fw_phases.cuh, built from the steps of semiring.cuh: k ascending; plus_mul
+// one __fmaf_rn a step (f16: one __hfma); min.NaN / max.NaN; every operand
+// lifted once (semiring.cuh:Lifted), which is exact.
 //
 // Bound on this card.  s³ relaxations per tile on O(s²) words: a closure of
 // s = 128 moves 128 KiB and does 2·128³ operations, well under a
 // microsecond either way.  What bounds these launches is the chain's
-// latency: s steps of one barrier each, on one CTA (closure) or one wave of
-// n/S CTAs (bands).  The design keeps the tile in registers (S/8 values a
-// thread, 8·S threads) so that a step is a shared read, a barrier and S/8
-// register relaxations.
+// latency on one SM: s steps of s² relaxations for the closure, s steps of
+// s columns' (rows') s relaxations for a band tile.  The closure holds the
+// tile in 8 x 8 register blocks on 256 threads (DiagShape<S>), so that a
+// step is two 16-byte shared stores by its owners, one barrier, four
+// 16-byte shared loads and 64 register relaxations a thread.  A band tile
+// gives each warp 16 whole chains, which need no barrier: a step is a
+// shuffle of the owner's value and one 16-byte shared load of the staged
+// diagonal a lane.  A band of few tiles (n = 8192 at s = 128: 64) is cut
+// into 2 or 4 CTAs a tile (fw_phases.cuh:band_split), each staging the
+// diagonal for itself, so that the launch spreads over the card's SMs.
 //
 // Strides.  Every operand is a (B, rows, cols) view with unit column stride
 // and its own row and batch strides, so that a caller passes slices of a
 // larger matrix (w[..., o, o], w[..., o, :], w[..., :, o]) without a copy.
-// The outputs must not overlap the inputs.
+// The launch moves 4 elements at a time where every operand's base is
+// aligned to that size and its strides are whole multiples of 4 elements,
+// else one element at a time (fw_phase.cuh:aligned4); both fold the same
+// chains.  The outputs must not overlap the inputs.
 //
 // The kernels live in fw_phase.cuh, templated on the storage type; this
 // file instantiates them for f32 (fw_phase_lowered.cu for the storage

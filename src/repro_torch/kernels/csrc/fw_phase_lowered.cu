@@ -11,18 +11,18 @@
 // integer or_and / plus_mul storages.
 //
 // The kernels are fw_phase.cuh's, instantiated on the storage type: the
-// closed diagonal is staged in shared memory in the storage type (as the
-// round's bands kernel stages it, fw_round.cuh), the chains' published
-// row / column k in double-buffered shared vectors of the storage type,
-// the tile in 32-bit registers; every step rounds (bf16 / f16: each ⊗
-// and ⊕, f16 plus_mul's FMA once) or saturates (int16) through
-// semiring.cuh after each op, k ascending, so
-// each element's chain is the reference's, bit for bit.
+// tile, the published row / column k and the staged closed diagonal hold
+// 32-bit registers' values (Reg<T>), lifted as semiring.cuh:Lifted says
+// (int16 min-plus / max-plus sentinels mapped past the int16 range, 16-bit
+// min-plus / max-plus accumulators unrounded in f32, each operand rounded
+// where it is published, staged or shuffled); every other step rounds
+// (bf16 / f16: each ⊗ and ⊕, f16 plus_mul's FMA once) or saturates through
+// semiring.cuh, k ascending, so each element's chain is the reference's,
+// bit for bit.
 //
-// Bound on this card.  As in f32: s steps of one barrier each, on one CTA
-// (closure) or one wave of n/S CTAs (bands); the lowered step costs a
-// round or a clamp more per op, and the operands half the shared-memory
-// bytes (2-byte storages).
+// Bound on this card.  As in f32: s steps on one SM a tile; a lifted int16
+// relaxation takes three ALU ops, a bf16 / f16 plus_mul step its rounds,
+// and the operands half the global bytes (2-byte storages).
 //
 // Interface: plain C, pointers and the stream as void*; the entry point
 // returns the cudaError_t of its launch (0 = launched).

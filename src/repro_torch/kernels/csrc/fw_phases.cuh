@@ -1,14 +1,15 @@
 // The per-thread chains of the blocked Floyd-Warshall phases, shared by
 // fw_round.cuh (the fused round's diag and bands, and its successor
 // round), fw_phase.cuh (the 4-dispatch closure and bands) and
-// fw_repair_del.cuh (the restricted sweep).
+// fw_repair_del.cuh (the restricted sweep and its successor sweep).
 // The kernels differ only in where their tiles come from and go to: each
 // loads its registers and stages its closed diagonal, calls one of these
 // bodies, and stores the result.
 //
-// Register-block chains (the fused round's diag and bands, the sweep's diag
-// and panels).  The diag, close_tile_blocks: DiagShape<S>::T x T threads,
-// thread (ty, tx) holding an M x M block (M = 4H) in 4-wide groups interleaved across the threads
+// Register-block chains (the fused round's diag and bands, the 4-dispatch
+// closure and bands, the sweep's diag and panels).  The diag,
+// close_tile_blocks: DiagShape<S>::T x T threads, thread (ty, tx) holding
+// an M x M block (M = 4H) in 4-wide groups interleaved across the threads
 // (rows 4ty + 4T·h + e, columns 4tx + 4T·h + e, h < H, e < 4), so that a
 // warp's 16-byte shared loads of one vector fall on distinct banks.  Step
 // k's row and column (as they stood at the start of step k) are written by
@@ -33,24 +34,22 @@
 // takes int16's sentinel tests and the 16-bit min-plus / max-plus round
 // out of the relaxation.
 //
-// Closure chains of one thread a column (the successor round and sweep,
-// fw_phase.cuh) run on 8·S threads; thread
-// (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column c in t[].  The
-// tile updates in place, so step k's operands (row k and column k as they
-// stood at the start of step k) are published by their owners into a
-// double-buffered shared vector before a barrier and read after it: one
-// __syncthreads per step, k ascending.  The closed diagonal d is S x DS in
-// shared memory (DS = S + 1, a padded row stride).  A caller syncs after
-// staging d and before the chain.
+// The _succ chains (the successor round and sweep) carry an int32 next hop
+// beside each distance and take a candidate only where it is strictly
+// smaller (relax_succ, min-plus).  They run one thread a column on 8·S
+// threads; thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column
+// c in t[].  The tile updates in place, so step k's
+// operands (row k and column k as they stood at the start of step k) are
+// published by their owners into a double-buffered shared vector before a
+// barrier and read after it: one __syncthreads per step, k ascending.  The
+// closed diagonal d is S x DS in shared memory (DS = S + 1, a padded row
+// stride).  A caller syncs after staging d and before the chain.
 //
 // relax_chunk is the sweep's strip relax inner loop (fw_repair_del.cuh;
 // the fused round's relax runs on the matmul's mainloop instead): thread
 // (ty, tx) owns rows ty + TY·m and columns tx + 16q, and relaxes them over
 // one bk-deep chunk staged in shared memory, k ascending.  As is rows x bk
 // with row stride bk + 1, Bs is bk x S.
-//
-// The _succ forms carry an int32 next hop beside each distance and take a
-// candidate only where it is strictly smaller (relax_succ, min-plus).
 //
 // Every chain is generic over the register type V (float or int) and the
 // storage type T of its shared-memory operands (float, __nv_bfloat16,
@@ -176,7 +175,7 @@ __device__ __forceinline__ void close_band_lanes(V (&x)[S / 8][4], const V* dS, 
 }
 
 // CTAs a band tile of close_band_lanes is cut into (the fused round's
-// bands, the sweep's panels): the most of 1, 2 or 4 (at most its S/16
+// bands, the 4-dispatch bands, the sweep's panels): the most of 1, 2 or 4 (at most its S/16
 // warps) that keeps the launch within one CTA an SM, so that a launch of
 // few tiles (n = 4096, a rank's bordered block, the sweep's T - 1 band
 // tiles at n = 8192) spreads over the card.
@@ -189,66 +188,6 @@ cudaError_t band_split(int tiles, int B, int* split) {
   while (2 * *split <= (S / 16 < 4 ? S / 16 : 4) && (long long)tiles * B * 2 * *split <= sms)
     *split *= 2;
   return err;
-}
-
-// ------------------------------------------------ one thread a column
-
-// _close_diag: t[r][c] ⊕= t[r][k] ⊗ t[k][c].
-template <int S, class Op, class V, class T>
-__device__ __forceinline__ void close_tile_chain(V (&t)[S / 8], T (*rowbuf)[S],
-                                                 T (*colbuf)[S], int rg, int c) {
-  constexpr int R = S / 8;
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) put(rowbuf[p][c], t[kb]);
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) put(colbuf[p][rg + 8 * m], t[m]);
-      }
-      __syncthreads();
-      const V bj = widen(rowbuf[p][c]);
-#pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], widen(colbuf[p][rg + 8 * m]), bj);
-    }
-  }
-}
-
-// _close_row_panel: p[r][c] ⊕= d[r][k] ⊗ p[k][c].
-template <int S, class Op, class V, class T>
-__device__ __forceinline__ void close_row_chain(V (&t)[S / 8], const T* d,
-                                                T (*buf)[S], int rg, int c) {
-  constexpr int R = S / 8, DS = S + 1;
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) put(buf[p][c], t[kb]);
-      __syncthreads();
-      const V bj = widen(buf[p][c]);
-#pragma unroll
-      for (int m = 0; m < R; ++m) t[m] = Op::relax(t[m], widen(d[(rg + 8 * m) * DS + k]), bj);
-    }
-  }
-}
-
-// _close_col_panel on 8·RA rows: p[r][c] ⊕= p[r][k] ⊗ d[k][c].
-template <int S, int RA, class Op, class V, class T>
-__device__ __forceinline__ void close_col_chain(V (&t)[RA], const T* d,
-                                                T (*buf)[S], int rg, int c) {
-  constexpr int DS = S + 1;
-  for (int k = 0; k < S; ++k) {
-    const int p = k & 1;
-    if (c == k) {
-#pragma unroll
-      for (int m = 0; m < RA; ++m) put(buf[p][rg + 8 * m], t[m]);
-    }
-    __syncthreads();
-    const V bj = widen(d[k * DS + c]);
-#pragma unroll
-    for (int m = 0; m < RA; ++m) t[m] = Op::relax(t[m], widen(buf[p][rg + 8 * m]), bj);
-  }
 }
 
 // _relax_tile over one staged chunk.

@@ -1,7 +1,7 @@
 """Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
-        [--label L] [--build-only] [--sweep]
+        [--label L] [--build-only] [--sweep | --phases]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -33,12 +33,21 @@ the call returns, its launches queued; ``*_dev_ms``: device time) and
 at n (the deletions ``chip_smoke.py`` takes), each first checked by bits
 against a re-solve of the updated graph, and that re-solve.
 
+``--phases`` times the 4-dispatch round's phase kernels instead: the
+closure (``fw_phase1``), row band and col band launches at (n, n), pivot
+round n/s/2, in f32, int16, bf16 and f16 min-plus and packed or_and words,
+each first held by bits against its plain phase (``phases_*_ok``), then
+timed between CUDA events and as device time (``*_dev_ms``); then, by host
+clock (median of 3 after a warm-up), ``fw_staged(fused=False)`` and the
+fused ``fw_staged`` at n in each of those storages.
+
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
-successor relax, diag, bands (with ``--sweep``: panels) and vector f32
-``matmul_kernel`` instantiation (``_build.kernel_infos``) and, in each f32
-relax, diag and bands (panels) kernel's SASS (``cuobjdump -sass`` of the
-f32 round (sweep) library), the count of the opcodes a relaxation is made
+successor relax, diag, bands (with ``--sweep``: panels; with ``--phases``:
+closure and band) and vector f32 ``matmul_kernel`` instantiation
+(``_build.kernel_infos``) and, in each f32 relax, diag and bands (panels;
+closure and band) kernel's SASS (``cuobjdump -sass`` of the f32 round
+(sweep, phase) library), the count of the opcodes a relaxation is made
 of, of the shared-memory, shuffle and barrier instructions and of the
 spill instructions, then exits: run it for every tree at once, then the
 timings in turns.
@@ -48,7 +57,8 @@ call (parent, change, change, parent), to compare them on one card.  Only
 the API both trees share is used (``fw_round_phase``,
 ``fw_round_with_successors_phase``, ``fw_round_bordered_phase``, the band
 buffers, ``semiring_matmul``, ``solve``, ``fw_staged``; ``sweep_buffers``,
-``sweep_phase``, ``ApspEngine.repair_del``).
+``sweep_phase``, ``ApspEngine.repair_del``; ``fw_phase1``,
+``fw_phase2_row`` / ``fw_phase2_col`` with ``out``).
 """
 from __future__ import annotations
 
@@ -129,7 +139,8 @@ def queue_ms(fn) -> float:
 
 SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STS",
             "SHFL", "BAR", "STL", "LDL")
-KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel", "panels_kernel")
+KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel", "panels_kernel", "closure_kernel",
+           "band_kernel")
 
 
 def sass_counts(lib_path) -> dict:
@@ -160,14 +171,18 @@ def _nvcc_dir() -> str:
     return str(Path(_build._nvcc()).parent)
 
 
-def build_report(label: str, sweep: bool = False) -> int:
+def build_report(label: str, mode: str = "") -> int:
     import repro_torch
     from repro_torch.kernels import _build
 
     out = dict(label=label, package=repro_torch.__file__, seconds={}, kernels=[])
-    names = (("fw_repair_del", "fw_repair_del_lowered") if sweep
-             else ("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"))
-    extra = ("fw_round",) if sweep else ()  # the engine's solve: built, not reported
+    # The libraries reported, and those the timings also load (built here,
+    # not reported): the engine's solve, the 4-dispatch matmul and fused round.
+    names, extra = {
+        "sweep": (("fw_repair_del", "fw_repair_del_lowered"), ("fw_round",)),
+        "phases": (("fw_phase", "fw_phase_lowered"),
+                   ("minplus_matmul", "minplus_matmul_lowered", "fw_round", "fw_round_lowered")),
+    }.get(mode, (("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"), ()))
     for built in _build.build_all(names + extra):
         if built.name not in names:
             continue
@@ -241,6 +256,48 @@ def chain_cases(w, n: int, s: int) -> dict:
                 out[f"{phase}_{key}_{gname}_ms"] = event_ms(lambda: launch(phase))
                 out[f"{phase}_{key}_{gname}_dev_ms"] = device_ms(lambda: launch(phase))
             del bands, row, col, diag, x
+    return out
+
+
+def phase_cases(w, n: int, s: int) -> dict:
+    """The 4-dispatch closure, row band and col band launches in every
+    storage at (n, n), pivot round n/s/2: each held by bits against its
+    plain phase, then timed; then ``fw_staged(fused=False)`` and the fused
+    ``fw_staged`` at n in that storage, by host clock."""
+    import torch
+
+    from repro_torch.core.staged import fw_staged
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    o = slice(n // s // 2 * s, (n // s // 2 + 1) * s)
+    for key, make in storages(w).items():
+        x, sr = make(w)
+        tile, row, col = x[o, o], x[o, :], x[:, o]
+        diag, rb, cb = (x.new_empty(shape) for shape in ((s, s), (s, n), (n, s)))
+        launches = {
+            "closure": lambda: fph.fw_phase1(tile, semiring=sr, out=diag),
+            "row": lambda: fw_phase2.fw_phase2_row(diag, row, semiring=sr, out=rb),
+            "col": lambda: fw_phase2.fw_phase2_col(diag, col, semiring=sr, out=cb),
+        }
+        for launch in launches.values():
+            launch()
+        torch.cuda.synchronize()
+        out[f"phases_{key}_ok"] = (
+            bits_equal(diag, ref.fw_phase1_ref(tile, semiring=sr))
+            and bits_equal(rb, ref.fw_phase2_row_ref(diag, row, semiring=sr))
+            and bits_equal(cb, ref.fw_phase2_col_ref(diag, col, semiring=sr)))
+        for phase, launch in launches.items():
+            out[f"{phase}_{key}_ms"] = event_ms(launch)
+            out[f"{phase}_{key}_dev_ms"] = device_ms(launch)
+        del diag, rb, cb
+        out[f"four_dispatch_{key}_ms"] = host_ms(
+            lambda: fw_staged(x, block_size=s, semiring=sr, fused=False))
+        out[f"fused_{key}_ms"] = host_ms(lambda: fw_staged(x, block_size=s, semiring=sr))
+        del x
     return out
 
 
@@ -368,13 +425,17 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=8192)
     ap.add_argument("--label", default="")
     ap.add_argument("--build-only", action="store_true")
-    ap.add_argument("--sweep", action="store_true",
-                    help="time the restricted sweep and repair_del instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--sweep", action="store_true",
+                      help="time the restricted sweep and repair_del instead")
+    mode.add_argument("--phases", action="store_true",
+                      help="time the 4-dispatch round's phase kernels and loop instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
-        return build_report(args.label, args.sweep)
+        return build_report(args.label, "sweep" if args.sweep else
+                            "phases" if args.phases else "")
 
     import repro_torch
     from repro_torch.apsp import api, solve
@@ -397,10 +458,11 @@ def main(argv=None) -> int:
     n, s = args.n, 128
     b = n // s // 2
     w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
-    if args.sweep:
-        out.update(sweep_cases(w, n, s))
+    if args.sweep or args.phases:
+        out.update(sweep_cases(w, n, s) if args.sweep else phase_cases(w, n, s))
         del w
-        out.update(repair_del_cases(n))
+        if args.sweep:
+            out.update(repair_del_cases(n))
         print(json.dumps(out))
         return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
 

@@ -1401,6 +1401,65 @@ def test_sweep_chain_kernels_match_plain_phases(cuda_device, tag, name, salt, s)
     assert all(fd.LAUNCHES[k] == before[p] + launches for p, k in kinds.items())
 
 
+# ------------------- the 4-dispatch round's chains: closure and bands at every s
+def _odd_strided(x):
+    """x's values as a view at an odd row stride, 3 rows and 5 elements
+    into its storage: no operand of it meets the 4-wide moves."""
+    B, r, c = x.shape
+    v = torch.zeros((B, r + 3, c + 5 + c % 2), dtype=x.dtype, device=x.device)[:, 3:, 5:5 + c]
+    v.copy_(x)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name,salt", RELAX_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("s", [16, 32, 64, 128])
+def test_phase_chain_kernels_match_plain_phases(cuda_device, tag, name, salt, s):
+    """``fw_phase1`` and both bands (fw_phase.cuh: closure_kernel,
+    band_kernel) by bits against their plain phases: a batch of 3, band
+    lengths 1, s - 3 and 1000 (ragged: the last tile's chains masked, a
+    band of one tile cut into CTAs that mostly leave), the pivot's own tile
+    inside the band where it fits; operands as aligned slices of one matrix
+    (4-wide moves), as slices at an odd row stride and an unaligned base
+    (one element at a time), and aligned with outputs into such slices; f32
+    and bf16 / f16 salted with ±0 or, apart, NaN off the diagonal tiles (in
+    the bands, not in the pivot tile), every other storage; under min_plus
+    / max_plus also planted non-identity diagonals."""
+    kinds = [k + (f"[{tag}]" if tag else "") for k in ("fw_phase1", "fw_phase2_row",
+                                                        "fw_phase2_col")]
+    before = {k: fph.LAUNCHES[k] for k in kinds}
+    launches = 0
+    plants = (False, True) if name in ("min_plus", "max_plus") and tag != "packed" else (False,)
+    for n in (1, s - 3, 1000):
+        m = max(n, 2 * s)
+        o = slice(s, 2 * s) if n >= 2 * s else slice(0, s)
+        x, sr = _relax_input(tag, name, (3, m, m), s + n, s, salt)
+        for planted in plants:
+            if planted:  # every third diagonal element off the ⊗-identity
+                x = x.clone()
+                idx = torch.arange(0, m, 3)
+                x[..., idx, idx] = torch.tensor(-3.0 if name == "min_plus" else 3.0).to(x.dtype)
+            for layout in ("aligned", "strided", "out"):
+                xs = _odd_strided(x.to(cuda_device)) if layout == "strided" else x.to(cuda_device)
+                outs = {} if layout != "out" else {
+                    k: _odd_strided(torch.empty(shape, dtype=x.dtype, device=cuda_device))
+                    for k, shape in (("d", (3, s, s)), ("r", (3, s, n)), ("c", (3, n, s)))}
+                tile, row, col = xs[:, o, o], xs[:, o, :n], xs[:, :n, o]
+                got_d = fph.fw_phase1(tile, semiring=sr, out=outs.get("d"))
+                diag = ref.fw_phase1_ref(tile, semiring=sr)
+                diag = _odd_strided(diag) if layout == "strided" else diag
+                got_r = fw_phase2.fw_phase2_row(diag, row, semiring=sr, out=outs.get("r"))
+                got_c = fw_phase2.fw_phase2_col(diag, col, semiring=sr, out=outs.get("c"))
+                want_r = ref.fw_phase2_row_ref(diag, row, semiring=sr)
+                want_c = ref.fw_phase2_col_ref(diag, col, semiring=sr)
+                torch.cuda.synchronize()
+                what = (n, planted, layout)
+                assert got_d.dtype == tile.dtype and bits_equal(got_d, diag), what
+                assert bits_equal(got_r, want_r) and bits_equal(got_c, want_c), what
+                launches += 1
+    assert all(fph.LAUNCHES[k] == before[k] + launches for k in kinds)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tag,name", [(None, "min_plus"), (None, "plus_mul"),
                                       ("bf16", "plus_mul"), ("f16", "plus_mul"),
