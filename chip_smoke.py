@@ -10,9 +10,10 @@ Phases, each of which raises (exit code 1) on any failure:
      ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
      each library's build seconds, registers and spills (each instantiation
      of the redesigned kernels: matmul, relax, successor relax, decode,
-     the round's diag and bands, the sweep's diag and panels, the
-     4-dispatch closure and bands; a diag, bands, panels, closure or band
-     instantiation that spills fails).
+     the round's diag and bands and its successor diag and bands, the
+     sweep's diag and panels, the 4-dispatch closure and bands; a diag,
+     bands, panels, closure or band instantiation that spills fails, the
+     round's successor ones included).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -61,7 +62,11 @@ Phases, each of which raises (exit code 1) on any failure:
      the three echo forms.  The chains (``phase_check_chains``): every
      diag and bands instantiation alone against its plain phase, f32 and
      every storage, s = 16 .. 128, square (the band tiles cut into CTAs or
-     whole), batched and bordered with the owner echo; every diag and
+     whole), batched and bordered with the owner echo; every successor
+     diag and bands instantiation alone against its plain phases, next
+     hops included (``phase_check_succ_chains``), f32, bf16 and f16, ±0 /
+     NaN salted and tie-heavy with planted diagonals, s = 16 .. 128,
+     square and batched; every diag and
      panels instantiation of the restricted sweep alone against its plain
      phase (``phase_check_sweep_chains``), f32 and every sweep storage,
      s = 16 .. 128, n = 2s and 5s, strips of 8, 16 and 64 rows, ±0 / NaN
@@ -427,8 +432,9 @@ def phase_device():
                  "fw_repair_del_lowered": 88, "fw_phase": 48,
                  "fw_phase_lowered": 168}.get(built.name)
         if least and built.seconds:
-            chains = [k for k in infos
-                      if re.match(r"(void )?(diag|bands|panels|closure|band)_kernel<", k.name)]
+            succ = "(succ_)?" if built.name.startswith("fw_round") else ""
+            chains = [k for k in infos if re.match(
+                rf"(void )?{succ}(diag|bands|panels|closure|band)_kernel<", k.name)]
             require(len(chains) >= least, f"{built.name}: {len(chains)} chain kernels")
             spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
             require(not spilled, f"the chain kernels spill: {spilled}")
@@ -3365,6 +3371,74 @@ def phase_check_chains():
           f"{len(STORAGE_CASES)} storages, s = 16 .. 128, square, batched, bordered)")
 
 
+def phase_check_succ_chains():
+    """Every instantiation of the successor round's diag and bands kernels
+    (csrc/fw_round.cuh ``succ_diag_kernel`` / ``succ_bands_kernel``) alone,
+    distances and next hops bitwise against their plain phases
+    (``close_diag_succ``, ``close_bands_succ``): f32, bf16 and f16, each
+    salted with ±0 (``signed_zero_graph``) and, apart, with off-diagonal
+    NaN, and on tie-heavy integer weights (only the strict compare decides
+    a hop) with a negative cycle planted on the pivot block's diagonal;
+    s = 16, 32, 64 and 128; square n = 5s (each band tile cut into 2 or 4
+    CTAs) and at s = 128 n = 5120 (kept whole), and a batch of 3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+
+    def ties(shape, s, b, seed):
+        rng = np.random.default_rng(seed)
+        w = rng.integers(1, 5, size=shape).astype(np.float32)
+        w[rng.uniform(size=shape) < 0.3] = np.inf
+        idx = np.arange(shape[-1])
+        w[..., idx, idx] = 0.0
+        idx = np.arange(b * s, (b + 1) * s, 3)
+        w[..., idx, idx] = -3.0
+        return w
+
+    def case(dtype, salt, shape, s, b, seed):
+        if salt == "ties":
+            w = ties(shape, s, b, seed)
+        elif salt == "zero":
+            w = signed_zero_graph("min_plus", shape, seed)
+        else:
+            w = nan_salted(domain_graph("min_plus", shape, seed), seed, 2,
+                           [(t * s, t * s + s) for t in range(shape[-1] // s)])
+        return torch.from_numpy(w).cuda().to(dtype)
+
+    checked = 0
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "[bf16]"),
+                       (torch.float16, "[f16]")):
+        for salt in ("zero", "nan", "ties"):
+            for s in (16, 32, 64, 128):
+                geoms = [((5 * s, 5 * s), 2), ((3, 5 * s, 5 * s), 4)]
+                if s == 128:
+                    geoms.append(((40 * s, 40 * s), 21))
+                for shape, b in geoms:
+                    w = case(dtype, salt, shape, s, b, s + b)
+                    succ = _init_successors(w).contiguous()
+                    bands = fr.succ_round_buffers(w, s)
+                    for phase in ("diag", "bands"):
+                        fr.fw_round_with_successors_phase(phase, w, succ, b, bands,
+                                                          block_size=s)
+                    o = slice(b * s, (b + 1) * s)
+                    diag, dsucc = ref.close_diag_succ(w[..., o, o], succ[..., o, o])
+                    want = ref.close_bands_succ(w, succ, diag, dsucc, b)
+                    rw, cw, rs, cs = (t if w.ndim == 3 else t[0] for t in bands)
+                    sync()
+                    what = f"{tag} {salt} s={s} {shape}"
+                    require(same(rw[..., :, o], diag) and same(rs[..., :, o], dsucc),
+                            f"succ diag{what} != plain close_diag_succ")
+                    require(all(same(g, x) for g, x in zip((rw, rs, cw, cs), want)),
+                            f"succ bands{what} != plain close_bands_succ")
+                    checked += 1
+    print(f"check: {checked} successor diag / bands kernel-vs-plain cases bitwise equal, "
+          f"distances and next hops (f32, bf16, f16; ±0 / NaN salted, tie-heavy with planted "
+          f"diagonals; s = 16 .. 128, square, batched)")
+
+
 def sweep_chain_rows(n: int, s: int, a_pad: int, b: int, seed: int):
     """a_pad strip rows: min(a_pad - 1, n / 2) distinct real rows, sorted,
     two of them inside pivot block b; padding rows (index n) after them."""
@@ -3836,6 +3910,7 @@ def main(argv=None) -> int:
     phase_check_lowered_four()
     phase_check_lowered_bordered()
     phase_check_chains()
+    phase_check_succ_chains()
     phase_check_sweep_chains()
     phase_check_phase_chains()
     phase_check_f16_plus_mul()

@@ -34,16 +34,21 @@
 // takes int16's sentinel tests and the 16-bit min-plus / max-plus round
 // out of the relaxation.
 //
-// The _succ chains (the successor round and sweep) carry an int32 next hop
-// beside each distance and take a candidate only where it is strictly
-// smaller (relax_succ, min-plus).  They run one thread a column on 8·S
-// threads; thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of column
-// c in t[].  The tile updates in place, so step k's
-// operands (row k and column k as they stood at the start of step k) are
-// published by their owners into a double-buffered shared vector before a
-// barrier and read after it: one __syncthreads per step, k ascending.  The
-// closed diagonal d is S x DS in shared memory (DS = S + 1, a padded row
-// stride).  A caller syncs after staging d and before the chain.
+// The successor chains carry an int32 next hop beside each distance and
+// take a candidate only where it is strictly smaller (relax_succ,
+// min-plus), its sum rounded to the storage first, nothing lifted.  The
+// successor round's (close_tile_blocks_succ, close_band_lanes_succ) run on
+// the layouts above: the diag's owners publish column k's hops beside its
+// distances, the col lanes shuffle each hop with its value, and the row
+// lanes keep the k of each element's last improvement in place of a hop.
+// The successor sweep's (the _chain_succ bodies) run one thread a column
+// on 8·S threads; thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of
+// column c in t[].  The tile updates in place, so step k's operands (row k
+// and column k as they stood at the start of step k) are published by
+// their owners into a double-buffered shared vector before a barrier and
+// read after it: one __syncthreads per step, k ascending.  The closed
+// diagonal d is S x DS in shared memory (DS = S + 1, a padded row stride).
+// A caller syncs after staging d and before the chain.
 //
 // relax_chunk is the sweep's strip relax inner loop (fw_repair_del.cuh;
 // the fused round's relax runs on the matmul's mainloop instead): thread
@@ -209,9 +214,139 @@ __device__ __forceinline__ void relax_chunk(V (&acc)[RM][S / 16], const T* As,
 }
 
 // ------------------------------------------------------------- successors
-// The a-side next hop: diag the tile's own column k, row panel the closed
-// diagonal's successor tile ds, col panel the tile's own column k, the
-// sweep's relax the staged successor slice ASs.  Op is the distance step of relax_succ
+// The successor round's chains on the same register blocks and band lanes.
+// Each distance carries an int32 next hop, and every relaxation is
+// relax_succ<Op>: cand = Op::mul(a, b), rounded to the storage before the
+// compare, taken only where cand < t (NaN never is).  Nothing is lifted:
+// the strict compare of an unrounded sum can take a candidate that rounds
+// to the current distance, which the reference keeps.  Op is StrictMinPlus
+// in f32, MinPlusH<R> in bf16 / f16.
+
+// _close_diag with next hops, on DiagShape<S>'s blocks: ts[i][j] is the hop
+// of t[i][j].  The a-side hop is the tile's own column k as it stood at the
+// start of step k, so its owners publish it beside the column's distances.
+template <int S, class Op>
+__device__ __forceinline__ void close_tile_blocks_succ(
+    float (&t)[DiagShape<S>::M][DiagShape<S>::M], int (&ts)[DiagShape<S>::M][DiagShape<S>::M],
+    float (*rowbuf)[S], float (*colbuf)[S], int (*colsbuf)[S], int ty, int tx) {
+  constexpr int H = DiagShape<S>::H, T = DiagShape<S>::T, M = DiagShape<S>::M;
+  constexpr int kThreads = DiagShape<S>::kThreads;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+#pragma unroll 1
+    for (int tk = 0; tk < T; ++tk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 4 * h + e, p = e & 1;  // k = 4T·h + 4·tk + e
+        if (ty == tk) {
+#pragma unroll
+          for (int q = 0; q < H; ++q) sts4(&rowbuf[p][4 * tx + 4 * T * q], &t[m][4 * q]);
+        }
+        if (tx == tk) {
+          float col[M];
+          int cols[M];
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            col[i] = t[i][m];
+            cols[i] = ts[i][m];
+          }
+#pragma unroll
+          for (int q = 0; q < H; ++q) {
+            sts4(&colbuf[p][4 * ty + 4 * T * q], &col[4 * q]);
+            sts4(&colsbuf[p][4 * ty + 4 * T * q], &cols[4 * q]);
+          }
+        }
+        if constexpr (kThreads <= 32) {
+          __syncwarp(kThreads == 32 ? 0xffffffffu : (1u << kThreads) - 1);
+        } else {
+          __syncthreads();
+        }
+        float rv[M], cv[M];
+        int cs[M];
+#pragma unroll
+        for (int q = 0; q < H; ++q) {
+          lds_n<4>(&rowbuf[p][4 * tx + 4 * T * q], &rv[4 * q]);
+          lds_n<4>(&colbuf[p][4 * ty + 4 * T * q], &cv[4 * q]);
+          lds_n<4>(&colsbuf[p][4 * ty + 4 * T * q], &cs[4 * q]);
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+#pragma unroll
+          for (int j = 0; j < M; ++j) relax_succ<Op>(t[i][j], ts[i][j], cv[i], cs[i], rv[j]);
+      }
+    }
+  }
+}
+
+// The k of no strict improvement (the successor row lanes, the successor
+// relax).
+constexpr int kKept = -1;
+
+// close_band_lanes with next hops; dS the staged closed diagonal's
+// distances.  Col panel (Col true, on x = q^T, xs = qs^T): the a-side is
+// the band's own evolving column k, so each step shuffles both q[r][k] and
+// its hop from the owner lane before any lane updates them.  Row panel: the
+// a-side hop is the closed diagonal's ds[r][k], which the panel does not
+// change, so an element's hop is ds[r][k] of the last k that improved it,
+// or its start's: xs keeps that k (kKept at the start: the caller's) and
+// the kernel gathers ds[r][k] once after the chain.  That stages no hop
+// tile (the diagonal's distances alone: S·(S+4)·4 B) and reads none a step.
+// A loop body is KU = min(S/8, 4) steps, not S/8.  On the H100, a body of
+// 16 steps of 64 successor relaxations a lane (S = 128: ~100 KB of SASS in
+// bf16 / f16, 64 KB in f32) ran at either of two speeds, 1.8× apart, by
+// where the launch's buffers lay; 8 steps a body ran at the faster one, and
+// 4 faster still where a tile is cut in two (one warp a scheduler), for
+// the S/8/KU - 1 selects a value that pick the owner's register.
+template <int S, bool Col, class Op>
+__device__ __forceinline__ void close_band_lanes_succ(float (&x)[S / 8][4], int (&xs)[S / 8][4],
+                                                      const float* dS, int rg, int cg) {
+  constexpr int RL = S / 8, DSt = S + 4;
+  constexpr int KU = RL > 4 ? 4 : RL;  // steps a loop body
+#pragma unroll 1
+  for (int kb = 0; kb < S / KU; ++kb) {  // k = KU·kb + kk
+    const int src = 4 * (kb * KU / RL) + cg;
+    // the owner's register is x[kk + KU·q], q = kb % (RL / KU), hidden from
+    // the compiler so that it keeps one body for every q
+    int q = kb % (RL / KU);
+    asm volatile("" : "+r"(q));
+    const float* drow = dS + kb * KU * DSt + rg * RL;
+#pragma unroll
+    for (int kk = 0; kk < KU; ++kk) {
+      float sh[4], dv[RL];
+      int shs[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = x[kk][j];
+        int h = xs[kk][j];
+#pragma unroll
+        for (int u = 1; u < RL / KU; ++u) {
+          v = q == u ? x[kk + u * KU][j] : v;
+          h = q == u ? xs[kk + u * KU][j] : h;
+        }
+        sh[j] = __shfl_sync(0xffffffffu, v, src);
+        if constexpr (Col) shs[j] = __shfl_sync(0xffffffffu, h, src);
+      }
+      lds_n<RL>(drow + kk * DSt, dv);
+      const int k = kb * KU + kk;
+#pragma unroll
+      for (int i = 0; i < RL; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (Col) {
+            relax_succ<Op>(x[i][j], xs[i][j], sh[j], shs[j], dv[i]);
+          } else {
+            relax_succ<Op>(x[i][j], xs[i][j], dv[i], k, sh[j]);
+          }
+        }
+    }
+  }
+}
+
+// The one-thread-a-column chains of the successor sweep (fw_repair_del.cuh;
+// the successor round runs the bodies above).  The a-side next hop: diag
+// the tile's own column k, row panel the closed diagonal's successor tile
+// ds, col panel the tile's own column k, the sweep's relax the staged
+// successor slice ASs.  Op is the distance step of relax_succ
 // (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
 template <int S, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void close_tile_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],

@@ -75,7 +75,16 @@
 // launch of fewer tiles than SMs cuts each tile into 2 or 4 CTAs.  Both
 // keep their values lifted (semiring.cuh:Lifted): an int16 min-plus or
 // max-plus relaxation is then three instructions and a bf16 / f16 one
-// two, as f32's, in place of the step's sentinel tests or round.  Tensor
+// two, as f32's, in place of the step's sentinel tests or round.  The
+// successor round's diag and bands run the same layouts with an int32 next
+// hop beside each distance (fw_phases.cuh:close_tile_blocks_succ,
+// close_band_lanes_succ): a step is add, compare and two selects (bf16 /
+// f16: two more to round the candidate, which the strict compare needs
+// rounded, so nothing is lifted), one SM's floor 33.1 µs at s = 128 (49.6
+// in bf16 / f16).  The diag publishes column k's hops beside its
+// distances; the col lanes shuffle 4 hops beside 4 values a step; the row
+// lanes, whose a-side hop (the closed diagonal's) does not change, keep
+// the k of the last improvement and gather the hop once at the end.  Tensor
 // cores (wgmma) do not apply to a tropical ⊕.  A bordered round does
 // rows*cols*s relaxations on its (rows, cols) block and is bound the same
 // way.

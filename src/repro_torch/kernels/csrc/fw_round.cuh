@@ -221,92 +221,160 @@ relax_kernel(T* w, const T* __restrict__ rowband, const T* __restrict__ colband,
 
 // ------------------------------------------------------- successor round
 // Same three launches carrying an int32 next-hop tile beside each distance
-// tile (min-plus only), through the _succ chains of fw_phases.cuh; Op is
-// the distance step (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
+// tile (min-plus only); Op is the distance step (StrictMinPlus in f32,
+// MinPlusH<R> in bf16 / f16).  The diag and bands run the fused round's
+// layouts through the successor bodies of fw_phases.cuh
+// (close_tile_blocks_succ, close_band_lanes_succ), which round every
+// candidate to the storage before its strict compare and lift nothing.
+//
+// diag: one CTA a graph on DiagShape<S>'s register blocks, thread (ty, tx)
+// holding an M x M block of distances and one of next hops; the closed
+// tile and its hops go to block b of the four band buffers.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(DiagShape<S>::kThreads)
 succ_diag_kernel(const T* __restrict__ w, const int* __restrict__ succ,
                  T* __restrict__ rw, T* __restrict__ cw,
                  int* __restrict__ rs, int* __restrict__ cs, int n, int b) {
-  constexpr int R = S / 8;
-  __shared__ T rowbuf[2][S];
-  __shared__ T colbuf[2][S];
-  __shared__ int colsbuf[2][S];
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  constexpr int H = DiagShape<S>::H, TT = DiagShape<S>::T, M = DiagShape<S>::M;
+  __shared__ __align__(16) float rowbuf[2][S];
+  __shared__ __align__(16) float colbuf[2][S];
+  __shared__ __align__(16) int colsbuf[2][S];
+  const int ty = threadIdx.x / TT, tx = threadIdx.x % TT;
   const size_t g = blockIdx.z;
   const size_t o = (size_t)b * S;
   const T* wg = w + g * n * n;
   const int* sg = succ + g * n * n;
-  float t[R];
-  int ts[R];
+  float t[M][M];
+  int ts[M][M];
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    t[m] = widen(wg[(o + rg + 8 * m) * n + o + c]);
-    ts[m] = sg[(o + rg + 8 * m) * n + o + c];
+  for (int i = 0; i < M; ++i) {
+    const size_t at = (o + 4 * ty + 4 * TT * (i / 4) + i % 4) * n + o + 4 * tx;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      load4(wg + at + 4 * TT * q, &t[i][4 * q]);
+      load4(sg + at + 4 * TT * q, &ts[i][4 * q]);
+    }
   }
-  close_tile_chain_succ<S, Op>(t, ts, rowbuf, colbuf, colsbuf, rg, c);
+  close_tile_blocks_succ<S, Op>(t, ts, rowbuf, colbuf, colsbuf, ty, tx);
+  T* rwg = rw + g * S * n;
+  int* rsg = rs + g * S * n;
+  T* cwg = cw + g * n * S;
+  int* csg = cs + g * n * S;
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    const int r = rg + 8 * m;
-    put(rw[g * S * n + (size_t)r * n + o + c], t[m]);
-    rs[g * S * n + (size_t)r * n + o + c] = ts[m];
-    put(cw[g * n * S + (o + r) * S + c], t[m]);
-    cs[g * n * S + (o + r) * S + c] = ts[m];
+  for (int i = 0; i < M; ++i) {
+    const size_t r = 4 * ty + 4 * TT * (i / 4) + i % 4;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      const int c = 4 * tx + 4 * TT * q;
+      store4(rwg + r * n + o + c, &t[i][4 * q]);
+      store4(rsg + r * n + o + c, &ts[i][4 * q]);
+      store4(cwg + (o + r) * S + c, &t[i][4 * q]);
+      store4(csg + (o + r) * S + c, &ts[i][4 * q]);
+    }
   }
 }
 
+// bands: tile u = blockIdx.x / split < T-1 is row tile (b, x), else col
+// tile (x, b), x skipping b, as bands_kernel: warp v of the tile owns 16 of
+// its chains, lane (rg, cg) rows r0 = rg·S/8 .. by columns c0 = 16v + 4cg ..
+// (the col tile transposed), and each of the split CTAs stages the closed
+// diagonal's distances (rw block b) for itself.  The col lanes carry their
+// hops; the row lanes keep the k of each element's last improvement and
+// gather ds[r][k] (rs block b, written by the diag launch) after the chain,
+// or keep the start's hop.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(2 * S)
 succ_bands_kernel(const T* __restrict__ w, const int* __restrict__ succ,
                   T* __restrict__ rw, T* __restrict__ cw,
-                  int* __restrict__ rs, int* __restrict__ cs, int n, int b) {
-  constexpr int R = S / 8, DS = S + 1;
+                  int* __restrict__ rs, int* __restrict__ cs, int n, int b, int split) {
+  constexpr int RL = S / 8, DSt = S + 4;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  int* ds = reinterpret_cast<int*>(dyn_smem);  // S x DS successors of the closed diag
-  T* d = reinterpret_cast<T*>(ds + S * DS);    // S x DS closed diag
-  __shared__ T buf[2][S];
-  __shared__ int sbuf[2][S];
+  float* dS = reinterpret_cast<float*>(dyn_smem);  // S x DSt
   const int TT = n / S;
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
-  const size_t g = blockIdx.z;
-  const size_t o = (size_t)b * S;
-  const bool is_row = blockIdx.x < TT - 1;
-  int x = is_row ? blockIdx.x : blockIdx.x - (TT - 1);
+  const int u = blockIdx.x / split;
+  const bool is_row = u < TT - 1;
+  int x = is_row ? u : u - (TT - 1);
   x = x < b ? x : x + 1;
+  const size_t g = blockIdx.z;
+  const size_t o = (size_t)b * S, xo = (size_t)x * S;
   const T* wg = w + g * n * n;
   const int* sg = succ + g * n * n;
   T* rwg = rw + g * S * n;
   int* rsg = rs + g * S * n;
+  T* cwg = cw + g * n * S;
+  int* csg = cs + g * n * S;
+  const int lane = threadIdx.x % 32, rg = lane / 4, cg = lane % 4;
+  const int v = (blockIdx.x % split) * (blockDim.x / 32) + threadIdx.x / 32;
+  const int r0 = rg * RL, c0 = 16 * v + 4 * cg;
 
-  for (int idx = threadIdx.x; idx < S * S; idx += 8 * S) {
-    const size_t at = (size_t)(idx / S) * n + o + idx % S;
-    d[(idx / S) * DS + idx % S] = rwg[at];
-    ds[(idx / S) * DS + idx % S] = rsg[at];
-  }
-  float t[R];
-  int ts[R];
-  const size_t r0 = is_row ? o : (size_t)x * S;
-  const size_t c0 = is_row ? (size_t)x * S : o;
+  // xr[i][j]: row panel p[r0 + i][c0 + j] (xs: the k of its last
+  // improvement); col panel q[c0 + j][r0 + i] (xs: its hop).
+  float xr[RL][4];
+  int xs[RL][4];
+  if (is_row) {
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    t[m] = widen(wg[(r0 + rg + 8 * m) * n + c0 + c]);
-    ts[m] = sg[(r0 + rg + 8 * m) * n + c0 + c];
+    for (int i = 0; i < RL; ++i) {
+      load4(wg + (o + r0 + i) * n + xo + c0, xr[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[i][j] = kKept;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float run[RL];
+      int runs[RL];
+      load_n<RL>(wg + (xo + c0 + j) * n + o + r0, run);
+      load_n<RL>(sg + (xo + c0 + j) * n + o + r0, runs);
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {
+        xr[i][j] = run[i];
+        xs[i][j] = runs[i];
+      }
+    }
+  }
+  // The closed diagonal's distances, as bands_kernel stages them
+  // (transposed for the row panel), not lifted.
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < S * S / 4; idx += blockDim.x) {
+    const int r = is_row ? idx % S : idx / (S / 4);
+    const int c = 4 * (is_row ? idx / S : idx % (S / 4));
+    float e4[4];
+    load4(rwg + (size_t)r * n + o + c, e4);
+    if (is_row) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dS[(c + e) * DSt + r] = e4[e];
+    } else {
+      sts4(dS + r * DSt + c, e4);
+    }
   }
   __syncthreads();
 
   if (is_row) {
-    close_row_chain_succ<S, Op>(t, ts, d, ds, buf, rg, c);
+    close_band_lanes_succ<S, false, Op>(xr, xs, dS, rg, cg);
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      put(rwg[(size_t)(rg + 8 * m) * n + c0 + c], t[m]);
-      rsg[(size_t)(rg + 8 * m) * n + c0 + c] = ts[m];
+    for (int i = 0; i < RL; ++i) {
+      const size_t r = r0 + i;
+      int hop[4];
+      load4(sg + (o + r) * n + xo + c0, hop);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (xs[i][j] != kKept) hop[j] = rsg[r * n + o + xs[i][j]];
+      store4(rwg + r * n + xo + c0, xr[i]);
+      store4(rsg + r * n + xo + c0, hop);
     }
   } else {
-    close_col_chain_succ<S, R, Op>(t, ts, d, buf, sbuf, rg, c);
+    close_band_lanes_succ<S, true, Op>(xr, xs, dS, rg, cg);
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      put(cw[g * n * S + (r0 + rg + 8 * m) * S + c], t[m]);
-      cs[g * n * S + (r0 + rg + 8 * m) * S + c] = ts[m];
+    for (int j = 0; j < 4; ++j) {
+      float run[RL];
+      int runs[RL];
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {
+        run[i] = xr[i][j];
+        runs[i] = xs[i][j];
+      }
+      store_n<RL>(cwg + (xo + c0 + j) * S + r0, run);
+      store_n<RL>(csg + (xo + c0 + j) * S + r0, runs);
     }
   }
 }
@@ -323,7 +391,6 @@ succ_bands_kernel(const T* __restrict__ w, const int* __restrict__ succ,
 // insert it.  So the thread tile is 8 x 4 (64 registers of distances and
 // k), on a 128 x 64 output tile, 8-deep slices.
 constexpr int kSuccCols = 64;  // output tile width
-constexpr int kKept = -1;
 
 template <class Op, class T>
 __device__ __forceinline__ void fold_k_succ(float (&acc)[8][4], int (&ks)[8][4], const T* as,
@@ -446,15 +513,19 @@ int dispatch_s(int phase, T* w, T* rb, T* cb, int B, int rows, int cols, int s, 
 template <int S, class Op, class T>
 int launch_succ_chain(int phase, T* w, int* su, T* rw, T* cw, int* rs, int* cs, int B, int n,
                       int b, cudaStream_t st) {
-  const int TT = n / S;
   if (phase == 0) {
-    succ_diag_kernel<S, Op, T><<<dim3(1, 1, B), 8 * S, 0, st>>>(w, su, rw, cw, rs, cs, n, b);
-  } else {
-    const size_t smem = (size_t)S * (S + 1) * (sizeof(int) + sizeof(T));
-    const cudaError_t err = prepare(succ_bands_kernel<S, Op, T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    succ_bands_kernel<S, Op, T><<<dim3(2 * (TT - 1), 1, B), 8 * S, smem, st>>>(
+    succ_diag_kernel<S, Op, T><<<dim3(1, 1, B), DiagShape<S>::kThreads, 0, st>>>(
         w, su, rw, cw, rs, cs, n, b);
+  } else {
+    const int tiles = 2 * (n / S - 1);
+    int split = 1;
+    cudaError_t err = band_split<S>(tiles, B, &split);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)S * (S + 4) * sizeof(float);
+    err = prepare(succ_bands_kernel<S, Op, T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    succ_bands_kernel<S, Op, T><<<dim3(tiles * split, 1, B), 2 * S / split, smem, st>>>(
+        w, su, rw, cw, rs, cs, n, b, split);
   }
   return (int)cudaGetLastError();
 }

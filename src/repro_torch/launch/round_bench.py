@@ -1,7 +1,7 @@
 """Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
-        [--label L] [--build-only] [--sweep | --phases]
+        [--label L] [--build-only] [--sweep | --phases | --succ]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -41,10 +41,18 @@ timed between CUDA events and as device time (``*_dev_ms``); then, by host
 clock (median of 3 after a warm-up), ``fw_staged(fused=False)`` and the
 fused ``fw_staged`` at n in each of those storages.
 
+``--succ`` times the successor round's chains instead: its diag and bands
+launches at (n/2, n/2) and (n, n), pivot round n/s/2, in f32, bf16 and f16
+distances, each first held by bits, distances and next hops, against its
+plain phase (``succ_chains_*_ok``), then timed between CUDA events and as
+device time (``*_dev_ms``); then, by host clock (median of 3 after a
+warm-up), ``solve(successors=True)`` at n/2 in each of those storages.
+
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
 successor relax, diag, bands (with ``--sweep``: panels; with ``--phases``:
-closure and band) and vector f32 ``matmul_kernel`` instantiation
+closure and band; with ``--succ``: the successor diag, bands and relax
+alone) and vector f32 ``matmul_kernel`` instantiation
 (``_build.kernel_infos``) and, in each f32 relax, diag and bands (panels;
 closure and band) kernel's SASS (``cuobjdump -sass`` of the f32 round
 (sweep, phase) library), the count of the opcodes a relaxation is made
@@ -182,7 +190,15 @@ def build_report(label: str, mode: str = "") -> int:
         "sweep": (("fw_repair_del", "fw_repair_del_lowered"), ("fw_round",)),
         "phases": (("fw_phase", "fw_phase_lowered"),
                    ("minplus_matmul", "minplus_matmul_lowered", "fw_round", "fw_round_lowered")),
+        "succ": (("fw_round", "fw_round_lowered"), ()),
     }.get(mode, (("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"), ()))
+
+    def shown(name: str) -> bool:
+        if mode == "succ":
+            return "succ_" in name
+        return (any(x in name for x in KERNELS)
+                or ("matmul_kernel" in name and "float, true" in name))
+
     for built in _build.build_all(names + extra):
         if built.name not in names:
             continue
@@ -190,11 +206,10 @@ def build_report(label: str, mode: str = "") -> int:
         out["kernels"] += [
             dict(name=k.name, registers=k.registers, spill_stores=k.spill_stores,
                  spill_loads=k.spill_loads)
-            for k in _build.kernel_infos(built)
-            if any(x in k.name for x in KERNELS)
-            or ("matmul_kernel" in k.name and "float, true" in k.name)]
+            for k in _build.kernel_infos(built) if shown(k.name)]
         if built.name == names[0] and built.seconds:  # built here: its SASS is fresh
-            out["sass"] = sass_counts(built.path)
+            out["sass"] = {k: v for k, v in sass_counts(built.path).items()
+                           if mode != "succ" or "succ_" in k}
     print(json.dumps(out))
     return 0
 
@@ -298,6 +313,52 @@ def phase_cases(w, n: int, s: int) -> dict:
             lambda: fw_staged(x, block_size=s, semiring=sr, fused=False))
         out[f"fused_{key}_ms"] = host_ms(lambda: fw_staged(x, block_size=s, semiring=sr))
         del x
+    return out
+
+
+def succ_chain_cases(n: int, s: int) -> dict:
+    """The successor diag and bands launches in f32, bf16 and f16 at (n/2,
+    n/2) and (n, n), pivot round n/s/2: each held by bits, distances and next
+    hops, against its plain phase, then timed; then ``solve(successors=True)``
+    at n/2 in each storage, by host clock."""
+    import torch
+
+    from repro_torch.apsp import solve
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    for m in (n // 2, n):
+        w = torch.from_numpy(random_digraph(m, density=0.5, seed=2)).cuda()
+        b = m // s // 2
+        o = slice(b * s, (b + 1) * s)
+        for key, dt in dtypes.items():
+            x = w.to(dt)
+            succ = _init_successors(x).contiguous()
+            bands = fr.succ_round_buffers(x, s)
+            launch = lambda p: fr.fw_round_with_successors_phase(  # noqa: E731
+                p, x, succ, b, bands, block_size=s)
+            launch("diag")
+            launch("bands")
+            diag, dsucc = ref.close_diag_succ(x[o, o], succ[o, o])
+            want = ref.close_bands_succ(x, succ, diag, dsucc, b)
+            rw, cw, rs, cs = (t[0] for t in bands)
+            torch.cuda.synchronize()
+            out[f"succ_chains_{key}_n{m}_ok"] = all(
+                bits_equal(g, v) for g, v in zip((rw, rs, cw, cs), want))
+            for phase in ("diag", "bands"):
+                out[f"succ_{phase}_{key}_n{m}_ms"] = event_ms(lambda: launch(phase))
+                out[f"succ_{phase}_{key}_n{m}_dev_ms"] = device_ms(lambda: launch(phase))
+            del bands, want, diag, dsucc, rw, cw, rs, cs, succ, x
+        if m == n // 2:
+            for key, dt in dtypes.items():
+                x = w.to(dt)
+                out[f"succ_solve_{key}_ms"] = host_ms(lambda: solve(x, successors=True))
+        del w
     return out
 
 
@@ -430,12 +491,14 @@ def main(argv=None) -> int:
                       help="time the restricted sweep and repair_del instead")
     mode.add_argument("--phases", action="store_true",
                       help="time the 4-dispatch round's phase kernels and loop instead")
+    mode.add_argument("--succ", action="store_true",
+                      help="time the successor round's chains and solve instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
         return build_report(args.label, "sweep" if args.sweep else
-                            "phases" if args.phases else "")
+                            "phases" if args.phases else "succ" if args.succ else "")
 
     import repro_torch
     from repro_torch.apsp import api, solve
@@ -457,6 +520,10 @@ def main(argv=None) -> int:
     out = dict(label=args.label, package=repro_torch.__file__, nvidia_smi=smi, n=args.n)
     n, s = args.n, 128
     b = n // s // 2
+    if args.succ:
+        out.update(succ_chain_cases(n, s))
+        print(json.dumps(out))
+        return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
     w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()
     if args.sweep or args.phases:
         out.update(sweep_cases(w, n, s) if args.sweep else phase_cases(w, n, s))

@@ -86,9 +86,10 @@ def test_kernel_round_matches_plain(cuda_device, name, shape, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,s", [((256, 256), 16), ((3, 256, 256), 128)])
-def test_kernel_successor_round_matches_plain(cuda_device, shape, s):
-    w = torch.from_numpy(_graph("min_plus", shape, seed=s)).to(cuda_device)
+def test_kernel_successor_round_matches_plain(cuda_device, dtype, shape, s):
+    w = torch.from_numpy(_graph("min_plus", shape, seed=s)).to(dtype).to(cuda_device)
     succ = _init_successors(w).contiguous()
     for b in (0, shape[-1] // s - 1):
         gd, gs = fr.fw_round_with_successors(w.clone(), succ.clone(), b, block_size=s)
@@ -1328,6 +1329,60 @@ def test_chain_kernels_match_plain_phases(cuda_device, tag, name, s, geometry):
         assert bits_equal(got_row[..., :, o], diag) and bits_equal(got_col[..., o, :], diag)
         assert bits_equal(got_row, row) and bits_equal(got_col, col), echo
     assert all(fr.LAUNCHES[k] == before[p] + len(echoes) for p, k in kinds.items())
+
+
+# ----------------------- the successor round's chains: diag and bands at every s
+def _tie_graph(shape, seed):
+    """Integer weights in [1, 4] (equal candidates everywhere: only a
+    strictly smaller one takes its hop), 30 % missing, the diagonal 0."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 5, size=shape).astype(np.float32)
+    w[rng.uniform(size=shape) < 0.3] = np.inf
+    idx = np.arange(shape[-1])
+    w[..., idx, idx] = 0.0
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [16, 32, 64, 128])
+@pytest.mark.parametrize("geometry", ["square", "batched", "ties"])
+def test_succ_chain_kernels_match_plain_phases(cuda_device, dtype, s, geometry):
+    """The successor diag and bands launches alone, distances and next hops
+    by bits against the plain phases (close_diag_succ, close_bands_succ):
+    n = 5s (each band tile cut into 2–4 CTAs) and, at s = 128, n = 40s
+    (kept whole); a batch of 3; tie-heavy integer weights, where only the
+    strict compare decides a hop, with a negative cycle planted on the
+    pivot block's diagonal."""
+    if geometry == "batched":
+        shape, b = (3, 5 * s, 5 * s), 4
+        w = _graph("min_plus", shape, seed=s)
+    elif geometry == "ties":
+        shape, b = (5 * s, 5 * s), 1
+        w = _tie_graph(shape, seed=s)
+        idx = np.arange(b * s, (b + 1) * s, 3)
+        w[..., idx, idx] = -3.0
+    else:
+        n = 40 * s if s == 128 else 5 * s
+        shape, b = (n, n), 2
+        w = _graph("min_plus", shape, seed=s)
+    w = torch.from_numpy(w).to(dtype).to(cuda_device)
+    succ = _init_successors(w).contiguous()
+    tag = {torch.float32: "", torch.bfloat16: "[bf16]", torch.float16: "[f16]"}[dtype]
+    kinds = [f"fw_round_with_successors/{p}{tag}" for p in ("diag", "bands")]
+    before = [fr.LAUNCHES[k] for k in kinds]
+    bands = fr.succ_round_buffers(w, s)
+    for phase in ("diag", "bands"):
+        fr.fw_round_with_successors_phase(phase, w, succ, b, bands, block_size=s)
+    o = slice(b * s, (b + 1) * s)
+    diag, dsucc = ref.close_diag_succ(w[..., o, o], succ[..., o, o])
+    row, rsucc, col, csucc = ref.close_bands_succ(w, succ, diag, dsucc, b)
+    rw, cw, rs, cs = _bands_of(w, bands)
+    torch.cuda.synchronize()
+    assert bits_equal(rw[..., :, o], diag) and bits_equal(rs[..., :, o], dsucc)
+    assert bits_equal(rw, row) and bits_equal(rs, rsucc)
+    assert bits_equal(cw, col) and bits_equal(cs, csucc)
+    assert [fr.LAUNCHES[k] for k in kinds] == [x + 1 for x in before]
 
 
 # ------------------------- the sweep's chains: diag and panels at every s
