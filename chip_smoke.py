@@ -11,9 +11,9 @@ Phases, each of which raises (exit code 1) on any failure:
      each library's build seconds, registers and spills (each instantiation
      of the redesigned kernels: matmul, relax, successor relax, decode,
      the round's diag and bands and its successor diag and bands, the
-     sweep's diag and panels, the 4-dispatch closure and bands; a diag,
-     bands, panels, closure or band instantiation that spills fails, the
-     round's successor ones included).
+     sweep's diag and panels and its successor diag and panels, the
+     4-dispatch closure and bands; a diag, bands, panels, closure or band
+     instantiation that spills fails, the successor ones included).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -70,8 +70,12 @@ Phases, each of which raises (exit code 1) on any failure:
      panels instantiation of the restricted sweep alone against its plain
      phase (``phase_check_sweep_chains``), f32 and every sweep storage,
      s = 16 .. 128, n = 2s and 5s, strips of 8, 16 and 64 rows, ±0 / NaN
-     salted, planted diagonals; every closure and band instantiation of
-     the 4-dispatch round alone against its plain phase
+     salted, planted diagonals; every successor diag and panels
+     instantiation of the sweep alone against its plain phases, next hops
+     included (``phase_check_succ_sweep_chains``), f32, bf16 and f16, ±0 /
+     NaN salted and tie-heavy with planted diagonals, s = 16 .. 128, n = 2s
+     and 5s, strips of 8, 16 and 64 rows; every closure and band
+     instantiation of the 4-dispatch round alone against its plain phase
      (``phase_check_phase_chains``), f32 and every storage, s = 16 .. 128,
      a batch of 3, band lengths 1, s - 3 and 1000, aligned, odd-strided
      and unaligned views, ±0 / NaN salted, planted diagonals.  f16 plus_mul
@@ -126,7 +130,8 @@ Phases, each of which raises (exit code 1) on any failure:
      one packed word plane at n=8192 (integer weights in [1, 16], exact in
      every storage): solve, ``repair`` E=16 and ``repair_del`` E=1 / E=16,
      each == a re-solve by bits and timed beside it; bf16 / f16 successor
-     repair and repair_del at n=4096; a bf16 plus_mul ``repair_del`` (the
+     repair and repair_del at n=4096, with the affected rows and the
+     sweep's host / device split; a bf16 plus_mul ``repair_del`` (the
      counted re-solve); ``solve_many`` of 32 ragged graphs in bf16 and
      int16.  Integer storage: int8 / uint32 / bool or_and and int32
      plus_mul solves at n=1024 card == CPU with the reference's dtype, a
@@ -417,7 +422,8 @@ def phase_device():
               f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
         shown = []  # the redesigned kernels, each instantiation
         if built.name in ("fw_repair_del", "fw_repair_del_lowered"):
-            shown = [k for k in infos if re.match(r"(void )?(diag|panels)_kernel<", k.name)]
+            shown = [k for k in infos if re.match(r"(void )?(succ_)?(diag|panels)_kernel<",
+                                                  k.name)]
         elif built.name in ("fw_phase", "fw_phase_lowered"):
             shown = [k for k in infos if re.match(r"(void )?(closure|band)_kernel<", k.name)]
         elif built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
@@ -428,11 +434,11 @@ def phase_device():
             print(f"  {k.name}: {k.registers} registers, spill stores / loads "
                   f"{k.spill_stores} / {k.spill_loads} B")
         # the chain kernels: diag / bands, diag / panels, closure / band
-        least = {"fw_round": 32, "fw_round_lowered": 32, "fw_repair_del": 24,
-                 "fw_repair_del_lowered": 88, "fw_phase": 48,
+        least = {"fw_round": 32, "fw_round_lowered": 32, "fw_repair_del": 32,
+                 "fw_repair_del_lowered": 104, "fw_phase": 48,
                  "fw_phase_lowered": 168}.get(built.name)
         if least and built.seconds:
-            succ = "(succ_)?" if built.name.startswith("fw_round") else ""
+            succ = "(succ_)?" if built.name.startswith(("fw_round", "fw_repair_del")) else ""
             chains = [k for k in infos if re.match(
                 rf"(void )?{succ}(diag|bands|panels|closure|band)_kernel<", k.name)]
             require(len(chains) >= least, f"{built.name}: {len(chains)} chain kernels")
@@ -736,8 +742,7 @@ def host_device_split(label: str, fn, launches: int) -> None:
     kernels' times in a ``torch.profiler`` trace of one call); and its wall
     time to a synchronize, of which the device is idle for 1 - device /
     wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.round_bench import device_by_kind
 
     fn()
     host = []
@@ -749,14 +754,7 @@ def host_device_split(label: str, fn, launches: int) -> None:
         sync()
     t_host = statistics.median(host)
     t_wall = statistics.median(host_ms(fn) for _ in range(3))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
-    per: dict[str, float] = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        kind = next((k for k in ("diag", "panels", "relax") if f"{k}_kernel" in ev.key), "other")
-        per[kind] = per.get(kind, 0.0) + us / 1e3
+    per = device_by_kind(fn)
     dev = sum(per.values())
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in per.items())
     print(f"{label}: host {t_host:.3f} ms to queue {launches} launches "
@@ -868,16 +866,12 @@ def updated(w, upd):
 
 def tie_free_scenario(n: int, seed: int = 0):
     """The min-plus construction of ``launch/fw_serve.py:repair_scenario``
-    (a copy: this script imports nothing of the reference): large random
-    integer weights make shortest paths unique, so next hops compare
-    bitwise with a re-solve."""
-    import numpy as np
+    (``round_bench.tie_free_graph``, a copy: this script imports nothing of
+    the reference): large random integer weights make shortest paths
+    unique, so next hops compare bitwise with a re-solve."""
+    from repro_torch.launch.round_bench import tie_free_graph
 
-    rng = np.random.default_rng(seed)
-    w = rng.integers(1, 10**6, (n, n)).astype(np.float32)
-    w[rng.uniform(size=(n, n)) > 0.4] = np.inf
-    np.fill_diagonal(w, 0.0)
-    return w, [(3, 7, 5.0), (n // 2, 2, 3.0), (1, n - 2, 17.0)]
+    return tie_free_graph(n, seed), [(3, 7, 5.0), (n // 2, 2, 3.0), (1, n - 2, 17.0)]
 
 
 def phase_engine(rows: dict, n: int, n_succ: int, graphs: int = 32):
@@ -1180,7 +1174,7 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     from repro_torch.apsp import ApspEngine, plan
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
-    from repro_torch.launch.round_bench import deletion_batch, ranked_deletions
+    from repro_torch.launch.round_bench import deletion_batch, marked_sweep, ranked_deletions
 
     eng = ApspEngine()
     w = integer_graph(n, 10, hi=10**4 - 1, density=0.5)
@@ -1252,29 +1246,13 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
         # Weights and tables already on the card: no time includes a host copy.
         w1 = torch.from_numpy(w1).cuda()
         E = len(dels)
-        E_pad = max(4, 1 << (E - 1).bit_length())
-        u, v, wold = np.zeros(E_pad, np.int32), np.zeros(E_pad, np.int32), np.full(
-            E_pad, np.inf, np.float32)
-        for i, (ui, vi, wi) in enumerate(dels):
-            u[i], v[i], wold[i] = ui, vi, wi
-        if succ is None:
-            mark = lambda: fd.mark_affected(dist, w1, u, v, wold, E)  # noqa: E731
-            d_init, row_mask, cnt = mark()
-        else:
-            mark = lambda: fd.mark_affected_with_successors(  # noqa: E731
-                dist, succ, w1, u, v, wold, E)
-            d_init, s_init, row_mask, cnt = mark()
-        a = int(row_mask.sum())
-        rows_arr = np.full(min(max(8, 1 << (a - 1).bit_length()), nn), nn, np.int32)
-        rows_arr[:a] = np.flatnonzero(row_mask.cpu().numpy())
+        mark, sweep, sw, cnt = marked_sweep(dist, w1, dels, succ=succ)
+        a = int((sw.rows < nn).sum())
         before = dict(fd.LAUNCHES)
         if succ is None:
-            sweep = lambda: fd.fw_repair_del_sweep(d_init, rows_arr, block_size=128)  # noqa: E731
             rep = lambda: eng.repair_del(dist, w1, dels, threshold=100.0)  # noqa: E731
             solve = lambda: eng.solve(w1)  # noqa: E731
         else:
-            sweep = lambda: fd.fw_repair_del_sweep_with_successors(  # noqa: E731
-                d_init, s_init, rows_arr, block_size=128)
             rep = lambda: eng.repair_del(dist, w1, dels, succ=succ, threshold=100.0)  # noqa: E731
             solve = lambda: eng.solve(w1, successors=True)  # noqa: E731
         rep()
@@ -1282,12 +1260,11 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
         per = sum(fd.LAUNCHES[k] - before[k] for k in fd.KINDS)
         t_rep, t_solve, t_mark, t_sweep = (timed(f) for f in (rep, solve, mark, sweep))
         decide = plan.should_repair_del(nn, a, edges=E, successors=succ is not None)
-        print(f"engine repair_del {label}: a={a} affected rows, {int(cnt)} affected pairs "
-              f"({int(cnt) / nn**2:.3e} of n²), should_repair_del at the default "
+        print(f"engine repair_del {label}: a={a} affected rows, {cnt} affected pairs "
+              f"({cnt / nn**2:.3e} of n²), should_repair_del at the default "
               f"threshold: {decide}, {per} sweep launches; {t_rep:.3f} ms (mark "
               f"{t_mark:.3f} ms, sweep {t_sweep:.3f} ms); re-solve {t_solve:.2f} ms "
               f"({t_solve / t_rep:.1f}x)")
-        sw = fd.sweep_buffers(d_init, rows_arr, block_size=128, s_init=None if succ is None else s_init)
         phase = fd.sweep_phase if succ is None else fd.sweep_succ_phase
         launch_breakdown(f"sweep breakdown {label}", [
             (p, functools.partial(phase, p, sw, b)) for b in range(nn // 128) for p in fd.PHASES])
@@ -2902,6 +2879,7 @@ def phase_engine_lowered(rows: dict, n: int, n_succ: int, graphs: int = 32):
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
+    from repro_torch.launch.round_bench import marked_sweep
 
     w = integer_graph(n, 60, hi=16, density=0.02)
     ws = integer_graph(n_succ, 61, hi=16, density=0.02)
@@ -3029,9 +3007,13 @@ def phase_engine_lowered(rows: dict, n: int, n_succ: int, graphs: int = 32):
         t_solve = timed(lambda: eng.solve(wst, successors=True))
         t_rep = timed(lambda: eng.repair(s0.dist, upd, succ=s0.succ))
         t_del = timed(lambda: eng.repair_del(s0.dist, wst, dels, succ=s0.succ, threshold=100.0))
+        _, sweep, sw, _ = marked_sweep(s0.dist, wst.to(s0.dist.dtype), dels, succ=s0.succ)
+        a = int((sw.rows < n_succ).sum())
         print(f"engine lowered {tag} successors n={n_succ}: solve {t_solve:.2f} ms; repair "
               f"E=16 {t_rep:.3f} ms ({t_solve / t_rep:.1f}x); repair_del E=16 {t_del:.3f} ms "
-              f"({t_solve / t_del:.1f}x)")
+              f"({t_solve / t_del:.1f}x), a={a} affected rows")
+        host_device_split(f"sweep host / device lowered {tag} successors n={n_succ} E=16 a={a}",
+                          sweep, 3 * (n_succ // 128))
     wpt = torch.from_numpy(wp1).cuda()
     t = timed(lambda: pm.repair_del(p0.dist, wpt, [(u_p, v_p, 1.0)]))
     print(f"engine lowered bf16 plus_mul repair_del n={n} (counted re-solve): {t:.2f} ms")
@@ -3371,6 +3353,19 @@ def phase_check_chains():
           f"{len(STORAGE_CASES)} storages, s = 16 .. 128, square, batched, bordered)")
 
 
+def tie_heavy(shape, seed: int):
+    """Integer weights in [1, 4], 30 % missing, the diagonal 0: equal
+    candidates everywhere, so only the strict compare decides a hop."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 5, size=shape).astype(np.float32)
+    w[rng.uniform(size=shape) < 0.3] = np.inf
+    idx = np.arange(shape[-1])
+    w[..., idx, idx] = 0.0
+    return w
+
+
 def phase_check_succ_chains():
     """Every instantiation of the successor round's diag and bands kernels
     (csrc/fw_round.cuh ``succ_diag_kernel`` / ``succ_bands_kernel``) alone,
@@ -3388,19 +3383,11 @@ def phase_check_succ_chains():
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
 
-    def ties(shape, s, b, seed):
-        rng = np.random.default_rng(seed)
-        w = rng.integers(1, 5, size=shape).astype(np.float32)
-        w[rng.uniform(size=shape) < 0.3] = np.inf
-        idx = np.arange(shape[-1])
-        w[..., idx, idx] = 0.0
-        idx = np.arange(b * s, (b + 1) * s, 3)
-        w[..., idx, idx] = -3.0
-        return w
-
     def case(dtype, salt, shape, s, b, seed):
         if salt == "ties":
-            w = ties(shape, s, b, seed)
+            w = tie_heavy(shape, seed)
+            idx = np.arange(b * s, (b + 1) * s, 3)
+            w[..., idx, idx] = -3.0
         elif salt == "zero":
             w = signed_zero_graph("min_plus", shape, seed)
         else:
@@ -3514,6 +3501,72 @@ def phase_check_sweep_chains():
     print(f"check: {checked} sweep diag / panels kernel-vs-plain cases bitwise equal (f32 and "
           f"{len(SWEEP_STORAGE_CASES)} storages, s = 16 .. 128, n = 2s / 5s, a = 8 / 16 / 64, "
           f"±0 / NaN salted, planted diagonals)")
+
+
+def phase_check_succ_sweep_chains():
+    """Every instantiation of the successor sweep's diag and panels kernels
+    (csrc/fw_repair_del.cuh ``succ_diag_kernel`` / ``succ_panels_kernel``)
+    alone, distances and next hops bitwise against their plain phases
+    (``sweep_diag_succ_ref``, ``sweep_panels_succ_ref``): f32, bf16 and f16,
+    each salted with ±0 (``signed_zero_graph``) and, apart, with NaN off the
+    diagonal tiles, and on tie-heavy integer weights (only the strict
+    compare decides a hop) with negative cycles planted on every third
+    diagonal entry; s = 16, 32, 64 and 128; n = 2s (one band tile, cut into
+    CTAs by ``band_split``) and 5s; strips of 8, 16 and 64 rows (two inside
+    the pivot block, padding rows) whose values and hops differ from
+    d_init's and s_init's rows, so that a read of the overlay shows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+
+    def case(dtype, salt, n, s, seed):
+        if salt == "ties":
+            w = tie_heavy((n, n), seed)
+            idx = np.arange(0, n, 3)
+            w[idx, idx] = -3.0
+        elif salt == "zero":
+            w = signed_zero_graph("min_plus", (n, n), seed)
+        else:
+            w = nan_salted(domain_graph("min_plus", (n, n), seed), seed, 2,
+                           [(b * s, b * s + s) for b in range(n // s)])
+        d = torch.from_numpy(w).cuda().to(dtype)
+        return d, _init_successors(d).contiguous()
+
+    checked = 0
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "[bf16]"),
+                       (torch.float16, "[f16]")):
+        for salt in ("zero", "nan", "ties"):
+            for s in (16, 32, 64, 128):
+                for n, b in ((2 * s, 1), (5 * s, 2)):
+                    o = slice(b * s, (b + 1) * s)
+                    d, sd = case(dtype, salt, n, s, s + n)
+                    other, other_s = case(dtype, salt, n, s, s + n + 1)
+                    for a_pad in (8, 16, 64):
+                        rows = sweep_chain_rows(n, s, a_pad, b, seed=a_pad + n)
+                        sw = fd.sweep_buffers(d, rows, block_size=s, s_init=sd)
+                        idx = torch.from_numpy(np.minimum(rows, n - 1)).long().cuda()
+                        sw.strip.copy_(other[idx])
+                        sw.strip_s.copy_(other_s[idx])
+                        fd.sweep_succ_phase("diag", sw, b)
+                        fd.sweep_succ_phase("panels", sw, b)
+                        diag, dsucc = ref.sweep_diag_succ_ref(d, sd, sw.strip, sw.strip_s,
+                                                              sw.rows, b, block_size=s)
+                        want = ref.sweep_panels_succ_ref(d, sd, sw.strip, sw.strip_s, sw.rows,
+                                                         diag, dsucc, b)
+                        sync()
+                        what = f"{tag} {salt} s={s} n={n} a={a_pad}"
+                        require(same(sw.band[:, o], diag) and same(sw.band_s[:, o], dsucc),
+                                f"successor sweep diag{what} != plain sweep_diag_succ_ref")
+                        require(all(same(g, x) for g, x in zip(
+                            (sw.band, sw.band_s, sw.acol, sw.acol_s), want)),
+                            f"successor sweep panels{what} != plain sweep_panels_succ_ref")
+                        checked += 1
+    print(f"check: {checked} successor sweep diag / panels kernel-vs-plain cases bitwise "
+          f"equal, distances and next hops (f32, bf16, f16; ±0 / NaN salted, tie-heavy with "
+          f"planted diagonals; s = 16 .. 128, n = 2s / 5s, a = 8 / 16 / 64)")
 
 
 def odd_strided(x):
@@ -3912,6 +3965,7 @@ def main(argv=None) -> int:
     phase_check_chains()
     phase_check_succ_chains()
     phase_check_sweep_chains()
+    phase_check_succ_sweep_chains()
     phase_check_phase_chains()
     phase_check_f16_plus_mul()
     if not args.quick:

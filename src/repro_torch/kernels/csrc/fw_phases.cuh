@@ -41,14 +41,8 @@
 // the layouts above: the diag's owners publish column k's hops beside its
 // distances, the col lanes shuffle each hop with its value, and the row
 // lanes keep the k of each element's last improvement in place of a hop.
-// The successor sweep's (the _chain_succ bodies) run one thread a column
-// on 8·S threads; thread (rg, c) = (tid / S, tid % S) owns rows rg + 8m of
-// column c in t[].  The tile updates in place, so step k's operands (row k
-// and column k as they stood at the start of step k) are published by
-// their owners into a double-buffered shared vector before a barrier and
-// read after it: one __syncthreads per step, k ascending.  The closed
-// diagonal d is S x DS in shared memory (DS = S + 1, a padded row stride).
-// A caller syncs after staging d and before the chain.
+// The successor sweep's diag and panels (fw_repair_del.cuh) run the same
+// two bodies.
 //
 // relax_chunk is the sweep's strip relax inner loop (fw_repair_del.cuh;
 // the fused round's relax runs on the matmul's mainloop instead): thread
@@ -214,7 +208,8 @@ __device__ __forceinline__ void relax_chunk(V (&acc)[RM][S / 16], const T* As,
 }
 
 // ------------------------------------------------------------- successors
-// The successor round's chains on the same register blocks and band lanes.
+// The chains of the successor round and of the successor sweep, on the
+// same register blocks and band lanes.
 // Each distance carries an int32 next hop, and every relaxation is
 // relax_succ<Op>: cand = Op::mul(a, b), rounded to the storage before the
 // compare, taken only where cand < t (NaN never is).  Nothing is lifted:
@@ -342,81 +337,8 @@ __device__ __forceinline__ void close_band_lanes_succ(float (&x)[S / 8][4], int 
   }
 }
 
-// The one-thread-a-column chains of the successor sweep (fw_repair_del.cuh;
-// the successor round runs the bodies above).  The a-side next hop: diag
-// the tile's own column k, row panel the closed diagonal's successor tile
-// ds, col panel the tile's own column k, the sweep's relax the staged
-// successor slice ASs.  Op is the distance step of relax_succ
-// (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
-template <int S, class Op = StrictMinPlus, class T>
-__device__ __forceinline__ void close_tile_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],
-                                                      T (*rowbuf)[S], T (*colbuf)[S],
-                                                      int (*colsbuf)[S], int rg, int c) {
-  constexpr int R = S / 8;
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) put(rowbuf[p][c], t[kb]);
-      if (c == k) {
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          put(colbuf[p][rg + 8 * m], t[m]);
-          colsbuf[p][rg + 8 * m] = ts[m];
-        }
-      }
-      __syncthreads();
-      const float bj = widen(rowbuf[p][c]);
-#pragma unroll
-      for (int m = 0; m < R; ++m)
-        relax_succ<Op>(t[m], ts[m], widen(colbuf[p][rg + 8 * m]), colsbuf[p][rg + 8 * m], bj);
-    }
-  }
-}
-
-template <int S, class Op = StrictMinPlus, class T>
-__device__ __forceinline__ void close_row_chain_succ(float (&t)[S / 8], int (&ts)[S / 8],
-                                                     const T* d, const int* ds,
-                                                     T (*buf)[S], int rg, int c) {
-  constexpr int R = S / 8, DS = S + 1;
-#pragma unroll
-  for (int kb = 0; kb < R; ++kb) {
-    for (int kk = 0; kk < 8; ++kk) {
-      const int k = kb * 8 + kk, p = k & 1;
-      if (rg == kk) put(buf[p][c], t[kb]);
-      __syncthreads();
-      const float bj = widen(buf[p][c]);
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        const int r = rg + 8 * m;
-        relax_succ<Op>(t[m], ts[m], widen(d[r * DS + k]), ds[r * DS + k], bj);
-      }
-    }
-  }
-}
-
-template <int S, int RA, class Op = StrictMinPlus, class T>
-__device__ __forceinline__ void close_col_chain_succ(float (&t)[RA], int (&ts)[RA],
-                                                     const T* d, T (*buf)[S],
-                                                     int (*sbuf)[S], int rg, int c) {
-  constexpr int DS = S + 1;
-  for (int k = 0; k < S; ++k) {
-    const int p = k & 1;
-    if (c == k) {
-#pragma unroll
-      for (int m = 0; m < RA; ++m) {
-        put(buf[p][rg + 8 * m], t[m]);
-        sbuf[p][rg + 8 * m] = ts[m];
-      }
-    }
-    __syncthreads();
-    const float bj = widen(d[k * DS + c]);
-#pragma unroll
-    for (int m = 0; m < RA; ++m)
-      relax_succ<Op>(t[m], ts[m], widen(buf[p][rg + 8 * m]), sbuf[p][rg + 8 * m], bj);
-  }
-}
-
+// relax_chunk with next hops (the successor sweep's relax): the a-side hop
+// is the staged successor slice ASs.
 template <int S, int RM, int TY, class Op = StrictMinPlus, class T>
 __device__ __forceinline__ void relax_chunk_succ(float (&acc)[RM][S / 16], int (&sacc)[RM][S / 16],
                                                  const T* As, const int* ASs,

@@ -70,6 +70,39 @@ diag_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
 // 4 of them (the col panel's transpose), into acol.  Strip rows past a
 // (the last CTA's, at most 16·W - 8 of them) load 0 and are never stored;
 // a warp that has none of the strip's rows leaves after the staging.
+//
+// PanelLane is a thread's place in that grid (the successor panels share
+// it).
+template <int S>
+struct PanelLane {
+  bool is_row;  // a band tile's row lane, else a strip col lane
+  size_t xo;    // the band tile's column offset
+  int rg, cg;   // lane / 4, lane % 4
+  int r0;       // the lane's rows (row panel), columns (col panel)
+  int c0;       // the lane's columns (row panel), strip rows (col panel)
+  bool live;    // a row lane, or a col lane holding strip rows
+  bool warp_live;  // its warp holds some of the strip's rows (or is a row warp)
+
+  __device__ __forceinline__ PanelLane(int n, int a, int b, int split) {
+    const int tiles = (n / S - 1) * split;  // the band's CTAs
+    const int lane = threadIdx.x % 32, warps = blockDim.x / 32, wv = threadIdx.x / 32;
+    is_row = (int)blockIdx.x < tiles;
+    rg = lane / 4;
+    cg = lane % 4;
+    r0 = rg * (S / 8);
+    xo = 0;
+    if (is_row) {
+      const int u = blockIdx.x / split;
+      xo = (size_t)(u < b ? u : u + 1) * S;
+      c0 = 16 * ((blockIdx.x % split) * warps + wv) + 4 * cg;
+    } else {
+      c0 = 16 * (((int)blockIdx.x - tiles) * warps + wv) + 4 * cg;
+    }
+    live = is_row || c0 < a;  // a % 8 == 0: a lane's 4 rows all or none
+    warp_live = is_row || c0 - 4 * cg < a;  // the warp's first row
+  }
+};
+
 template <int S, class Op, class T>
 __global__ void __launch_bounds__(2 * S)
 panels_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
@@ -79,22 +112,11 @@ panels_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
   constexpr int RL = S / 8, DSt = S + 4;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   V* dS = reinterpret_cast<V*>(dyn_smem);  // S x DSt
-  const int tiles = (n / S - 1) * split;   // the band's CTAs
-  const bool is_row = (int)blockIdx.x < tiles;
   const size_t o = (size_t)b * S;
-  const int lane = threadIdx.x % 32, rg = lane / 4, cg = lane % 4;
-  const int warps = blockDim.x / 32, wv = threadIdx.x / 32;
-  const int r0 = rg * RL;  // the lane's rows (row panel), columns (col panel)
-  size_t xo = 0;           // the band tile's column offset
-  int c0;                  // the lane's columns (row panel), strip rows (col panel)
-  if (is_row) {
-    const int u = blockIdx.x / split;
-    xo = (size_t)(u < b ? u : u + 1) * S;
-    c0 = 16 * ((blockIdx.x % split) * warps + wv) + 4 * cg;
-  } else {
-    c0 = 16 * (((int)blockIdx.x - tiles) * warps + wv) + 4 * cg;
-  }
-  const bool live = is_row || c0 < a;  // a % 8 == 0: a lane's 4 rows all or none
+  const PanelLane<S> L(n, a, b, split);
+  const bool is_row = L.is_row, live = L.live;
+  const int rg = L.rg, cg = L.cg, r0 = L.r0, c0 = L.c0;
+  const size_t xo = L.xo;
 
   // xr[i][j]: row panel p[r0 + i][c0 + j] = overlay[r0 + i][xo + c0 + j];
   // col panel q[c0 + j][r0 + i] = strip[c0 + j][o + r0 + i].
@@ -140,7 +162,7 @@ panels_kernel(const T* __restrict__ d_init, const T* __restrict__ strip,
     close_band_lanes<S, false, Op>(xr, dS, rg, cg);
 #pragma unroll
     for (int i = 0; i < RL; ++i) store4(band + (size_t)(r0 + i) * n + xo + c0, xr[i]);
-  } else if (c0 - 4 * cg < a) {  // the warp's first row: it holds some of the strip's
+  } else if (L.warp_live) {
     close_band_lanes<S, true, Op>(xr, dS, rg, cg);
     if (live) {
 #pragma unroll
@@ -203,83 +225,158 @@ relax_kernel(T* __restrict__ strip, const T* __restrict__ band, const T* __restr
 
 // ------------------------------------------------------- successor sweep
 // The same three launches carrying an int32 next-hop twin of every buffer
-// (min-plus, strict <), through the _succ chains of fw_phases.cuh; Op is
-// the distance step (StrictMinPlus in f32, MinPlusH<R> in bf16 / f16).
+// (min-plus, strict <; Op the distance step: StrictMinPlus in f32,
+// MinPlusH<R> in bf16 / f16).  The diag and panels run the grid and loads
+// of diag_kernel / panels_kernel through the successor round's bodies
+// (close_tile_blocks_succ, close_band_lanes_succ, fw_phases.cuh), which
+// round every candidate to the storage before its strict compare and lift
+// nothing.
+//
+// diag: thread (ty, tx) loads its M x M block of the overlay's distances
+// and its M x M block of next hops (band_row of d_init / strip and of
+// s_init / strip_s), four elements a load, and stores both closed blocks
+// into block b of band / band_s.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(DiagShape<S>::kThreads)
 succ_diag_kernel(const T* __restrict__ d_init, const int* __restrict__ s_init,
                  const T* __restrict__ strip, const int* __restrict__ strip_s,
                  const int* __restrict__ pos, T* __restrict__ band, int* __restrict__ band_s,
                  int n, int b) {
-  constexpr int R = S / 8;
-  __shared__ T rowbuf[2][S];
-  __shared__ T colbuf[2][S];
-  __shared__ int colsbuf[2][S];
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  constexpr int H = DiagShape<S>::H, TT = DiagShape<S>::T, M = DiagShape<S>::M;
+  __shared__ __align__(16) float rowbuf[2][S];
+  __shared__ __align__(16) float colbuf[2][S];
+  __shared__ __align__(16) int colsbuf[2][S];
+  const int ty = threadIdx.x / TT, tx = threadIdx.x % TT;
   const size_t o = (size_t)b * S;
-  float t[R];
-  int ts[R];
+  float t[M][M];
+  int ts[M][M];
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    t[m] = widen(band_row(d_init, strip, pos, o, rg + 8 * m, n)[o + c]);
-    ts[m] = band_row(s_init, strip_s, pos, o, rg + 8 * m, n)[o + c];
+  for (int i = 0; i < M; ++i) {
+    const int r = 4 * ty + 4 * TT * (i / 4) + i % 4;
+    const T* row = band_row(d_init, strip, pos, o, r, n) + o;
+    const int* hops = band_row(s_init, strip_s, pos, o, r, n) + o;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      load4(row + 4 * tx + 4 * TT * q, &t[i][4 * q]);
+      load4(hops + 4 * tx + 4 * TT * q, &ts[i][4 * q]);
+    }
   }
-  close_tile_chain_succ<S, Op>(t, ts, rowbuf, colbuf, colsbuf, rg, c);
+  close_tile_blocks_succ<S, Op>(t, ts, rowbuf, colbuf, colsbuf, ty, tx);
 #pragma unroll
-  for (int m = 0; m < R; ++m) {
-    const size_t at = (size_t)(rg + 8 * m) * n + o + c;
-    put(band[at], t[m]);
-    band_s[at] = ts[m];
+  for (int i = 0; i < M; ++i) {
+    const size_t at = (size_t)(4 * ty + 4 * TT * (i / 4) + i % 4) * n + o;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      store4(band + at + 4 * tx + 4 * TT * q, &t[i][4 * q]);
+      store4(band_s + at + 4 * tx + 4 * TT * q, &ts[i][4 * q]);
+    }
   }
 }
 
+// panels: panels_kernel's grid (band tile CTAs, then strip CTAs of 16·W
+// rows) on close_band_lanes_succ.  Every CTA stages the closed diagonal's
+// distances (band block b, not lifted), S x (S + 4) floats, transposed for
+// the row panels; no hop tile.  A col lane (the strip's block column)
+// carries each strip row's hops and shuffles them with its values.  A row
+// lane keeps the k of each element's last strict improvement (kKept: none)
+// and, after the chain, gathers the closed diagonal's hop band_s[r][o + k]
+// (written by the diag launch), or keeps the overlay's start hop.  The
+// launch holds one CTA an SM (band_split), so the bounds say so: with the
+// thread count alone ptxas capped s = 32 at 64 registers and spilled.
 template <int S, class Op, class T>
-__global__ void __launch_bounds__(8 * S)
+__global__ void __launch_bounds__(2 * S, 1)
 succ_panels_kernel(const T* __restrict__ d_init, const int* __restrict__ s_init,
                    const T* __restrict__ strip, const int* __restrict__ strip_s,
                    const int* __restrict__ pos, T* __restrict__ band, int* __restrict__ band_s,
-                   T* __restrict__ acol, int* __restrict__ acol_s, int n, int b) {
-  constexpr int R = S / 8, DS = S + 1;
+                   T* __restrict__ acol, int* __restrict__ acol_s, int n, int a, int b,
+                   int split) {
+  constexpr int RL = S / 8, DSt = S + 4;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  int* ds = reinterpret_cast<int*>(dyn_smem);  // S x DS successors of the closed diag
-  T* d = reinterpret_cast<T*>(ds + S * DS);    // S x DS closed diag
-  __shared__ T buf[2][S];
-  __shared__ int sbuf[2][S];
-  const int TT = n / S;
-  const int c = threadIdx.x % S, rg = threadIdx.x / S;
+  float* dS = reinterpret_cast<float*>(dyn_smem);  // S x DSt
   const size_t o = (size_t)b * S;
-  for (int idx = threadIdx.x; idx < S * S; idx += 8 * S) {
-    const size_t at = (size_t)(idx / S) * n + o + idx % S;
-    d[(idx / S) * DS + idx % S] = band[at];
-    ds[(idx / S) * DS + idx % S] = band_s[at];
-  }
+  const PanelLane<S> L(n, a, b, split);
+  const bool is_row = L.is_row, live = L.live;
+  const int rg = L.rg, cg = L.cg, r0 = L.r0, c0 = L.c0;
+  const size_t xo = L.xo;
 
-  if (blockIdx.x < TT - 1) {
-    const int x = blockIdx.x < b ? blockIdx.x : blockIdx.x + 1;
-    const size_t c0 = (size_t)x * S;
-    float t[R];
-    int ts[R];
+  // xr[i][j]: row panel p[r0 + i][c0 + j] (xs: the k of its last
+  // improvement); col panel q[c0 + j][r0 + i] = strip[c0 + j][o + r0 + i]
+  // (xs: its hop).
+  float xr[RL][4];
+  int xs[RL][4];
+  if (is_row) {
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      t[m] = widen(band_row(d_init, strip, pos, o, rg + 8 * m, n)[c0 + c]);
-      ts[m] = band_row(s_init, strip_s, pos, o, rg + 8 * m, n)[c0 + c];
-    }
-    __syncthreads();
-    close_row_chain_succ<S, Op>(t, ts, d, ds, buf, rg, c);
+    for (int i = 0; i < RL; ++i) {
+      load4(band_row(d_init, strip, pos, o, r0 + i, n) + xo + c0, xr[i]);
 #pragma unroll
-    for (int m = 0; m < R; ++m) {
-      const size_t at = (size_t)(rg + 8 * m) * n + c0 + c;
-      put(band[at], t[m]);
-      band_s[at] = ts[m];
+      for (int j = 0; j < 4; ++j) xs[i][j] = kKept;
     }
   } else {
-    const size_t r = (size_t)(blockIdx.x - (TT - 1)) * kStripRows + rg;
-    float t[1] = {widen(strip[r * n + o + c])};
-    int ts[1] = {strip_s[r * n + o + c]};
-    __syncthreads();
-    close_col_chain_succ<S, 1, Op>(t, ts, d, buf, sbuf, rg, c);
-    put(acol[r * S + c], t[0]);
-    acol_s[r * S + c] = ts[0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float run[RL];
+      int runs[RL];
+      if (live) {
+        load_n<RL>(strip + (size_t)(c0 + j) * n + o + r0, run);
+        load_n<RL>(strip_s + (size_t)(c0 + j) * n + o + r0, runs);
+      } else {
+#pragma unroll
+        for (int i = 0; i < RL; ++i) {
+          run[i] = 0.0f;
+          runs[i] = 0;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RL; ++i) {
+        xr[i][j] = run[i];
+        xs[i][j] = runs[i];
+      }
+    }
+  }
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < S * S / 4; idx += blockDim.x) {
+    const int r = is_row ? idx % S : idx / (S / 4);
+    const int c = 4 * (is_row ? idx / S : idx % (S / 4));
+    float e4[4];
+    load4(band + (size_t)r * n + o + c, e4);
+    if (is_row) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dS[(c + e) * DSt + r] = e4[e];
+    } else {
+      sts4(dS + r * DSt + c, e4);
+    }
+  }
+  __syncthreads();
+
+  if (is_row) {
+    close_band_lanes_succ<S, false, Op>(xr, xs, dS, rg, cg);
+#pragma unroll
+    for (int i = 0; i < RL; ++i) {
+      const size_t r = r0 + i;
+      int hop[4];
+      load4(band_row(s_init, strip_s, pos, o, r0 + i, n) + xo + c0, hop);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (xs[i][j] != kKept) hop[j] = band_s[r * n + o + xs[i][j]];
+      store4(band + r * n + xo + c0, xr[i]);
+      store4(band_s + r * n + xo + c0, hop);
+    }
+  } else if (L.warp_live) {
+    close_band_lanes_succ<S, true, Op>(xr, xs, dS, rg, cg);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float run[RL];
+        int runs[RL];
+#pragma unroll
+        for (int i = 0; i < RL; ++i) {
+          run[i] = xr[i][j];
+          runs[i] = xs[i][j];
+        }
+        store_n<RL>(acol + (size_t)(c0 + j) * S + r0, run);
+        store_n<RL>(acol_s + (size_t)(c0 + j) * S + r0, runs);
+      }
+    }
   }
 }
 
@@ -370,6 +467,16 @@ Bufs<T> bufs(const void* d_init, const void* s_init, const void* pos, const void
                  static_cast<T*>(acol),         static_cast<int*>(acol_s)};
 }
 
+// The panels' grid (either sweep): the band's T-1 tiles and the strip's
+// a / S (rounded up) cut into split CTAs each, a CTA holding S / split strip
+// rows; ctas in all.
+template <int S>
+cudaError_t panels_grid(int n, int a, int* split, int* ctas) {
+  const cudaError_t err = band_split<S>(n / S - 1 + (a + S - 1) / S, 1, split);
+  *ctas = (n / S - 1) * *split + (a * *split + S - 1) / S;
+  return err;
+}
+
 template <int S, class Op, class T>
 int launch_sweep(int phase, const Bufs<T>& x, int n, int a, int b, int bk, cudaStream_t st) {
   const int TT = n / S, A = a / kStripRows;
@@ -378,16 +485,12 @@ int launch_sweep(int phase, const Bufs<T>& x, int n, int a, int b, int bk, cudaS
     diag_kernel<S, Op, T><<<1, DiagShape<S>::kThreads, 0, st>>>(x.d_init, x.strip, x.pos,
                                                                  x.band, n, b);
   } else if (phase == 1) {
-    // The band's T-1 tiles and the strip's a / S (rounded up) cut into
-    // split CTAs each: a CTA holds S / split strip rows.
-    int split = 1;
-    if ((err = band_split<S>(TT - 1 + (a + S - 1) / S, 1, &split)) != cudaSuccess)
-      return (int)err;
-    const int strip_ctas = (a * split + S - 1) / S;
+    int split, ctas;
+    if ((err = panels_grid<S>(n, a, &split, &ctas)) != cudaSuccess) return (int)err;
     const size_t smem = (size_t)S * (S + 4) * sizeof(Reg<T>);
     if ((err = prepare(panels_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
-    panels_kernel<S, Op, T><<<(TT - 1) * split + strip_ctas, 2 * S / split, smem, st>>>(
-        x.d_init, x.strip, x.pos, x.band, x.acol, n, a, b, split);
+    panels_kernel<S, Op, T><<<ctas, 2 * S / split, smem, st>>>(x.d_init, x.strip, x.pos,
+                                                               x.band, x.acol, n, a, b, split);
   } else {
     const size_t smem = ((size_t)kStripRows * (bk + 1) + (size_t)bk * S) * sizeof(T);
     if ((err = prepare(relax_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
@@ -403,14 +506,16 @@ int launch_succ(int phase, const Bufs<T>& x, int n, int a, int b, cudaStream_t s
   const int bk = S < 32 ? S : 32;
   cudaError_t err;
   if (phase == 0) {
-    succ_diag_kernel<S, Op, T><<<1, 8 * S, 0, st>>>(x.d_init, x.s_init, x.strip, x.strip_s,
-                                                    x.pos, x.band, x.band_s, n, b);
+    succ_diag_kernel<S, Op, T><<<1, DiagShape<S>::kThreads, 0, st>>>(
+        x.d_init, x.s_init, x.strip, x.strip_s, x.pos, x.band, x.band_s, n, b);
   } else if (phase == 1) {
-    const size_t smem = (size_t)S * (S + 1) * (sizeof(int) + sizeof(T));
+    int split, ctas;
+    if ((err = panels_grid<S>(n, a, &split, &ctas)) != cudaSuccess) return (int)err;
+    const size_t smem = (size_t)S * (S + 4) * sizeof(float);
     if ((err = prepare(succ_panels_kernel<S, Op, T>, smem)) != cudaSuccess) return (int)err;
-    succ_panels_kernel<S, Op, T><<<TT - 1 + A, 8 * S, smem, st>>>(
+    succ_panels_kernel<S, Op, T><<<ctas, 2 * S / split, smem, st>>>(
         x.d_init, x.s_init, x.strip, x.strip_s, x.pos, x.band, x.band_s, x.acol, x.acol_s, n,
-        b);
+        a, b, split);
   } else {
     const size_t smem = (size_t)kStripRows * (bk + 1) * (sizeof(int) + sizeof(T)) +
                         (size_t)bk * S * sizeof(T);

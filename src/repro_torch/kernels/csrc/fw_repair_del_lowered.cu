@@ -24,7 +24,12 @@
 // for bit.  The diag and panels keep their operands lifted
 // (semiring.cuh:Lifted: int16 sentinels past the int16 range, 16-bit
 // min-plus / max-plus rounded where an operand is taken), which gives the
-// same values with fewer instructions a relaxation.
+// same values with fewer instructions a relaxation.  The successor sweep's
+// diag and panels cannot: a strict compare of an unrounded sum can take a
+// candidate that rounds to the current distance, which the reference
+// keeps, so they run the successor round's bodies (close_tile_blocks_succ,
+// close_band_lanes_succ), each candidate rounded to bf16 / f16 before its
+// compare.
 //
 // Bound on this card.  As in fw_repair_del.cu a round does n·s·(s + a)
 // relaxations and moves ~(s + 2a)·n words: bound by operations, at 3 a

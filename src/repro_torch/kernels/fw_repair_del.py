@@ -206,9 +206,9 @@ def sweep_buffers(d_init: torch.Tensor, rows, *, block_size: int,
                   s_init: torch.Tensor | None = None) -> Sweep:
     """Gather the strip of ``rows`` (padding index m clipped to row m-1)
     and allocate the round buffers on d_init's device.  The diag and panels
-    kernels load d_init four elements at a time, so the sweep keeps d_init
-    as it lies where it is contiguous and 16-byte aligned, else a
-    contiguous, aligned copy (``fw_round.contiguous_aligned``)."""
+    kernels load d_init and s_init four elements at a time, so the sweep
+    keeps each as it lies where it is contiguous and 16-byte aligned, else
+    a contiguous, aligned copy (``fw_round.contiguous_aligned``)."""
     m = _check(d_init, block_size, "d_init")
     if s_init is not None:
         _check(s_init, block_size, "s_init", torch.int32)
@@ -230,7 +230,8 @@ def sweep_buffers(d_init: torch.Tensor, rows, *, block_size: int,
         real=torch.from_numpy(r[keep]).to(dev), keep=torch.from_numpy(keep).to(dev),
     )
     if s_init is not None:
-        sw.s_init, sw.strip_s = s_init, s_init.index_select(0, idx)
+        sw.s_init = contiguous_aligned(s_init)
+        sw.strip_s = sw.s_init.index_select(0, idx)
         sw.band_s = new((block_size, m), dtype=torch.int32)
         sw.acol_s = new((r.size, block_size), dtype=torch.int32)
     return sw
@@ -243,8 +244,9 @@ def _write_back(t: torch.Tensor, strip: torch.Tensor, sw: Sweep) -> torch.Tensor
 def _require_buffers(fn: str, sw: Sweep) -> None:
     """Raise unless the kernels take sw's buffers: on one CUDA device,
     contiguous, s one of BLOCK_SIZES, and d_init, the strip, the band and
-    acol 16-byte aligned (the diag and panels move them four elements at a
-    time; ``sweep_buffers`` allocates them so)."""
+    acol, and with successors their next-hop twins, 16-byte aligned (the
+    diag and panels move them four elements at a time; ``sweep_buffers``
+    allocates them so)."""
     if sw.d_init.device.type != "cuda":
         raise ValueError(f"{fn} phases launch a CUDA kernel; the sweep is on the CPU")
     s = sw.block_size
@@ -255,6 +257,9 @@ def _require_buffers(fn: str, sw: Sweep) -> None:
         raise ValueError(f"{fn}: every buffer must be contiguous on {sw.d_init.device}")
     if any(t.data_ptr() % 16 for t in (sw.d_init, sw.strip, sw.band, sw.acol)):
         raise ValueError(f"{fn}: d_init, the strip, the band and acol must be 16-byte aligned")
+    hops = (sw.s_init, sw.strip_s, sw.band_s, sw.acol_s)
+    if any(t is not None and t.data_ptr() % 16 for t in hops):
+        raise ValueError(f"{fn}: s_init, strip_s, band_s and acol_s must be 16-byte aligned")
 
 
 def _launcher(sw: Sweep, tag, semiring: Semiring | None, bk: int):
@@ -357,7 +362,7 @@ def fw_repair_del_sweep_with_successors(
     if d_init.device.type == "cpu":
         return ref.fw_repair_del_sweep_with_successors_ref(d_init, s_init, r,
                                                            block_size=block_size)
-    sw = sweep_buffers(d_init, r, block_size=block_size, s_init=contiguous_aligned(s_init))
+    sw = sweep_buffers(d_init, r, block_size=block_size, s_init=s_init)
     fn = "fw_repair_del_sweep_with_successors"
     _require_buffers(fn, sw)
     _run(fn, tag, sw, _launcher(sw, tag, None, 0), range(m // block_size))

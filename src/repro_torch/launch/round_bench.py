@@ -1,7 +1,7 @@
 """Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
-        [--label L] [--build-only] [--sweep | --phases | --succ]
+        [--label L] [--build-only] [--sweep | --phases | --succ | --sweep-succ]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -48,10 +48,23 @@ plain phase (``succ_chains_*_ok``), then timed between CUDA events and as
 device time (``*_dev_ms``); then, by host clock (median of 3 after a
 warm-up), ``solve(successors=True)`` at n/2 in each of those storages.
 
+``--sweep-succ`` times the successor sweep of ``ApspEngine.repair_del``
+instead: its diag and panels launches at (n/2, n/2) and (n, n), pivot round
+n/s/2, strips of 8 and 64 rows, in f32, bf16 and f16 distances, each first
+held by bits, distances and next hops, against its plain phase
+(``succ_sweep_*_ok``), then timed between CUDA events and as device time
+(``*_dev_ms``); then ``repair_del`` with next hops of the 16 on-path edges
+of ``chip_smoke.py``'s successor repair_del path at n/2 (the tie-free
+graph, the deletions ranked by the pairs they affect), checked by bits,
+distances and next hops, against a re-solve, and timed beside it by host
+clock (median of 3 after a warm-up), with its marking and sweep apart and
+the sweep's device time by launch kind (``torch.profiler``).
+
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
 successor relax, diag, bands (with ``--sweep``: panels; with ``--phases``:
 closure and band; with ``--succ``: the successor diag, bands and relax
+alone; with ``--sweep-succ``: the successor sweep's diag, panels and relax
 alone) and vector f32 ``matmul_kernel`` instantiation
 (``_build.kernel_infos``) and, in each f32 relax, diag and bands (panels;
 closure and band) kernel's SASS (``cuobjdump -sass`` of the f32 round
@@ -65,7 +78,7 @@ call (parent, change, change, parent), to compare them on one card.  Only
 the API both trees share is used (``fw_round_phase``,
 ``fw_round_with_successors_phase``, ``fw_round_bordered_phase``, the band
 buffers, ``semiring_matmul``, ``solve``, ``fw_staged``; ``sweep_buffers``,
-``sweep_phase``, ``ApspEngine.repair_del``; ``fw_phase1``,
+``sweep_phase``, ``sweep_succ_phase``, ``ApspEngine.repair_del``; ``fw_phase1``,
 ``fw_phase2_row`` / ``fw_phase2_col`` with ``out``).
 """
 from __future__ import annotations
@@ -191,10 +204,12 @@ def build_report(label: str, mode: str = "") -> int:
         "phases": (("fw_phase", "fw_phase_lowered"),
                    ("minplus_matmul", "minplus_matmul_lowered", "fw_round", "fw_round_lowered")),
         "succ": (("fw_round", "fw_round_lowered"), ()),
+        "sweep_succ": (("fw_repair_del", "fw_repair_del_lowered"), ("fw_round",)),
     }.get(mode, (("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"), ()))
+    only_succ = mode in ("succ", "sweep_succ")
 
     def shown(name: str) -> bool:
-        if mode == "succ":
+        if only_succ:
             return "succ_" in name
         return (any(x in name for x in KERNELS)
                 or ("matmul_kernel" in name and "float, true" in name))
@@ -209,7 +224,7 @@ def build_report(label: str, mode: str = "") -> int:
             for k in _build.kernel_infos(built) if shown(k.name)]
         if built.name == names[0] and built.seconds:  # built here: its SASS is fresh
             out["sass"] = {k: v for k, v in sass_counts(built.path).items()
-                           if mode != "succ" or "succ_" in k}
+                           if not only_succ or "succ_" in k}
     print(json.dumps(out))
     return 0
 
@@ -362,6 +377,25 @@ def succ_chain_cases(n: int, s: int) -> dict:
     return out
 
 
+def device_by_kind(fn) -> dict:
+    """Device ms of one call of fn by kernel kind (diag, panels, relax,
+    other): the kernels' times in a ``torch.profiler`` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = dict.fromkeys(("diag", "panels", "relax", "other"), 0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        kind = next((k for k in ("diag", "panels", "relax") if f"{k}_kernel" in ev.key), "other")
+        per[kind] += us / 1e3
+    return per
+
+
 def sweep_rows(n: int, a: int, seed: int):
     """a distinct rows, sorted (a a multiple of 8: no padding)."""
     import numpy as np
@@ -408,6 +442,137 @@ def sweep_cases(w, n: int, s: int) -> dict:
     out["sweep_f32_a8_host_ms"] = queue_ms(sweep)
     out["sweep_f32_a8_dev_ms"] = device_ms(sweep, reps=3)
     return out
+
+
+def succ_sweep_cases(n: int, s: int) -> dict:
+    """The successor sweep's diag and panels launches in f32, bf16 and f16
+    at (n/2, n/2) and (n, n), round m/s/2, strips of 8 and 64 rows: each
+    held by bits, distances and next hops, against its plain phase, then
+    timed."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+    for m in (n // 2, n):
+        w = torch.from_numpy(random_digraph(m, density=0.5, seed=2)).cuda()
+        b = m // s // 2
+        o = slice(b * s, (b + 1) * s)
+        for key, dt in dtypes.items():
+            x = w.to(dt)
+            succ = _init_successors(x).contiguous()
+            for a in (8, 64):
+                sw = fd.sweep_buffers(x, sweep_rows(m, a, seed=a), block_size=s, s_init=succ)
+                launch = lambda p: fd.sweep_succ_phase(p, sw, b)  # noqa: E731
+                launch("diag")
+                launch("panels")
+                diag, dsucc = ref.sweep_diag_succ_ref(x, succ, sw.strip, sw.strip_s, sw.rows, b,
+                                                      block_size=s)
+                want = ref.sweep_panels_succ_ref(x, succ, sw.strip, sw.strip_s, sw.rows, diag,
+                                                 dsucc, b)
+                torch.cuda.synchronize()
+                out[f"succ_sweep_{key}_n{m}_a{a}_ok"] = (
+                    bits_equal(sw.band[:, o], diag) and bits_equal(sw.band_s[:, o], dsucc)
+                    and all(bits_equal(g, v) for g, v in zip(
+                        (sw.band, sw.band_s, sw.acol, sw.acol_s), want)))
+                for phase in ("diag", "panels"):
+                    tag = f"{phase}_{key}_n{m}_a{a}"
+                    out[f"succ_sweep_{tag}_ms"] = event_ms(lambda: launch(phase))
+                    out[f"succ_sweep_{tag}_dev_ms"] = device_ms(lambda: launch(phase))
+                del sw, want, diag, dsucc
+            del x, succ
+        del w
+    return out
+
+
+def tie_free_graph(n: int, seed: int):
+    """Large random integer weights in [1, 1e6), density 0.4: shortest
+    paths are unique, so next hops compare bitwise with a re-solve (the
+    min-plus graph of the reference's ``launch/fw_serve.py:repair_scenario``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 10**6, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) > 0.4] = np.inf
+    np.fill_diagonal(w, 0.0)
+    return w
+
+
+def succ_repair_del_cases(n: int, E: int = 16) -> dict:
+    """``ApspEngine.repair_del`` with next hops of the E on-path edges that
+    affect the fewest pairs of the tie-free graph at n (``chip_smoke.py``'s
+    successor repair_del: graph seed 16, deletions ranked with seed 17),
+    threshold 100 so that the sweep runs: checked by bits, distances and
+    next hops, against a re-solve, then timed beside it by host clock; the
+    marking and the sweep apart (as the engine runs them), and the sweep's
+    device time by launch kind."""
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.utils.bits import bits_equal
+
+    w = tie_free_graph(n, seed=16)
+    eng = ApspEngine()
+    r0 = eng.solve(w, successors=True)
+    dels, w1 = deletion_batch(w, ranked_deletions(w, r0.dist, E, seed=17))
+    w1 = torch.from_numpy(w1).cuda()
+    rep = lambda: eng.repair_del(r0.dist, w1, dels, succ=r0.succ, threshold=100.0)  # noqa: E731
+    got, want = rep(), eng.solve(w1, successors=True)
+    key = f"succ_repair_del_E{E}"
+    out = {f"{key}_ok": (got.method == "repair_del" and bits_equal(got.dist, want.dist)
+                         and bits_equal(got.succ, want.succ))}
+    out[f"{key}_ms"] = host_ms(rep)
+    out[f"succ_resolve_E{E}_ms"] = host_ms(lambda: eng.solve(w1, successors=True))
+    mark, sweep, sw, _ = marked_sweep(r0.dist, w1, dels, succ=r0.succ)
+    a = int((sw.rows < n).sum())
+    out[f"{key}_a"] = a
+    out[f"{key}_mark_ms"] = host_ms(mark)
+    out[f"{key}_sweep_ms"] = host_ms(sweep)
+    per = device_by_kind(sweep)
+    out[f"{key}_sweep_dev_ms"] = sum(per.values())
+    out.update({f"{key}_sweep_{k}_dev_ms": t for k, t in per.items()})
+    return out
+
+
+def marked_sweep(dist, w1, dels, *, succ=None, s: int = 128):
+    """The two stages of a ``repair_del`` of ``dels`` on the card, apart:
+    (mark, sweep, buffers, pairs).  ``mark()`` runs the marking, with next
+    hops where ``succ`` is given; ``sweep()`` the sweep of the rows it
+    affects (padded with n to a power of two of at least 8, as the engine
+    pads them) from its result; ``buffers`` the ``sweep_buffers`` of that
+    sweep (``rows < n``: the affected rows); ``pairs`` the count of affected
+    pairs.  w1 is the updated graph on the card in dist's dtype."""
+    import numpy as np
+
+    from repro_torch.kernels import fw_repair_del as fd
+
+    nn, E = dist.shape[-1], len(dels)
+    E_pad = max(4, 1 << (E - 1).bit_length())
+    u, v, wold = np.zeros(E_pad, np.int32), np.zeros(E_pad, np.int32), np.full(
+        E_pad, np.inf, np.float32)
+    for i, (ui, vi, wi) in enumerate(dels):
+        u[i], v[i], wold[i] = ui, vi, wi
+    if succ is None:
+        mark = lambda: fd.mark_affected(dist, w1, u, v, wold, E)  # noqa: E731
+        d_init, row_mask, cnt = mark()
+        s_init = None
+    else:
+        mark = lambda: fd.mark_affected_with_successors(dist, succ, w1, u, v, wold, E)  # noqa: E731
+        d_init, s_init, row_mask, cnt = mark()
+    a = int(row_mask.sum())
+    rows = np.full(min(max(8, 1 << (a - 1).bit_length()), nn), nn, np.int32)
+    rows[:a] = np.flatnonzero(row_mask.cpu().numpy())
+    if succ is None:
+        sweep = lambda: fd.fw_repair_del_sweep(d_init, rows, block_size=s)  # noqa: E731
+    else:
+        sweep = lambda: fd.fw_repair_del_sweep_with_successors(  # noqa: E731
+            d_init, s_init, rows, block_size=s)
+    return mark, sweep, fd.sweep_buffers(d_init, rows, block_size=s, s_init=s_init), int(cnt)
 
 
 def ranked_deletions(w, dist, count: int, seed: int, sample: int = 256):
@@ -493,12 +658,15 @@ def main(argv=None) -> int:
                       help="time the 4-dispatch round's phase kernels and loop instead")
     mode.add_argument("--succ", action="store_true",
                       help="time the successor round's chains and solve instead")
+    mode.add_argument("--sweep-succ", action="store_true",
+                      help="time the successor sweep's chains and repair_del instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
         return build_report(args.label, "sweep" if args.sweep else
-                            "phases" if args.phases else "succ" if args.succ else "")
+                            "phases" if args.phases else "succ" if args.succ else
+                            "sweep_succ" if args.sweep_succ else "")
 
     import repro_torch
     from repro_torch.apsp import api, solve
@@ -520,8 +688,12 @@ def main(argv=None) -> int:
     out = dict(label=args.label, package=repro_torch.__file__, nvidia_smi=smi, n=args.n)
     n, s = args.n, 128
     b = n // s // 2
-    if args.succ:
-        out.update(succ_chain_cases(n, s))
+    if args.succ or args.sweep_succ:
+        if args.succ:
+            out.update(succ_chain_cases(n, s))
+        else:
+            out.update(succ_sweep_cases(n, s))
+            out.update(succ_repair_del_cases(n // 2))
         print(json.dumps(out))
         return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
     w = torch.from_numpy(random_digraph(n, density=0.5, seed=0)).cuda()

@@ -230,6 +230,25 @@ def test_sweep_wrappers_reject_bad_inputs():
         tfd.mark_affected(d, d, [64], [1], [1.0], 1)
 
 
+def test_sweep_buffers_align_the_hop_buffers():
+    """The successor diag and panels move the next hops four at a time:
+    ``sweep_buffers`` keeps an aligned s_init as it lies and copies a
+    misaligned one (here 4 bytes into its storage) to an aligned buffer of
+    the same values; the strip's, band's and acol's hop twins are aligned."""
+    n, s = 64, 16
+    d = torch.arange(n * n, dtype=torch.float32).reshape(n, n)
+    succ = torch.arange(n * n, dtype=torch.int32).reshape(n, n)
+    sw = tfd.sweep_buffers(d, [3, 40], block_size=s, s_init=succ)
+    assert sw.s_init is succ
+    off = torch.empty(n * n + 1, dtype=torch.int32)[1:].view(n, n).copy_(succ)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    sw = tfd.sweep_buffers(d, [3, 40], block_size=s, s_init=off)
+    assert sw.s_init is not off and bool((sw.s_init == succ).all())
+    hops = (sw.s_init, sw.strip_s, sw.band_s, sw.acol_s)
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in hops)
+    assert bool((sw.strip_s == succ[[3, 40] + [n - 1] * 6]).all())
+
+
 # ------------------------------------------------------------------- plan
 @pytest.mark.parametrize("n", [48, 1000, 1024, 8192])
 @pytest.mark.parametrize("successors", [False, True])

@@ -1456,6 +1456,84 @@ def test_sweep_chain_kernels_match_plain_phases(cuda_device, tag, name, salt, s)
     assert all(fd.LAUNCHES[k] == before[p] + launches for p, k in kinds.items())
 
 
+# ------------------- the successor sweep's chains: diag and panels at every s
+def _succ_sweep_input(dtype, salt, n, s, seed):
+    """(d, its init next hops) on the CPU: min_plus salted with ±0 or, apart,
+    NaN off the diagonal tiles, or tie-heavy integer weights (only the
+    strict compare decides a hop) with negative cycles planted on every
+    third diagonal entry."""
+    if salt == "ties":
+        w = _tie_graph((n, n), seed)
+        idx = np.arange(0, n, 3)
+        w[idx, idx] = -3.0
+    elif salt == "zero":
+        w = _signed_zero_graph("min_plus", (n, n), seed)
+    else:
+        w = _nan_salted(_domain_graph("min_plus", (n, n), seed), seed, 2, s)
+    d = torch.from_numpy(w).to(dtype)
+    return d, _init_successors(d).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("salt", ["zero", "nan", "ties"])
+@pytest.mark.parametrize("s", [16, 32, 64, 128])
+def test_succ_sweep_chain_kernels_match_plain_phases(cuda_device, dtype, salt, s):
+    """The successor sweep's diag and panels launches alone, distances and
+    next hops by bits against ``sweep_diag_succ_ref`` /
+    ``sweep_panels_succ_ref``: strips of 8, 16 and 64 rows (two inside the
+    pivot block, padding rows), n = 2s (one band tile, cut into CTAs by
+    fw_phases.cuh:band_split) and n = 5s, the strip and its hops holding
+    other values than d_init's and s_init's rows (the overlay must read
+    them)."""
+    tag = {torch.float32: "", torch.bfloat16: "[bf16]", torch.float16: "[f16]"}[dtype]
+    kinds = {p: f"fw_repair_del_sweep_with_successors/{p}{tag}" for p in ("diag", "panels")}
+    before = {p: fd.LAUNCHES[k] for p, k in kinds.items()}
+    launches = 0
+    for n, b in ((2 * s, 1), (5 * s, 2)):
+        o = slice(b * s, (b + 1) * s)
+        d, sd = (t.to(cuda_device) for t in _succ_sweep_input(dtype, salt, n, s, s + n))
+        other, other_s = (t.to(cuda_device)
+                          for t in _succ_sweep_input(dtype, salt, n, s, s + n + 1))
+        for a_pad in (8, 16, 64):
+            rows = _sweep_chain_rows(n, s, a_pad, b, seed=a_pad + n)
+            sw = fd.sweep_buffers(d, rows, block_size=s, s_init=sd)
+            idx = torch.from_numpy(np.minimum(rows, n - 1)).long().to(cuda_device)
+            sw.strip.copy_(other[idx])
+            sw.strip_s.copy_(other_s[idx])
+            fd.sweep_succ_phase("diag", sw, b)
+            fd.sweep_succ_phase("panels", sw, b)
+            diag, dsucc = ref.sweep_diag_succ_ref(d, sd, sw.strip, sw.strip_s, sw.rows, b,
+                                                  block_size=s)
+            want = ref.sweep_panels_succ_ref(d, sd, sw.strip, sw.strip_s, sw.rows, diag, dsucc, b)
+            torch.cuda.synchronize()
+            what = (n, a_pad)
+            assert bits_equal(sw.band[:, o], diag) and bits_equal(sw.band_s[:, o], dsucc), what
+            for got, x in zip((sw.band, sw.band_s, sw.acol, sw.acol_s), want):
+                assert bits_equal(got, x), what
+            launches += 1
+    assert all(fd.LAUNCHES[k] == before[p] + launches for p, k in kinds.items())
+
+
+@pytest.mark.cuda
+def test_succ_sweep_refuses_a_misaligned_hop_buffer(cuda_device):
+    """The successor diag and panels move the hop buffers four at a time: a
+    hop buffer 4 bytes off a 16-byte boundary raises before any launch."""
+    n, s = 128, 32
+    d = torch.zeros(n, n, device=cuda_device)
+    sd = torch.zeros(n, n, dtype=torch.int32, device=cuda_device)
+    before = dict(fd.LAUNCHES)
+    for field in ("s_init", "strip_s", "band_s", "acol_s"):
+        sw = fd.sweep_buffers(d, [3, 70], block_size=s, s_init=sd)
+        t = getattr(sw, field)
+        off = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)[1:].view(t.shape)
+        setattr(sw, field, off)
+        for phase in fd.PHASES:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fd.sweep_succ_phase(phase, sw, 1)
+    assert dict(fd.LAUNCHES) == before
+
+
 # ------------------- the 4-dispatch round's chains: closure and bands at every s
 def _odd_strided(x):
     """x's values as a view at an odd row stride, 3 rows and 5 elements
