@@ -12,8 +12,10 @@ Phases, each of which raises (exit code 1) on any failure:
      of the redesigned kernels: matmul, relax, successor relax, decode,
      the round's diag and bands and its successor diag and bands, the
      sweep's diag and panels and its successor diag and panels, the
-     4-dispatch closure and bands; a diag, bands, panels, closure or band
-     instantiation that spills fails, the successor ones included).
+     sweep's relax and successor relax on the long tile and the two short
+     ones, the 4-dispatch closure and bands; a diag, bands, panels,
+     closure, band or sweep relax instantiation that spills fails, the
+     successor ones included).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -33,7 +35,9 @@ Phases, each of which raises (exit code 1) on any failure:
      a successor repair at n=1000 through ``ApspEngine``.  The sweep
      kernels of the decremental repair likewise: the four idempotent
      semirings at n=1024 with a in {1, 5, 37, 200} affected rows, each
-     launch kind alone and the whole sweep, the successor sweep, and
+     launch kind alone (the relax on every tile height, the short tile's
+     8 and 16 rows and the mainloop's 128, from the same strip) and the
+     whole sweep, the successor sweep, and
      ``repair_del`` at n=1000 through the engine.  The 4-dispatch round's
      kernels likewise, on all five semirings: ``semiring_matmul`` with and
      without c at square, batched and ragged shapes with ±inf operands,
@@ -49,7 +53,9 @@ Phases, each of which raises (exit code 1) on any failure:
      storage (int16 ×4, packed, bf16 / f16 ×5, int32 or_and / plus_mul) at
      n=96 and 1024 with E in {1, 16, 37, 64}, bf16 / f16 salted with ±0
      and, apart, with off-diagonal NaN; the successor repair; the sweep at
-     a in {1, 37}, each launch kind alone; the successor sweep; the int32
+     a in {1, 37} and, at n=1024, 200 (both sides of the relax's tile
+     switch), each launch kind alone, the relax on every tile height; the
+     successor sweep likewise; the int32
      round; ``repair_del`` at n=1000 through lowered engines card == CPU.
      The lowered 4-dispatch kernels likewise (``phase_check_lowered_four``):
      ``semiring_matmul`` on every storage with and without c at square,
@@ -85,8 +91,10 @@ Phases, each of which raises (exit code 1) on any failure:
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
      3.35 TB/s, the H100 SXM's published peaks); the sweep kinds at a = 8,
-     64 and 256 affected rows; ``semiring_matmul`` also in plus_mul beside
-     ``torch.addmm`` at the phase-3 shape, with the fused round's relax
+     64 and 256 affected rows, the successor relax also at a = n (f32, bf16
+     and f16, the long tile at the engine's strip of every row);
+     ``semiring_matmul`` also in plus_mul beside ``torch.addmm`` at the
+     phase-3 shape, with the fused round's relax
      timed beside both on that shape (min-plus and plus_mul), and at 4096³
      in min-plus and plus_mul, the latter beside ``torch.matmul`` (TF32
      off).
@@ -422,8 +430,8 @@ def phase_device():
               f"{regs} registers, {len(spills)} spilling" + "".join(f"\n  spill {x}" for x in spills))
         shown = []  # the redesigned kernels, each instantiation
         if built.name in ("fw_repair_del", "fw_repair_del_lowered"):
-            shown = [k for k in infos if re.match(r"(void )?(succ_)?(diag|panels)_kernel<",
-                                                  k.name)]
+            shown = [k for k in infos if re.match(
+                r"(void )?((succ_)?(diag|panels)|(short_)?(succ_)?relax)_kernel<", k.name)]
         elif built.name in ("fw_phase", "fw_phase_lowered"):
             shown = [k for k in infos if re.match(r"(void )?(closure|band)_kernel<", k.name)]
         elif built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
@@ -444,6 +452,14 @@ def phase_device():
             require(len(chains) >= least, f"{built.name}: {len(chains)} chain kernels")
             spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
             require(not spilled, f"the chain kernels spill: {spilled}")
+        # the sweep's relax: the long and the two short tiles of every storage
+        relaxes = {"fw_repair_del": 12, "fw_repair_del_lowered": 39}.get(built.name)
+        if relaxes and built.seconds:
+            relax = [k for k in infos if re.match(r"(void )?(short_)?(succ_)?relax_kernel<",
+                                                  k.name)]
+            require(len(relax) == relaxes, f"{built.name}: {len(relax)} relax kernels")
+            spilled = [k.name for k in relax if k.spill_stores or k.spill_loads]
+            require(not spilled, f"the sweep's relax kernels spill: {spilled}")
     return name
 
 
@@ -826,15 +842,11 @@ def phase_kernels_repair(rows: dict, n: int, n_succ: int, E: int = 16):
 
 
 def integer_graph(n: int, seed: int, *, hi: int, density: float):
-    """Integer weights in [1, hi] at the given density, 0 diagonal: every
-    path sum stays an integer below 2^24, exact in f32."""
-    import numpy as np
+    """``round_bench.integer_graph``: integer weights in [1, hi] at the
+    given density, 0 diagonal."""
+    from repro_torch.launch.round_bench import integer_graph as make
 
-    rng = np.random.default_rng(seed)
-    w = rng.integers(1, hi + 1, (n, n)).astype(np.float32)
-    w[rng.uniform(size=(n, n)) >= density] = np.inf
-    np.fill_diagonal(w, 0.0)
-    return w
+    return make(n, seed, hi=hi, density=density)
 
 
 def improvements(dist, count: int, seed: int):
@@ -992,8 +1004,11 @@ def strip_rows(n: int, a: int, seed: int):
 
 def check_sweep_phases(d, rows, b: int, s: int, *, sr=None, succ=None):
     """Each launch kind of round b alone against its plain phase on the same
-    inputs, from the strip as gathered.  Returns the sweep (its buffers
-    after the round) and each kind's max abs error."""
+    inputs, from the strip as gathered; the relax on the tile its strip
+    takes (``fw_repair_del.relax_height``), then on every other tile height
+    (the short tile's 8 and 16 rows, the mainloop's 128) from the same
+    strip.  Returns the sweep (its buffers after the round) and each kind's
+    max abs error."""
     from repro_torch.core.semiring import MIN_PLUS
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import ref
@@ -1032,7 +1047,15 @@ def check_sweep_phases(d, rows, b: int, s: int, *, sr=None, succ=None):
     x = held("panels", panels(x), bufs()[1])
     strip = tuple(t.clone() for t in bufs()[2])
     launch("relax")
-    held("relax", relax(strip, x), bufs()[2])
+    want = held("relax", relax(strip, x), bufs()[2])
+    for h in (*fd.SHORT_HEIGHTS, fd.LONG_HEIGHT):
+        if h != fd.relax_height(*sw.strip.shape):
+            for t, t0 in zip(bufs()[2], strip):
+                t.copy_(t0)
+            launch("relax", height=h)
+            sync()
+            require(all(same(g, w) for g, w in zip(bufs()[2], want)),
+                    f"{fn}/relax b={b} a={sw.strip.shape[0]} height {h} != plain")
     return sw, errs
 
 
@@ -1097,7 +1120,8 @@ def phase_check_repair_del():
 
 def phase_kernels_repair_del(rows: dict, n: int, n_succ: int, s: int = 128):
     """Each sweep launch kind alone at the repair_del path's shapes, round
-    T/2, a = 8 affected rows (the record), 64 and 256: checked against the
+    T/2, a = 8 affected rows (the record), 64 and 256, and with next hops
+    also a = n_succ (every row: the relax's long tile): checked against the
     plain version of its phase, then timed beside it.  Work: diag s³
     relaxations; panels (T-1)·s³ on the band and a·s² on the strip's pivot
     block column; relax a·n·s; 2 fp32 operations each.  Bytes: each input
@@ -1120,7 +1144,7 @@ def phase_kernels_repair_del(rows: dict, n: int, n_succ: int, s: int = 128):
         succ = _init_successors(d).contiguous() if successors else None
         fn = "fw_repair_del_sweep" + ("_with_successors" if successors else "")
         word = 8 if successors else 4
-        for a in (8, 64, 256):
+        for a in (8, 64, 256) + ((nn,) if successors else ()):
             sw, errs = check_sweep_phases(d, strip_rows(nn, a, seed=30 + a), b, s, succ=succ)
             if successors:
                 launch = functools.partial(fd.sweep_succ_phase, sw=sw, b=b)
@@ -2496,10 +2520,14 @@ def lowered_edges(d, sr, E: int, seed: int):
 
 
 def strip_heights(n: int, salt: str):
-    """The affected-row counts a sweep check runs: 1 and 37, but only 1 on a
-    NaN-salted n = 96 (a NaN reaches every strip row through the band's
-    columns, so 37 rows of 96 would leave under half the output finite)."""
-    return (1,) if salt == "nan" and n < 128 else (1, 37)
+    """The affected-row counts a sweep check runs: 1 and 37 (strips of 8 and
+    64 rows), and 200 at n = 1024 (256 rows), each relax on every tile;
+    only 1 on a NaN-salted n = 96 (a NaN reaches every strip row through
+    the band's columns, so 37 rows of 96 would leave under half the output
+    finite)."""
+    if n < 128:
+        return (1,) if salt == "nan" else (1, 37)
+    return (1, 37, 200)
 
 
 def nan_off_strip(d, rows, s: int, seed: int, count: int = 4):
@@ -2689,7 +2717,8 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
                                  s: int = 128, a: int = 8):
     """Each lowered repair, sweep and int32 round launch kind alone at the
     lowered engine path's shapes (n = 8192, E = 16, sweep a = 8 affected
-    rows in round T/2; successors at n_succ) against the plain version of
+    rows in round T/2, and 256 checked, whose relax takes the long tile;
+    successors at n_succ, and a = n_succ) against the plain version of
     its phase: the min-plus lowerings in int16, bf16 and f16, the packed
     or_and word plane and the int32 carriers of or_and and plus_mul.
     Bound: operations (``LOWERED_OPS`` a relaxation; successors 3) over
@@ -2798,6 +2827,8 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
             record(f"fw_repair_del_sweep/{phase}[{tag}]", errs[phase],
                    event_ms(lambda: fd.sweep_phase(phase, sw, b, semiring=sr), 11),
                    event_ms(plain[phase], 3), *work[phase])
+        # a strip of 256 rows, whose relax takes the long tile at this n
+        check_sweep_phases(d, strip_rows(n, 256, seed=57), b, s, sr=sr)
         del d, sw
     inputs.clear()
     del w32
@@ -2850,6 +2881,13 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
             record(f"fw_repair_del_sweep_with_successors/{phase}[{tag}]", errs[phase],
                    event_ms(lambda: fd.sweep_succ_phase(phase, sw, b), 11),
                    event_ms(plain[phase], 3), *work[phase])
+        # the relax at every row (the engine path's strip of n_succ rows)
+        sw, errs = check_sweep_phases(d, strip_rows(n_succ, n_succ, seed=56), b, s, succ=succ)
+        record(f"fw_repair_del_sweep_with_successors/relax[{tag}]", errs["relax"],
+               event_ms(lambda: fd.sweep_succ_phase("relax", sw, b), 11),
+               event_ms(plain["relax"], 3), 3.0 * n_succ * n_succ * s,
+               (2 * n_succ * n_succ + n_succ * s) * word + s * n_succ * 2,
+               note=f" n={n_succ} a={n_succ}", store=False)
         del d, sw
 
 
@@ -3125,26 +3163,19 @@ def lowered_deletions(x, dist, count: int, seed: int):
     word plane (1, n, n) an edge is removed from every lane that holds it,
     and its old weight is that lane mask."""
     import numpy as np
-    import torch
 
-    d = torch.as_tensor(dist).cpu()
+    from repro_torch.launch.round_bench import on_path_deletions
+
+    if x.ndim != 3:
+        return on_path_deletions(x, dist, count, seed)
+    # a packed word plane: closure bits == edge bits
     rng = np.random.default_rng(seed)
     x1 = x.copy()
     dels = []
-    if x.ndim == 3:  # a packed word plane: closure bits == edge bits
-        on = np.argwhere((x[0] != 0) & ~np.eye(x.shape[-1], dtype=bool))
-        for u, v in on[rng.choice(len(on), size=count, replace=False)]:
-            dels.append((int(u), int(v), int(x[0, u, v])))
-            x1[0, u, v] = 0
-        return dels, x1
-    x0 = x.astype(np.float64)
-    d0 = d.to(torch.float64).numpy()
-    on = np.argwhere((x0 == d0) & (x0 != 0) & np.isfinite(x0)
-                     & ~np.eye(x.shape[-1], dtype=bool))
-    require(len(on) >= count, "too few on-path edges to delete")
+    on = np.argwhere((x[0] != 0) & ~np.eye(x.shape[-1], dtype=bool))
     for u, v in on[rng.choice(len(on), size=count, replace=False)]:
-        dels.append((int(u), int(v), x[u, v].item()))
-        x1[u, v] = np.inf if x.dtype.kind == "f" else 0
+        dels.append((int(u), int(v), int(x[0, u, v])))
+        x1[0, u, v] = 0
     return dels, x1
 
 

@@ -10,9 +10,13 @@
     tables = eng.solve_many(graphs, successors=True)   # ragged batches
     fixed = eng.repair(res.dist, [(u, v, w_new)])      # rank-1 link repair
     fixed = eng.repair_del(res.dist, w1, [(u, v, w_old)])  # link failures
+    p = distributed_plan(8192, devices=4)  # the mesh planner
 
-The autotuner and the mesh / recursive planners of ``repro.apsp`` are not
-ported yet (ROADMAP A.5, A.10, A.11).
+``PlanKey``, ``ExecutablePlan`` and ``EngineStats`` are the engine's plan
+cache keys, cached plans and counters; ``distributed_plan`` is re-exported
+from ``plan``.  The autotuner (``autotune_fw``) and the recursive planner
+(``recursive_plan``, ``fw_kleene`` and the Kleene panel stores) of
+``repro.apsp`` are not ported yet (ROADMAP A.5, A.10).
 """
 from repro_torch.apsp import plan
 from repro_torch.apsp.api import (
@@ -25,14 +29,25 @@ from repro_torch.apsp.api import (
     solve,
     unpack_reachability,
 )
-from repro_torch.apsp.engine import ApspEngine, negative_cycle_mask_padded
+from repro_torch.apsp.engine import (
+    ApspEngine,
+    EngineStats,
+    ExecutablePlan,
+    PlanKey,
+    negative_cycle_mask_padded,
+)
+from repro_torch.apsp.plan import distributed_plan
 
 __all__ = [
     "APSPResult",
     "ApspEngine",
+    "EngineStats",
+    "ExecutablePlan",
     "METHODS",
     "SUCCESSOR_METHODS",
     "NegativeCycleError",
+    "PlanKey",
+    "distributed_plan",
     "negative_cycle_mask",
     "negative_cycle_mask_padded",
     "pack_reachability",

@@ -44,12 +44,6 @@
 // The successor sweep's diag and panels (fw_repair_del.cuh) run the same
 // two bodies.
 //
-// relax_chunk is the sweep's strip relax inner loop (fw_repair_del.cuh;
-// the fused round's relax runs on the matmul's mainloop instead): thread
-// (ty, tx) owns rows ty + TY·m and columns tx + 16q, and relaxes them over
-// one bk-deep chunk staged in shared memory, k ascending.  As is rows x bk
-// with row stride bk + 1, Bs is bk x S.
-//
 // Every chain is generic over the register type V (float or int) and the
 // storage type T of its shared-memory operands (float, __nv_bfloat16,
 // __half, short, int), both deduced from the arguments: shared operands
@@ -189,24 +183,6 @@ cudaError_t band_split(int tiles, int B, int* split) {
   return err;
 }
 
-// _relax_tile over one staged chunk.
-template <int S, int RM, int TY, class Op, class V, class T>
-__device__ __forceinline__ void relax_chunk(V (&acc)[RM][S / 16], const T* As,
-                                            const T* Bs, int bk, int ty, int tx) {
-  constexpr int CM = S / 16;
-  for (int kk = 0; kk < bk; ++kk) {
-    V a[RM], bv[CM];
-#pragma unroll
-    for (int m = 0; m < RM; ++m) a[m] = widen(As[(ty + TY * m) * (bk + 1) + kk]);
-#pragma unroll
-    for (int q = 0; q < CM; ++q) bv[q] = widen(Bs[kk * S + tx + 16 * q]);
-#pragma unroll
-    for (int m = 0; m < RM; ++m)
-#pragma unroll
-      for (int q = 0; q < CM; ++q) acc[m][q] = Op::relax(acc[m][q], a[m], bv[q]);
-  }
-}
-
 // ------------------------------------------------------------- successors
 // The chains of the successor round and of the successor sweep, on the
 // same register blocks and band lanes.
@@ -334,30 +310,6 @@ __device__ __forceinline__ void close_band_lanes_succ(float (&x)[S / 8][4], int 
           }
         }
     }
-  }
-}
-
-// relax_chunk with next hops (the successor sweep's relax): the a-side hop
-// is the staged successor slice ASs.
-template <int S, int RM, int TY, class Op = StrictMinPlus, class T>
-__device__ __forceinline__ void relax_chunk_succ(float (&acc)[RM][S / 16], int (&sacc)[RM][S / 16],
-                                                 const T* As, const int* ASs,
-                                                 const T* Bs, int bk, int ty, int tx) {
-  constexpr int CM = S / 16;
-  for (int kk = 0; kk < bk; ++kk) {
-    float a[RM], bv[CM];
-    int as[RM];
-#pragma unroll
-    for (int m = 0; m < RM; ++m) {
-      a[m] = widen(As[(ty + TY * m) * (bk + 1) + kk]);
-      as[m] = ASs[(ty + TY * m) * (bk + 1) + kk];
-    }
-#pragma unroll
-    for (int q = 0; q < CM; ++q) bv[q] = widen(Bs[kk * S + tx + 16 * q]);
-#pragma unroll
-    for (int m = 0; m < RM; ++m)
-#pragma unroll
-      for (int q = 0; q < CM; ++q) relax_succ<Op>(acc[m][q], sacc[m][q], a[m], as[m], bv[q]);
   }
 }
 

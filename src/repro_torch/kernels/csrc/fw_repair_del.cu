@@ -22,17 +22,20 @@
 //               16 of them a warp; a tile is cut into 1-4 CTAs, the strip
 //               into CTAs of s / split rows, so that the launch fills the
 //               card.
-//   3. relax  — (a / 8) * T CTAs relax every (8, s) strip tile against
-//               acol ⊗ band in bk chunks, k ascending (_relax_tile).  Tiles
-//               of block column b start from acol, the others from the
-//               strip; strip rows inside block b then take their band rows.
+//   3. relax  — the whole (a, n) strip relaxes against acol ⊗ band, k
+//               ascending (_relax_tile).  Block column b starts from acol,
+//               the rest from the strip; strip rows inside block b then take
+//               their band rows.  Long strips (a >= 128) run on the
+//               matmul's mainloop (128 x 128 tiles, minplus_matmul.cuh),
+//               short ones on a tile H = 8 .. 64 rows high whose grid
+//               spreads the band's columns over the card.
 //
 // The TPU kernel runs a round as one sequential grid and keeps the band and
 // acol in VMEM scratch; here they are device buffers the wrapper allocates
 // once per sweep, and the three launches run in order on one stream.
-// The relax's strip tile is 8 rows high at every a (the wrapper pads the
-// strip to a multiple of 8 with inert rows); the panels' strip CTAs hold
-// 16 rows a warp, the rows past a masked.
+// The wrapper pads the strip to a multiple of 8 rows with inert rows; the
+// panels' strip CTAs hold 16 rows a warp, the relax's tiles 128 or H, the
+// rows past a masked in both.
 //
 // Exactness.  Each element sees the chain of the reference's XLA twin
 // fw_repair_del_sweep_ref, in its order, through the chains of
@@ -67,7 +70,15 @@
 // and the panels need no barrier at all (operands by shuffle and 16-byte
 // loads of the staged diagonal).  A successor step is an add, a compare
 // and two selects, twice a plain one: 33.1 µs for the diag's chain at
-// s = 128.
+// s = 128.  The relax alone does a·n·s relaxations, 0.0962 ms of f32
+// operations at a = n = 4096, s = 128 (3 a relaxation in the successor
+// sweep), and moves 2a·n + s·n words: at a = 8 its bound is the band's
+// bytes, 1.4 µs at n = 8192.  The old strip tile (8 rows, one relaxation
+// a shared load, the band tile re-read by every 8 rows) took 0.94 ms at
+// a = 4096 in bf16 with next hops; the mainloop's 8 x 8 register tiles
+// read 16 bytes a shared load for 16 relaxations.  At a = 8 a 128-row tile
+// would fold 16 times the rows, so the short tile folds H rows and cuts
+// the columns until the grid covers the card.
 //
 // The kernels are fw_repair_del.cuh's, templated on the storage type; this
 // file instantiates them for f32, fw_repair_del_lowered.cu for the storage
@@ -85,20 +96,22 @@
 // strip row holding each matrix row or -1; rows (a,) int32, the matrix row
 // of each strip row (n for padding); strip (a,n), band (s,n), acol (a,s);
 // f32 unless named, contiguous on the device.  s in {16, 32, 64, 128};
-// a a multiple of 8; bk divides s.
+// a a multiple of 8; h the relax's tile height: 8, 16, 32, 64 (the short
+// tile) or 128 (the mainloop's), any of them for any a (the others ignore
+// it).
 extern "C" int fw_repair_del_launch(int phase, const void* d_init, const void* pos,
                                     const void* rows, void* strip, void* band,
-                                    void* acol, int n, int a, int s, int b, int bk,
+                                    void* acol, int n, int a, int s, int b, int h,
                                     int semiring, void* stream) {
-  if (bad_shape(phase, n, a, s, b) || bk < 1 || s % bk) return (int)cudaErrorInvalidValue;
+  if (bad_shape(phase, n, a, s, b)) return (int)cudaErrorInvalidValue;
   const auto x = bufs<float>(d_init, nullptr, pos, rows, strip, nullptr, band, nullptr, acol,
                              nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (semiring) {
-    case 0: return dispatch_sweep<MinPlus>(phase, x, n, a, s, b, bk, st);
-    case 1: return dispatch_sweep<MaxPlus>(phase, x, n, a, s, b, bk, st);
+    case 0: return dispatch_sweep<false, MinPlus>(phase, x, n, a, s, b, h, st);
+    case 1: return dispatch_sweep<false, MaxPlus>(phase, x, n, a, s, b, h, st);
     case 2:
-    case 3: return dispatch_sweep<MaxMin>(phase, x, n, a, s, b, bk, st);
+    case 3: return dispatch_sweep<false, MaxMin>(phase, x, n, a, s, b, h, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -109,11 +122,11 @@ extern "C" int fw_repair_del_succ_launch(int phase, const void* d_init,
                                          const void* s_init, const void* pos,
                                          const void* rows, void* strip, void* strip_s,
                                          void* band, void* band_s, void* acol,
-                                         void* acol_s, int n, int a, int s, int b,
+                                         void* acol_s, int n, int a, int s, int b, int h,
                                          void* stream) {
   if (bad_shape(phase, n, a, s, b)) return (int)cudaErrorInvalidValue;
   const auto x = bufs<float>(d_init, s_init, pos, rows, strip, strip_s, band, band_s, acol,
                              acol_s);
-  return dispatch_sweep_succ<StrictMinPlus>(phase, x, n, a, s, b,
-                                            static_cast<cudaStream_t>(stream));
+  return dispatch_sweep<true, StrictMinPlus>(phase, x, n, a, s, b, h,
+                                             static_cast<cudaStream_t>(stream));
 }

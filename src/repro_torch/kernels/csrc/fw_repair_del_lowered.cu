@@ -46,7 +46,7 @@
 namespace {
 
 struct Call {
-  int phase, n, a, s, b, bk;
+  int phase, n, a, s, b, h;
   cudaStream_t st;
 };
 
@@ -55,7 +55,7 @@ int run(const Call& c, const void* d_init, const void* pos, const void* rows, vo
         void* band, void* acol) {
   const auto x = bufs<T>(d_init, nullptr, pos, rows, strip, nullptr, band, nullptr, acol,
                          nullptr);
-  return dispatch_sweep<Op>(c.phase, x, c.n, c.a, c.s, c.b, c.bk, c.st);
+  return dispatch_sweep<false, Op>(c.phase, x, c.n, c.a, c.s, c.b, c.h, c.st);
 }
 
 }  // namespace
@@ -66,14 +66,15 @@ int run(const Call& c, const void* d_init, const void* pos, const void* rows, vo
 // (the *_i16 lowerings), packed and int32 3 only.  d_init (n,n), strip
 // (a,n), band (s,n), acol (a,s) in the storage type; pos (n,) and rows (a,)
 // int32 as in fw_repair_del.cu; contiguous on the device.  s in {16, 32,
-// 64, 128}; a a multiple of 8; bk divides s.
+// 64, 128}; a a multiple of 8; h the relax's tile height, as in
+// fw_repair_del.cu.
 extern "C" int fw_repair_del_lowered_launch(int phase, int storage, int semiring,
                                             const void* d_init, const void* pos,
                                             const void* rows, void* strip, void* band,
-                                            void* acol, int n, int a, int s, int b, int bk,
+                                            void* acol, int n, int a, int s, int b, int h,
                                             void* stream) {
-  if (bad_shape(phase, n, a, s, b) || bk < 1 || s % bk) return (int)cudaErrorInvalidValue;
-  const Call c{phase, n, a, s, b, bk, static_cast<cudaStream_t>(stream)};
+  if (bad_shape(phase, n, a, s, b)) return (int)cudaErrorInvalidValue;
+  const Call c{phase, n, a, s, b, h, static_cast<cudaStream_t>(stream)};
 #define SWEEP(OP, T) run<OP, T>(c, d_init, pos, rows, strip, band, acol)
   if (storage == 0 || storage == 1) {
     const bool bf = storage == 0;
@@ -108,18 +109,18 @@ extern "C" int fw_repair_del_lowered_succ_launch(int phase, int storage, const v
                                                  const void* rows, void* strip, void* strip_s,
                                                  void* band, void* band_s, void* acol,
                                                  void* acol_s, int n, int a, int s, int b,
-                                                 void* stream) {
+                                                 int h, void* stream) {
   if (bad_shape(phase, n, a, s, b)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (storage == 0) {
     const auto x = bufs<__nv_bfloat16>(d_init, s_init, pos, rows, strip, strip_s, band, band_s,
                                        acol, acol_s);
-    return dispatch_sweep_succ<MinPlusH<RoundBf16>>(phase, x, n, a, s, b, st);
+    return dispatch_sweep<true, MinPlusH<RoundBf16>>(phase, x, n, a, s, b, h, st);
   }
   if (storage == 1) {
     const auto x = bufs<__half>(d_init, s_init, pos, rows, strip, strip_s, band, band_s, acol,
                                 acol_s);
-    return dispatch_sweep_succ<MinPlusH<RoundF16>>(phase, x, n, a, s, b, st);
+    return dispatch_sweep<true, MinPlusH<RoundF16>>(phase, x, n, a, s, b, h, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -389,27 +389,8 @@ succ_bands_kernel(const T* __restrict__ w, const int* __restrict__ succ,
 // selects (distance, k), the fewest that strict < allows: a k packed a
 // byte an element would free registers but take a second instruction to
 // insert it.  So the thread tile is 8 x 4 (64 registers of distances and
-// k), on a 128 x 64 output tile, 8-deep slices.
-constexpr int kSuccCols = 64;  // output tile width
-
-template <class Op, class T>
-__device__ __forceinline__ void fold_k_succ(float (&acc)[8][4], int (&ks)[8][4], const T* as,
-                                            const T* bs, int ty, int tx, int k) {
-  float av[8], bv[4];
-  load4(as + 4 * ty, av);
-  load4(as + 64 + 4 * ty, av + 4);
-  load4(bs + 4 * tx, bv);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float cand = Op::mul(av[i], bv[j]);
-      const bool better = cand < acc[i][j];
-      acc[i][j] = better ? cand : acc[i][j];
-      ks[i][j] = better ? k : ks[i][j];
-    }
-}
-
+// k), on a 128 x 64 output tile, 8-deep slices (fold_k_succ,
+// minplus_matmul.cuh, which the successor sweep's relax runs too).
 template <class Op, class T>
 __global__ void __launch_bounds__(kThreads, 2)
 succ_relax_kernel(T* w, int* succ, const T* __restrict__ rw, const T* __restrict__ cw,

@@ -5,7 +5,8 @@
 // the storage lowerings.  What the launch does and why is in
 // minplus_matmul.cu; the steps are semiring.cuh's.  Its mainloop (Stage,
 // fold_k, the slice loop fold_slices, the lane layout and store_tile) also
-// carries the fused round's relax kernels (fw_round.cuh).
+// carries the fused round's relax kernels (fw_round.cuh) and the sweep's
+// long-strip relax kernels (fw_repair_del.cuh).
 //
 // The A / B slices sit in shared memory in the storage type and the 8 x 8
 // register tile in Reg<T> (float for f32 / bf16 / f16, int for int16 and
@@ -112,6 +113,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- staging
@@ -259,12 +265,39 @@ __device__ __forceinline__ void fold_k(Reg<T> (&acc)[8][8], const T* as, const T
     for (int j = 0; j < 8; ++j) acc[i][j] = Op::relax(acc[i][j], av[i], bv[j]);
 }
 
+// The successor relax's step (fw_round.cuh and fw_repair_del.cuh: min-plus,
+// strict <, Op the distance step): thread (ty, tx) of a 128 x kSuccCols
+// tile owns rows 4ty + {0..3} and 64 + 4ty + {0..3}, columns 4tx + {0..3};
+// each element takes a candidate only where it is strictly smaller, and
+// keeps the k of that last improvement in ks (its hop is gathered after the
+// fold).
+constexpr int kSuccCols = 64;  // the successor relax's output tile width
+
+template <class Op, class T>
+__device__ __forceinline__ void fold_k_succ(float (&acc)[8][4], int (&ks)[8][4], const T* as,
+                                            const T* bs, int ty, int tx, int k) {
+  float av[8], bv[4];
+  load4(as + 4 * ty, av);
+  load4(as + 64 + 4 * ty, av + 4);
+  load4(bs + 4 * tx, bv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float cand = Op::mul(av[i], bv[j]);
+      const bool better = cand < acc[i][j];
+      acc[i][j] = better ? cand : acc[i][j];
+      ks[i][j] = better ? k : ks[i][j];
+    }
+}
+
 // Row i (0..7) of the register tile, as an offset in the output tile.
 __device__ __forceinline__ int tile_row(int i, int ty) { return (i / 4) * 64 + 4 * ty + i % 4; }
 
 // -------------------------------------------------------------- mainloop
-// What every kernel on a 128 x 128 output tile shares: matmul_kernel here,
-// the fused round's relax_kernel and succ_relax_kernel (fw_round.cuh).
+// What every kernel on a 128-row output tile shares: matmul_kernel here,
+// the fused round's relax_kernel and succ_relax_kernel (fw_round.cuh), the
+// sweep's long-strip relax_kernel and succ_relax_kernel (fw_repair_del.cuh).
 //
 // A warp covers 4 ty by 8 tx, lane l at (ty + l / 8, tx + l % 8): each
 // 4-wide read of a k row is then 4 distinct A and 8 distinct B addresses

@@ -16,7 +16,9 @@ Counterpart of ``repro.kernels.fw_repair_del``.  A batch of edge deletions
     reference's XLA-only successor sweep): blocked FW restricted to the
     (a_pad, m) strip of affected rows, three launches per pivot round on
     the current stream — diag, panels, relax (``csrc/fw_repair_del.cu``
-    says why) — through the buffers of ``sweep_buffers``.
+    says why) — through the buffers of ``sweep_buffers``.  The relax runs
+    on one of two tiles by the strip's shape (``relax_height``): the
+    matmul mainloop's 128-row tile, or a short tile of 8 or 16 rows.
 
 Storage.  f32 (``csrc/fw_repair_del.cu``) or a storage lowering
 (``csrc/fw_repair_del_lowered.cu``, the same three launches on
@@ -51,13 +53,7 @@ from repro_torch.core.semiring import MIN_PLUS, Semiring
 from repro_torch.kernels import ref
 from repro_torch.kernels.fw_repair import SUCC_LOWERINGS, _check, edge_vectors, succ_tag
 from repro_torch.kernels.fw_round import LOWERINGS, contiguous_aligned, storage_tag
-from repro_torch.kernels.minplus_matmul import (
-    BLOCK_SIZES,
-    _fit_block,
-    _raise_on,
-    check_variant,
-    semiring_id,
-)
+from repro_torch.kernels.minplus_matmul import BLOCK_SIZES, _raise_on, check_variant, semiring_id
 
 PHASES = ("diag", "panels", "relax")
 # Storages of the sweep kernels: the round's, but plus_mul has no sweep.
@@ -70,7 +66,23 @@ KINDS = (
             for p in PHASES)
 )
 LAUNCHES = dict.fromkeys(KINDS, 0)
-STRIP_ROWS = 8  # the kernels' strip tile height: strips pad to a multiple of it
+STRIP_ROWS = 8  # strips pad to a multiple of it (the panels' strip lanes hold 4 rows)
+SHORT_HEIGHTS = (8, 16)  # the relax's short tile heights
+LONG_HEIGHT = 128  # the mainloop tile's: strips of at least this many rows take it
+
+
+def relax_height(a: int, n: int) -> int:
+    """The relax launch's tile height for a strip of a rows of n columns:
+    the mainloop's 128 once its 128 x 128 tiles number at least 128 (a CTA
+    an SM, about: a >= 512 at n = 4096, a >= 256 at n = 8192), else the
+    short tile, 8 rows for a strip of 8 and 16 rows (in a / 16 tiles) past
+    that.  Picked by A/B on the H100 (``launch/round_bench.py
+    --sweep-relax``, PERF.md): a shorter tile in more CTAs beat one that
+    holds the strip (at a = 64, 16 rows a tile ran in 0.30-0.77x the time
+    of 64), and a mainloop of 32 CTAs lost to it."""
+    if a >= LONG_HEIGHT and -(-a // LONG_HEIGHT) * -(-n // LONG_HEIGHT) >= LONG_HEIGHT:
+        return LONG_HEIGHT
+    return 8 if a <= 8 else 16
 
 
 def reset_launch_counts() -> None:
@@ -86,7 +98,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fw_repair_del_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fw_repair_del_launch.restype = i
-    lib.fw_repair_del_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.fw_repair_del_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.fw_repair_del_succ_launch.restype = i
     return lib
 
@@ -100,7 +112,7 @@ def _lowered_lib() -> ctypes.CDLL:
     lib.fw_repair_del_lowered_launch.argtypes = [i, i, i, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.fw_repair_del_lowered_launch.restype = i
     lib.fw_repair_del_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i,
-                                                      i, i, p]
+                                                      i, i, i, p]
     lib.fw_repair_del_lowered_succ_launch.restype = i
     return lib
 
@@ -262,26 +274,36 @@ def _require_buffers(fn: str, sw: Sweep) -> None:
         raise ValueError(f"{fn}: s_init, strip_s, band_s and acol_s must be 16-byte aligned")
 
 
-def _launcher(sw: Sweep, tag, semiring: Semiring | None, bk: int):
+def _height(sw: Sweep, height: int | None) -> int:
+    """The relax's tile height on sw: ``relax_height`` of its strip, or the
+    one asked for (any of them computes the same)."""
+    if height is None:
+        return relax_height(*sw.strip.shape)
+    if height not in (*SHORT_HEIGHTS, LONG_HEIGHT):
+        raise ValueError(f"height must be one of {(*SHORT_HEIGHTS, LONG_HEIGHT)}, got {height}")
+    return height
+
+
+def _launcher(sw: Sweep, tag, semiring: Semiring | None, height: int):
     """launch(ph, b, stream) → cudaError_t: round b's launch of phase index
     ph on sw's buffers, their pointers taken once (semiring None: the
-    successor sweep)."""
-    n, a, s = sw.d_init.shape[0], sw.strip.shape[0], sw.block_size
+    successor sweep); the relax on the tile of that height."""
+    n, a, s, h = sw.d_init.shape[0], sw.strip.shape[0], sw.block_size, height
     if semiring is None:
         ptrs = tuple(t.data_ptr() for t in (sw.d_init, sw.s_init, sw.pos, sw.rows, sw.strip,
                                             sw.strip_s, sw.band, sw.band_s, sw.acol, sw.acol_s))
         if tag is None:
             fn = _lib().fw_repair_del_succ_launch
-            return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, stream)
+            return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, h, stream)
         fn, code = _lowered_lib().fw_repair_del_lowered_succ_launch, LOWERINGS[tag]
-        return lambda ph, b, stream: fn(ph, code, *ptrs, n, a, s, b, stream)
+        return lambda ph, b, stream: fn(ph, code, *ptrs, n, a, s, b, h, stream)
     ptrs = tuple(t.data_ptr() for t in (sw.d_init, sw.pos, sw.rows, sw.strip, sw.band, sw.acol))
-    sid, bk = semiring_id(semiring), _fit_block(s, bk)
+    sid = semiring_id(semiring)
     if tag is None:
         fn = _lib().fw_repair_del_launch
-        return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, bk, sid, stream)
+        return lambda ph, b, stream: fn(ph, *ptrs, n, a, s, b, h, sid, stream)
     fn, code = _lowered_lib().fw_repair_del_lowered_launch, LOWERINGS[tag]
-    return lambda ph, b, stream: fn(ph, code, sid, *ptrs, n, a, s, b, bk, stream)
+    return lambda ph, b, stream: fn(ph, code, sid, *ptrs, n, a, s, b, h, stream)
 
 
 def _run(fn: str, tag, sw: Sweep, launch, rounds, phases=PHASES) -> None:
@@ -310,20 +332,26 @@ def _one_phase(fn: str, phase: str, tag, sw: Sweep, b: int, launcher) -> None:
 
 
 def sweep_phase(phase: str, sw: Sweep, b: int, *, bk: int = 32,
-                semiring: Semiring = MIN_PLUS) -> None:
-    """Launch one phase ("diag" | "panels" | "relax") of round b on the card."""
+                semiring: Semiring = MIN_PLUS, height: int | None = None) -> None:
+    """Launch one phase ("diag" | "panels" | "relax") of round b on the card.
+    bk: the reference's staging depth, which no launch takes any more (the
+    result never depended on it); height: the relax's tile height (None:
+    ``relax_height`` of the strip)."""
     tag = _sweep_tag(sw.d_init, semiring)
+    h = _height(sw, height)
     _one_phase("fw_repair_del_sweep", phase, tag, sw, b,
-               lambda: _launcher(sw, tag, semiring, bk))
+               lambda: _launcher(sw, tag, semiring, h))
 
 
-def sweep_succ_phase(phase: str, sw: Sweep, b: int) -> None:
-    """Launch one phase of the successor sweep's round b on the card."""
+def sweep_succ_phase(phase: str, sw: Sweep, b: int, *, height: int | None = None) -> None:
+    """Launch one phase of the successor sweep's round b on the card
+    (height as in ``sweep_phase``)."""
     if sw.s_init is None:
         raise ValueError("the sweep carries no next hops (sweep_buffers(s_init=))")
     tag = succ_tag(sw.d_init)
+    h = _height(sw, height)
     _one_phase("fw_repair_del_sweep_with_successors", phase, tag, sw, b,
-               lambda: _launcher(sw, tag, None, 0))
+               lambda: _launcher(sw, tag, None, h))
 
 
 def fw_repair_del_sweep(
@@ -333,8 +361,9 @@ def fw_repair_del_sweep(
     """The restricted row sweep of ``d_init`` (m, m) from ``mark_affected``
     (f32, or a storage the lowered kernels take): rows (a_pad,) are the
     affected rows, padded with m.  Returns the repaired closure, a new
-    tensor.  bk: the relax launch's staging depth (clamped to a divisor of
-    block_size; the result does not depend on it)."""
+    tensor.  bk: the reference's staging depth of the relax (clamped to a
+    divisor of block_size); it no longer shapes any launch, and the result
+    never depended on it."""
     m = _check(d_init, block_size, "d_init")
     tag = _sweep_tag(d_init, semiring)
     check_variant(variant)
@@ -344,7 +373,8 @@ def fw_repair_del_sweep(
                                            variant=variant, semiring=semiring)
     sw = sweep_buffers(d_init, r, block_size=block_size)
     _require_buffers("fw_repair_del_sweep", sw)
-    _run("fw_repair_del_sweep", tag, sw, _launcher(sw, tag, semiring, bk), range(m // block_size))
+    _run("fw_repair_del_sweep", tag, sw, _launcher(sw, tag, semiring, _height(sw, None)),
+         range(m // block_size))
     return _write_back(sw.d_init, sw.strip, sw)
 
 
@@ -365,5 +395,5 @@ def fw_repair_del_sweep_with_successors(
     sw = sweep_buffers(d_init, r, block_size=block_size, s_init=s_init)
     fn = "fw_repair_del_sweep_with_successors"
     _require_buffers(fn, sw)
-    _run(fn, tag, sw, _launcher(sw, tag, None, 0), range(m // block_size))
+    _run(fn, tag, sw, _launcher(sw, tag, None, _height(sw, None)), range(m // block_size))
     return _write_back(sw.d_init, sw.strip, sw), _write_back(sw.s_init, sw.strip_s, sw)

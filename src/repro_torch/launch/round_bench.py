@@ -1,7 +1,8 @@
 """Time the fused round's launches and the solves built on them, on the card.
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
-        [--label L] [--build-only] [--sweep | --phases | --succ | --sweep-succ]
+        [--label L] [--build-only]
+        [--sweep | --phases | --succ | --sweep-succ | --sweep-relax]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -59,6 +60,25 @@ graph, the deletions ranked by the pairs they affect), checked by bits,
 distances and next hops, against a re-solve, and timed beside it by host
 clock (median of 3 after a warm-up), with its marking and sweep apart and
 the sweep's device time by launch kind (``torch.profiler``).
+
+``--sweep-relax`` times the restricted sweep's relax launch (and its
+successor twin) instead, at (m, m) for m = n/2 and n, pivot round m/s/2,
+on the strip that round's diag and panels launches leave: the plain relax
+in f32 at strips of 8, 32, 64, 128, 512 and m rows, in int16, bf16 and f16
+min-plus, packed or_and words and the int32 or_and carrier at 8 and m;
+the successor relax in f32, bf16 and f16 at 8, 32, 64, 128, 512 and m; each
+first held by bits against its plain phase (``relax_*_ok``), then timed
+between CUDA events (``*_ms``, median of 11) and as device time
+(``*_dev_ms``, ``torch.profiler``, mean of 20).  Where the tree has the
+relax's tile heights (``fw_repair_del.relax_height``), the f32 relax and
+the f32 and bf16 successor relax at every strip are also timed
+on every tile height (``height_*_dev_ms``; each result held by bits).
+Then, by host clock (median of 3 after a warm-up), ``repair_del`` as
+``--sweep`` and ``--sweep-succ`` run it (f32 at n, E = 1 and 16; with next
+hops in f32 at n/2, E = 16) and the bf16 and f16 successor engine path of
+``chip_smoke.py`` at n/2 (integer weights in [1, 16], density 0.02, 16
+on-path deletions: a strip of n/2 rows), each checked against a re-solve,
+with the sweep's device time by launch kind.
 
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
@@ -205,6 +225,8 @@ def build_report(label: str, mode: str = "") -> int:
                    ("minplus_matmul", "minplus_matmul_lowered", "fw_round", "fw_round_lowered")),
         "succ": (("fw_round", "fw_round_lowered"), ()),
         "sweep_succ": (("fw_repair_del", "fw_repair_del_lowered"), ("fw_round",)),
+        "sweep_relax": (("fw_repair_del", "fw_repair_del_lowered"),
+                        ("fw_round", "fw_round_lowered")),
     }.get(mode, (("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"), ()))
     only_succ = mode in ("succ", "sweep_succ")
 
@@ -490,6 +512,163 @@ def succ_sweep_cases(n: int, s: int) -> dict:
     return out
 
 
+def relax_storages(w) -> dict:
+    """``storages`` and the int32 carrier of an integer or_and storage."""
+    import torch
+
+    from repro_torch.core.semiring import OR_AND
+
+    out = storages(w)
+    g = torch.Generator(device=w.device).manual_seed(4)
+    out["i32"] = lambda x: (torch.randint(0, 2, x.shape, generator=g, device=x.device,
+                                          dtype=torch.int32), OR_AND)
+    return out
+
+
+def relax_case(out: dict, key: str, x, a: int, s: int, *, sr=None, succ=None,
+               heights: bool = False) -> None:
+    """One strip of a rows of x in round m/s/2 (``sweep_rows``): diag and
+    panels, then the relax launch (successor relax where succ is given)
+    held by bits against its plain phase and timed; heights: also on every
+    tile height, each result held by bits."""
+    import torch
+
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    m = x.shape[-1]
+    b = m // s // 2
+    sw = fd.sweep_buffers(x, sweep_rows(m, a, seed=a), block_size=s, s_init=succ)
+    if succ is None:
+        launch = lambda p, **kw: fd.sweep_phase(p, sw, b, semiring=sr, **kw)  # noqa: E731
+        bufs = (sw.strip,)
+        plain = lambda st: (ref.sweep_relax_ref(*st, sw.rows, sw.band, sw.acol, b,  # noqa: E731
+                                                semiring=sr),)
+    else:
+        launch = lambda p, **kw: fd.sweep_succ_phase(p, sw, b, **kw)  # noqa: E731
+        bufs = (sw.strip, sw.strip_s)
+        plain = lambda st: ref.sweep_relax_succ_ref(  # noqa: E731
+            *st, sw.rows, sw.band, sw.band_s, sw.acol, sw.acol_s, b)
+    launch("diag")
+    launch("panels")
+    start = tuple(t.clone() for t in bufs)
+    want = plain(start)
+    launch("relax")
+    torch.cuda.synchronize()
+    tag = f"{key}_n{m}_a{a}"
+    out[f"relax_{tag}_ok"] = all(bits_equal(g, v) for g, v in zip(bufs, want))
+    out[f"relax_{tag}_ms"] = event_ms(lambda: launch("relax"))
+    out[f"relax_{tag}_dev_ms"] = device_ms(lambda: launch("relax"))
+    if heights:
+        out[f"relax_{tag}_height"] = fd.relax_height(a, m)
+        for h in (*fd.SHORT_HEIGHTS, fd.LONG_HEIGHT):
+            for t, t0 in zip(bufs, start):
+                t.copy_(t0)
+            launch("relax", height=h)
+            torch.cuda.synchronize()
+            out[f"height_{tag}_h{h}_ok"] = all(bits_equal(g, v) for g, v in zip(bufs, want))
+            out[f"height_{tag}_h{h}_dev_ms"] = device_ms(lambda: launch("relax", height=h))
+
+
+def sweep_relax_cases(n: int, s: int) -> dict:
+    """The relax launches of ``--sweep-relax`` at (n/2, n/2) and (n, n)."""
+    import torch
+
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.kernels import fw_repair_del as fd
+
+    out = {}
+    heights = hasattr(fd, "relax_height")
+    for m in (n // 2, n):
+        w = torch.from_numpy(random_digraph(m, density=0.5, seed=0)).cuda()
+        for key, make in relax_storages(w).items():
+            x, sr = make(w)
+            for a in ((8, 32, 64, 128, 512, m) if key == "f32" else (8, m)):
+                relax_case(out, key, x, a, s, sr=sr, heights=heights and key == "f32")
+            del x
+        for key, dt in (("succ_f32", torch.float32), ("succ_bf16", torch.bfloat16),
+                        ("succ_f16", torch.float16)):
+            x = w.to(dt)
+            succ = _init_successors(x).contiguous()
+            for a in (8, 32, 64, 128, 512, m):
+                relax_case(out, key, x, a, s, succ=succ,
+                           heights=heights and key != "succ_f16")
+            del x, succ
+        del w
+    return out
+
+
+def integer_graph(n: int, seed: int, *, hi: int, density: float):
+    """Integer weights in [1, hi] at the given density, 0 diagonal: every
+    path sum stays an integer below 2^24, exact in f32 (``chip_smoke.py``'s
+    graphs)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, hi + 1, (n, n)).astype(np.float32)
+    w[rng.uniform(size=(n, n)) >= density] = np.inf
+    np.fill_diagonal(w, 0.0)
+    return w
+
+
+def on_path_deletions(w, dist, count: int, seed: int):
+    """(deletions, updated weights): ``count`` edges on shortest paths (w ==
+    dist, not 0 and off the diagonal), drawn with a seeded rng, each removed
+    (set to the ⊕-identity: inf for float weights, 0 for an integer or_and
+    storage)."""
+    import numpy as np
+    import torch
+
+    d0 = torch.as_tensor(dist).cpu().to(torch.float64).numpy()
+    w0 = w.astype(np.float64)
+    on = np.argwhere((w0 == d0) & (w0 != 0) & np.isfinite(w0) & ~np.eye(w.shape[-1], dtype=bool))
+    if len(on) < count:
+        raise RuntimeError("too few on-path edges to delete")
+    rng = np.random.default_rng(seed)
+    w1, dels = w.copy(), []
+    for u, v in on[rng.choice(len(on), size=count, replace=False)]:
+        dels.append((int(u), int(v), w[u, v].item()))
+        w1[u, v] = np.inf if w.dtype.kind == "f" else 0
+    return dels, w1
+
+
+def lowered_succ_repair_del_cases(n: int, E: int = 16) -> dict:
+    """The bf16 and f16 successor ``repair_del`` of ``chip_smoke.py``'s
+    lowered engine path at n (graph seed 61, deletions seed 67): checked
+    against a re-solve (distances), then timed by host clock beside it, with
+    the affected rows and the sweep's device time by launch kind."""
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.utils.bits import bits_equal
+
+    w = integer_graph(n, 61, hi=16, density=0.02)
+    out = {}
+    for key, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        eng = ApspEngine(dtype=dt)
+        s0 = eng.solve(w, successors=True)
+        dels, w1 = on_path_deletions(w, s0.dist, E, seed=67)
+        w1 = torch.from_numpy(w1).cuda()
+        rep = lambda: eng.repair_del(s0.dist, w1, dels, succ=s0.succ,  # noqa: E731
+                                     threshold=100.0)
+        got, want = rep(), eng.solve(w1, successors=True)
+        tag = f"succ_repair_del_{key}_E{E}"
+        out[f"{tag}_ok"] = got.method == "repair_del" and bits_equal(got.dist, want.dist)
+        out[f"{tag}_ms"] = host_ms(rep)
+        out[f"succ_resolve_{key}_E{E}_ms"] = host_ms(lambda: eng.solve(w1, successors=True))
+        _, sweep, sw, _ = marked_sweep(s0.dist, w1.to(dt), dels, succ=s0.succ)
+        out[f"{tag}_a"] = int((sw.rows < n).sum())
+        out[f"{tag}_a_pad"] = int(sw.rows.numel())
+        out[f"{tag}_sweep_ms"] = host_ms(sweep)
+        per = device_by_kind(sweep)
+        out[f"{tag}_sweep_dev_ms"] = sum(per.values())
+        out.update({f"{tag}_sweep_{k}_dev_ms": v for k, v in per.items()})
+        del eng, s0, got, want, sw
+    return out
+
+
 def tie_free_graph(n: int, seed: int):
     """Large random integer weights in [1, 1e6), density 0.4: shortest
     paths are unique, so next hops compare bitwise with a re-solve (the
@@ -660,11 +839,14 @@ def main(argv=None) -> int:
                       help="time the successor round's chains and solve instead")
     mode.add_argument("--sweep-succ", action="store_true",
                       help="time the successor sweep's chains and repair_del instead")
+    mode.add_argument("--sweep-relax", action="store_true",
+                      help="time the sweep's relax launches and repair_del instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
         return build_report(args.label, "sweep" if args.sweep else
+                            "sweep_relax" if args.sweep_relax else
                             "phases" if args.phases else "succ" if args.succ else
                             "sweep_succ" if args.sweep_succ else "")
 
@@ -688,6 +870,13 @@ def main(argv=None) -> int:
     out = dict(label=args.label, package=repro_torch.__file__, nvidia_smi=smi, n=args.n)
     n, s = args.n, 128
     b = n // s // 2
+    if args.sweep_relax:
+        out.update(sweep_relax_cases(n, s))
+        out.update(repair_del_cases(n))
+        out.update(succ_repair_del_cases(n // 2))
+        out.update(lowered_succ_repair_del_cases(n // 2))
+        print(json.dumps(out))
+        return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
     if args.succ or args.sweep_succ:
         if args.succ:
             out.update(succ_chain_cases(n, s))

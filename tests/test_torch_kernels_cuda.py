@@ -1515,6 +1515,121 @@ def test_succ_sweep_chain_kernels_match_plain_phases(cuda_device, dtype, salt, s
     assert all(fd.LAUNCHES[k] == before[p] + launches for p, k in kinds.items())
 
 
+# ------------------- the sweep's relax: both tiles, every height, every storage
+RELAX_A_PADS = (8, 16, 24, 64, 136, 256)  # both sides of relax_height's switch
+RELAX_HEIGHTS = (*fd.SHORT_HEIGHTS, fd.LONG_HEIGHT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name,salt", SWEEP_CHAIN_STORAGES, ids=lambda v: str(v))
+@pytest.mark.parametrize("s", [16, 128])
+def test_sweep_relax_kernels_match_plain_phase(cuda_device, tag, name, salt, s):
+    """The relax launch alone on every tile (the short tile at 8, 16, 32 and
+    64 rows, the mainloop's 128), each at a_pad 8, 16, 24, 64, 136 and 256
+    (``relax_height`` picks one of them), by bits against
+    ``sweep_relax_ref``: n = 384, round 1, real rows inside the pivot block
+    and padding rows, the strip holding other values than d_init's rows;
+    f32 and bf16 / f16 salted with ±0 or, apart, off-diagonal NaN, and every
+    other sweep storage."""
+    n, b = 384, 1
+    kind = "fw_repair_del_sweep/relax" + (f"[{tag}]" if tag else "")
+    before = fd.LAUNCHES[kind]
+
+    def case(seed):
+        return (_storage_case(tag, name, (n, n), seed, s) if salt == "-"
+                else _relax_input(tag, name, (n, n), seed, s, salt))
+
+    (x, sr), (other, _) = case(s + 7), case(s + 8)
+    d, src = x.to(cuda_device), other.to(cuda_device)
+    for a_pad in RELAX_A_PADS:
+        rows = _sweep_chain_rows(n, s, a_pad, b, seed=a_pad + s)
+        sw = fd.sweep_buffers(d, rows, block_size=s)
+        sw.strip.copy_(src[torch.from_numpy(np.minimum(rows, n - 1)).long().to(cuda_device)])
+        fd.sweep_phase("diag", sw, b, semiring=sr)
+        fd.sweep_phase("panels", sw, b, semiring=sr)
+        strip = sw.strip.clone()
+        want = ref.sweep_relax_ref(strip, sw.rows, sw.band, sw.acol, b, semiring=sr)
+        for h in RELAX_HEIGHTS:
+            sw.strip.copy_(strip)
+            fd.sweep_phase("relax", sw, b, semiring=sr, height=h)
+            torch.cuda.synchronize()
+            assert bits_equal(sw.strip, want), (a_pad, h)
+    assert fd.LAUNCHES[kind] == before + len(RELAX_A_PADS) * len(RELAX_HEIGHTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("salt", ["zero", "nan", "ties"])
+@pytest.mark.parametrize("s", [16, 128])
+def test_succ_sweep_relax_kernels_match_plain_phase(cuda_device, dtype, salt, s):
+    """The successor relax launch alone on every tile and at every a_pad of
+    ``test_sweep_relax_kernels_match_plain_phase``, distances and next hops
+    by bits against ``sweep_relax_succ_ref``: the kept-k gather, the start's
+    hop where no k improved (from acol_s in block column b), the band and
+    band_s rows of the strip rows inside the pivot block."""
+    n, b = 384, 1
+    tag = {torch.float32: "", torch.bfloat16: "[bf16]", torch.float16: "[f16]"}[dtype]
+    kind = f"fw_repair_del_sweep_with_successors/relax{tag}"
+    before = fd.LAUNCHES[kind]
+    d, sd = (t.to(cuda_device) for t in _succ_sweep_input(dtype, salt, n, s, s + 7))
+    other, other_s = (t.to(cuda_device) for t in _succ_sweep_input(dtype, salt, n, s, s + 8))
+    for a_pad in RELAX_A_PADS:
+        rows = _sweep_chain_rows(n, s, a_pad, b, seed=a_pad + s)
+        sw = fd.sweep_buffers(d, rows, block_size=s, s_init=sd)
+        idx = torch.from_numpy(np.minimum(rows, n - 1)).long().to(cuda_device)
+        sw.strip.copy_(other[idx])
+        sw.strip_s.copy_(other_s[idx])
+        fd.sweep_succ_phase("diag", sw, b)
+        fd.sweep_succ_phase("panels", sw, b)
+        strip, strip_s = sw.strip.clone(), sw.strip_s.clone()
+        wd, ws = ref.sweep_relax_succ_ref(strip, strip_s, sw.rows, sw.band, sw.band_s, sw.acol,
+                                          sw.acol_s, b)
+        assert not bits_equal(ws, strip_s)  # some hop moved
+        for h in RELAX_HEIGHTS:
+            sw.strip.copy_(strip)
+            sw.strip_s.copy_(strip_s)
+            fd.sweep_succ_phase("relax", sw, b, height=h)
+            torch.cuda.synchronize()
+            assert bits_equal(sw.strip, wd) and bits_equal(sw.strip_s, ws), (a_pad, h)
+    assert fd.LAUNCHES[kind] == before + len(RELAX_A_PADS) * len(RELAX_HEIGHTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tag,name", [(None, n) for n in IDEMPOTENT] + SWEEP_CASES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("s", [32, 128])
+def test_kernel_sweep_of_every_row_matches_plain(cuda_device, tag, name, s):
+    """The whole sweep at a_pad = m (every row affected: the long tile,
+    n / 128 tiles a side), by bits against the plain sweep; with next hops
+    in f32, bf16 and f16."""
+    n = 256
+    d, sr = (torch.from_numpy(_graph(name, (n, n), seed=s)), SEMIRINGS[name]) if tag is None \
+        else _storage_case(tag, name, (n, n), seed=s, s=s)
+    d = d.to(cuda_device)
+    rows = np.arange(n, dtype=np.int32)
+    got = fd.fw_repair_del_sweep(d, rows, block_size=s, semiring=sr)
+    want = ref.fw_repair_del_sweep_ref(d, rows, block_size=s, semiring=sr)
+    torch.cuda.synchronize()
+    assert bits_equal(got, want)
+    if tag in (None, "bf16", "f16") and name == "min_plus":
+        succ = _init_successors(d).contiguous()
+        gd, gs = fd.fw_repair_del_sweep_with_successors(d, succ, rows, block_size=s)
+        wd, ws = ref.fw_repair_del_sweep_with_successors_ref(d, succ, rows, block_size=s)
+        torch.cuda.synchronize()
+        assert bits_equal(gd, wd) and bits_equal(gs, ws)
+
+
+@pytest.mark.cuda
+def test_sweep_relax_refuses_an_unknown_height(cuda_device):
+    d = torch.zeros(128, 128, device=cuda_device)
+    sw = fd.sweep_buffers(d, [3, 70], block_size=64)
+    before = dict(fd.LAUNCHES)
+    for h in (0, 12, 256):
+        with pytest.raises(ValueError, match="height"):
+            fd.sweep_phase("relax", sw, 1, height=h)
+    assert dict(fd.LAUNCHES) == before
+
+
 @pytest.mark.cuda
 def test_succ_sweep_refuses_a_misaligned_hop_buffer(cuda_device):
     """The successor diag and panels move the hop buffers four at a time: a
