@@ -1299,6 +1299,313 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
     report(f"n={n_succ} E=16 with successors", n_succ, s0.dist, ws1, dels_s, succ=s0.succ)
 
 
+# ------------------------------------------------------------------ serving
+def _kernel_name(key: str) -> str:
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0]
+
+
+def serve_refresh(label: str, router, h2d: int, d2h) -> dict:
+    """One ``router.refresh()`` under ``torch.profiler`` (device events
+    only): its wall time (host clock, profiled), its kernels' device time by
+    name, the device time of its copies to and from the card (the bytes
+    are the tables and weights the arm hands across, ``h2d`` / ``d2h``, the
+    latter an int or a function read after the refresh; index vectors and
+    masks not counted), the rest as host time, and the launches by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+
+    mods = (fr, fp, fd)
+    before = [dict(m.LAUNCHES) for m in mods]
+    arms0 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        router.refresh()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    arms1 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
+    d2h = d2h() if callable(d2h) else d2h
+    launched = {k: m.LAUNCHES[k] - b[k] for m, b in zip(mods, before) for k in m.KINDS
+                if m.LAUNCHES[k] != b[k]}
+    kernels: dict[str, list] = {}
+    copies = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if not us:
+            continue
+        if ev.key.startswith("Memcpy"):
+            kind = next((k for k in copies if k in ev.key), "DtoD")
+            copies[kind] += us / 1e3
+            continue
+        k = kernels.setdefault(_kernel_name(ev.key), [0.0, 0])
+        k[0] += us / 1e3
+        k[1] += ev.count
+    dev = sum(v[0] for v in kernels.values())
+    copy_ms = sum(copies.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    rate = lambda b, ms: b / ms / 1e6 if ms else float("nan")  # noqa: E731 — GB/s
+    print(f"serve refresh {label}: arms (solve, repair, repair_del) {arms0} -> {arms1}; "
+          f"wall {wall:.3f} ms (profiled); device kernels {dev:.3f} ms "
+          f"({', '.join(f'{n} {t:.4f} ms x{c}' for n, (t, c) in top)}); copies to the card "
+          f"{h2d} B in {copies['HtoD']:.3f} ms ({rate(h2d, copies['HtoD']):.2f} GB/s), from it "
+          f"{d2h} B in {copies['DtoH']:.3f} ms ({rate(d2h, copies['DtoH']):.2f} GB/s), on it "
+          f"{copies['DtoD']:.3f} ms; host (the rest) {wall - dev - copy_ms:.3f} ms; "
+          f"launches {json.dumps(launched)}")
+    return dict(wall=wall, dev=dev, copies=copies, kernels=kernels, launched=launched,
+                h2d=h2d, d2h=d2h)
+
+
+def _table_bytes(router, gids) -> int:
+    return sum(router.snapshots.active(g).nbytes for g in gids)
+
+
+def _weight_bytes(router, gids) -> int:
+    return sum(router.registry.peek(g).nbytes for g in gids)
+
+
+def _walked(router, gid: str, count: int, seed: int) -> int:
+    """``count`` replies of ``gid`` whose walked path, summed in f32 along
+    the current weights, costs what the reply says (unreachable: no path,
+    cost inf)."""
+    import numpy as np
+
+    w = router.registry.peek(gid)
+    n = w.shape[-1]
+    rng = np.random.default_rng(seed)
+    for src, dst in rng.integers(0, n, (count, 2)):
+        r = router.query(gid, int(src), int(dst))
+        if not r.reachable:
+            require(src != dst and np.isinf(r.cost), f"serve: {gid} {src}->{dst} no path "
+                    f"but cost {r.cost}")
+            continue
+        require(r.path[0] == src and r.path[-1] == dst, f"serve: {gid} path {r.path} does "
+                f"not join {src} to {dst}")
+        c = np.float32(0)
+        for a, b in zip(r.path, r.path[1:]):
+            c = np.float32(c + w[a, b])
+        require(c == np.float32(r.cost), f"serve: {gid} {src}->{dst} path costs {c}, the "
+                f"reply {r.cost}")
+    return count
+
+
+def _hops_on_shortest_paths(w, dist, succ) -> bool:
+    """Every next hop s = succ[i, j] of a reachable pair i != j starts a
+    shortest path: w[i, s] + dist[s, j] == dist[i, j] (exact on integer
+    weights whose sums stay under 2^24), and unreachable pairs have -1."""
+    import torch
+
+    n = w.shape[-1]
+    fin = torch.isfinite(dist) & ~torch.eye(n, dtype=torch.bool, device=dist.device)
+    s = succ.long().clamp(min=0)
+    ok = (w.gather(1, s) + dist.gather(0, s) == dist) & (succ >= 0)
+    return bool((ok | ~fin).all() and (succ[~torch.isfinite(dist)] == -1).all())
+
+
+def phase_serve(rows: dict, n: int = 4096, graphs: int = 4, n_low: int = 8192,
+                n_cmp: int = 256, n_mesh: int = 1024):
+    """The serving path: ``repro_torch.serve.routing.RoutingEngine`` on the
+    card, over the ported solve, repair and repair_del kernels (it adds no
+    kernel; ``rows`` keeps its kernels' launches from their own paths).
+
+    1. f32 router, method "auto" (fused), ``graphs`` tie-free graphs of n
+       (``fw_serve.repair_scenario``: integer weights in [1, 1e6), 40 %
+       edges): one refresh (one bucketed ``solve_many`` with next hops);
+       ``fw_serve.run_load``'s mix (1000 calls, an ``update_edge`` every
+       50, a quarter of the queries through ``submit`` / ``poll``,
+       ``max_batch`` 16): QPS, p50 / p99 query latency; one more
+       improvement's refresh (the repair arm); two ``fail_link``\\ s of
+       on-path edges (the fewest-pairs one of g1, the median-ranked one of
+       g2), each refreshed on the repair_del arm.  Every published dist ==
+       the engine's card re-solve of the current weights by bits; 64
+       walked replies a graph cost, summed in f32, what the reply says.
+       The round, successor repair and successor sweep kinds each launched
+       on this path (counts set to 0 before it, read after).
+    2. int16 router, distance-only: one graph of n_low (integer weights in
+       [1, 16], 2 % edges): refresh, 8 improvements, 1 ``fail_link``; the
+       published table == the card re-solve by bits; the int16 round,
+       repair and sweep kinds launched.
+    3. Card against host: ``fw_serve.serve_log`` at n_cmp (4 graphs, 400
+       calls) through a card router and a ``device="cpu"`` one: tables,
+       replies and counters equal (``fw_serve.replay``).
+    4. Mesh router: a 1×1 grid (``launch/mesh.py:run_grid``) at n_mesh,
+       an improvement and a link failure refreshed: its table == the
+       single-card fused solve by bits.
+
+    Each refresh arm's wall, device, copy and host time is printed
+    (``serve_refresh``), with the card's name and power limit printed by
+    ``phase_device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine
+    from repro_torch.core.semiring import I16_INF
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+    from repro_torch.launch import fw_dist_check as fdc
+    from repro_torch.launch import fw_serve
+    from repro_torch.launch.mesh import run_grid
+    from repro_torch.launch.round_bench import integer_graph, ranked_deletions
+    from repro_torch.serve.routing import RoutingEngine
+    from repro_torch.serve.snapshot import host_values
+
+    t_phase = time.perf_counter()
+    gids = [f"g{i}" for i in range(graphs)]
+    router = RoutingEngine(max_batch=16)
+    for i, g in enumerate(gids):
+        router.add_graph(g, fw_serve.repair_scenario("min_plus", n, seed=i)[0])
+    for m in (fr, fp, fd):
+        m.reset_launch_counts()
+    arms = {"solve_many": serve_refresh(f"f32 solve_many B={graphs} n={n} with next hops",
+                                        router, _weight_bytes(router, gids),
+                                        lambda: _table_bytes(router, gids))}
+    require(router.solve_refreshes == graphs and router.engine.stats.solves == 1,
+            "serve: the first refresh was not one bucketed solve_many")
+    t0 = time.perf_counter()
+    load = fw_serve.run_load(router=router, graphs=graphs, n=n, queries=1000,
+                             update_every=50, seed=7)
+    print(f"serve load n={n}, {graphs} graphs: {json.dumps(load)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"serve: QPS {load['qps']:.1f}, query latency p50 {load['p50_us']:.1f} us, "
+          f"p99 {load['p99_us']:.1f} us")
+    require(load["repair_refreshes"] > 0, "serve: the load took no repair refresh")
+    print(f"serve: f32 router set up, refreshed and loaded ({time.perf_counter() - t_phase:.1f} s)")
+    router.refresh()
+    u, v = 5, n - 9
+    require(router.update_edge("g0", u, v, 1.0), "serve: the improvement changed nothing")
+    snap_b = _table_bytes(router, ["g0"])
+    arms["repair"] = serve_refresh(f"f32 repair n={n} E=1 with next hops", router,
+                                   snap_b, snap_b)
+    require(router.engine.stats.repairs > load["engine_repairs"], "serve: no repair ran")
+    for g, pick in (("g1", 0), ("g2", None)):
+        snap = router.snapshots.active(g)
+        ranked = ranked_deletions(router.registry.peek(g), snap.dist, 64, seed=31)
+        _, u, v = ranked[pick if pick is not None else len(ranked) // 2]
+        st = router.engine.stats
+        sweeps, falls, rows0 = st.repair_dels, st.repair_del_fallbacks, st.repair_del_rows
+        router.fail_link(g, int(u), int(v), symmetric=False)
+        b = _table_bytes(router, [g])
+        arms[f"repair_del {g}"] = serve_refresh(
+            f"f32 repair_del n={n} {g} ({u}, {v}) with next hops", router,
+            b + _weight_bytes(router, [g]), b)
+        took = ("sweep" if router.engine.stats.repair_dels > sweeps else
+                "re-solve" if router.engine.stats.repair_del_fallbacks > falls else "no-op")
+        print(f"serve: fail_link {g} ({u}, {v}) took the repair_del arm, engine {took} "
+              f"({st.repair_del_rows - rows0} affected rows)")
+    require(router.repair_del_refreshes == 2, "serve: the link failures missed repair_del")
+    require(router.engine.stats.repair_dels >= 1, "serve: no link failure swept")
+    counts = {k: v for m in (fr, fp, fd) for k, v in m.LAUNCHES.items() if v}
+    print(f"serve path launch counts: {json.dumps(counts)}")
+    for kind in ([f"fw_round_with_successors/{p}" for p in fr.PHASES]
+                 + ["fw_repair_with_successors/stage", "fw_repair_with_successors/apply"]
+                 + [f"fw_repair_del_sweep_with_successors/{p}" for p in fd.PHASES]):
+        require(counts.get(kind, 0) > 0, f"{kind} was not launched on the serving path")
+    differ = 0
+    for g in gids:
+        snap = router.snapshots.active(g)
+        wg = router.registry.weights_tensor(g).cuda()
+        full = router.engine.solve(wg, successors=True)
+        require(same(snap.dist_tensor(), full.dist.cpu()),
+                f"serve: published {g} != the card re-solve of its weights")
+        succ = snap.succ_tensor().cuda()
+        require(_hops_on_shortest_paths(wg, full.dist, succ),
+                f"serve: a published next hop of {g} is off every shortest path")
+        differ += int((succ != full.succ).sum())
+    walked = sum(_walked(router, g, 64, seed=40 + i) for i, g in enumerate(gids))
+    print(f"serve checks: {graphs} published f32 tables == card re-solve by bits; every "
+          f"published next hop starts a shortest path ({differ} of {graphs * n * n} differ "
+          f"from the re-solve's: equal-cost ties, broken in another order); {walked} "
+          f"replies walked, each costing its f32 path sum ({time.perf_counter() - t_phase:.1f} s)")
+    del router
+
+    for m in (fr, fp, fd):
+        m.reset_launch_counts()
+    eng16 = ApspEngine(dtype=torch.int16)
+    r16 = RoutingEngine(engine=eng16)
+    r16.add_graph("big", integer_graph(n_low, 60, hi=16, density=0.02))
+    arms["solve int16"] = serve_refresh(f"int16 solve n={n_low}", r16,
+                                        _weight_bytes(r16, ["big"]),
+                                        lambda: _table_bytes(r16, ["big"]))
+    snap = r16.snapshots.active("big")
+    d = snap.dist
+    rng = np.random.default_rng(63)
+    upd = []
+    while len(upd) < 8:
+        u, v = (int(x) for x in rng.integers(0, n_low, 2))
+        if u != v and 2 <= int(d[u, v]) < I16_INF:
+            upd.append((u, v, float(int(d[u, v]) // 2)))
+    for u, v, x in upd:
+        require(r16.update_edge("big", u, v, x), "serve: an int16 improvement changed nothing")
+    b = _table_bytes(r16, ["big"])
+    arms["repair int16"] = serve_refresh(f"int16 repair n={n_low} E=8", r16, b, b)
+    snap = r16.snapshots.active("big")
+    _, u, v = ranked_deletions(r16.registry.peek("big"), host_values(snap.dist, snap.dtype),
+                               16, seed=64)[0]
+    r16.fail_link("big", int(u), int(v), symmetric=False)
+    arms["repair_del int16"] = serve_refresh(f"int16 repair_del n={n_low} ({u}, {v})", r16,
+                                             b + _weight_bytes(r16, ["big"]), b)
+    require((r16.solve_refreshes, r16.repair_refreshes, r16.repair_del_refreshes)
+            == (1, 1, 1), "serve: the int16 router missed an arm")
+    full = eng16.solve(r16.registry.weights_tensor("big"))
+    require(same(r16.snapshots.active("big").dist_tensor(), full.dist.cpu()),
+            "serve: the int16 table != the card re-solve")
+    counts = {k: v for m in (fr, fp, fd) for k, v in m.LAUNCHES.items() if v}
+    print(f"serve int16 path launch counts: {json.dumps(counts)}")
+    require(eng16.stats.repair_dels == 1, "serve: the int16 link failure did not sweep")
+    for kind in ([f"fw_round/{p}[int16]" for p in fr.PHASES]
+                 + ["fw_repair/stage[int16]", "fw_repair/apply[int16]"]
+                 + [f"fw_repair_del_sweep/{p}[int16]" for p in fd.PHASES]):
+        require(counts.get(kind, 0) > 0, f"{kind} was not launched on the int16 serving path")
+    print(f"serve checks: int16 n={n_low} table after 8 improvements and a link failure == "
+          f"card re-solve by bits (engine {eng16.stats.repair_dels} sweeps, "
+          f"{eng16.stats.repair_del_fallbacks} re-solves; {time.perf_counter() - t_phase:.1f} s)")
+    del r16, full
+
+    t0 = time.perf_counter()
+    log = fw_serve.serve_log(graphs=4, n=n_cmp, ops=400, seed=3)
+    card, host = (fw_serve.replay(RoutingEngine(device=dv, max_batch=16, repair_threshold=100.0,
+                                                clock=fw_serve.ticks()), log, seed=5)
+                  for dv in ("cuda", "cpu"))
+    require(card[0] == host[0] and card[2] == host[2],
+            "serve: the card router's calls, counters or replies differ from the host's")
+    require([(i, g, s.version) for i, g, s in card[1]]
+            == [(i, g, s.version) for i, g, s in host[1]]
+            and all(same(c.dist_tensor(), h.dist_tensor())
+                    and same(c.succ_tensor(), h.succ_tensor())
+                    for (*_, c), (*_, h) in zip(card[1], host[1])),
+            "serve: a table published on the card differs from the host's")
+    last = card[0][-1]
+    print(f"serve card == host: n={n_cmp}, {len(log)} calls, {len(card[1])} tables and "
+          f"{len(card[2])} batched replies equal by bits; arms {last['arms']}, engine "
+          f"{json.dumps(last['stats'])}, batcher {last['batcher']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    w, upd, _ = fw_serve.repair_scenario("min_plus", n_mesh, seed=70)
+    w1 = w.copy()
+    w1[upd[0][0], upd[0][1]] = min(w1[upd[0][0], upd[0][1]], upd[0][2])
+    single = ApspEngine()
+    d1 = single.solve(w1).dist
+    _, u, v = ranked_deletions(w1, d1.cpu().numpy(), 16, seed=71)[0]
+    case = dict(kind="router", graphs={"g0": w}, updates=[("g0", *upd[0])],
+                failures=[("g0", int(u), int(v))])
+    (res,) = run_grid(fdc.run_cases, 1, 1, device="cuda", args=([case],), timeout=300)
+    w1[u, v] = np.inf
+    require(same(res[0]["weights"]["g0"], w1), "serve: the mesh router's weights differ")
+    require(res[0]["arms"] == (1, 1, 1) and same(res[0]["dists"]["g0"], single.solve(w1).dist),
+            "serve: the 1x1 mesh router's table != the single-card fused solve")
+    print(f"serve mesh: 1x1 grid router n={n_mesh} (solve, repair, repair_del refreshes "
+          f"{res[0]['arms']}; {res[0]['sweeps']} sweep, {res[0]['fallbacks']} re-solve) == "
+          f"single-card fused solve by bits ({time.perf_counter() - t0:.1f} s, spawn included)")
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
+    return arms
+
+
 # ------------------------------------------------------ 4-dispatch round
 FOUR_KINDS = ("fw_phase1", "fw_phase2_row", "fw_phase2_col", "semiring_matmul")
 
@@ -4014,6 +4321,7 @@ def main(argv=None) -> int:
         phase_flash_decode(rows)
         phase_engine(rows, 8192, 4096)
         phase_engine_repair_del(rows, 8192, 4096)
+        phase_serve(rows)
         phase_four(rows, 8192)
         phase_four_lowered(rows, 8192)
         phase_kernels_dist(rows, 8192)

@@ -418,7 +418,12 @@ def run_cases(mesh, cases: list[dict]) -> list[dict]:
     mesh engine refuses), "imports" (whether the rank has loaded ``jax`` or
     ``repro``), "grid_check" (``grid_check`` of the case's "cfgs"),
     "broadcast" (each of the case's per-rank tensors broadcast over the
-    world, the rank's grid row and its grid column, as received).
+    world, the rank's grid row and its grid column, as received), "router"
+    (a ``serve.routing.RoutingEngine`` on the grid: the case's graphs
+    added and refreshed, its improvements (``update_edge``) applied and
+    refreshed, then its link failures (``fail_link``, one direction);
+    each graph's published table and weights, the refresh arms and the
+    engine's sweep / fallback counts).
 
     A case's "semiring" may name a lowering; "dtype" casts its float input
     (bf16 travels as f32 numpy, which has no bf16) and pins an engine's
@@ -453,6 +458,29 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
+def _router(mesh, case: dict) -> dict:
+    from repro_torch.serve.routing import RoutingEngine
+
+    router = RoutingEngine(mesh=mesh, device=mesh.device.type, block_size=case.get("bs"))
+    for g, w in case["graphs"].items():
+        router.add_graph(g, w)
+    router.refresh()
+    for g, u, v, x in case.get("updates", ()):
+        router.update_edge(g, u, v, x)
+    router.refresh()
+    for g, u, v in case.get("failures", ()):
+        router.fail_link(g, u, v, symmetric=False)
+    router.refresh()
+    snaps = {g: router.snapshots.active(g) for g in case["graphs"]}
+    return dict(dists={g: s.dist for g, s in snaps.items()},
+                succ=[s.succ for s in snaps.values()],
+                weights={g: router.registry.peek(g) for g in case["graphs"]},
+                arms=(router.solve_refreshes, router.repair_refreshes,
+                      router.repair_del_refreshes),
+                sweeps=router.engine.stats.repair_dels,
+                fallbacks=router.engine.stats.repair_del_fallbacks)
+
+
 def _run_case(mesh, case: dict) -> dict:
     dev = mesh.device
     kind = case["kind"]
@@ -465,6 +493,8 @@ def _run_case(mesh, case: dict) -> dict:
         return dict(recs=grid_check(mesh, case["cfgs"]))
     if kind == "broadcast":
         return _broadcasts(mesh, case["data"])
+    if kind == "router":
+        return _router(mesh, case)
     if kind == "engine":
         eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, dtype=dtype,
                          packed=packed, block_size=case.get("bs"), validate=False,

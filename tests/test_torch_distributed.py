@@ -159,7 +159,32 @@ def _cases():
     cases["engine"] = dict(kind="engine", semiring="min_plus", bs=S,
                            graphs=[semiring_graph("min_plus", (n, n), seed=6 + i)
                                    for i, n in enumerate((96, 48, 96))])
+    cases["router"] = _router_case()
     return cases
+
+
+def _updated(w, updates, failures):
+    w1 = w.copy()
+    for u, v, x in updates:
+        w1[u, v] = min(w1[u, v], x)
+    for u, v in failures:
+        w1[u, v] = np.inf
+    return w1
+
+
+def _router_case():
+    """Two tie-free graphs on the mesh router: one improvement (the mesh
+    repair) and one on-path link failure each (the local sweep)."""
+    graphs, updates, failures = {}, [], []
+    for i, n in enumerate((64, 48)):
+        w, upd, _ = repair_scenario("min_plus", n, seed=20 + i)
+        w1 = _updated(w, [upd[0]], [])
+        d = np.asarray(JEngine(validate=False).solve(w1).dist)
+        (u, v, _), = pick_deletions(w1, d, "min_plus", count=1)[0]
+        graphs[f"g{i}"] = w
+        updates.append((f"g{i}", *upd[0]))
+        failures.append((f"g{i}", u, v))
+    return dict(kind="router", bs=S, graphs=graphs, updates=updates, failures=failures)
 
 
 CASES = _cases()
@@ -326,3 +351,19 @@ def test_engine_solve_many_one_runner_a_key(grid):
         assert r["traces"] == [1, 1]
         for g, d in zip(graphs, r["dists"]):
             assert_same(d, fused(g, "min_plus"))
+
+
+def test_mesh_router_publishes_the_fused_tables(grid):
+    """``RoutingEngine(mesh=)``: every rank publishes distance-only tables
+    equal to the reference's single-device fused solve of the updated
+    weights, after a repair refresh and a repair_del refresh."""
+    _, _, res = grid
+    case = CASES["router"]
+    for r in res["router"]:
+        assert r["arms"] == (2, 2, 2) and r["succ"] == [None, None]
+        assert r["sweeps"] + r["fallbacks"] == 2
+        for g, w in case["graphs"].items():
+            w1 = _updated(w, [x[1:] for x in case["updates"] if x[0] == g],
+                          [x[1:] for x in case["failures"] if x[0] == g])
+            assert_same(r["weights"][g], w1)
+            assert_same(r["dists"][g], fused(w1, "min_plus"))

@@ -10,8 +10,9 @@ JAX reference: bucketing, caching, successors, validation.
   * bucketing groups by padded shape and keeps input order;
   * negative cycles name the offending inputs.
 
-Mirrors ``tests/test_apsp_engine.py`` without the serving layer (A.9); the
-storage lowerings (bf16 included) are ``tests/test_torch_engine_lowered.py``.
+Mirrors ``tests/test_apsp_engine.py`` without the serving layer
+(``tests/test_torch_serve.py``); the storage lowerings (bf16 included) are
+``tests/test_torch_engine_lowered.py``.
 """
 import numpy as np
 import pytest

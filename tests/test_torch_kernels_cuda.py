@@ -1807,3 +1807,26 @@ def test_f16_plus_mul_kernels_are_one_fma(cuda_device, shape, s):
     a, b = w[..., :, : s], w[..., : s, :]
     assert bits_equal(fmm.semiring_matmul(a, b, w, semiring=sr),
                       ref.semiring_matmul_ref(a, b, w, semiring=sr))
+
+
+# ------------------------------------------------------------- serving
+@pytest.mark.cuda
+def test_router_on_the_card_replays_like_the_host(cuda_device):
+    """One seeded log of router calls at n = 256 (4 graphs, 400 calls)
+    through a card router and a ``device="cpu"`` router: every published
+    table by bits (dist and next hops), every reply, the refresh arms,
+    ``engine.stats`` and the batcher's flushes agree."""
+    from repro_torch.launch import fw_serve
+    from repro_torch.serve.routing import RoutingEngine
+
+    log = fw_serve.serve_log(graphs=4, n=256, ops=400, seed=3)
+    card, host = (fw_serve.replay(RoutingEngine(device=d, max_batch=16, repair_threshold=100.0,
+                                                clock=fw_serve.ticks()), log, seed=5)
+                  for d in ("cuda", "cpu"))
+    (cobs, csnaps, creps), (hobs, hsnaps, hreps) = card, host
+    assert cobs == hobs and creps == hreps
+    assert [(i, g, s.version) for i, g, s in csnaps] == [(i, g, s.version) for i, g, s in hsnaps]
+    for (*_, c), (*_, h) in zip(csnaps, hsnaps):
+        assert bits_equal(c.dist_tensor(), h.dist_tensor())
+        assert bits_equal(c.succ_tensor(), h.succ_tensor())
+    assert all(x > 0 for x in cobs[-1]["arms"]) and cobs[-1]["stats"]["repair_dels"] > 0
