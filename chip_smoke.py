@@ -6,8 +6,11 @@
 
 Phases, each of which raises (exit code 1) on any failure:
 
-  1. device: the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/kernels/csrc`` (one nvcc each, all at once) and print
+  1. device: the card's name and power limit; start the build of the CUDA
+     kernels from ``src/repro_torch/kernels/csrc`` (one nvcc each, all at
+     once: ``_build.build_async``).  The checks below run as their own
+     libraries land, those that need ``fw_repair.cu``, the slowest build,
+     last; before them the build report prints
      each library's build seconds, registers and spills (each instantiation
      of the redesigned kernels: matmul, relax, successor relax, decode,
      the round's diag and bands and its successor diag and bands, the
@@ -86,7 +89,17 @@ Phases, each of which raises (exit code 1) on any failure:
      a batch of 3, band lengths 1, s - 3 and 1000, aligned, odd-strided
      and unaligned views, ±0 / NaN salted, planted diagonals.  f16 plus_mul
      (``phase_check_f16_plus_mul``): the round, bordered round, matmul,
-     phase 1 and a solve, one f16 FMA a step, card == twin.
+     phase 1 and a solve, one f16 FMA a step, card == twin.  The recursive
+     (R-Kleene) schedule (``phase_check_kleene``): its executor on the
+     five semirings at (n, s, leaf) = (128, 32, 32), (160, 32, 64), (96,
+     32, 96), a (3, 96, 96) batch and n = 1024 (s 128, leaf 256; min-plus,
+     plus_mul, with ``devices=`` the card once, twice and three times, a
+     lane each) through the device and the
+     pinned host store, ``solve(method="recursive")`` and budget-promoted
+     solves in int16 / bf16 / f16 and on 40 packed graphs; each == its
+     plain run on the CPU == the card's fused solve, the host stores'
+     bytes each way == ``plan.recursive_transfer_bytes``, the rise of
+     peak device memory within the residency model.
   3. kernels: each launch kind alone at the main paths' shapes, against
      the plain version of its phase: max abs error, median ms, plain ms
      and the bound (the larger of operations / 67 TFLOP/s fp32 and bytes /
@@ -166,6 +179,22 @@ Phases, each of which raises (exit code 1) on any failure:
      the two, ±inf salted in) and timed alone per launch kind at the 2×2
      rank's (4224,4224) block (phase 3), in f32 and the four lowered
      storages, and plus_mul's relax there beside ``torch.addmm``.
+ 10. out-of-core path (``phase_oocore``, after the serving path): the
+     user's ``solve(w, hbm_budget=)`` on a host matrix bigger than the
+     budget — f32 min-plus n = 16384 under 768 MiB, int16 n = 16384 under
+     384 MiB, one plane of 32 packed graphs n = 8192 under 192 MiB — with
+     its ``semiring_matmul`` / ``fw_phase*`` launches, wall beside the
+     in-core fused solve (== by bits), rise of peak device memory (<= the
+     budget), copies each way (``torch.profiler``: ms, GB/s), kernels and
+     device idle time, pinning the host matrix cold and again, and the same
+     schedule through an explicit ``HostPanelStore`` whose bytes each way
+     == the plan's model; each launch kind of the lane alone at its shapes
+     (the leaf's phases, the cross's two products, the sweep's P x P
+     product on the factor views) against its plain version and beside its
+     bound, a row of the record of its own with the lane's launches; an
+     in-core ``solve(method="recursive", leaf=1024)`` at n = 8192 timed
+     beside fused; ``ApspEngine(hbm_budget=192 MiB)`` at n = 8192 twice
+     (an out-of-core key, then a cache hit).
 
 Every kernel of the record must have been launched on its path; the
 last lines are the ``{"kernels": [...]}`` record and then
@@ -175,6 +204,7 @@ the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import math
@@ -422,7 +452,18 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
-    for built in _build.build_all():
+    return name, _build.build_async()
+
+
+def phase_build(builds: dict):
+    """Wait for every library of ``phase_device``'s build and print its
+    build seconds, registers and spills (each instantiation of the
+    redesigned kernels); a chain or sweep relax instantiation that spills
+    fails.  The checks before this phase ran as their own libraries
+    landed."""
+    from repro_torch.kernels import _build
+
+    for built in (f.result() for f in builds.values()):
         infos = _build.kernel_infos(built)
         spills = [f"{k.name} {k.spill_stores}/{k.spill_loads} B" for k in infos if k.spill_stores]
         regs = max((k.registers for k in infos), default=0)
@@ -460,7 +501,6 @@ def phase_device():
             require(len(relax) == relaxes, f"{built.name}: {len(relax)} relax kernels")
             spilled = [k.name for k in relax if k.spill_stores or k.spill_loads]
             require(not spilled, f"the sweep's relax kernels spill: {spilled}")
-    return name
 
 
 def phase_check():
@@ -1305,33 +1345,31 @@ def _kernel_name(key: str) -> str:
     return name.split("(")[0]
 
 
-def serve_refresh(label: str, router, h2d: int, d2h) -> dict:
-    """One ``router.refresh()`` under ``torch.profiler`` (device events
-    only): its wall time (host clock, profiled), its kernels' device time by
-    name, the device time of its copies to and from the card (the bytes
-    are the tables and weights the arm hands across, ``h2d`` / ``d2h``, the
-    latter an int or a function read after the refresh; index vectors and
-    masks not counted), the rest as host time, and the launches by kind."""
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profiled(fn) -> dict:
+    """fn() under ``torch.profiler`` (device events only): its wall time
+    (host clock, profiled), its kernels' device time and event count by
+    name, their sum ``dev``, the device time of its copies to, from and on
+    the card, and the time the device was busy at all (the union of the
+    events' intervals; the sums overlap)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import fw_repair as fp
-    from repro_torch.kernels import fw_repair_del as fd
-    from repro_torch.kernels import fw_round as fr
-
-    mods = (fr, fp, fd)
-    before = [dict(m.LAUNCHES) for m in mods]
-    arms0 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
     sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        router.refresh()
+        fn()
         sync()
         wall = (time.perf_counter() - t0) * 1e3
-    arms1 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
-    d2h = d2h() if callable(d2h) else d2h
-    launched = {k: m.LAUNCHES[k] - b[k] for m, b in zip(mods, before) for k in m.KINDS
-                if m.LAUNCHES[k] != b[k]}
     kernels: dict[str, list] = {}
     copies = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0}
     for ev in prof.key_averages():
@@ -1339,13 +1377,38 @@ def serve_refresh(label: str, router, h2d: int, d2h) -> dict:
         if not us:
             continue
         if ev.key.startswith("Memcpy"):
-            kind = next((k for k in copies if k in ev.key), "DtoD")
-            copies[kind] += us / 1e3
+            copies[next((k for k in copies if k in ev.key), "DtoD")] += us / 1e3
             continue
         k = kernels.setdefault(_kernel_name(ev.key), [0.0, 0])
         k[0] += us / 1e3
         k[1] += ev.count
-    dev = sum(v[0] for v in kernels.values())
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(wall=wall, copies=copies, kernels=kernels,
+                dev=sum(v[0] for v in kernels.values()),
+                busy=_union_ms(spans) if spans else None)
+
+
+def serve_refresh(label: str, router, h2d: int, d2h) -> dict:
+    """One ``router.refresh()`` under ``profiled``: its wall time, its
+    kernels' device time by name, the device time of its copies to and from
+    the card (the bytes are the tables and weights the arm hands across,
+    ``h2d`` / ``d2h``, the latter an int or a function read after the
+    refresh; index vectors and masks not counted), the rest as host time,
+    and the launches by kind."""
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import fw_repair_del as fd
+    from repro_torch.kernels import fw_round as fr
+
+    mods = (fr, fp, fd)
+    before = [dict(m.LAUNCHES) for m in mods]
+    arms0 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
+    prof = profiled(router.refresh)
+    wall, kernels, copies, dev = prof["wall"], prof["kernels"], prof["copies"], prof["dev"]
+    arms1 = (router.solve_refreshes, router.repair_refreshes, router.repair_del_refreshes)
+    d2h = d2h() if callable(d2h) else d2h
+    launched = {k: m.LAUNCHES[k] - b[k] for m, b in zip(mods, before) for k in m.KINDS
+                if m.LAUNCHES[k] != b[k]}
     copy_ms = sum(copies.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     rate = lambda b, ms: b / ms / 1e6 if ms else float("nan")  # noqa: E731 — GB/s
@@ -1604,6 +1667,358 @@ def phase_serve(rows: dict, n: int = 4096, graphs: int = 4, n_low: int = 8192,
           f"single-card fused solve by bits ({time.perf_counter() - t0:.1f} s, spawn included)")
     print(f"serve phase: {time.perf_counter() - t_phase:.1f} s")
     return arms
+
+
+# ------------------------------------------------- recursive / out of core
+def phase_check_kleene():
+    """The recursive (R-Kleene) schedule on the card, each case against its
+    plain run on the CPU and the card's fused solve at the same block size,
+    by bits: ``fw_kleene``'s executor on the five semirings at (n, s, leaf)
+    = (128, 32, 32), (160, 32, 64) and (96, 32, 96) and on a (3, 96, 96)
+    batch, through the device store and the pinned host store;
+    ``solve(method="recursive")`` in int16, bf16, f16 and on 40 packed
+    graphs, and the int16 / bf16 / f16 solves promoted out of core by a
+    budget; n = 1024 at s = 128, leaf 256 in min-plus and plus_mul on both
+    stores, with ``devices=[cuda:0]``, and with the card listed twice and
+    three times (lanes of their own: the sweep's tiles alternate between
+    copy streams, the ordering across lanes).  Every host store moves
+    exactly ``plan.recursive_transfer_bytes`` each way, and every run's
+    rise of peak device memory stays within
+    ``plan.recursive_hbm_resident_bytes`` plus the s x s pivot tile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import DevicePanelStore, HostPanelStore, KleeneExecutor, plan, solve
+    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.core.staged import fw_staged
+
+    dev = torch.device("cuda")
+    checked = 0
+    t_phase = time.perf_counter()
+
+    def run(w, sr, s, leaf, kind, devices=None):
+        """One executor run on the card (``kind``: "host" or "device"
+        store); returns the closed matrix on the CPU."""
+        store = HostPanelStore(w, device=dev) if kind == "host" else DevicePanelStore(w.to(dev))
+        ex = KleeneExecutor(semiring=sr, block_size=s, leaf=leaf, devices=devices)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ex.run(store)
+        got = store.result().cpu()
+        sync()
+        n, lead, word = w.shape[-1], (w.shape[0] if w.ndim == 3 else 1), w.element_size()
+        lr = min(leaf, n) // s
+        model = plan.recursive_hbm_resident_bytes(n, s, lr, word=word, batch=lead)
+        # A lane beyond the first holds its own factors and ring on the card.
+        P = lr * s
+        model += (len(devices or [dev]) - 1) * (2 * P * n + 3 * P * P) * word * lead
+        rise = torch.cuda.max_memory_allocated() - base
+        require(rise <= model + lead * s * s * word,
+                f"kleene {kind} store n={n}: device memory rose {rise} B, model {model}")
+        if kind == "host":
+            want = plan.recursive_transfer_bytes(n, s, lr, word=word, batch=lead)
+            require((store.h2d_bytes, store.d2h_bytes) == want,
+                    f"kleene host store n={n}: bytes {store.h2d_bytes} / {store.d2h_bytes} "
+                    f"!= model {want}")
+        return got
+
+    def hold(w, sr, s, leaf, label, kinds=(("device", None), ("host", None))):
+        nonlocal checked
+        cpu = HostPanelStore(w, device="cpu")
+        KleeneExecutor(semiring=sr, block_size=s, leaf=leaf).run(cpu)
+        fused = fw_staged(w.to(dev), block_size=s, semiring=sr).cpu()
+        require(same(cpu.result(), fused), f"kleene {label}: plain on the CPU != fused")
+        for kind, devices in kinds:
+            got = run(w, sr, s, leaf, kind, devices)
+            require(same(got, cpu.result()),
+                    f"kleene {label} {kind} store (devices {devices}): card != plain")
+            checked += 1
+
+    for name, sr in sorted(SEMIRINGS.items()):
+        for n, s, leaf in ((128, 32, 32), (160, 32, 64), (96, 32, 96)):
+            hold(torch.from_numpy(graph(name, (n, n), 7)), sr, s, leaf, f"{name} {n}/{s}/{leaf}")
+        hold(torch.from_numpy(graph(name, (3, 96, 96), 11)), sr, 32, 32, f"{name} (3,96,96)")
+    on_card = [torch.device("cuda", 0)]
+    for name in ("min_plus", "plus_mul"):
+        w = torch.from_numpy(graph(name, (1024, 1024), 13))
+        hold(w, SEMIRINGS[name], 128, 256, f"{name} 1024/128/256",
+             kinds=(("device", None), ("host", None), ("host", on_card),
+                    ("host", on_card * 2), ("device", on_card * 3)))
+
+    w = graph("min_plus", (100, 100), 19)
+    bits = np.random.default_rng(21).random((40, 96, 96)) < 0.05
+    for label, x, kw in (("int16", w, dict(dtype=torch.int16)),
+                         ("bf16", w, dict(dtype=torch.bfloat16)),
+                         ("f16", w, dict(dtype=torch.float16)),
+                         ("packed", bits, dict(semiring="or_and", packed=True))):
+        fused = solve(torch.from_numpy(x).to(dev), method="fused", block_size=32, **kw).dist
+        cpu = solve(x, method="recursive", block_size=32, leaf=32, device="cpu", **kw).dist
+        lanes = {"in core": dict(method="recursive", leaf=32)}
+        if label != "packed":  # a budget never reaches the packed inner solve
+            lanes["out of core"] = dict(method="fused", hbm_budget=1)
+        for lane, lkw in lanes.items():
+            got = solve(x, block_size=32, **lkw, **kw)
+            require(got.method == "recursive", f"kleene {label} {lane}: method {got.method}")
+            require(same(got.dist.cpu(), cpu) and same(got.dist.cpu(), fused.cpu()),
+                    f"kleene solve {label} {lane}: card != plain / fused")
+            checked += 1
+    print(f"check: {checked} recursive (R-Kleene) cases bitwise equal to plain and fused; "
+          f"host stores' bytes == model; {time.perf_counter() - t_phase:.1f} s")
+
+
+def oocore_kernels(rows: dict, tag, x, sr, s: int, P: int, counts: dict, shapes) -> None:
+    """Each launch kind of an out-of-core lane alone at the lane's shapes,
+    on its own matrix x (m x m, the storage the kernels run): the leaf's
+    ``fw_phase1`` (s, s), ``fw_phase2_row`` (s, m) and ``fw_phase2_col``
+    (m, s) into the factor buffers' views, the cross's two products (P,
+    s)·(s, m) + C and (m, s)·(s, P) + C, and the sweep's (P, P)·(P, P) + C
+    on the factor panels' views; each bitwise against its plain version.
+    Each is a row of the record of its own (``…/oocore…``) whose launches
+    are those of the lane's run (``counts``; the products told apart by
+    shape, ``shapes`` = ``minplus_matmul.LAUNCH_SHAPES``)."""
+    import torch
+
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import fw_phase2
+    from repro_torch.kernels import minplus_matmul as fmm
+    from repro_torch.kernels import ref
+
+    sfx = f"[{tag}]" if tag else ""
+    ops, word = (2, 4) if tag is None else (LOWERED_OPS[tag], LOWERED_WORD[tag])
+    m = x.shape[-1]
+    # Round 0 of the second leaf (LO = P): its pivot tile and bands.
+    colband = x[:, P:2 * P].contiguous().cuda()
+    rowband = x[P:2 * P, :].contiguous().cuda()
+    colf, rowf = x[:, :P].contiguous().cuda(), x[:P, :].contiguous().cuda()
+    tile = rowband[:s, P:P + s].contiguous()
+    diag = torch.empty_like(tile)
+    row, col = rowf[:s, :], colf[:, :s]
+    mm = "semiring_matmul" + sfx
+    cases = (
+        ("fw_phase1/oocore", counts["fw_phase1" + sfx],
+         lambda: fph.fw_phase1(tile, semiring=sr, out=diag),
+         lambda: ref.fw_phase1_ref(tile, semiring=sr), lambda: diag,
+         ops * float(s) ** 3, 2 * s * s * word, 11, 3),
+        ("fw_phase2_row/oocore", counts["fw_phase2_row" + sfx],
+         lambda: fw_phase2.fw_phase2_row(diag, rowband[:s, :], semiring=sr, out=row),
+         lambda: ref.fw_phase2_row_ref(diag, rowband[:s, :], semiring=sr), lambda: row,
+         ops * float(s) * s * m, (s * s + 2 * s * m) * word, 11, 3),
+        ("fw_phase2_col/oocore", counts["fw_phase2_col" + sfx],
+         lambda: fw_phase2.fw_phase2_col(diag, colband[:, :s], semiring=sr, out=col),
+         lambda: ref.fw_phase2_col_ref(diag, colband[:, :s], semiring=sr), lambda: col,
+         ops * float(s) * s * m, (s * s + 2 * s * m) * word, 11, 3),
+    )
+    for name, launches, fn, plain, got, nops, nbytes, reps, preps in cases:
+        fn()
+        want = plain()
+        sync()
+        kind = name + sfx
+        require(same(got(), want), f"{kind} at the lane's shape != plain")
+        record_kernel(rows, kind, max_abs_err(got(), want), event_ms(fn, reps),
+                      event_ms(plain, preps), nops, nbytes)
+        rows[kind]["launches"] = launches
+    row[:, P:P + s] = diag
+    col[P:P + s, :] = diag
+    cross = torch.empty_like(rowband), torch.empty_like(colband)
+    a, b = colf[2 * P:3 * P], rowf[:, 3 * P:4 * P]
+    c = x[2 * P:3 * P, 3 * P:4 * P].contiguous().cuda()
+    sweep = torch.empty_like(c)
+    products = (
+        ("cross_row", (P, s, m), (col[P:2 * P, :], row, rowband, cross[0]),
+         ops * float(P) * s * m, (P * s + s * m + 2 * P * m) * word),
+        ("cross_col", (m, s, P), (col, row[:, P:2 * P], colband, cross[1]),
+         ops * float(m) * s * P, (m * s + s * P + 2 * m * P) * word),
+        ("sweep", (P, P, P), (a, b, c, sweep), ops * float(P) ** 3, 4 * P * P * word),
+    )
+    seen = 0
+    for label, shape, (pa, pb, pc, out), nops, nbytes in products:
+        fmm.semiring_matmul(pa, pb, pc, semiring=sr, out=out)
+        want = ref.semiring_matmul_ref(pa, pb, pc, semiring=sr)
+        sync()
+        kind = f"semiring_matmul/oocore_{label}{sfx}"
+        require(same(out, want), f"{kind} {shape} != plain")
+        print(f"{kind} (m, k, n) = {shape} staging: {fmm.staging_name(pa, pb, pc, out)}")
+        record_kernel(rows, kind, max_abs_err(out, want),
+                      event_ms(lambda: fmm.semiring_matmul(pa, pb, pc, semiring=sr, out=out), 11),
+                      event_ms(lambda: ref.semiring_matmul_ref(pa, pb, pc, semiring=sr), 1),
+                      nops, nbytes)
+        rows[kind]["launches"] = shapes[(mm, *shape)]
+        seen += shapes[(mm, *shape)]
+        del want
+    require(seen == counts[mm], f"oocore {mm}: {counts[mm]} launches, {seen} at the lane's "
+                                f"three shapes ({dict(shapes)})")
+
+
+def oocore_lane(rows: dict, label: str, tag, call, fused, store_input, sr, budget: int):
+    """One out-of-core lane.  ``call()`` is the user's ``solve`` under the
+    budget on a host input, ``fused()`` the in-core fused solve of the
+    same input on the card, ``store_input`` the padded host matrix in the
+    storage the kernels run (``sr``, storage ``tag``).  (0) Pinning a host
+    matrix of the store's size, cold and then again from the allocator's
+    cache; (1) the main path: ``call()`` once, its launch counts (the
+    lane's rows of the record, ``oocore_kernels``), wall and rise of peak
+    device memory (<= the budget); (2) the fused solve, timed, == (1) by
+    bits; (3) ``call()`` under ``torch.profiler``: copies each way (ms,
+    GB/s), kernels, device busy and idle; (4) the same schedule through an
+    explicit ``HostPanelStore`` (its allocation from the allocator's cache,
+    queueing and run times), whose bytes each way must equal the plan's
+    model exactly, == (2) by bits."""
+    import torch
+
+    from repro_torch.apsp import HostPanelStore, KleeneExecutor, plan
+    from repro_torch.kernels import fw_phase1 as fph
+    from repro_torch.kernels import minplus_matmul as fmm
+
+    n = store_input.shape[-1]
+    rp = plan.recursive_plan(n, hbm_budget=budget, dtype=store_input.dtype)
+    require(rp["out_of_core"] and rp["matrix_bytes"] > budget >= rp["hbm_resident_bytes"],
+            f"oocore {label}: plan {rp['matrix_bytes']} B matrix, budget {budget}")
+    pin = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        held = torch.empty(store_input.shape, dtype=store_input.dtype, pin_memory=True)
+        pin.append((time.perf_counter() - t0) * 1e3)
+        require(held.is_pinned(), f"oocore {label}: host memory not pinned")
+        del held
+    fph.reset_launch_counts()
+    fmm.reset_launch_counts()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = call()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    rise = torch.cuda.max_memory_allocated() - base
+    counts = {k: v for k, v in {**fph.LAUNCHES, **fmm.LAUNCHES}.items() if v}
+    shapes = collections.Counter(fmm.LAUNCH_SHAPES)
+    require(res.method == "recursive" and res.dist.device.type == "cpu",
+            f"oocore {label}: method {res.method} on {res.dist.device}")
+    require(rise <= budget, f"oocore {label}: device memory rose {rise} B > budget {budget}")
+    rounds = rp["rounds"]
+    require(sum(c for k, c in counts.items() if k.startswith("fw_phase1")) == rounds and
+            sum(c for k, c in counts.items() if k.startswith("semiring_matmul"))
+            == rp["sweep_calls"] + 2 * rounds,
+            f"oocore {label}: launches {counts} against {rounds} rounds, "
+            f"{rp['sweep_calls']} sweeps")
+    sync()
+    t0 = time.perf_counter()
+    want = fused()
+    sync()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    want = want.dist  # on the card: the comparisons run there
+    require(same(res.dist.cuda(), want), f"oocore {label}: streamed solve != in-core fused solve")
+    del res
+    prof = profiled(call)
+    t0 = time.perf_counter()
+    store = HostPanelStore(store_input, device="cuda")
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    ex = KleeneExecutor(semiring=sr, block_size=rp["block_size"], leaf=rp["leaf"])
+    sync()
+    t0 = time.perf_counter()
+    ex.run(store)
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    out = store.result()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    model = (rp["h2d_bytes"], rp["d2h_bytes"])
+    require((store.h2d_bytes, store.d2h_bytes) == model,
+            f"oocore {label}: bytes {store.h2d_bytes} / {store.d2h_bytes} != model {model}")
+    require(same(out[..., :want.shape[-2], :want.shape[-1]].cuda(), want),
+            f"oocore {label}: explicit host store != fused")
+    del store, out, want
+    rate = lambda b, ms: b / ms / 1e6 if ms else float("nan")  # noqa: E731 — GB/s
+    cp, busy = prof["copies"], prof["busy"]
+    idle = "not measured" if busy is None else f"{100 * (1 - busy / prof['wall']):.1f} %"
+    print(f"oocore {label}: n={n} leaf {rp['leaf']} ({rp['panels']} panels, depth {rp['depth']}, "
+          f"{rp['sweep_calls']} sweeps), budget {budget} B, device memory rose {rise} B "
+          f"(model {rp['hbm_resident_bytes']} B + s^2 tile); streamed solve wall {wall:.1f} ms, "
+          f"in-core fused {fused_ms:.1f} ms ({wall / fused_ms:.2f}x), == by bits; "
+          f"launches {json.dumps(counts)}")
+    print(f"oocore {label} profiled: wall {prof['wall']:.1f} ms; copies to the card "
+          f"{model[0]} B in {cp['HtoD']:.1f} ms ({rate(model[0], cp['HtoD']):.2f} GB/s), from it "
+          f"{model[1]} B in {cp['DtoH']:.1f} ms ({rate(model[1], cp['DtoH']):.2f} GB/s), on it "
+          f"{cp['DtoD']:.1f} ms; kernels {prof['dev']:.1f} ms; device busy "
+          f"{'not measured' if busy is None else f'{busy:.1f} ms'}, idle {idle}")
+    print(f"oocore {label} host store: pinning {store_input.nbytes} B cold {pin[0]:.1f} ms, "
+          f"again {pin[1]:.1f} ms (the allocator's cached block, which the calls then take); "
+          f"explicit store allocated and filled in {alloc_ms:.1f} ms; schedule queued in "
+          f"{queued_ms:.1f} ms, ran in {run_ms:.1f} ms; bytes each way == model {model[0]}")
+    oocore_kernels(rows, tag, store_input, sr, rp["block_size"], rp["leaf"], counts, shapes)
+    return dict(wall=wall, fused=fused_ms, rise=rise, prof=prof, pin=pin, alloc=alloc_ms,
+                queued=queued_ms, run=run_ms)
+
+
+def phase_oocore(rows: dict, n: int = 16384, n_small: int = 8192):
+    """The out-of-core path on the card, at sizes whose matrix the run can
+    still hold in core for the bitwise check, under budgets below the
+    matrix (PERF.md §2's random digraph, density 0.5, seed 0):
+
+      lane                         matrix   budget   plan
+      f32 min-plus, n = 16384      1 GiB    768 MiB  leaf 2048, 8 panels
+      int16, n = 16384             512 MiB  384 MiB  leaf 2048, 8 panels
+      packed, 32 graphs n = 8192   256 MiB  192 MiB  leaf 1024, 8 panels
+
+    each through ``oocore_lane``, whose launch kinds each take a row of
+    the record of their own at the lane's shapes (``oocore_kernels``: the
+    leaf's phases, the cross's two products, the sweep's P x P tile ⊕=
+    (P, P)·(P, P) of the factor panels' views), timed beside their bounds;
+    an in-core ``solve(method="recursive", leaf=1024)``
+    at n_small == fused, both timed; ``ApspEngine(hbm_budget=192 MiB)`` at
+    n_small twice: the key out of core, the second solve a cache hit, both
+    == fused."""
+    import torch
+
+    from repro_torch.apsp import ApspEngine, api, solve
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.semiring import MIN_PLUS, MIN_PLUS_I16, OR_AND_PACKED
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=0))
+    wc = w.cuda()
+    oocore_lane(rows, "f32 min_plus", None, lambda: solve(w, hbm_budget=768 << 20),
+                lambda: solve(wc), w, MIN_PLUS, 768 << 20)
+    w16 = api._coerce(w, MIN_PLUS_I16, None, cpu)
+    oocore_lane(rows, "int16", "int16",
+                lambda: solve(w, dtype=torch.int16, hbm_budget=384 << 20),
+                lambda: solve(wc, dtype=torch.int16), w16, MIN_PLUS_I16, 384 << 20)
+    del wc
+    words = api.pack_reachability(packed_graphs(32, n_small, seed=51))[0]
+    words_host = words.cpu()
+    oocore_lane(rows, "packed (32 graphs)", "packed",
+                lambda: solve(words_host, semiring="or_and_packed", hbm_budget=192 << 20),
+                lambda: solve(words, semiring="or_and_packed"), words_host, OR_AND_PACKED,
+                192 << 20)
+    del words, w16
+
+    w8 = torch.from_numpy(random_digraph(n_small, density=0.5, seed=0))
+    w8c = w8.cuda()
+    fused = solve(w8c).dist
+    rec = solve(w8c, method="recursive", leaf=1024)
+    require(rec.method == "recursive" and same(rec.dist, fused),
+            f"in-core recursive n={n_small} leaf 1024 != fused")
+    t_rec = statistics.median(host_ms(lambda: solve(w8c, method="recursive", leaf=1024))
+                              for _ in range(3))
+    t_fused = statistics.median(host_ms(lambda: solve(w8c)) for _ in range(3))
+    print(f"oocore in-core recursive n={n_small} leaf 1024 (8 panels, 392 sweeps): median "
+          f"{t_rec:.2f} ms, fused {t_fused:.2f} ms ({t_rec / t_fused:.3f}x); == fused by bits")
+    del rec, w8c
+    eng, got = ApspEngine(hbm_budget=192 << 20), []
+    t1 = host_ms(lambda: got.append(eng.solve(w8)))
+    t2 = host_ms(lambda: got.append(eng.solve(w8)))
+    (key,) = eng._cache
+    require(key.method == "recursive" and key.oocore and eng.stats.hits == 1
+            and eng.stats.misses == 1, f"oocore engine: key {key}, stats {eng.stats}")
+    fused = fused.cpu()
+    require(all(same(r.dist, fused) for r in got) and len(got) == 2,
+            f"oocore engine n={n_small}: solves != fused")
+    entry = eng._cache[key]
+    print(f"oocore engine n={n_small} f32, hbm_budget 192 MiB: key {key.method} leaf {key.leaf} "
+          f"oocore {key.oocore}; first solve {t1:.1f} ms, cached {t2:.1f} ms (hits "
+          f"{eng.stats.hits}, runner builds {entry.traces}, schedules planned "
+          f"{entry.executor.traces}); both == fused by bits")
+    print(f"oocore phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------ 4-dispatch round
@@ -4289,43 +4704,52 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name = phase_device()
-    phase_signed_zero()
-    phase_check()
-    phase_check_repair()
-    phase_check_repair_del()
-    phase_check_four()
-    phase_check_dist()
-    phase_check_lowered()
-    phase_check_lowered_repair()
-    phase_check_lowered_four()
-    phase_check_lowered_bordered()
-    phase_check_chains()
-    phase_check_succ_chains()
-    phase_check_sweep_chains()
-    phase_check_succ_sweep_chains()
-    phase_check_phase_chains()
-    phase_check_f16_plus_mul()
+    t_run = time.perf_counter()
+
+    def run(phase, *args):
+        """A phase, and how long it took (the run must stay within its
+        time limit as phases are added)."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_run:.1f} s into the run)", flush=True)
+        return out
+
+    name, builds = run(phase_device)
+    # The checks run while the slowest library (fw_repair.cu) still
+    # compiles: each waits for its own libraries only, in about the order
+    # they land; those that need fw_repair come after the build report.
+    for check in (phase_check, phase_check_repair_del, phase_check_four, phase_check_dist,
+                  phase_check_phase_chains, phase_check_sweep_chains,
+                  phase_check_succ_sweep_chains, phase_check_lowered, phase_check_chains,
+                  phase_check_succ_chains, phase_check_lowered_repair,
+                  phase_check_lowered_four, phase_check_lowered_bordered,
+                  phase_check_f16_plus_mul, phase_check_kleene):
+        run(check)
+    run(phase_build, builds)
+    run(phase_signed_zero)
+    run(phase_check_repair)
     if not args.quick:
-        rows = phase_kernels(8192, 4096)
-        phase_kernels_repair(rows, 8192, 4096)
-        phase_kernels_repair_del(rows, 8192, 4096)
-        phase_kernels_four(rows, 8192)
-        phase_kernels_lowered_four(rows, 8192)
-        phase_kernels_lowered(rows, 8192, 4096)
-        phase_kernels_lowered_repair(rows, 8192, 4096)
-        phase_main(rows, 8192, 4096)
-        phase_main_lowered(rows, 8192, 4096)
-        phase_engine_lowered(rows, 8192, 4096)
-        phase_integer_storage(rows)
-        phase_flash_decode(rows)
-        phase_engine(rows, 8192, 4096)
-        phase_engine_repair_del(rows, 8192, 4096)
-        phase_serve(rows)
-        phase_four(rows, 8192)
-        phase_four_lowered(rows, 8192)
-        phase_kernels_dist(rows, 8192)
-        phase_dist(rows, 8192, 2048)
+        rows = run(phase_kernels, 8192, 4096)
+        run(phase_kernels_repair, rows, 8192, 4096)
+        run(phase_kernels_repair_del, rows, 8192, 4096)
+        run(phase_kernels_four, rows, 8192)
+        run(phase_kernels_lowered_four, rows, 8192)
+        run(phase_kernels_lowered, rows, 8192, 4096)
+        run(phase_kernels_lowered_repair, rows, 8192, 4096)
+        run(phase_main, rows, 8192, 4096)
+        run(phase_main_lowered, rows, 8192, 4096)
+        run(phase_engine_lowered, rows, 8192, 4096)
+        run(phase_integer_storage, rows)
+        run(phase_flash_decode, rows)
+        run(phase_engine, rows, 8192, 4096)
+        run(phase_engine_repair_del, rows, 8192, 4096)
+        run(phase_serve, rows)
+        run(phase_oocore, rows)
+        run(phase_four, rows, 8192)
+        run(phase_four_lowered, rows, 8192)
+        run(phase_kernels_dist, rows, 8192)
+        run(phase_dist, rows, 8192, 2048)
         idle = [k for k, r in rows.items() if r["launches"] < 1]
         require(not idle, f"kernels of the record launched no time on their paths: {idle}")
         print(json.dumps({"kernels": list(rows.values())}))

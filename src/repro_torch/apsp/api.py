@@ -5,7 +5,11 @@ Counterpart of ``repro.apsp.api.solve``:
   * **pad/unpad** — any n; padding vertices are ⊕-identity rows/cols with a
     ⊗-identity diagonal, unreachable under every semiring.
   * **dispatch** — "numpy" | "naive" | "blocked" | "staged" | "fused" |
-    "distributed"; "auto" takes "naive" at n <= 64 and "fused" above.
+    "recursive" | "distributed"; "auto" takes "naive" at n <= 64 and
+    "fused" above.  "recursive" is the R-Kleene panel schedule of
+    ``apsp.kleene``; ``hbm_budget=`` promotes any in-core tiled method to
+    it when the padded matrix does not fit the budget, and the plan then
+    keeps the matrix in pinned host memory and streams its panels.
     "staged" and "fused" both run the fused round, as the reference's do;
     the 4-dispatch round is ``core.staged.fw_staged(fused=False)``.
     "distributed" runs ``core.distributed.fw_distributed`` on the
@@ -32,9 +36,6 @@ Counterpart of ``repro.apsp.api.solve``:
     fused successor round or the naive/blocked loops.
   * **validation** — min-plus solves (and their lowerings) raise
     ``NegativeCycleError`` when a diagonal entry is negative.
-
-Not ported yet, and refused with ``NotImplementedError``: method
-"recursive" (ROADMAP A.10) and ``hbm_budget=`` (A.10).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.apsp import plan
+from repro_torch.apsp.kleene import fw_kleene
 from repro_torch.core.distributed import fw_distributed, gather
 from repro_torch.core.floyd_warshall import fw_blocked, fw_naive, fw_numpy
 from repro_torch.core.paths import fw_blocked_with_successors, fw_with_successors
@@ -71,7 +73,6 @@ METHODS = (
     "distributed",
 )
 SUCCESSOR_METHODS = ("naive", "blocked", "staged", "fused")
-_NOT_PORTED = {"recursive": "ROADMAP A.10"}
 
 # 64-bit integers arrive in the reference as JAX's 32-bit ones (no x64).
 _NARROW = {torch.int64: torch.int32, torch.uint64: torch.uint32}
@@ -89,7 +90,9 @@ class NegativeCycleError(ValueError):
 class APSPResult:
     """Outcome of ``solve``.
 
-    dist: (n, n) or (B, n, n) closure, unpadded, on the solve's device.
+    dist: (n, n) or (B, n, n) closure, unpadded, on the solve's device (on
+          the host for an out-of-core recursive solve: the matrix does not
+          fit the card's budget).
     succ: int32 next-hop table of the same shape (None unless
           successors=True); succ[i, j] = -1 where no i→j path exists.
     """
@@ -179,21 +182,23 @@ def _resolve_device(device) -> torch.device:
 def _resolve_method(method: str, n: int) -> str:
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; have {METHODS}")
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet ({_NOT_PORTED[method]})"
-        )
     if method != "auto":
         return method
     return "naive" if n <= _NAIVE_CUTOFF else "fused"
 
 
 def _resolve_shape(
-    method: str, n: int, block_size: int | None, mesh=None,
+    method: str, n: int, block_size: int | None, mesh=None, *,
+    successors: bool = False, hbm_budget: int | None = None, batch: int = 1,
+    word: int = 4,
 ) -> tuple[str, int | None, int]:
     """(method, block_size, n_padded) — the dispatch-and-padding policy.
     "distributed" pads to the mesh multiple through
-    ``plan.distributed_plan``."""
+    ``plan.distributed_plan``.  ``hbm_budget`` (device bytes) promotes an
+    in-core tiled method to "recursive" when the padded matrix (batch ·
+    m² · word bytes) does not fit it, never a successor solve
+    (``repro/apsp/api.py:203-213``); recursive pads as fused does, so the
+    promotion changes the schedule, never the padded shape."""
     meth = _resolve_method(method, n)
     if meth == "distributed":
         if mesh is None:
@@ -201,10 +206,27 @@ def _resolve_shape(
         dp = plan.distributed_plan(n, mesh.R * mesh.C, grid=(mesh.R, mesh.C),
                                    block_size=block_size)
         return meth, dp["block_size"], dp["n_padded"]
-    if meth in ("blocked", "staged", "fused"):
+    if meth in ("blocked", "staged", "fused", "recursive"):
         s = block_size or plan.auto_block_size(n)
-        return meth, s, plan.padded_size(n, s)
+        m = plan.padded_size(n, s)
+        if (meth != "recursive" and not successors and hbm_budget is not None
+                and batch * m * m * word > hbm_budget):
+            meth = "recursive"
+        return meth, s, m
     return meth, None, n
+
+
+def _budget_word(given: torch.dtype, store: torch.dtype, semiring: Semiring, dtype) -> int:
+    """The element size the reference's promotion counts: its coerced
+    array's (``repro/apsp/api.py:420-428``).  That is the storage's,
+    except that a 64-bit input which no ``dtype=`` casts and which keeps
+    its kind (float64, or int64 / uint64 of or_and / plus_mul) stays 64-bit
+    in numpy there until the solve converts it; the port narrows it up
+    front."""
+    if (dtype is None and not semiring.packed and semiring.dtype != "int16"
+            and given.itemsize == 8 and given.is_floating_point == store.is_floating_point):
+        return 8
+    return store.itemsize
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -355,7 +377,9 @@ def solve(
     validate: bool = True,
     mesh=None,
     variant: str = "fori",
+    leaf: int | None = None,
     hbm_budget: int | None = None,
+    devices=None,
     device="cuda",
 ) -> APSPResult:
     """All-pairs shortest paths (semiring closure) of one or many graphs.
@@ -365,8 +389,10 @@ def solve(
        semiring's ⊕-identity (+inf for min-plus).  Any n (padded, then
        unpadded); f32, bf16 and f16 inputs are solved in their own dtype.
     method: "auto" | "numpy" | "naive" | "blocked" | "staged" | "fused" |
-       "distributed" (needs ``mesh``; every rank of the grid calls ``solve``
-       with the same w and gets the full result).
+       "recursive" (the R-Kleene panel schedule, ``apsp.kleene``; bitwise
+       equal to "fused" at the same block size) | "distributed" (needs
+       ``mesh``; every rank of the grid calls ``solve`` with the same w and
+       gets the full result).
     semiring: a ``Semiring`` or its name ("min_plus", "max_plus", "max_min",
        "or_and", "plus_mul", or a lowering's: "min_plus_i16", …,
        "or_and_packed" for pre-packed int32 words).
@@ -387,10 +413,24 @@ def solve(
     mesh: the ``launch.mesh.GridMesh`` of method="distributed" (ignored by
        the other methods); its device type must be ``device``'s.
     device: "cuda" (default: the Hopper kernels) or "cpu" (plain versions).
-    hbm_budget: not ported yet (NotImplementedError naming ROADMAP A.10).
+    leaf: pivot-panel width of method="recursive" (a multiple of the block
+       size; None = ``plan.recursive_plan``'s pick: the fattest power of
+       two whose streaming residency fits the budget when out of core,
+       4·block_size in core).
+    hbm_budget: device-memory budget in bytes.  When the padded matrix
+       (batch · m² · word, the word of the input's storage as the
+       reference counts it) exceeds it, an in-core tiled method ("auto"
+       too) becomes "recursive", and the plan keeps the matrix in pinned
+       host memory (``apsp.kleene.HostPanelStore``) with only the pivot
+       cross, its factors and three tiles on the card; ``dist`` then comes
+       back on the host.  Integer or_and / plus_mul storages are counted in
+       their own word, though the card holds their int32 carrier.  Never
+       promotes a successor solve, nor a packed one (the reference does
+       not pass it to the inner solve; ``method="recursive"`` does run
+       packed words).
+    devices: cards the recursive sweep's tiles go round-robin over
+       (``KleeneExecutor``); default the solve's device.
     """
-    if hbm_budget is not None:
-        raise NotImplementedError("hbm_budget= is not ported yet (ROADMAP A.10)")
     sr = resolve_semiring(semiring)
     if packed:
         # Pack → one closure over int32 bit planes → unpack: each bit lane
@@ -411,13 +451,18 @@ def solve(
     sr = lower_semiring(sr, dtype)
     check_variant(variant)
     dev = _resolve_device(device)
-    arr = _coerce(w, sr, dtype, dev)
+    # Under a budget the input waits on the host until the plan says
+    # whether the matrix goes to the card at all.
+    arr = _coerce(w, sr, dtype, torch.device("cpu") if hbm_budget is not None else dev)
     store, run_sr = arr.dtype, sr
     if int_storage(store, sr):
         arr, run_sr = to_carrier(arr, sr), int_carrier(sr, store)
     batched = arr.ndim == 3
-    n = arr.shape[-1]
-    meth, s, m = _resolve_shape(method, n, block_size, mesh)
+    n, B = arr.shape[-1], arr.shape[0] if arr.ndim == 3 else 1
+    given = _as_tensor(w).dtype
+    meth, s, m = _resolve_shape(method, n, block_size, mesh, successors=successors,
+                                hbm_budget=hbm_budget, batch=B,
+                                word=_budget_word(given, store, sr, dtype))
     if meth == "distributed":
         _check_mesh_device(mesh, dev)
     if successors:
@@ -425,9 +470,19 @@ def solve(
     if meth == "numpy" and sr is not MIN_PLUS:
         raise ValueError("method='numpy' implements min_plus only")
 
-    run = _solver(meth, semiring=run_sr, block_size=s, variant=variant,
-                  successors=successors, mesh=mesh)
-    out = run(_pad(arr, m, run_sr))
+    if meth == "recursive":
+        # The plan picks the leaf and whether the matrix stays on the host
+        # (out of core) or on the card; either way the closure is bitwise
+        # the fused solve's at the same block size.
+        rp = plan.recursive_plan(n, leaf=leaf, hbm_budget=hbm_budget, block_size=s,
+                                 batch=B, dtype=store, variant=variant)
+        wp = _pad(arr if rp["out_of_core"] else arr.to(dev), m, run_sr)
+        out = fw_kleene(wp, semiring=run_sr, block_size=s, leaf=rp["leaf"], variant=variant,
+                        out_of_core=rp["out_of_core"], devices=devices, device=dev)
+    else:
+        run = _solver(meth, semiring=run_sr, block_size=s, variant=variant,
+                      successors=successors, mesh=mesh)
+        out = run(_pad(arr.to(dev), m, run_sr))
     dist, succ = out if successors else (out, None)
     dist = dist[..., :n, :n]
     if int_storage(store, sr):

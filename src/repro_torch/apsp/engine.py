@@ -36,6 +36,15 @@ the session object for that:
     affected pairs (torch ops), then re-relaxes only the affected rows
     through the restricted-sweep kernels (``kernels.fw_repair_del``), or
     re-solves when ``plan.should_repair_del`` says that is cheaper.
+  * **recursive** — method "recursive", or any in-core tiled method
+    promoted by ``hbm_budget=`` when a padded graph does not fit it
+    (decided at batch 1, as the reference decides, so that bucketing stays
+    a function of n): the R-Kleene schedule of ``apsp.kleene``.  Its plan
+    keys carry the leaf and ``oocore`` from one ``plan.recursive_plan``
+    call; each entry keeps one ``KleeneExecutor`` (``entry.executor``:
+    depth, leaf / sweep counts) and gives every solve a fresh panel store,
+    pinned host memory when the plan is out of core (the result then comes
+    back on the host).
   * **mesh** — ``ApspEngine(method="distributed", mesh=grid)`` runs every
     solve through the distributed solve on the ``launch.mesh.GridMesh``
     (plan keys carry the grid's signature; every rank of the grid makes
@@ -48,10 +57,7 @@ the session object for that:
     reference.
 
 Method "staged" runs the fused round, as the reference's engine does, in
-every storage.  Not ported yet, and refused with ``NotImplementedError``
-naming the ROADMAP item: method "recursive" / ``leaf`` / ``hbm_budget``
-(A.10).  The reference's
-TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
+every storage.  The reference's TPU-lowering knobs ``backend=``, ``interpret=`` and ``vmem_budget=`` have
 no counterpart: the port has one lowering per device, chosen by
 ``device=``, and the batch of a bucket rides one launch
 (``PlanKey.batch_block`` is the batch).
@@ -69,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.apsp import plan
+from repro_torch.apsp.kleene import DevicePanelStore, HostPanelStore, KleeneExecutor
 from repro_torch.apsp.api import (
     METHODS,
     APSPResult,
@@ -78,7 +85,6 @@ from repro_torch.apsp.api import (
     _check_successor_args,
     _coerce,
     _is_min_plus,
-    _NOT_PORTED,
     _pad,
     _resolve_device,
     _resolve_shape,
@@ -106,9 +112,9 @@ class PlanKey:
     """The plan-cache key: everything that changes what a runner launches.
 
     The reference's fields, kept: ``mesh`` is the grid's signature on
-    distributed keys; ``leaf`` and ``oocore`` stay at their defaults until
-    the recursive engine (A.10) is ported.  ``backend`` is the device type
-    the runner launches on, "cuda" or "cpu".
+    distributed keys; ``leaf`` (the pivot-panel width) and ``oocore`` (a
+    host-resident panel store) are set on recursive keys.  ``backend`` is
+    the device type the runner launches on, "cuda" or "cpu".
     """
 
     n_padded: int
@@ -123,8 +129,8 @@ class PlanKey:
     mesh: tuple | None = None
     edges: int = 0  # repair entries: the padded edge-batch bucket E (the
     #                 row bucket a_pad for "repair_del" sweep entries)
-    leaf: int | None = None
-    oocore: bool = False
+    leaf: int | None = None  # recursive entries: pivot-panel width
+    oocore: bool = False     # recursive entries: host-resident panel store
     backend: str = "cuda"
 
 
@@ -138,7 +144,10 @@ class ExecutablePlan:
             round's launches (``plan.round_smem_bytes``; the reference's
             ``vmem_bytes``); None for methods without a kernel.
     hbm_bytes_per_round: the device-memory traffic model of one fused round
-            at this key (one repair dispatch for repair entries).
+            at this key (one repair dispatch for repair entries; a recursive
+            solve's modelled device traffic over its rounds).
+    executor: the ``KleeneExecutor`` of a recursive entry (depth, leaf and
+            sweep counts), else None.
     """
 
     key: PlanKey
@@ -146,6 +155,7 @@ class ExecutablePlan:
     smem_bytes: int | None = None
     hbm_bytes_per_round: float | None = None
     traces: int = 0
+    executor: Any = None
 
 
 @dataclasses.dataclass
@@ -193,6 +203,7 @@ class ApspEngine:
         mesh=None,
         leaf: int | None = None,
         hbm_budget: int | None = None,
+        devices=None,
         device="cuda",
     ):
         """method / semiring / block dims pin the solve configuration, and
@@ -201,23 +212,16 @@ class ApspEngine:
         mesh: the ``launch.mesh.GridMesh`` of method="distributed" (its
         device type must be ``device``'s).  device: "cuda" (default: the
         Hopper kernels) or "cpu" (the plain versions); without a card,
-        "cuda" raises.  leaf / hbm_budget and method "recursive" are not
-        ported yet (NotImplementedError naming ROADMAP A.10).
+        "cuda" raises.  leaf / hbm_budget / devices configure method
+        "recursive" as ``api.solve``'s do; ``hbm_budget`` also promotes the
+        in-core tiled methods to it when a padded graph (in the word of
+        ``dtype``, 4 bytes when unpinned) does not fit.
         """
         if method not in METHODS:
             raise ValueError(f"unknown method {method!r}; have {METHODS}")
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"ApspEngine(method={method!r}) is not ported yet "
-                f"({_NOT_PORTED[method]})"
-            )
         if method == "distributed" and mesh is None:
             raise ValueError("ApspEngine(method='distributed') requires a mesh= "
                              "(a launch.mesh.GridMesh)")
-        if leaf is not None or hbm_budget is not None:
-            raise NotImplementedError(
-                "ApspEngine(leaf=, hbm_budget=) is not ported yet (ROADMAP A.10)"
-            )
         check_variant(variant)
         self.method = method
         self.semiring = lower_semiring(resolve_semiring(semiring), dtype, packed=packed)
@@ -230,6 +234,12 @@ class ApspEngine:
         self.mesh = mesh
         if method == "distributed":
             _check_mesh_device(mesh, self.device)
+        self.leaf = leaf
+        self.hbm_budget = hbm_budget
+        self.devices = devices
+        # Under a budget inputs are coerced on the host, and go to the card
+        # only when their plan is not out of core.
+        self._staging = torch.device("cpu") if hbm_budget is not None else self.device
         self.stats = EngineStats()
         self._cache: dict[PlanKey, ExecutablePlan] = {}
 
@@ -251,28 +261,63 @@ class ApspEngine:
         entry.traces += 1
         return entry
 
+    def _resolve_shape(self, n: int, successors: bool) -> tuple[str, int | None, int]:
+        """(method, block_size, n_padded) through ``api._resolve_shape``,
+        the budget's promotion evaluated at batch 1 in the word of the
+        pinned dtype (4 when none is pinned), as the reference does."""
+        return _resolve_shape(self.method, n, self.block_size, self.mesh,
+                              successors=successors, hbm_budget=self.hbm_budget,
+                              word=plan.word_for(self.dtype))
+
     def plan_for(
         self, n: int, batch: int = 1, *, dtype=torch.float32,
         successors: bool = False,
     ) -> ExecutablePlan:
         """Resolve (and cache) the plan for an (n, batch) solve in the
         storage ``dtype``."""
-        meth, s, m = _resolve_shape(self.method, n, self.block_size, self.mesh)
+        meth, s, m = self._resolve_shape(n, successors)
         dt = dtype_name(dtype)
         if successors:
             _check_successor_args(meth, self.semiring)
         if meth == "numpy" and self.semiring is not MIN_PLUS:
             raise ValueError("method='numpy' implements min_plus only")
         bk = min(self.bk, s) if s is not None else self.bk
+        rec = None
+        if meth == "recursive":
+            # Planned once here; the key's (leaf, oocore) and the runner's
+            # schedule come from this one dict.
+            rec = plan.recursive_plan(n, leaf=self.leaf, hbm_budget=self.hbm_budget,
+                                      block_size=s, batch=batch, dtype=dt, bk=bk,
+                                      variant=self.variant)
         key = PlanKey(
             n_padded=m, batch=batch, dtype=dt, semiring=self.semiring.name,
             method=meth, block_size=s, bk=bk,
             batch_block=batch if meth in ("staged", "fused", "distributed") else None,
             successors=successors,
             mesh=self.mesh.signature if meth == "distributed" else None,
+            leaf=rec["leaf"] if rec else None,
+            oocore=rec["out_of_core"] if rec else False,
             backend=self.device.type,
         )
+        if rec:
+            return self._lookup(key, functools.partial(self._build_recursive, rec=rec))
         return self._lookup(key, self._build)
+
+    def _build_recursive(self, key: PlanKey, rec: dict) -> ExecutablePlan:
+        """One ``KleeneExecutor`` for the key, and a runner that gives each
+        solve a fresh panel store: pinned host memory when the key is out
+        of core (the result then stays on the host), else the card."""
+        ex = KleeneExecutor(semiring=self._run_semiring(key.dtype), block_size=key.block_size,
+                            leaf=key.leaf, bk=key.bk, variant=self.variant,
+                            devices=self.devices)
+
+        def runner(wp):
+            store = HostPanelStore(wp, device=self.device) if key.oocore else DevicePanelStore(wp)
+            ex.run(store)
+            return store.result()
+
+        return ExecutablePlan(key=key, runner=runner, executor=ex,
+                              hbm_bytes_per_round=rec["hbm_bytes_total"] / rec["rounds"])
 
     def _build(self, key: PlanKey) -> ExecutablePlan:
         """The batched runner of a solve key, and its models."""
@@ -296,7 +341,7 @@ class ApspEngine:
     # -------------------------------------------------------------- solving
     def solve(self, w, *, successors: bool = False) -> APSPResult:
         """One graph or one uniform (B, n, n) batch through the cache."""
-        arr = _coerce(w, self.semiring, self.dtype, self.device)
+        arr = _coerce(w, self.semiring, self.dtype, self._staging)
         batched = arr.ndim == 3
         n = arr.shape[-1]
         B = arr.shape[0] if batched else 1
@@ -318,13 +363,13 @@ class ApspEngine:
         (B, n, n) array or tensor.  Returns per-graph results in input
         order, bitwise equal to per-graph ``solve`` calls.
         """
-        arrs = [_coerce(g, self.semiring, self.dtype, self.device) for g in graphs]
+        arrs = [_coerce(g, self.semiring, self.dtype, self._staging) for g in graphs]
         for a in arrs:
             if a.ndim != 2:
                 raise ValueError(f"solve_many expects (n,n) graphs, got {tuple(a.shape)}")
         buckets: dict[tuple, list[int]] = {}
         for idx, a in enumerate(arrs):
-            meth, s, m = _resolve_shape(self.method, a.shape[-1], self.block_size, self.mesh)
+            meth, s, m = self._resolve_shape(a.shape[-1], successors)
             buckets.setdefault((meth, m, s, str(a.dtype)), []).append(idx)
         results: list[APSPResult | None] = [None] * len(arrs)
         for (_meth, m, _s, _dt), idxs in buckets.items():
@@ -689,8 +734,11 @@ class ApspEngine:
     def _run(self, entry: ExecutablePlan, graphs: list, m: int):
         """Carry, pad to the plan shape and stack the (n_i, n_i) graphs of
         one bucket, run the cached runner, unpad to m and return the
-        (B, m, m) results in the storage dtype."""
+        (B, m, m) results in the storage dtype (on the host for an
+        out-of-core key, whose graphs stay there)."""
         dtype = graphs[0].dtype
+        if not entry.key.oocore:
+            graphs = [g.to(self.device) for g in graphs]
         carried = [self._carry(g) for g in graphs]
         sr = carried[0][1]
         wb = torch.stack([_pad(c, entry.key.n_padded, sr) for c, _ in carried])

@@ -1,12 +1,14 @@
 """Planning arithmetic for APSP solves — the port's own copy.
 
-Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-223 and
-310-414): word sizes, padding, round counts, the block-size pick, the
-fused round's device-memory traffic model, the rank-1 repair's and the
-decremental repair's with its policy (``should_repair_del``), and the mesh
-plan of the distributed solve (``distributed_plan`` with its grid
-factorization and communication models).  The rest of the reference's
-planner (autotuning, recursive plans) is ROADMAP A.5 / A.10.
+Host-side integer arithmetic from ``repro.apsp.plan`` (lines 24-223,
+310-414 and 745-928): word sizes, padding, round counts, the block-size
+pick, the fused round's device-memory traffic model, the rank-1 repair's
+and the decremental repair's with its policy (``should_repair_del``), the
+mesh plan of the distributed solve (``distributed_plan`` with its grid
+factorization and communication models), and the recursive (R-Kleene)
+plan with its leaf ranges, transfer and residency models
+(``recursive_plan``).  The autotuner (``fw_candidates`` / ``autotune_fw``)
+is ROADMAP A.5.
 """
 from __future__ import annotations
 
@@ -260,3 +262,188 @@ def should_repair_del(
     )
     full = fused_solve_hbm_bytes(n, s, word=word) * (2 if successors else 1)
     return cost <= threshold * full
+
+
+# --------------------------------------------------------------- recursive
+# Planning arithmetic for the recursive (R-Kleene) out-of-core schedule
+# (apsp/kleene.py), copied from the reference (``repro/apsp/plan.py:745-928``)
+# so that both packages plan the same schedule: host-side integer math that
+# the executor, the byte models and fw_oocore's measured-vs-model check all
+# walk in ONE traversal order.
+
+
+def kleene_ranges(
+    rounds: int, leaf_rounds: int
+) -> tuple[list[tuple[int, int]], int]:
+    """Binary R-Kleene recursion over pivot-round ranges → in-order leaves.
+
+    Splits [0, rounds) recursively at a leaf-aligned midpoint until every
+    range holds at most ``leaf_rounds`` rounds.  Returns the leaf ranges in
+    round order (executing them left to right IS the depth-first traversal
+    of the 2×2 Kleene recursion — A11 before the off-diagonal products
+    before A22) plus the recursion depth.  The executor (KleeneExecutor),
+    ``recursive_plan``'s byte models, and the tests all consume this one
+    decomposition, so schedule and model cannot drift.
+    """
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
+    if leaf_rounds < 1:
+        raise ValueError(f"leaf_rounds must be >= 1, got {leaf_rounds}")
+    out: list[tuple[int, int]] = []
+
+    def split(lo: int, hi: int, depth: int) -> int:
+        if hi - lo <= leaf_rounds:
+            out.append((lo, hi))
+            return depth
+        # Leaf-aligned ceil-half split keeps every interior leaf full-width
+        # (only the last panel may be ragged).
+        half = -(-(hi - lo) // (2 * leaf_rounds)) * leaf_rounds
+        mid = lo + half
+        return max(split(lo, mid, depth + 1), split(mid, hi, depth + 1))
+
+    depth = split(0, rounds, 1)
+    return out, depth
+
+
+def recursive_transfer_bytes(
+    n_padded: int, s: int, leaf_rounds: int, *, word: int = 4, batch: int = 1
+) -> tuple[int, int]:
+    """(h2d, d2h) bytes of one out-of-core recursive solve — the model side
+    of the 15%-of-measured acceptance check.
+
+    Mirrors the executor's store traffic exactly: per leaf panel of width
+    P, the resident pivot cross (the (m, P) column band + (P, m) row band,
+    the (P, P) diagonal overlap fetched in both) streams in and back out
+    (2·P·m each way), and every outside tile — the (m−P)² area excluding
+    the cross — streams in for ONE deferred factor matmul and back out.
+    Total ≈ 2·m³/P + O(m²) per direction: the leaf size is the streaming
+    amortization knob, exactly the paper's staging-depth trade one memory
+    level up.
+    """
+    m = n_padded
+    ranges, _ = kleene_ranges(m // s, leaf_rounds)
+    per_dir = 0
+    for lo, hi in ranges:
+        P = (hi - lo) * s
+        per_dir += 2 * P * m + (m - P) * (m - P)
+    per_dir *= word * batch
+    return per_dir, per_dir
+
+
+def recursive_hbm_resident_bytes(
+    n_padded: int, s: int, leaf_rounds: int, *, word: int = 4,
+    batch: int = 1, out_of_core: bool = True,
+) -> int:
+    """Peak device residency of the recursive schedule.
+
+    Out of core, only the pivot cross plus its factor snapshots (4·P·m
+    words: two resident bands + the two concatenated phase-2 factors) and
+    up to three streamed sweep tiles (current + prefetched + retiring
+    write-back, ≤ P² each) live on device — the matrix itself stays in the
+    host store.  In core the full matrix is resident too.
+    """
+    m = n_padded
+    P = min(leaf_rounds * s, m)
+    panels = 4 * P * m + 3 * P * P
+    if not out_of_core:
+        panels += m * m
+    return batch * panels * word
+
+
+def recursive_plan(
+    n: int,
+    *,
+    leaf: int | None = None,
+    hbm_budget: int | None = None,
+    block_size: int | None = None,
+    batch: int = 1,
+    word: int | None = None,
+    dtype=None,
+    bk: int = 32,
+    variant: str = "fori",
+) -> dict:
+    """THE plan for a recursive (R-Kleene) solve — leaf size + streaming.
+
+    Pads n exactly like the fused path (``auto_block_size`` +
+    ``padded_size``; the recursive schedule replays the fused rounds at the
+    same pivot width, which is what makes it bitwise-comparable), then
+    resolves the leaf:
+
+      * ``leaf=None`` with an ``hbm_budget``: the fattest power-of-two
+        multiple of the block size whose out-of-core residency model fits
+        the budget (bigger leaves amortize streaming — transfer ≈ 2·m³/leaf
+        — so the fattest fitting leaf minimizes PCIe bytes).
+      * ``leaf=None`` without a budget: min(m, 4·s) — a compute-granularity
+        default for the in-core path.
+      * explicit ``leaf``: validated (multiple of the block size), clamped
+        to the padded size.
+
+    ``out_of_core`` is True when the full matrix does not fit the budget;
+    the returned byte models then mirror ``apsp.kleene``'s host-store
+    traffic exactly (``recursive_transfer_bytes``).  Returns block_size /
+    n_padded / rounds / leaf / leaf_rounds / ranges / panels / depth /
+    out_of_core / matrix_bytes / hbm_resident_bytes / h2d_bytes /
+    d2h_bytes / transfer_bytes / hbm_bytes_total / leaf_calls /
+    sweep_calls.
+    """
+    if word is None:
+        word = word_for(dtype)
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    s = block_size or auto_block_size(n)
+    m = padded_size(n, s)
+    T = m // s
+    matrix_bytes = batch * m * m * word
+    out_of_core = hbm_budget is not None and matrix_bytes > hbm_budget
+    if leaf is None:
+        if out_of_core:
+            # Fattest power-of-two leaf whose streaming residency fits.
+            lr = 1
+            while (
+                2 * lr * s <= m
+                and recursive_hbm_resident_bytes(
+                    m, s, 2 * lr, word=word, batch=batch
+                ) <= hbm_budget
+            ):
+                lr *= 2
+            leaf = lr * s
+        else:
+            leaf = min(m, 4 * s)
+    else:
+        if leaf % s:
+            raise ValueError(
+                f"leaf ({leaf}) must be a multiple of block_size ({s}) — "
+                f"leaves replay whole fused pivot rounds"
+            )
+        leaf = min(leaf, m)
+    lr = leaf // s
+    ranges, depth = kleene_ranges(T, lr)
+    h2d, d2h = (
+        recursive_transfer_bytes(m, s, lr, word=word, batch=batch)
+        if out_of_core else (0, 0)
+    )
+    # Device-side traffic model: every leaf round reads+writes the resident
+    # cross (2·P·m each way), the sweep reads+writes each outside tile once
+    # and streams the (m−P)·P factor operands past it.
+    hbm_total = 0
+    sweep_calls = 0
+    npanels = len(ranges)
+    for lo, hi in ranges:
+        P = (hi - lo) * s
+        hbm_total += (hi - lo) * 2 * (2 * P * m)
+        hbm_total += 2 * (m - P) * (m - P) + 2 * (m - P) * P
+        sweep_calls += (npanels - 1) ** 2
+    hbm_total *= word * batch
+    return dict(
+        impl="recursive", block_size=s, n=n, n_padded=m, rounds=T,
+        leaf=leaf, leaf_rounds=lr, ranges=ranges, panels=npanels,
+        depth=depth, out_of_core=out_of_core, batch=batch, word=word,
+        bk=min(bk, s), variant=variant,
+        matrix_bytes=matrix_bytes,
+        hbm_resident_bytes=recursive_hbm_resident_bytes(
+            m, s, lr, word=word, batch=batch, out_of_core=out_of_core
+        ),
+        h2d_bytes=h2d, d2h_bytes=d2h, transfer_bytes=h2d + d2h,
+        hbm_bytes_total=hbm_total,
+        leaf_calls=npanels, sweep_calls=sweep_calls,
+    )

@@ -5,6 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 repository root, at first use.  The hash covers the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edited kernel is rebuilt and a
 stale library is never loaded.
+``build_async`` starts every build at once and returns; ``load`` of a
+library still building waits for that build alone.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 """
@@ -44,6 +46,7 @@ class Built:
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_PENDING: dict[str, concurrent.futures.Future] = {}  # build_async's builds, by name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,10 +140,25 @@ def build_all(names=SOURCES) -> list[Built]:
     return done
 
 
+def build_async(names=SOURCES) -> dict[str, concurrent.futures.Future]:
+    """Start the build of every source, one ``nvcc`` each, all at once, and
+    return at once: {name: future of its ``Built``}.  ``load`` of a source
+    still building waits for its own build only, so a caller can use the
+    libraries that are done while the slow ones compile."""
+    pool = concurrent.futures.ThreadPoolExecutor(max(1, len(names)))
+    for name in names:
+        if name not in _PENDING:
+            _PENDING[name] = pool.submit(lambda n=name: build_all((n,))[0])
+    pool.shutdown(wait=False)
+    return {name: _PENDING[name] for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes handle of ``csrc/<name>.cu``, built on first use (or by
+    the ``build_async`` already under way)."""
     lib = _LIBS.get(name)
     if lib is None:
-        (built,) = build_all((name,))
+        pending = _PENDING.get(name)
+        built = pending.result() if pending is not None else build_all((name,))[0]
         lib = _LIBS[name] = ctypes.CDLL(str(built.path))
     return lib

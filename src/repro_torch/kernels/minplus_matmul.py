@@ -10,7 +10,8 @@ storage).  A tensor on the CPU goes to the plain version
 ``csrc/minplus_matmul.cu`` (f32) or ``csrc/minplus_matmul_lowered.cu``,
 and a launch that fails raises; there is no fallback between the two and
 no lowered input is widened.  ``LAUNCHES`` counts the kernel's launches,
-a lowered one under its own kind (``semiring_matmul[int16]``).
+a lowered one under its own kind (``semiring_matmul[int16]``), and
+``LAUNCH_SHAPES`` the same launches by (kind, m, k, n).
 
 Beside it, what every kernel wrapper of the port shares: the storage tags
 and the semiring codes of the CUDA sources, operand checks, and the torch
@@ -20,6 +21,7 @@ port folds.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -153,11 +155,13 @@ def zero_bits(semiring: Semiring, dtype: torch.dtype) -> int:
 # ------------------------------------------------------------- the kernel
 KINDS = ("semiring_matmul",) + tuple(f"semiring_matmul[{tag}]" for tag in LOWERINGS)
 LAUNCHES = dict.fromkeys(KINDS, 0)
+LAUNCH_SHAPES: collections.Counter = collections.Counter()  # (kind, m, k, n) -> launches
 
 
 def reset_launch_counts() -> None:
     for kind in LAUNCHES:
         LAUNCHES[kind] = 0
+    LAUNCH_SHAPES.clear()
 
 
 @functools.cache
@@ -274,4 +278,5 @@ def semiring_matmul(
                 LOWERINGS[tag], semiring_id(semiring), *args, stg, stream)
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
+    LAUNCH_SHAPES[kind, m, k, n] += 1
     return out

@@ -1,8 +1,8 @@
 """The port's ``repro_torch.apsp`` exports what the reference's ``repro.apsp`` does.
 
 Every name of ``repro.apsp.__all__`` is in ``repro_torch.apsp.__all__`` and
-importable from it, except the autotuner's and the recursive planner's,
-which are not ported yet (ROADMAP A.5, A.10).  ``repro_torch.apsp.solver``
+importable from it, except the autotuner's, which is not ported yet
+(ROADMAP A.5).  ``repro_torch.apsp.solver``
 is the counterpart of the reference's back-compat shim ``repro.apsp.solver``:
 the same names, re-exported from ``repro_torch.apsp.api``.
 """
@@ -14,10 +14,8 @@ import repro_torch.apsp
 import repro_torch.apsp.api
 import repro_torch.apsp.solver
 
-# The reference's names the port does not export yet: the autotuner (A.5)
-# and the recursive planner with its R-Kleene schedule (A.10).
-NOT_PORTED = frozenset({"autotune_fw", "recursive_plan", "fw_kleene", "KleeneExecutor",
-                        "DevicePanelStore", "HostPanelStore"})
+# The reference's names the port does not export yet: the autotuner (A.5).
+NOT_PORTED = frozenset({"autotune_fw"})
 
 
 @pytest.mark.parametrize("name", sorted(repro.apsp.__all__))

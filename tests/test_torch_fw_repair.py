@@ -243,6 +243,12 @@ def test_engine_unported_options_name_their_roadmap_item(kw, item):
         assert_same(t0.dist, np.asarray(j0.dist))
         assert_same(te.repair(t0.dist, upd).dist, np.asarray(je.repair(j0.dist, upd).dist))
         return
+    if item == "A.10":  # ported: the recursive engine solves as the reference's
+        w, _, _ = repair_scenario("min_plus", 32)
+        t0, j0 = ApspEngine(device="cpu", **kw).solve(w), japsp.ApspEngine(**kw).solve(w)
+        assert t0.method == j0.method
+        assert_same(t0.dist, np.asarray(j0.dist))
+        return
     if item == "A.11":  # ported: the mesh engine needs a mesh, and only
         if "mesh" in kw:  # method="distributed" reads it
             assert ApspEngine(device="cpu", **kw).mesh is kw["mesh"]

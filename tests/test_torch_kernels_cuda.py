@@ -1830,3 +1830,84 @@ def test_router_on_the_card_replays_like_the_host(cuda_device):
         assert bits_equal(c.dist_tensor(), h.dist_tensor())
         assert bits_equal(c.succ_tensor(), h.succ_tensor())
     assert all(x > 0 for x in cobs[-1]["arms"]) and cobs[-1]["stats"]["repair_dels"] > 0
+
+
+# ------------------------------------------------- recursive / out of core
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("kind", ["host", "device", "host_devices", "host_two_lanes"])
+def test_kleene_streamed_solve_matches_plain(cuda_device, name, kind):
+    """The recursive schedule at n = 448 (s = 64, leaf 128: 4 panels, a
+    ragged last one) through the pinned host store, the device store, the
+    host store with ``devices=[cuda:0]`` and with ``[cuda:0, cuda:0]`` (a
+    second lane on the card: its own factors, ring and copy streams, the
+    sweep's tiles alternating): == its plain run on the CPU and == the
+    card's fused solve by bits; the host store's bytes each way ==
+    ``plan.recursive_transfer_bytes``; the rise of peak device memory
+    within ``plan.recursive_hbm_resident_bytes`` plus the pivot tile (and
+    a second lane's factors and ring); one ``fw_phase1`` a round and the
+    cross's two products a round beside the sweep's, counted."""
+    from repro_torch.apsp import DevicePanelStore, HostPanelStore, KleeneExecutor, plan
+
+    sr = SEMIRINGS[name]
+    n, s, leaf = 448, 64, 128
+    w = torch.from_numpy(_graph(name, (n, n), seed=61))
+    devices = {"host_devices": [torch.device("cuda", 0)],
+               "host_two_lanes": [torch.device("cuda", 0)] * 2}.get(kind)
+    store = (DevicePanelStore(w.to(cuda_device)) if kind == "device"
+             else HostPanelStore(w, device=cuda_device))
+    if kind != "device":
+        assert store.result().is_pinned()
+    ex = KleeneExecutor(semiring=sr, block_size=s, leaf=leaf, devices=devices)
+    before = fph.LAUNCHES["fw_phase1"], fmm.LAUNCHES["semiring_matmul"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ex.run(store)
+    got = store.result()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    lane = (2 * leaf * n + 3 * leaf * leaf) * 4 if kind == "host_two_lanes" else 0
+    assert rise <= plan.recursive_hbm_resident_bytes(n, s, leaf // s) + s * s * 4 + lane
+    rounds = n // s
+    assert (fph.LAUNCHES["fw_phase1"] - before[0],
+            fmm.LAUNCHES["semiring_matmul"] - before[1]) == (rounds, ex.sweep_calls + 2 * rounds)
+    plain = HostPanelStore(w, device="cpu")
+    KleeneExecutor(semiring=sr, block_size=s, leaf=leaf).run(plain)
+    assert bits_equal(got.cpu(), plain.result())
+    assert bits_equal(got.to(cuda_device), fw_staged(w.to(cuda_device), block_size=s, semiring=sr))
+    if kind != "device":
+        assert (store.h2d_bytes, store.d2h_bytes) == plan.recursive_transfer_bytes(n, s, leaf // s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.bfloat16, torch.float16])
+def test_kleene_budget_streams_lowered_storages(cuda_device, dtype):
+    """``solve(hbm_budget=)`` on the card in int16, bf16 and f16: promoted,
+    out of core (the result on the host), == the card's fused solve and the
+    plain solve on the CPU by bits."""
+    w = _graph("min_plus", (300, 300), seed=67)
+    got = solve(w, dtype=dtype, block_size=64, hbm_budget=300 * 300)
+    assert got.method == "recursive" and got.dist.device.type == "cpu"
+    assert bits_equal(got.dist, solve(w, dtype=dtype, block_size=64).dist.cpu())
+    assert bits_equal(got.dist, solve(w, dtype=dtype, block_size=64, hbm_budget=300 * 300,
+                                      device="cpu").dist)
+
+
+@pytest.mark.cuda
+def test_kleene_engine_caches_an_out_of_core_key(cuda_device):
+    """``ApspEngine(hbm_budget=)``: one out-of-core key, a warm second solve
+    that builds nothing, both == fused on the card; the fw_oocore smoke
+    passes on the card."""
+    from repro_torch.launch import fw_oocore
+
+    w = _graph("min_plus", (512, 512), seed=71)
+    eng = ApspEngine(block_size=64, hbm_budget=512 * 512 * 4 // 2)
+    r1, r2 = eng.solve(w), eng.solve(w)
+    (key,) = eng._cache
+    entry = eng._cache[key]
+    assert key.method == "recursive" and key.oocore and eng.stats.hits == 1
+    assert entry.traces == 1 and entry.executor.traces == 1
+    fused = solve(w, block_size=64).dist.cpu()
+    assert bits_equal(r1.dist, fused) and bits_equal(r2.dist, fused)
+    assert fw_oocore.smoke(device="cuda") == 0

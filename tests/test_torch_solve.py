@@ -156,6 +156,11 @@ def test_not_ported_options_name_their_roadmap_item(kw, item):
         assert got.semiring == want.semiring
         assert_same(got.dist, np.asarray(want.dist))
         return
+    if item == "A.10":  # ported: recursive solves and budgets as the reference's
+        got, want = solve(w, device="cpu", **kw), japsp.solve(w, **kw)
+        assert got.method == want.method
+        assert_same(got.dist, np.asarray(want.dist))
+        return
     if item == "A.11":  # ported: the distributed solve needs a mesh, and
         if "mesh" in kw:  # only method="distributed" reads it
             assert solve(w, device="cpu", **kw).method == "naive"
