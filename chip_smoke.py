@@ -16,9 +16,10 @@ Phases, each of which raises (exit code 1) on any failure:
      the round's diag and bands and its successor diag and bands, the
      sweep's diag and panels and its successor diag and panels, the
      sweep's relax and successor relax on the long tile and the two short
-     ones, the 4-dispatch closure and bands; a diag, bands, panels,
-     closure, band or sweep relax instantiation that spills fails, the
-     successor ones included).
+     ones, the 4-dispatch closure and bands, the repair's stage, apply and
+     successor apply, one a storage's step; a diag, bands, panels,
+     closure, band, sweep relax, stage or apply instantiation that spills
+     fails, the successor ones included).
      signed zero: what the kernels' min.NaN / max.NaN steps do with (±0,
      ∓0) in both orders and with NaN, held to XLA's min / max; then every
      ported kernel (fused, successor and bordered rounds, semiring_matmul,
@@ -35,7 +36,12 @@ Phases, each of which raises (exit code 1) on any failure:
      tests hold bitwise against the JAX reference.
      The repair kernels likewise: five semirings at n=1024, E in {1, 5,
      37, 100} (padded as the engine pads them), the successor twin, and
-     a successor repair at n=1000 through ``ApspEngine``.  The sweep
+     a successor repair at n=1000 through ``ApspEngine``; each launch
+     alone (``check_repair_phases``: the stage's staged rows and row
+     scalars, with next hops its hops, and the apply on both its paths,
+     16-byte vectors and one element at a time) on every semiring and the
+     successor twin at n = 100 and 1024, E in {1, 16, 37, 64}; an apply
+     into memory it reads refused.  The sweep
      kernels of the decremental repair likewise: the four idempotent
      semirings at n=1024 with a in {1, 5, 37, 200} affected rows, each
      launch kind alone (the relax on every tile height, the short tile's
@@ -54,7 +60,8 @@ Phases, each of which raises (exit code 1) on any failure:
      path on the CPU.  The lowered repair and sweep kernels and the int32
      round likewise (``phase_check_lowered_repair``): the repair on every
      storage (int16 ×4, packed, bf16 / f16 ×5, int32 or_and / plus_mul) at
-     n=96 and 1024 with E in {1, 16, 37, 64}, bf16 / f16 salted with ±0
+     n=96 and 1024 with E in {1, 16, 37, 64}, each launch alone at E in
+     {1, 16, 32} on both apply paths, bf16 / f16 salted with ±0
      and, apart, with off-diagonal NaN; the successor repair; the sweep at
      a in {1, 37} and, at n=1024, 200 (both sides of the relax's tile
      switch), each launch kind alone, the relax on every tile height; the
@@ -111,6 +118,8 @@ Phases, each of which raises (exit code 1) on any failure:
      timed beside both on that shape (min-plus and plus_mul), and at 4096³
      in min-plus and plus_mul, the latter beside ``torch.matmul`` (TF32
      off).
+     The repair's stage and apply also as device time (``torch.profiler``),
+     the f32 plus_mul apply beside ``torch.addmm(d, scalars, staged)``.
      The lowered launch kinds likewise at n=8192 (successors n=4096),
      the lowered repair (E=16) and sweep (a=8) kinds and the int32 round
      kinds included; the lowered 4-dispatch kinds (``fw_phase1[int16]``,
@@ -354,6 +363,13 @@ def repair_edges(name: str, n: int, E: int, seed: int):
             np.concatenate([w, np.full(pad, SEMIRINGS[name].zero, np.float32)]))
 
 
+def launch_edges(name: str, n: int, E: int, seed: int):
+    """Exactly E edges for one launch pair: ``repair_edges``' first E - 1
+    and one of its padding edges (E = 1: one live edge)."""
+    u, v, w = repair_edges(name, n, max(E - 1, 1), seed)
+    return u[:E], v[:E], w[:E]
+
+
 def plain_solve(w, *, block_size: int, semiring):
     """The plain round loop on w's device: pad, n/s plain rounds, unpad."""
     from repro_torch.apsp import api, plan
@@ -475,6 +491,9 @@ def phase_build(builds: dict):
                 r"(void )?((succ_)?(diag|panels)|(short_)?(succ_)?relax)_kernel<", k.name)]
         elif built.name in ("fw_phase", "fw_phase_lowered"):
             shown = [k for k in infos if re.match(r"(void )?(closure|band)_kernel<", k.name)]
+        elif built.name in ("fw_repair", "fw_repair_lowered"):
+            shown = [k for k in infos if re.match(r"(void )?(stage|apply|succ_apply)_kernel<",
+                                                  k.name)]
         elif built.name in ("minplus_matmul", "minplus_matmul_lowered", "flash_decode",
                             "fw_round", "fw_round_lowered"):
             shown = [k for k in infos if any(x in k.name for x in (
@@ -493,6 +512,15 @@ def phase_build(builds: dict):
             require(len(chains) >= least, f"{built.name}: {len(chains)} chain kernels")
             spilled = [k.name for k in chains if k.spill_stores or k.spill_loads]
             require(not spilled, f"the chain kernels spill: {spilled}")
+        # the repair: one stage and one apply a storage's step, successors too
+        counts = {"fw_repair": (5, 5), "fw_repair_lowered": (16, 16)}.get(built.name)
+        if counts and built.seconds:
+            stages = [k for k in shown if "stage_kernel" in k.name]
+            require((len(stages), len(shown) - len(stages)) == counts,
+                    f"{built.name}: {len(stages)} stage / {len(shown) - len(stages)} apply "
+                    f"kernels, not {counts}")
+            spilled = [k.name for k in shown if k.spill_stores or k.spill_loads]
+            require(not spilled, f"the repair kernels spill: {spilled}")
         # the sweep's relax: the long and the two short tiles of every storage
         relaxes = {"fw_repair_del": 12, "fw_repair_del_lowered": 39}.get(built.name)
         if relaxes and built.seconds:
@@ -548,18 +576,77 @@ def phase_check():
     print(f"check: {checked} kernel-vs-plain cases bitwise equal")
 
 
+def check_repair_phases(d, sr, u, v, w, succ=None) -> int:
+    """Each repair launch alone on (d, u, v, w) (``edge_vectors``, at most a
+    launch pair's edges), bitwise against its plain twin on the card: the
+    stage's staged rows (``repair_stage_ref``) and row scalars, with
+    ``succ`` also its hops (``repair_scalars_ref``); the apply on every path
+    d's rows allow, 16-byte vectors and one element at a time, against
+    ``repair_apply_ref`` / ``repair_apply_succ_ref`` and the stream twins on
+    the stage's buffers (an unaligned out takes the element path).
+    Returns the launches held."""
+    import torch
+
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import ref
+
+    E, n = len(u), d.shape[-1]
+    what = f"fw_repair{'' if succ is None else '_with_successors'}[{d.dtype}] n={n} E={E}"
+    bufs = fp.repair_buffers(d, E, successors=succ is not None)
+    if succ is None:
+        fp.repair_phase("stage", d, u, v, w, bufs, semiring=sr)
+    else:
+        fp.repair_succ_phase("stage", d, succ, u, v, w, bufs)
+    staged = ref.repair_stage_ref(d, u, v, w, semiring=sr, strict=succ is not None)
+    scal, hops = ref.repair_scalars_ref(d, staged, u, v, w, semiring=sr, succ=succ)
+    sync()
+    require(same(bufs.staged, staged), f"{what}: stage's rows != plain")
+    require(same(bufs.scalars, scal) and (succ is None or same(bufs.hops, hops)),
+            f"{what}: stage's row scalars != plain")
+    held = 1
+    for out in (torch.empty_like(d), unaligned_like(d)):  # both of the apply's paths
+        path = "vectors" if fp.apply_vectors(d, staged, out) else "elements"
+        if succ is None:
+            fp.repair_phase("apply", d, u, v, w, bufs, out, semiring=sr)
+            want = ref.repair_apply_ref(d, staged, u, w, semiring=sr)
+            sync()
+            ok = same(out, want) and same(want, ref.repair_stream_ref(d, scal, staged,
+                                                                      semiring=sr))
+        else:
+            sout = unaligned_like(succ) if path == "elements" else torch.empty_like(succ)
+            fp.repair_succ_phase("apply", d, succ, u, v, w, bufs, out, sout)
+            wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
+            sd, ss = ref.repair_stream_succ_ref(d, succ, scal, hops, staged)
+            sync()
+            ok = same(out, wd) and same(sout, ws) and same(sd, wd) and same(ss, ws)
+        require(ok, f"{what}: apply ({path}) != plain")
+        held += 1
+    return held
+
+
+def unaligned_like(x):
+    """An empty contiguous tensor like x whose rows start one element past
+    16-byte alignment: an apply writing it takes the element path."""
+    import torch
+
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view_as(x)
+
+
 def phase_check_repair():
     """The repair kernels bitwise against their plain versions on the card:
     all five semirings at n=1024 and E in {1, 5, 37, 100} (padded as the
     engine pads; 100 takes two launch pairs), the successor twin likewise,
     and a successor repair at n=1000 through the engine (padded to 1024)
-    against the engine's plain path on the CPU."""
+    against the engine's plain path on the CPU.  Then each launch alone
+    (``check_repair_phases``): every semiring and the successor twin at n
+    in {100, 1024} and E in {1, 16, 37, 64}, the apply on both of its paths;
+    and an apply whose out is d, or overlaps it, refused before it starts."""
     import torch
 
     from repro_torch.apsp import ApspEngine
     from repro_torch.core.graph import random_digraph
     from repro_torch.core.paths import _init_successors
-    from repro_torch.core.semiring import SEMIRINGS
+    from repro_torch.core.semiring import MIN_PLUS, SEMIRINGS
     from repro_torch.kernels import fw_repair as fp
     from repro_torch.kernels import ref
 
@@ -593,7 +680,33 @@ def phase_check_repair():
             and same(got.succ.cpu(), want.succ),
             "engine successor repair n=1000 on the card != plain on the CPU")
     checked += 1
-    print(f"check: {checked} repair kernel-vs-plain cases bitwise equal")
+    launches = 0
+    for nn in (100, 1024):
+        for name, sr in sorted(SEMIRINGS.items()):
+            d = torch.from_numpy(graph(name, (nn, nn), nn + 7)).to(dev)
+            for E in (1, 16, 37, 64):
+                u, v, w = fp.edge_vectors(*launch_edges(name, nn, E, seed=E + 2), nn, dev)
+                launches += check_repair_phases(d, sr, u, v, w)
+        d = torch.from_numpy(graph("min_plus", (nn, nn), nn + 8)).to(dev)
+        succ = _init_successors(d).contiguous()
+        for E in (1, 16, 37, 64):
+            u, v, w = fp.edge_vectors(*launch_edges("min_plus", nn, E, seed=E + 3), nn, dev)
+            launches += check_repair_phases(d, MIN_PLUS, u, v, w, succ=succ)
+    flat = torch.zeros(2 * 64 * 64, device=dev)
+    d = flat[:64 * 64].view(64, 64)
+    u, v, w = fp.edge_vectors([0], [1], [1.0], 64, dev)
+    bufs = fp.repair_buffers(d, 1)
+    fp.repair_phase("stage", d, u, v, w, bufs)
+    for out in (d, flat[64:64 + 64 * 64].view(64, 64)):  # d itself, and a view over it
+        try:
+            fp.repair_phase("apply", d, u, v, w, bufs, out)
+        except ValueError:
+            continue
+        require(False, "an apply into memory it reads was not refused")
+    fp.repair_phase("apply", d, u, v, w, bufs, flat[64 * 64:].view(64, 64))  # beside it
+    print(f"check: {checked} repair kernel-vs-plain cases bitwise equal; {launches} stage / "
+          f"apply launches alone equal their twins (staged rows, row scalars, hops; the "
+          f"apply by vectors and by elements); an aliased out refused")
 
 
 def phase_kernels(n: int, n_succ: int, s: int = 128):
@@ -819,66 +932,125 @@ def host_device_split(label: str, fn, launches: int) -> None:
           f"{'host' if t_host > dev else 'device'}-bound")
 
 
+def repair_work(E: int, n: int, word: int, ops: float, *, apply_ops: float | None = None,
+                succ: bool = False):
+    """(operations, bytes) of a repair's stage and apply launches, each input
+    read once and each output written once: the stage reads the E pivot
+    rows and the E x E and n x E gathers and writes the staged rows and the
+    row scalars (with next hops the n x E hop gathers and the hops too),
+    E(E-1)/2 relaxations a column and a row; the apply reads d, the staged
+    rows and the scalars (the hops, succ) and writes out (succ_out), E
+    relaxations an element.  ``ops`` a relaxation (``apply_ops`` in the
+    apply, where it relaxes on lifted operands: an add and a min), ``word``
+    the storage's bytes."""
+    hop = 4 if succ else 0
+    apply_ops = ops if apply_ops is None else apply_ops
+    stage = (ops * E * (E - 1) * n, (3 * E * n + E * E) * word + 2 * E * n * hop)
+    apply = (apply_ops * E * n * n, 2 * n * n * (word + hop) + 2 * E * n * word + E * n * hop)
+    return stage, apply
+
+
+def timed_repair_errors(d, sr, u, v, w, bufs, out, succ=None, sout=None):
+    """max_abs_err of the stage and the apply where the timed launches left
+    their outputs: the staged rows and row scalars in ``bufs`` (with
+    ``succ``, the hops too) and ``out`` (``sout``), against their plain
+    twins on the same inputs; fails unless every one agrees by bits."""
+    from repro_torch.kernels import ref
+
+    strict = succ is not None
+    what = f"fw_repair{'_with_successors' if strict else ''}[{d.dtype}] timed launch"
+    staged = ref.repair_stage_ref(d, u, v, w, semiring=sr, strict=strict)
+    scal, hops = ref.repair_scalars_ref(d, staged, u, v, w, semiring=sr, succ=succ)
+    if succ is None:
+        want = ref.repair_apply_ref(d, staged, u, w, semiring=sr)
+    else:
+        want, wsucc = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
+    sync()
+    require(same(bufs.staged, staged) and same(bufs.scalars, scal)
+            and (succ is None or same(bufs.hops, hops)), f"{what}: stage != plain")
+    require(same(out, want) and (succ is None or same(sout, wsucc)), f"{what}: apply != plain")
+    return (max(max_abs_err(bufs.staged, staged), max_abs_err(bufs.scalars, scal)),
+            max_abs_err(out, want))
+
+
 def phase_kernels_repair(rows: dict, n: int, n_succ: int, E: int = 16):
     """Each repair launch kind alone at the engine path's shapes (E = 16
     edges; n for fw_repair, n_succ for the successor twin) against the
-    plain version of its phase.  Bound: the stage moves its E pivot rows in
-    and E staged rows out and does E(E-1)/2 relaxations a column; the apply
-    reads and writes every element once (plus the staged rows) and does E
-    relaxations on it; a relaxation is 2 fp32 operations."""
+    plain version of its phase, events and device time
+    (``round_bench.device_ms``), its error read from the timed launches'
+    own outputs (``timed_repair_errors``); the plus_mul apply beside
+    ``torch.addmm(d, scalars, staged)`` (TF32 off), the one PyTorch call
+    computing its function.  Bound: ``repair_work``, a relaxation 2 fp32
+    operations (successors 3)."""
     import torch
 
     from repro_torch.core.graph import random_digraph
     from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import MIN_PLUS, PLUS_MUL
     from repro_torch.kernels import fw_repair as fp
     from repro_torch.kernels import ref
+    from repro_torch.launch.round_bench import device_ms
 
     dev = torch.device("cuda")
     record = functools.partial(record_kernel, rows)
-    stage_ops = lambda nn: 2.0 * E * (E - 1) / 2 * nn  # noqa: E731
     d = torch.from_numpy(random_digraph(n, density=0.5, seed=4)).to(dev)
     u, v, w = fp.edge_vectors(*repair_edges("min_plus", n, E, seed=16), n, dev)
-    staged = torch.empty((E, n), device=dev)
-    fp.repair_phase("stage", d, u, v, w, staged)
-    want = ref.repair_stage_ref(d, u, v, w)
-    sync()
-    require(same(staged, want), "fw_repair stage launch != plain")
-    record("fw_repair/stage", max_abs_err(staged, want),
-           event_ms(lambda: fp.repair_phase("stage", d, u, v, w, staged), 11),
-           event_ms(lambda: ref.repair_stage_ref(d, u, v, w), 3),
-           stage_ops(n), 2 * E * n * 4)
+    bufs = fp.repair_buffers(d, E)
     out = torch.empty_like(d)
-    fp.repair_phase("apply", d, u, v, w, staged, out)
-    want = ref.repair_apply_ref(d, staged, u, w)
-    sync()
-    require(same(out, want), "fw_repair apply launch != plain")
-    record("fw_repair/apply", max_abs_err(out, want),
-           event_ms(lambda: fp.repair_phase("apply", d, u, v, w, staged, out), 11),
-           event_ms(lambda: ref.repair_apply_ref(d, staged, u, w), 3),
-           2.0 * E * n * n, (2 * n * n + E * n) * 4)
-    del d, out, want
+    stage_w, apply_w = repair_work(E, n, 4, 2.0)
+    check_repair_phases(d, MIN_PLUS, u, v, w)
+    stage = lambda: fp.repair_phase("stage", d, u, v, w, bufs)  # noqa: E731
+    apply = lambda: fp.repair_phase("apply", d, u, v, w, bufs, out)  # noqa: E731
+    stage()
+    ms_s, dev_s = event_ms(stage, 11), device_ms(stage)
+    ms_a, dev_a = event_ms(apply, 11), device_ms(apply)
+    err_s, err_a = timed_repair_errors(d, MIN_PLUS, u, v, w, bufs, out)
+    record("fw_repair/stage", err_s, ms_s,
+           event_ms(lambda: ref.repair_stage_ref(d, u, v, w), 3), *stage_w,
+           note=f" n={n} E={E}, device {dev_s:.4f} ms")
+    record("fw_repair/apply", err_a, ms_a,
+           event_ms(lambda: ref.repair_apply_ref(d, bufs.staged, u, w), 3), *apply_w,
+           note=f" n={n} E={E}, device {dev_a:.4f} ms")
+    # plus_mul beside torch.addmm(d, scalars, staged): the same rank-E update
+    dp = torch.from_numpy(graph("plus_mul", (n, n), 5)).to(dev)
+    up, vp, wp = fp.edge_vectors(*repair_edges("plus_mul", n, E, seed=17), n, dev)
+    check_repair_phases(dp, PLUS_MUL, up, vp, wp)
+    fp.repair_phase("stage", dp, up, vp, wp, bufs, semiring=PLUS_MUL)
+    apply_pm = lambda: fp.repair_phase("apply", dp, up, vp, wp, bufs, out,  # noqa: E731
+                                       semiring=PLUS_MUL)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = torch.empty_like(dp)
+    addmm = lambda: torch.addmm(dp, bufs.scalars, bufs.staged, out=lib)  # noqa: E731
+    lib_ms, lib_dev = event_ms(addmm, 11), device_ms(addmm)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    ms_a, dev_a = event_ms(apply_pm, 11), device_ms(apply_pm)
+    _, err_a = timed_repair_errors(dp, PLUS_MUL, up, vp, wp, bufs, out)
+    record("fw_repair/apply", err_a, ms_a,
+           event_ms(lambda: ref.repair_apply_ref(dp, bufs.staged, up, wp, semiring=PLUS_MUL), 3),
+           *apply_w, note=f" plus_mul n={n} E={E}, device {dev_a:.4f} ms; "
+           f"torch.addmm device {lib_dev:.4f} ms", store=False, library=lib_ms)
+    del d, dp, out, lib, bufs
 
     d = torch.from_numpy(random_digraph(n_succ, density=0.5, seed=5)).to(dev)
     succ = _init_successors(d).contiguous()
     u, v, w = fp.edge_vectors(*repair_edges("min_plus", n_succ, E, seed=17), n_succ, dev)
-    staged = torch.empty((E, n_succ), device=dev)
-    fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
-    want = ref.repair_stage_ref(d, u, v, w, strict=True)
-    sync()
-    require(same(staged, want), "fw_repair_with_successors stage launch != plain")
-    record("fw_repair_with_successors/stage", max_abs_err(staged, want),
-           event_ms(lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, staged), 11),
-           event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3),
-           stage_ops(n_succ), 2 * E * n_succ * 4)
+    check_repair_phases(d, MIN_PLUS, u, v, w, succ=succ)
+    bufs = fp.repair_buffers(d, E, successors=True)
     out, sout = torch.empty_like(d), torch.empty_like(succ)
-    fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
-    wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
-    sync()
-    require(same(out, wd) and same(sout, ws), "fw_repair_with_successors apply launch != plain")
-    record("fw_repair_with_successors/apply", max_abs_err(out, wd),
-           event_ms(lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout), 11),
-           event_ms(lambda: ref.repair_apply_succ_ref(d, succ, staged, u, v, w), 3),
-           2.0 * E * n_succ * n_succ, (2 * n_succ * n_succ * 8 + E * n_succ * 4))
+    stage_w, apply_w = repair_work(E, n_succ, 4, 3.0, succ=True)
+    stage = lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, bufs)  # noqa: E731
+    apply = lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, bufs, out, sout)  # noqa: E731
+    stage()
+    ms_s, dev_s = event_ms(stage, 11), device_ms(stage)
+    ms_a, dev_a = event_ms(apply, 11), device_ms(apply)
+    err_s, err_a = timed_repair_errors(d, MIN_PLUS, u, v, w, bufs, out, succ=succ, sout=sout)
+    record("fw_repair_with_successors/stage", err_s, ms_s,
+           event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3), *stage_w,
+           note=f" n={n_succ} E={E}, device {dev_s:.4f} ms")
+    record("fw_repair_with_successors/apply", err_a, ms_a,
+           event_ms(lambda: ref.repair_apply_succ_ref(d, succ, bufs.staged, u, v, w), 3),
+           *apply_w, note=f" n={n_succ} E={E}, device {dev_a:.4f} ms")
 
 
 def integer_graph(n: int, seed: int, *, hi: int, density: float):
@@ -890,30 +1062,17 @@ def integer_graph(n: int, seed: int, *, hi: int, density: float):
 
 
 def improvements(dist, count: int, seed: int):
-    """``count`` ⊕-improving link updates on distinct (u, v), u != v, with
-    dist[u, v] >= 2: the new weight dist[u, v] // 2 beats every path."""
-    import numpy as np
+    """``round_bench.improvements``: ``count`` ⊕-improving link updates."""
+    from repro_torch.launch.round_bench import improvements as make
 
-    rng = np.random.default_rng(seed)
-    n = dist.shape[-1]
-    upd, seen = [], set()
-    while len(upd) < count:
-        u, v = (int(x) for x in rng.integers(0, n, 2))
-        if u == v or (u, v) in seen:
-            continue
-        d = float(dist[u, v])
-        if np.isfinite(d) and d >= 2:
-            seen.add((u, v))
-            upd.append((u, v, float(d // 2)))
-    return upd
+    return make(dist, count, seed)
 
 
 def updated(w, upd):
-    """The weight matrix a re-solve of the repaired graph closes."""
-    w1 = w.copy()
-    for u, v, x in upd:
-        w1[u, v] = min(w1[u, v], x)
-    return w1
+    """``round_bench.updated``: the weights a re-solve of the repair closes."""
+    from repro_torch.launch.round_bench import updated as make
+
+    return make(w, upd)
 
 
 def tie_free_scenario(n: int, seed: int = 0):
@@ -1340,53 +1499,12 @@ def phase_engine_repair_del(rows: dict, n: int, n_succ: int):
 
 
 # ------------------------------------------------------------------ serving
-def _kernel_name(key: str) -> str:
-    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
-    return name.split("(")[0]
-
-
-def _union_ms(intervals) -> float:
-    """Total length of the union of (start, end) µs intervals, in ms."""
-    total, end = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
-
-
 def profiled(fn) -> dict:
-    """fn() under ``torch.profiler`` (device events only): its wall time
-    (host clock, profiled), its kernels' device time and event count by
-    name, their sum ``dev``, the device time of its copies to, from and on
-    the card, and the time the device was busy at all (the union of the
-    events' intervals; the sums overlap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """``round_bench.profiled``: fn() under ``torch.profiler``, its wall
+    time, kernels by name, copies and device busy time."""
+    from repro_torch.launch.round_bench import profiled as run
 
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels: dict[str, list] = {}
-    copies = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if not us:
-            continue
-        if ev.key.startswith("Memcpy"):
-            copies[next((k for k in copies if k in ev.key), "DtoD")] += us / 1e3
-            continue
-        k = kernels.setdefault(_kernel_name(ev.key), [0.0, 0])
-        k[0] += us / 1e3
-        k[1] += ev.count
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return dict(wall=wall, copies=copies, kernels=kernels,
-                dev=sum(v[0] for v in kernels.values()),
-                busy=_union_ms(spans) if spans else None)
+    return run(fn)
 
 
 def serve_refresh(label: str, router, h2d: int, d2h) -> dict:
@@ -3149,6 +3267,9 @@ def phase_main_lowered(rows: dict, n: int, n_succ: int, s: int = 128, graphs: in
 STORAGE_CASES = LOWERED_CASES + [("or_and_i32", "or_and"), ("plus_mul_i32", "plus_mul")]
 SWEEP_STORAGE_CASES = [c for c in STORAGE_CASES if c[1] != "plus_mul"]
 LOWERED_OPS.update({"or_and_i32": 2, "plus_mul_i32": 2})  # min, max / mul, add
+# Storages whose repair apply relaxes on lifted operands (min-plus here): an
+# add and a min a relaxation, the round or clamp once an element at the store.
+LIFTED_APPLY = ("int16", "bf16", "f16")
 LOWERED_WORD.update({"or_and_i32": 4, "plus_mul_i32": 4})
 
 
@@ -3275,9 +3396,10 @@ def phase_check_lowered_repair():
     against their plain versions on the card, each launch kind alone too:
     the repair on every storage (int16 ×4, packed, bf16 and f16 ×5, int32
     or_and / plus_mul) at n ∈ {96, 1024} with E ∈ {1, 16, 37, 64} (padded
-    as the engine pads; 37 and 64 take two and three launch pairs), bf16 /
-    f16 salted with ±0 and, separately, with off-diagonal NaN; the
-    successor repair on bf16 / f16 likewise; the sweep on every storage but
+    as the engine pads; 64 takes two launch pairs), bf16 / f16 salted
+    with ±0 and, separately, with off-diagonal NaN, and each launch alone
+    at E ∈ {1, 16, 37, 64} on both apply paths
+    (``check_repair_phases``); the successor repair on bf16 / f16 likewise; the sweep on every storage but
     plus_mul at n = 96 (s = 32) and n = 1024 (s = 128) with a ∈ {1, 37}
     affected rows, each launch kind alone in the round of the first
     affected row; the successor sweep likewise; the int32 round at n = 96
@@ -3320,18 +3442,10 @@ def phase_check_lowered_repair():
                     require(got.dtype == d.dtype and same(got, want), f"{what} != plain")
                     salt_held(what, name, want, salt)
                     checked += 1
-                u, v, w = fp.edge_vectors(*lowered_edges(d, sr, 16, seed=5), n, d.device,
-                                          d.dtype)
-                staged = torch.empty((16, n), dtype=d.dtype, device=d.device)
-                out = torch.empty_like(d)
-                fp.repair_phase("stage", d, u, v, w, staged, semiring=sr)
-                fp.repair_phase("apply", d, u, v, w, staged, out, semiring=sr)
-                plain = ref.repair_stage_ref(d, u, v, w, semiring=sr)
-                sync()
-                require(same(staged, plain), f"fw_repair/stage[{tag}] {name} n={n} != plain")
-                require(same(out, ref.repair_apply_ref(d, plain, u, w, semiring=sr)),
-                        f"fw_repair/apply[{tag}] {name} n={n} != plain")
-                checked += 2
+                for E in (1, 16, 37, fp.MAX_EDGES):  # each launch alone, both paths
+                    u, v, w = fp.edge_vectors(*lowered_edges(d, sr, E, seed=5), n, d.device,
+                                              d.dtype)
+                    checked += check_repair_phases(d, sr, u[:E], v[:E], w[:E])
     for tag in ("bf16", "f16"):
         for n in (96, 1024):
             for salt in salts(tag):
@@ -3348,18 +3462,10 @@ def phase_check_lowered_repair():
                     require(same(gd, wd) and same(gs, ws), f"{what} != plain")
                     salt_held(what, "min_plus", wd, salt)
                     checked += 1
-                u, v, w = fp.edge_vectors(*lowered_edges(d, sr, 16, seed=6), n, d.device,
-                                          d.dtype)
-                staged = torch.empty((16, n), dtype=d.dtype, device=d.device)
-                out, sout = torch.empty_like(d), torch.empty_like(succ)
-                fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
-                fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
-                plain = ref.repair_stage_ref(d, u, v, w, strict=True)
-                pd, ps = ref.repair_apply_succ_ref(d, succ, plain, u, v, w)
-                sync()
-                require(same(staged, plain) and same(out, pd) and same(sout, ps),
-                        f"fw_repair_with_successors stage / apply [{tag}] n={n} != plain")
-                checked += 2
+                for E in (1, 16, 37, fp.MAX_EDGES):
+                    u, v, w = fp.edge_vectors(*lowered_edges(d, sr, E, seed=6), n, d.device,
+                                              d.dtype)
+                    checked += check_repair_phases(d, sr, u[:E], v[:E], w[:E], succ=succ)
     for tag, name in SWEEP_STORAGE_CASES:
         for n, s in ((96, 32), (1024, 128)):
             for salt in salts(tag):
@@ -3443,9 +3549,11 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
     successors at n_succ, and a = n_succ) against the plain version of
     its phase: the min-plus lowerings in int16, bf16 and f16, the packed
     or_and word plane and the int32 carriers of or_and and plus_mul.
-    Bound: operations (``LOWERED_OPS`` a relaxation; successors 3) over
-    67 TOP/s, or bytes in the storage word over 3.35 TB/s, each input read
-    once and each output written once, whichever is larger."""
+    Bound: operations (``LOWERED_OPS`` a relaxation; successors 3; the
+    apply of a lifted storage, ``LIFTED_APPLY``, 2) over 67 TOP/s, or
+    bytes in the storage word over 3.35 TB/s, each input read once and each
+    output written once, whichever is larger.  The repair rows' errors are
+    read from the timed launches' own outputs (``timed_repair_errors``)."""
     import numpy as np
     import torch
 
@@ -3457,6 +3565,7 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
     from repro_torch.kernels import fw_repair_del as fd
     from repro_torch.kernels import fw_round as fr
     from repro_torch.kernels import ref
+    from repro_torch.launch.round_bench import device_ms
 
     record = functools.partial(record_kernel, rows)
     w32 = torch.from_numpy(random_digraph(n, density=0.5, seed=1)).cuda()
@@ -3477,26 +3586,24 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
         d, sr = make()
         ops, word = LOWERED_OPS[tag], LOWERED_WORD[tag]
         u, v, w = fp.edge_vectors(*lowered_edges(d, sr, E, seed=52), n, d.device, d.dtype)
-        staged = torch.empty((E, n), dtype=d.dtype, device=d.device)
-        fp.repair_phase("stage", d, u, v, w, staged, semiring=sr)
-        want = ref.repair_stage_ref(d, u, v, w, semiring=sr)
-        sync()
-        require(same(staged, want), f"fw_repair stage[{tag}] launch != plain")
-        record(f"fw_repair/stage[{tag}]", max_abs_err(staged.float(), want.float()),
-               event_ms(lambda: fp.repair_phase("stage", d, u, v, w, staged, semiring=sr), 11),
-               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, semiring=sr), 3),
-               ops * E * (E - 1) / 2 * n, 2 * E * n * word)
-        out = torch.empty_like(d)
-        fp.repair_phase("apply", d, u, v, w, staged, out, semiring=sr)
-        want = ref.repair_apply_ref(d, staged, u, w, semiring=sr)
-        sync()
-        require(same(out, want), f"fw_repair apply[{tag}] launch != plain")
-        record(f"fw_repair/apply[{tag}]", max_abs_err(out.float(), want.float()),
-               event_ms(lambda: fp.repair_phase("apply", d, u, v, w, staged, out,
-                                                semiring=sr), 11),
-               event_ms(lambda: ref.repair_apply_ref(d, staged, u, w, semiring=sr), 3),
-               ops * E * n * n, (2 * n * n + E * n) * word)
-        del out, want, staged
+        check_repair_phases(d, sr, u, v, w)
+        bufs, out = fp.repair_buffers(d, E), torch.empty_like(d)
+        stage = lambda: fp.repair_phase("stage", d, u, v, w, bufs, semiring=sr)  # noqa: E731
+        apply = lambda: fp.repair_phase("apply", d, u, v, w, bufs, out,  # noqa: E731
+                                        semiring=sr)
+        stage()
+        stage_w, apply_w = repair_work(E, n, word, ops,
+                                       apply_ops=2 if tag in LIFTED_APPLY else None)
+        ms_s, dev_s = event_ms(stage, 11), device_ms(stage)
+        ms_a, dev_a = event_ms(apply, 11), device_ms(apply)
+        err_s, err_a = timed_repair_errors(d, sr, u, v, w, bufs, out)
+        record(f"fw_repair/stage[{tag}]", err_s, ms_s,
+               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, semiring=sr), 3), *stage_w,
+               note=f" n={n} E={E}, device {dev_s:.4f} ms")
+        record(f"fw_repair/apply[{tag}]", err_a, ms_a,
+               event_ms(lambda: ref.repair_apply_ref(d, bufs.staged, u, w, semiring=sr), 3),
+               *apply_w, note=f" n={n} E={E}, device {dev_a:.4f} ms")
+        del out, bufs
         if tag in INT32_TAGS:  # the int32 round (solve of an integer storage)
             bands = fr.round_buffers(d, s)
             kw = dict(block_size=s, semiring=sr)
@@ -3564,26 +3671,25 @@ def phase_kernels_lowered_repair(rows: dict, n: int, n_succ: int, E: int = 16,
         word = 2 + 4  # distance + next hop
         u, v, w = fp.edge_vectors(*lowered_edges(d, MIN_PLUS, E, seed=54), n_succ, d.device,
                                   d.dtype)
-        staged = torch.empty((E, n_succ), dtype=dt, device=d.device)
-        fp.repair_succ_phase("stage", d, succ, u, v, w, staged)
-        want = ref.repair_stage_ref(d, u, v, w, strict=True)
-        sync()
-        require(same(staged, want), f"successor stage[{tag}] launch != plain")
-        record(f"fw_repair_with_successors/stage[{tag}]", max_abs_err(staged, want),
-               event_ms(lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, staged), 11),
-               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3),
-               3.0 * E * (E - 1) / 2 * n_succ, 2 * E * n_succ * 2)
+        check_repair_phases(d, MIN_PLUS, u, v, w, succ=succ)
+        bufs = fp.repair_buffers(d, E, successors=True)
         out, sout = torch.empty_like(d), torch.empty_like(succ)
-        fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out, sout)
-        wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
-        sync()
-        require(same(out, wd) and same(sout, ws), f"successor apply[{tag}] launch != plain")
-        record(f"fw_repair_with_successors/apply[{tag}]", max_abs_err(out, wd),
-               event_ms(lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, staged, out,
-                                                     sout), 11),
-               event_ms(lambda: ref.repair_apply_succ_ref(d, succ, staged, u, v, w), 3),
-               3.0 * E * n_succ * n_succ, 2 * n_succ * n_succ * word + E * n_succ * 2)
-        del out, sout, wd, ws, staged
+        stage = lambda: fp.repair_succ_phase("stage", d, succ, u, v, w, bufs)  # noqa: E731
+        apply = lambda: fp.repair_succ_phase("apply", d, succ, u, v, w, bufs,  # noqa: E731
+                                             out, sout)
+        stage()
+        stage_w, apply_w = repair_work(E, n_succ, 2, 3.0, succ=True)
+        ms_s, dev_s = event_ms(stage, 11), device_ms(stage)
+        ms_a, dev_a = event_ms(apply, 11), device_ms(apply)
+        err_s, err_a = timed_repair_errors(d, MIN_PLUS, u, v, w, bufs, out, succ=succ,
+                                           sout=sout)
+        record(f"fw_repair_with_successors/stage[{tag}]", err_s, ms_s,
+               event_ms(lambda: ref.repair_stage_ref(d, u, v, w, strict=True), 3), *stage_w,
+               note=f" n={n_succ} E={E}, device {dev_s:.4f} ms")
+        record(f"fw_repair_with_successors/apply[{tag}]", err_a, ms_a,
+               event_ms(lambda: ref.repair_apply_succ_ref(d, succ, bufs.staged, u, v, w), 3),
+               *apply_w, note=f" n={n_succ} E={E}, device {dev_a:.4f} ms")
+        del out, sout, bufs
         sw, errs = check_sweep_phases(d, strip_rows(n_succ, a, seed=55), b, s, succ=succ)
         plain = {
             "diag": lambda: ref.sweep_diag_succ_ref(d, succ, sw.strip, sw.strip_s, sw.rows, b,

@@ -402,8 +402,8 @@ class ApspEngine:
         next-hop table to patch alongside (min-plus, float distances).
         Neither input is modified.
 
-        One stage + apply launch pair per 64 edges (32 in a lowered
-        storage; ``kernels.fw_repair``; its plain version on the CPU) —
+        One stage + apply launch pair per 64 edges, in every storage
+        (``kernels.fw_repair``; its plain version on the CPU) —
         O(E·n²) against the full solve's O(n³).  The result equals a full
         re-solve of the updated graph under the kernel's conditions:
         ⊕-improving updates, closure diagonal = ⊗-identity (lifted and

@@ -1,17 +1,20 @@
-"""Rank-1 repair: wrappers around the Hopper kernels.
+"""Rank-E repair: wrappers around the Hopper kernels.
 
 ``fw_repair`` replaces ``repro.kernels.fw_repair.fw_repair`` and
 ``fw_repair_with_successors`` its next-hop twin.  Both absorb E
 ⊕-improving edge updates ``(u_e, v_e, w_e)`` into a closed (n, n) matrix,
 in order: ``d ⊕= (d[:, u_e] ⊗ w_e) ⊗ d[v_e, :]``.  On the card a batch of
 up to ``MAX_EDGES`` edges is two launches on the current stream — stage
-(the evolved pivot rows into an (E, n) buffer) and apply (every row folds
-all E updates); ``csrc/fw_repair.cu`` says why.  Longer batches run one
-launch pair per ``MAX_EDGES`` edges, which is the same sequence of steps.
+(the evolved pivot rows into an (E, n) buffer, and each row's E scalars
+(row i at column u_e before step e) ⊗ w_e into an (n, E) one: the
+``RepairBuffers``) and apply (``d ⊕ scalars ⊗ staged``, a rank-E update
+streamed over 2-D tiles); ``csrc/fw_repair.cu`` says why.  Longer batches
+run one launch pair per ``MAX_EDGES`` edges, which is the same sequence of
+steps.
 
 Storage.  ``d`` is f32 (``csrc/fw_repair.cu``) or one of the storages the
-reference compiles its repair for (``csrc/fw_repair_lowered.cu``, up to
-``MAX_EDGES_LOWERED`` edges a launch pair): bf16 or f16 with any of the
+reference compiles its repair for (``csrc/fw_repair_lowered.cu``, the
+same ``MAX_EDGES`` a launch pair): bf16 or f16 with any of the
 five semirings, int16 with the saturating ``*_i16`` lowerings, one int32
 word plane of ``OR_AND_PACKED`` (w is then a lane mask), or the int32
 carrier of an integer or_and / plus_mul storage; the successor repair
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,8 +49,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.fw_round import LOWERINGS, contiguous_aligned, storage_tag
 from repro_torch.kernels.minplus_matmul import _raise_on, semiring_id
 
-MAX_EDGES = 64  # edges one f32 stage + apply launch pair carries
-MAX_EDGES_LOWERED = 32  # ... and one lowered pair
+MAX_EDGES = 64  # edges one stage + apply launch pair carries, in every storage
 PHASES = ("stage", "apply")
 SUCC_LOWERINGS = ("bf16", "f16")
 KINDS = (
@@ -69,9 +72,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("fw_repair")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fw_repair_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, p]
+    lib.fw_repair_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
     lib.fw_repair_launch.restype = i
-    lib.fw_repair_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, p]
+    lib.fw_repair_succ_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.fw_repair_succ_launch.restype = i
     return lib
 
@@ -82,9 +85,9 @@ def _lowered_lib() -> ctypes.CDLL:
 
     lib = _build.load("fw_repair_lowered")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fw_repair_lowered_launch.argtypes = [i, i, i, p, p, p, p, p, p, i, i, p]
+    lib.fw_repair_lowered_launch.argtypes = [i, i, i, p, p, p, p, p, p, p, i, i, i, p]
     lib.fw_repair_lowered_launch.restype = i
-    lib.fw_repair_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, p]
+    lib.fw_repair_lowered_succ_launch.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, p]
     lib.fw_repair_lowered_succ_launch.restype = i
     return lib
 
@@ -134,69 +137,123 @@ def edge_vectors(u, v, w, n: int, device, dtype=torch.float32):
     return tuple(t.to(device).contiguous() for t in (u, v, w))
 
 
+class RepairBuffers(NamedTuple):
+    """What a stage launch writes and its apply reads: staged (E, n), row e
+    the row v_e before step e; scalars (n, E), row i's (row i at column
+    u_e before step e) ⊗ w_e, both in d's dtype; hops (n, E) int32, the
+    successor repair's hop of an improvement at step e (else None)."""
+
+    staged: torch.Tensor
+    scalars: torch.Tensor
+    hops: torch.Tensor | None
+
+
+def repair_buffers(d: torch.Tensor, E: int, *, successors: bool = False) -> RepairBuffers:
+    """Empty buffers of one launch pair of E edges on (n, n) d."""
+    n = d.shape[-1]
+    empty = functools.partial(torch.empty, device=d.device)
+    return RepairBuffers(empty((E, n), dtype=d.dtype), empty((n, E), dtype=d.dtype),
+                         empty((n, E), dtype=torch.int32) if successors else None)
+
+
+def apply_vectors(*tables: torch.Tensor) -> bool:
+    """Whether an apply launch moves 16-byte vectors: every row of every
+    table (d, out, the staged rows, next hops) starts 16-byte aligned.
+    Else it moves one element at a time (so an unaligned view of out
+    holds the element path to the same values)."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
+               for t in tables)
+
+
 def repair_phase(
-    phase: str, d: torch.Tensor, u, v, w, staged: torch.Tensor,
+    phase: str, d: torch.Tensor, u, v, w, bufs: RepairBuffers,
     out: torch.Tensor | None = None, *, semiring: Semiring = MIN_PLUS,
 ) -> None:
     """Launch one phase of a repair on the card: "stage" writes the evolved
-    pivot rows of d into staged (E, n); "apply" folds them into out (n, n).
-    u, v, w: ``edge_vectors`` on d's device in d's dtype, 1 <= E <=
-    ``MAX_EDGES`` (``MAX_EDGES_LOWERED`` for a lowered d)."""
+    pivot rows of d and its row scalars into ``bufs``
+    (``repair_buffers``); "apply" folds them into out (n, n), which shares
+    no memory with d.  u, v, w: ``edge_vectors`` on d's device in d's
+    dtype, 1 <= E <= ``MAX_EDGES``; the apply's path follows
+    ``apply_vectors``."""
     tag = storage_tag(d, semiring)
     sid = semiring_id(semiring)
-    _launch("fw_repair", phase, tag, d, None, u, v, w, staged, out, None, sid)
+    _launch("fw_repair", phase, tag, d, None, u, v, w, bufs, out, None, sid)
 
 
 def repair_succ_phase(
-    phase: str, d: torch.Tensor, succ: torch.Tensor, u, v, w,
-    staged: torch.Tensor, out: torch.Tensor | None = None,
-    succ_out: torch.Tensor | None = None,
+    phase: str, d: torch.Tensor, succ: torch.Tensor, u, v, w, bufs: RepairBuffers,
+    out: torch.Tensor | None = None, succ_out: torch.Tensor | None = None,
 ) -> None:
     """One phase of the successor repair on the card (min-plus; d f32,
-    bf16 or f16)."""
-    _launch("fw_repair_with_successors", phase, succ_tag(d), d, succ, u, v, w, staged,
+    bf16 or f16; ``bufs`` with hops): the stage reads succ for the hops."""
+    _launch("fw_repair_with_successors", phase, succ_tag(d), d, succ, u, v, w, bufs,
             out, succ_out, None)
 
 
-def _launch(fn, phase, tag, d, succ, u, v, w, staged, out, succ_out, sid) -> None:
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share a byte."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def _launch(fn, phase, tag, d, succ, u, v, w, bufs, out, succ_out, sid) -> None:
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
     n = _check(d, 1)
     E = len(u)
-    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     if d.device.type != "cuda":
         raise ValueError(f"{fn} phases launch a CUDA kernel; d is on the CPU")
-    if not 1 <= E <= cap:
-        raise ValueError(f"one launch takes 1..{cap} edges, got {E}")
-    tensors = [d, staged, u, v, w]
-    if phase == "apply":
-        tensors += [out] if succ is None else [succ, out, succ_out]
+    if not 1 <= E <= MAX_EDGES:
+        raise ValueError(f"one launch takes 1..{MAX_EDGES} edges, got {E}")
+    staged, scal, hops = bufs
+    if (succ is None) != (hops is None):
+        raise ValueError(f"{fn}: hops buffer {'missing' if hops is None else 'not taken'}")
+    inputs = [d, u, v, w, staged, scal] + ([succ, hops] if succ is not None else [])
+    outputs = [out] if succ is None else [out, succ_out]
+    tensors = inputs + (outputs if phase == "apply" else [])
     if any(t is None or t.device != d.device or not t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn}/{phase}: every tensor must be contiguous on {d.device}")
-    if tuple(staged.shape) != (E, n) or staged.dtype != d.dtype or w.dtype != d.dtype:
-        raise ValueError(f"staged must be ({E}, {n}) and w ({E},), both {d.dtype}; got "
-                         f"{tuple(staged.shape)} {staged.dtype}, w {w.dtype}")
+    if (tuple(staged.shape) != (E, n) or tuple(scal.shape) != (n, E)
+            or staged.dtype != d.dtype or scal.dtype != d.dtype or w.dtype != d.dtype):
+        raise ValueError(f"staged must be ({E}, {n}), scalars ({n}, {E}) and w ({E},), all "
+                         f"{d.dtype}; got {tuple(staged.shape)} {staged.dtype}, "
+                         f"{tuple(scal.shape)} {scal.dtype}, w {w.dtype}")
+    if hops is not None and (tuple(hops.shape) != (n, E) or hops.dtype != torch.int32):
+        raise ValueError(f"hops must be ({n}, {E}) int32, got {tuple(hops.shape)} {hops.dtype}")
+    if succ is not None:
+        _check(succ, 1, "succ", torch.int32)
+        if succ.shape != d.shape:
+            raise ValueError(f"{fn}: succ must match d {tuple(d.shape)}")
+    vec = False
     if phase == "apply":
         _check(out, 1, "out", d.dtype)
         if succ is not None:
-            _check(succ, 1, "succ", torch.int32)
             _check(succ_out, 1, "succ_out", torch.int32)
-        if any(t.shape != d.shape for t in tensors[5:]):
+        if any(t.shape != d.shape for t in outputs):
             raise ValueError(f"{fn}/apply: outputs must match d {tuple(d.shape)}")
+        tables = inputs + outputs
+        if any(_overlaps(o, t) for k, o in enumerate(outputs) for m, t in enumerate(tables)
+               if m != len(inputs) + k):
+            raise ValueError(f"{fn}/apply: an output shares memory with an input or the "
+                             f"other output")
+        vec = apply_vectors(d, staged, *outputs, *([succ] if succ is not None else []))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     tables = (d, out) if succ is None else (d, succ, out, succ_out)
-    ptrs = (*map(ptr, tables), *map(ptr, (staged, u, v, w)), n, E)
+    bufs_p = (staged, scal) if succ is None else (staged, scal, hops)
+    ptrs = (*map(ptr, tables), *map(ptr, bufs_p), *map(ptr, (u, v, w)), n, E)
     ph = PHASES.index(phase)
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         if tag is None and succ is None:
-            err = _lib().fw_repair_launch(ph, *ptrs, sid, stream)
+            err = _lib().fw_repair_launch(ph, *ptrs, sid, int(vec), stream)
         elif tag is None:
-            err = _lib().fw_repair_succ_launch(ph, *ptrs, stream)
+            err = _lib().fw_repair_succ_launch(ph, *ptrs, int(vec), stream)
         elif succ is None:
-            err = _lowered_lib().fw_repair_lowered_launch(ph, LOWERINGS[tag], sid, *ptrs, stream)
+            err = _lowered_lib().fw_repair_lowered_launch(ph, LOWERINGS[tag], sid, *ptrs,
+                                                          int(vec), stream)
         else:
-            err = _lowered_lib().fw_repair_lowered_succ_launch(ph, LOWERINGS[tag], *ptrs, stream)
+            err = _lowered_lib().fw_repair_lowered_succ_launch(ph, LOWERINGS[tag], *ptrs,
+                                                               int(vec), stream)
     kind = f"{fn}/{phase}" + (f"[{tag}]" if tag else "")
     _raise_on(err, kind)
     LAUNCHES[kind] += 1
@@ -218,18 +275,17 @@ def fw_repair(
     new tensor.
     """
     n = _check(d, block_size)
-    tag = storage_tag(d, semiring)
+    storage_tag(d, semiring)  # refuses a storage the kernels do not take
     u, v, w = edge_vectors(u, v, w, n, d.device, d.dtype)
     if d.device.type == "cpu":
         return ref.fw_repair_ref(d, u, v, w, semiring=semiring)
-    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     out = d = contiguous_aligned(d)
-    for c in range(0, len(u), cap):
-        e = slice(c, c + cap)
-        staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)
+    for c in range(0, len(u), MAX_EDGES):
+        e = slice(c, c + MAX_EDGES)
+        bufs = repair_buffers(d, len(u[e]))
         nxt = torch.empty_like(d)
-        repair_phase("stage", out, u[e], v[e], w[e], staged, semiring=semiring)
-        repair_phase("apply", out, u[e], v[e], w[e], staged, nxt, semiring=semiring)
+        repair_phase("stage", out, u[e], v[e], w[e], bufs, semiring=semiring)
+        repair_phase("apply", out, u[e], v[e], w[e], bufs, nxt, semiring=semiring)
         out = nxt
     return out
 
@@ -246,7 +302,7 @@ def fw_repair_with_successors(
     Returns new tensors.
     """
     n = _check(d, block_size)
-    tag = succ_tag(d)
+    succ_tag(d)  # refuses a storage the kernels do not take
     _check(succ, block_size, "succ", torch.int32)
     if succ.shape != d.shape or succ.device != d.device:
         raise ValueError(
@@ -256,13 +312,12 @@ def fw_repair_with_successors(
     u, v, w = edge_vectors(u, v, w, n, d.device, d.dtype)
     if d.device.type == "cpu":
         return ref.fw_repair_with_successors_ref(d, succ, u, v, w)
-    cap = MAX_EDGES if tag is None else MAX_EDGES_LOWERED
     out, sout = d, succ = contiguous_aligned(d), contiguous_aligned(succ)
-    for c in range(0, len(u), cap):
-        e = slice(c, c + cap)
-        staged = torch.empty((len(u[e]), n), dtype=d.dtype, device=d.device)
+    for c in range(0, len(u), MAX_EDGES):
+        e = slice(c, c + MAX_EDGES)
+        bufs = repair_buffers(d, len(u[e]), successors=True)
         nxt, snxt = torch.empty_like(d), torch.empty_like(succ)
-        repair_succ_phase("stage", out, sout, u[e], v[e], w[e], staged)
-        repair_succ_phase("apply", out, sout, u[e], v[e], w[e], staged, nxt, snxt)
+        repair_succ_phase("stage", out, sout, u[e], v[e], w[e], bufs)
+        repair_succ_phase("apply", out, sout, u[e], v[e], w[e], bufs, nxt, snxt)
         out, sout = nxt, snxt
     return out, sout

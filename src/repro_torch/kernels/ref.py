@@ -404,6 +404,58 @@ def repair_apply_succ_ref(d, succ, staged, u, v, w):
     return d, succ
 
 
+def repair_scalars_ref(d, staged, u, v, w, *, semiring: Semiring = MIN_PLUS, succ=None):
+    """The row scalars the stage launch writes beside the staged rows:
+    ``(scal, hops)``, scal (n, E) with scal[i, e] = (row i at column u_e
+    before step e) ⊗ w_e, each row evolving against staged[e, u_b] (b > e).
+    With ``succ`` (the successor repair: min-plus, strict ``<``) also hops
+    (n, E) int32, the hop an improvement of row i at step e takes: v_e on
+    row u_e, else row i's hop at column u_e before step e; else None."""
+    u, v, w = _edge_lists(u, v, w, d)
+    E = len(u)
+    y = d[:, u]  # advanced indexing: a copy
+    scal = torch.empty_like(y)
+    ys = hops = None
+    if succ is not None:
+        ys, hops = succ[:, u], torch.empty_like(succ[:, u])
+        rows = torch.arange(d.shape[0], device=d.device)
+    for e in range(E):
+        a = semiring.mul(y[:, e], w[e])
+        scal[:, e] = a
+        rest, pu = y[:, e + 1:], staged[e, u[e + 1:]][None, :]
+        if succ is None:
+            y[:, e + 1:] = semiring.relax(rest, a[:, None], pu)
+            continue
+        h = torch.where(rows == u[e], torch.tensor(v[e], dtype=ys.dtype, device=d.device),
+                        ys[:, e])
+        hops[:, e] = h
+        cand = a[:, None] + pu
+        better = cand < rest
+        y[:, e + 1:] = torch.where(better, cand, rest)
+        ys[:, e + 1:] = torch.where(better, h[:, None], ys[:, e + 1:])
+    return scal, hops
+
+
+def repair_stream_ref(d, scal, staged, *, semiring: Semiring = MIN_PLUS) -> torch.Tensor:
+    """The apply launch on the stage's buffers: ``d ⊕ scal ⊗ staged``, a
+    rank-E update with e ascending (== ``repair_apply_ref``)."""
+    for e in range(staged.shape[0]):
+        d = semiring.relax(d, scal[:, e, None], staged[e, None, :])
+    return d
+
+
+def repair_stream_succ_ref(d, succ, scal, hops, staged):
+    """The successor apply launch on the stage's buffers: a candidate
+    scal[i, e] + staged[e, j] taken only where strictly smaller, with its
+    hop hops[i, e] (== ``repair_apply_succ_ref``)."""
+    for e in range(staged.shape[0]):
+        cand = scal[:, e, None] + staged[e, None, :]
+        better = cand < d
+        d = torch.where(better, cand, d)
+        succ = torch.where(better, hops[:, e, None], succ)
+    return d, succ
+
+
 # ----------------------------------------------------- decremental repair
 def _affected_mask(dist, u, v, wold, ecount, semiring: Semiring) -> torch.Tensor:
     """Bool (m, m): pairs whose closure value is witnessed through a live

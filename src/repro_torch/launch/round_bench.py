@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python src/repro_torch/launch/round_bench.py [--n 8192]
         [--label L] [--build-only]
-        [--sweep | --phases | --succ | --sweep-succ | --sweep-relax]
+        [--sweep | --phases | --succ | --sweep-succ | --sweep-relax | --repair]
 
 Prints one JSON line with the card's name and power limit: each
 ``fw_round`` launch kind (diag, bands, relax) alone at (n, n) in min-plus
@@ -80,12 +80,28 @@ hops in f32 at n/2, E = 16) and the bf16 and f16 successor engine path of
 on-path deletions: a strip of n/2 rows), each checked against a re-solve,
 with the sweep's device time by launch kind.
 
+``--repair`` times the rank-E repair instead (``repair_cases``): its stage
+and apply launches alone at (n, n) in every storage, E = 1, 16, 32 and 64
+(as far as one of the tree's launch pairs carries), ``fw_repair`` of 40,
+48 and 64 edges in every storage, whole and as a repair of 32 edges and
+one of the rest, the f32 plus_mul apply beside ``torch.addmm(d, scalars,
+staged)``, the successor stage and apply at (n/2, n/2) in f32, bf16 and
+f16, each first held by bits against its plain twins (``repair_*_ok``),
+then timed as device time (``*_dev_ms``); ``ApspEngine.repair`` of 16
+improvements at n (== a re-solve first) by host clock (median of 5 medians of 3) and
+as device time; and a f32
+``RoutingEngine`` repair refresh with next hops at n/2 and an int16 one at
+n, each under the profiler (wall, kernels by name; table == re-solve
+first).  In a tree without ``fw_repair.repair_buffers`` the stage's staged
+rows are its buffer.
+
 ``--build-only`` builds the libraries those calls load and prints one JSON
 line of their build seconds and the registers and spills of each relax,
 successor relax, diag, bands (with ``--sweep``: panels; with ``--phases``:
 closure and band; with ``--succ``: the successor diag, bands and relax
 alone; with ``--sweep-succ``: the successor sweep's diag, panels and relax
-alone) and vector f32 ``matmul_kernel`` instantiation
+alone; with ``--repair``: the stage and apply) and vector f32
+``matmul_kernel`` instantiation
 (``_build.kernel_infos``) and, in each f32 relax, diag and bands (panels;
 closure and band) kernel's SASS (``cuobjdump -sass`` of the f32 round
 (sweep, phase) library), the count of the opcodes a relaxation is made
@@ -105,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -181,7 +198,7 @@ def queue_ms(fn) -> float:
 SASS_OPS = ("FADD", "FFMA", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3", "PRMT", "LDS", "STS",
             "SHFL", "BAR", "STL", "LDL")
 KERNELS = ("relax_kernel", "diag_kernel", "bands_kernel", "panels_kernel", "closure_kernel",
-           "band_kernel")
+           "band_kernel", "stage_kernel", "apply_kernel")
 
 
 def sass_counts(lib_path) -> dict:
@@ -227,6 +244,7 @@ def build_report(label: str, mode: str = "") -> int:
         "sweep_succ": (("fw_repair_del", "fw_repair_del_lowered"), ("fw_round",)),
         "sweep_relax": (("fw_repair_del", "fw_repair_del_lowered"),
                         ("fw_round", "fw_round_lowered")),
+        "repair": (("fw_repair", "fw_repair_lowered"), ("fw_round", "fw_round_lowered")),
     }.get(mode, (("fw_round", "fw_round_lowered", "minplus_matmul", "fw_phase"), ()))
     only_succ = mode in ("succ", "sweep_succ")
 
@@ -825,6 +843,285 @@ def repair_del_cases(n: int) -> dict:
     return out
 
 
+def repair_edges(x, sr, E: int, seed: int):
+    """E edge updates on x's device in x's dtype (``fw_repair.edge_vectors``):
+    random endpoints, a repeated u and a u == v edge, weights in the
+    storage's domain (int16 [1, 30], a random lane mask for packed words,
+    [-1000, 1000) on an int32 carrier, [1, 10) in the floats, [0, 1/n) for
+    plus_mul)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fw_repair as fp
+
+    rng = np.random.default_rng(seed)
+    n = x.shape[-1]
+    u, v = rng.integers(0, n, E).astype(np.int32), rng.integers(0, n, E).astype(np.int32)
+    if E > 2:
+        u[1], v[2] = u[0], u[2]
+    if x.dtype == torch.int16:
+        w = rng.integers(1, 31, E)
+    elif x.dtype == torch.int32:
+        w = (rng.integers(-(1 << 31), 1 << 31, E) if sr.packed
+             else rng.integers(-1000, 1000, E))
+    elif sr.name == "plus_mul":
+        w = rng.uniform(0.0, 1.0 / n, E)
+    else:
+        w = rng.uniform(1.0, 10.0, E)
+    return fp.edge_vectors(u, v, torch.from_numpy(np.asarray(w)).to(x.dtype), n, x.device,
+                           x.dtype)
+
+
+def repair_launches(x, sr, u, v, w, succ=None):
+    """(stage, apply, held) of one repair launch pair on x in the tree's API
+    (the stage's ``repair_buffers`` where the tree has them, else its
+    staged rows): held() runs both once and holds the staged rows and the
+    apply's output (and next hops) by bits against the plain twins."""
+    import torch
+
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import ref
+    from repro_torch.utils.bits import bits_equal
+
+    E, n = len(u), x.shape[-1]
+    if hasattr(fp, "repair_buffers"):
+        bufs = fp.repair_buffers(x, E, successors=succ is not None)
+        staged = bufs.staged
+    else:
+        bufs = staged = torch.empty((E, n), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    if succ is None:
+        stage = lambda: fp.repair_phase("stage", x, u, v, w, bufs, semiring=sr)  # noqa: E731
+        apply = lambda: fp.repair_phase("apply", x, u, v, w, bufs, out, semiring=sr)  # noqa: E731
+    else:
+        sout = torch.empty_like(succ)
+        stage = lambda: fp.repair_succ_phase("stage", x, succ, u, v, w, bufs)  # noqa: E731
+        apply = lambda: fp.repair_succ_phase("apply", x, succ, u, v, w, bufs,  # noqa: E731
+                                             out, sout)
+
+    def held() -> bool:
+        stage()
+        apply()
+        want = ref.repair_stage_ref(x, u, v, w, semiring=sr, strict=succ is not None)
+        if succ is None:
+            got, wo = (out,), (ref.repair_apply_ref(x, want, u, w, semiring=sr),)
+        else:
+            got, wo = (out, sout), ref.repair_apply_succ_ref(x, succ, want, u, v, w)
+        torch.cuda.synchronize()
+        return bits_equal(staged, want) and all(map(bits_equal, got, wo))
+
+    return stage, apply, held
+
+
+def _kernel_name(key: str) -> str:
+    name = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0]
+
+
+def _union_ms(intervals) -> float:
+    """Total length of the union of (start, end) µs intervals, in ms."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def profiled(fn) -> dict:
+    """fn() under ``torch.profiler`` (device events only): its wall time
+    (host clock, profiled), its kernels' device time and event count by
+    name, their sum ``dev``, the device time of its copies to, from and on
+    the card, and the time the device was busy at all (the union of the
+    events' intervals; the sums overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, list] = {}
+    copies = {"HtoD": 0.0, "DtoH": 0.0, "DtoD": 0.0}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if not us:
+            continue
+        if ev.key.startswith("Memcpy"):
+            copies[next((k for k in copies if k in ev.key), "DtoD")] += us / 1e3
+            continue
+        k = kernels.setdefault(_kernel_name(ev.key), [0.0, 0])
+        k[0] += us / 1e3
+        k[1] += ev.count
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(wall=wall, copies=copies, kernels=kernels,
+                dev=sum(v[0] for v in kernels.values()),
+                busy=_union_ms(spans) if spans else None)
+
+
+def improvements(dist, count: int, seed: int):
+    """``count`` ⊕-improving link updates on distinct (u, v), u != v, with
+    dist[u, v] >= 2: the new weight dist[u, v] // 2 beats every path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = dist.shape[-1]
+    upd, seen = [], set()
+    while len(upd) < count:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        if u == v or (u, v) in seen:
+            continue
+        d = float(dist[u, v])
+        if np.isfinite(d) and d >= 2:
+            seen.add((u, v))
+            upd.append((u, v, float(d // 2)))
+    return upd
+
+
+def updated(w, upd):
+    """The weight matrix a re-solve of the repaired graph closes."""
+    w1 = w.copy()
+    for u, v, x in upd:
+        w1[u, v] = min(w1[u, v], x)
+    return w1
+
+
+def repair_cases(n: int) -> dict:
+    """``--repair``: each repair launch alone at (n, n), device time
+    (``device_ms``), held by bits first (``repair_*_ok``): the stage and the
+    apply in f32 min-plus (E = 1, 16, 32, 64) and plus_mul (E = 16, beside
+    ``torch.addmm(d, scalars, staged)``, TF32 off), int16 min-plus, bf16 and
+    f16 min-plus, packed words and the int32 or_and / plus_mul carriers (E =
+    1, 16, 32, 64; launches of more edges than the tree's pair carries are
+    left out), and ``fw_repair`` of 40, 48 and 64 edges in each but f32
+    plus_mul, whole (``repair_full_*``) and as a repair of 32 and one of the
+    rest (``repair_split_*``), held by bits against ``fw_repair_ref``, the
+    device time of every launch pair; the successor stage and apply at n/2 in f32, bf16, f16 (E =
+    1, 16).  Then ``ApspEngine.repair`` at n, E = 16 (== a re-solve first)
+    by host clock and as device time, and two ``RoutingEngine`` repair refreshes under the
+    profiler: f32 with next hops at n/2 (E = 1), int16 at n (E = 8)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apsp import ApspEngine, api
+    from repro_torch.core.graph import random_digraph
+    from repro_torch.core.paths import _init_successors
+    from repro_torch.core.semiring import (
+        MIN_PLUS, MIN_PLUS_I16, OR_AND, OR_AND_PACKED, PLUS_MUL)
+    from repro_torch.kernels import fw_repair as fp
+    from repro_torch.kernels import ref
+    from repro_torch.launch import fw_serve
+    from repro_torch.serve.routing import RoutingEngine
+    from repro_torch.utils.bits import bits_equal
+
+    out = {}
+    lowered_cap = getattr(fp, "MAX_EDGES_LOWERED", fp.MAX_EDGES)  # older trees: 32
+    w = torch.from_numpy(random_digraph(n, density=0.5, seed=1)).cuda()
+    rng = np.random.default_rng(50)
+    carrier = torch.from_numpy(rng.integers(-1000, 1000, (n, n)).astype(np.int32)).cuda()
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n, n), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).cuda()
+    cases = {
+        "f32": (lambda: w, MIN_PLUS, (1, 16, 32, 64)),
+        "f32_plus_mul": (lambda: torch.from_numpy(
+            np.random.default_rng(5).uniform(0.0, 1.0 / n, (n, n)).astype(np.float32)).cuda(),
+            PLUS_MUL, (16,)),
+        "int16": (lambda: api._coerce(w, MIN_PLUS_I16, None, w.device), MIN_PLUS_I16,
+                  (1, 16, 32, 64)),
+        "bf16": (lambda: w.to(torch.bfloat16), MIN_PLUS, (1, 16, 32, 64)),
+        "f16": (lambda: w.to(torch.float16), MIN_PLUS, (1, 16, 32, 64)),
+        "packed": (lambda: words, OR_AND_PACKED, (1, 16, 32, 64)),
+        "or_and_i32": (lambda: carrier, OR_AND, (1, 16, 32, 64)),
+        "plus_mul_i32": (lambda: carrier, PLUS_MUL, (1, 16, 32, 64)),
+    }
+    for key, (make, sr, Es) in cases.items():
+        x = make()
+        cap = fp.MAX_EDGES if x.dtype == torch.float32 else lowered_cap
+        for E in (E for E in Es if E <= cap):
+            u, v, wt = repair_edges(x, sr, E, seed=52 + E)
+            stage, apply, held = repair_launches(x, sr, u, v, wt)
+            tag = f"{key}_E{E}"
+            out[f"repair_{tag}_ok"] = held()
+            out[f"repair_stage_{tag}_dev_ms"] = device_ms(stage)
+            out[f"repair_apply_{tag}_dev_ms"] = device_ms(apply)
+            if key == "f32_plus_mul":
+                if hasattr(fp, "repair_buffers"):  # the stage's own buffers
+                    b = fp.repair_buffers(x, E)
+                    fp.repair_phase("stage", x, u, v, wt, b, semiring=sr)
+                    lib = torch.empty_like(x)
+                    tf32 = torch.backends.cuda.matmul.allow_tf32
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                    out[f"repair_addmm_{tag}_dev_ms"] = device_ms(
+                        lambda: torch.addmm(x, b.scalars, b.staged, out=lib))
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+        for E in (40, 48, 64) if key != "f32_plus_mul" else ():  # whole repairs
+            u, v, wt = repair_edges(x, sr, E, seed=116 + E)
+            want = ref.fw_repair_ref(x, u, v, wt, semiring=sr)
+            runs = {
+                "full": lambda: fp.fw_repair(x, u, v, wt, semiring=sr),
+                # the same edges as a repair of 32, then one of the rest
+                "split": lambda: fp.fw_repair(fp.fw_repair(x, u[:32], v[:32], wt[:32],
+                                                           semiring=sr),
+                                              u[32:], v[32:], wt[32:], semiring=sr),
+            }
+            for how, fn in runs.items():
+                out[f"repair_{how}_{key}_E{E}_ok"] = bits_equal(fn(), want)
+                out[f"repair_{how}_{key}_E{E}_dev_ms"] = device_ms(fn)
+            del want
+        del x
+    ns = n // 2
+    ws = torch.from_numpy(random_digraph(ns, density=0.5, seed=2)).cuda()
+    for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16), ("f16", torch.float16)):
+        x = ws.to(dt)
+        succ = _init_successors(x).contiguous()
+        for E in (1, 16):
+            u, v, wt = repair_edges(x, MIN_PLUS, E, seed=54 + E)
+            stage, apply, held = repair_launches(x, MIN_PLUS, u, v, wt, succ=succ)
+            tag = f"succ_{key}_E{E}"
+            out[f"repair_{tag}_ok"] = held()
+            out[f"repair_stage_{tag}_dev_ms"] = device_ms(stage)
+            out[f"repair_apply_{tag}_dev_ms"] = device_ms(apply)
+
+    eng = ApspEngine()
+    g = integer_graph(n, 10, hi=10**4, density=0.5)
+    r0 = eng.solve(g)
+    upd = improvements(r0.dist, 16, seed=11)
+    rep = eng.repair(r0.dist, upd)
+    out["engine_repair_E16_ok"] = bits_equal(rep.dist, eng.solve(updated(g, upd)).dist)
+    repair = lambda: eng.repair(r0.dist, upd)  # noqa: E731
+    out["engine_repair_E16_ms"] = statistics.median(host_ms(repair) for _ in range(5))
+    out["engine_repair_E16_dev_ms"] = device_ms(repair, reps=10)
+    del eng, r0, rep
+
+    router = RoutingEngine(max_batch=16)
+    router.add_graph("g0", fw_serve.repair_scenario("min_plus", ns, seed=0)[0])
+    router.refresh()
+    router.update_edge("g0", 5, ns - 9, 1.0)
+    prof = profiled(router.refresh)
+    table = router.snapshots.active("g0").dist_tensor()
+    full = router.engine.solve(router.registry.weights_tensor("g0").cuda(), successors=True)
+    out["refresh_f32_succ_ok"] = bits_equal(table, full.dist.cpu())
+    out["refresh_f32_succ_wall_ms"] = prof["wall"]
+    out["refresh_f32_succ_kernels_ms"] = {k: t for k, (t, _) in prof["kernels"].items()}
+    del router, full
+    r16 = RoutingEngine(engine=ApspEngine(dtype=torch.int16))
+    r16.add_graph("big", integer_graph(n, 60, hi=16, density=0.02))
+    r16.refresh()
+    d16 = r16.snapshots.active("big").dist_tensor()
+    for u, v, x in improvements(d16, 8, seed=63):
+        r16.update_edge("big", u, v, x)
+    prof = profiled(r16.refresh)
+    full = r16.engine.solve(r16.registry.weights_tensor("big"))
+    out["refresh_int16_ok"] = bits_equal(r16.snapshots.active("big").dist_tensor(),
+                                         full.dist.cpu())
+    out["refresh_int16_wall_ms"] = prof["wall"]
+    out["refresh_int16_kernels_ms"] = {k: t for k, (t, _) in prof["kernels"].items()}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=8192)
@@ -841,11 +1138,15 @@ def main(argv=None) -> int:
                       help="time the successor sweep's chains and repair_del instead")
     mode.add_argument("--sweep-relax", action="store_true",
                       help="time the sweep's relax launches and repair_del instead")
+    mode.add_argument("--repair", action="store_true",
+                      help="time the repair's stage and apply, the engine repair and two "
+                           "serving refreshes instead")
     args = ap.parse_args(argv)
     import torch
 
     if args.build_only:
         return build_report(args.label, "sweep" if args.sweep else
+                            "repair" if args.repair else
                             "sweep_relax" if args.sweep_relax else
                             "phases" if args.phases else "succ" if args.succ else
                             "sweep_succ" if args.sweep_succ else "")
@@ -870,6 +1171,10 @@ def main(argv=None) -> int:
     out = dict(label=args.label, package=repro_torch.__file__, nvidia_smi=smi, n=args.n)
     n, s = args.n, 128
     b = n // s // 2
+    if args.repair:
+        out.update(repair_cases(n))
+        print(json.dumps(out))
+        return 0 if all(v for k, v in out.items() if k.endswith("_ok")) else 1
     if args.sweep_relax:
         out.update(sweep_relax_cases(n, s))
         out.update(repair_del_cases(n))

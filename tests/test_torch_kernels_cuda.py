@@ -150,6 +150,76 @@ def test_kernel_successor_repair_matches_plain(cuda_device, E):
     assert bits_equal(gd, wd) and bits_equal(gs, ws)
 
 
+def _held_phases(d, sr, u, v, w, succ=None):
+    """Each repair launch alone against its plain twin: the stage's staged
+    rows and row scalars (hops), then the apply on every path d's rows
+    allow (16-byte vectors, one element at a time)."""
+    E = len(u)
+    bufs = fp.repair_buffers(d, E, successors=succ is not None)
+    if succ is None:
+        fp.repair_phase("stage", d, u, v, w, bufs, semiring=sr)
+    else:
+        fp.repair_succ_phase("stage", d, succ, u, v, w, bufs)
+    staged = ref.repair_stage_ref(d, u, v, w, semiring=sr, strict=succ is not None)
+    scal, hops = ref.repair_scalars_ref(d, staged, u, v, w, semiring=sr, succ=succ)
+    torch.cuda.synchronize()
+    assert bits_equal(bufs.staged, staged) and bits_equal(bufs.scalars, scal)
+    if succ is not None:
+        assert bits_equal(bufs.hops, hops)
+    paths = []
+    for out in (torch.empty_like(d), _unaligned_like(d)):
+        vec = fp.apply_vectors(d, bufs.staged, out)
+        paths.append(vec)
+        if succ is None:
+            fp.repair_phase("apply", d, u, v, w, bufs, out, semiring=sr)
+            torch.cuda.synchronize()
+            assert bits_equal(out, ref.repair_apply_ref(d, staged, u, w, semiring=sr)), vec
+        else:
+            sout = torch.empty_like(succ) if vec else _unaligned_like(succ)
+            fp.repair_succ_phase("apply", d, succ, u, v, w, bufs, out, sout)
+            wd, ws = ref.repair_apply_succ_ref(d, succ, staged, u, v, w)
+            torch.cuda.synchronize()
+            assert bits_equal(out, wd) and bits_equal(sout, ws), vec
+    return tuple(paths)
+
+
+def _unaligned_like(x):
+    """An empty contiguous x-like tensor whose rows start one element off
+    16-byte alignment: the apply's element path."""
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view_as(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("n", [100, 256])
+@pytest.mark.parametrize("E", [1, 16, 37, 64])
+def test_repair_launches_alone_match_their_twins(cuda_device, name, n, E):
+    d = torch.from_numpy(_graph(name, (n, n), seed=E + n)).to(cuda_device)
+    u, v, w = (x[:E] for x in _edges(name, n, max(E - 1, 1), seed=E))
+    u, v, w = fp.edge_vectors(u, v, w, n, cuda_device)
+    assert _held_phases(d, SEMIRINGS[name], u, v, w) == (True, False)
+    if name == "min_plus":
+        succ = _init_successors(d).contiguous()
+        _held_phases(d, SEMIRINGS[name], u, v, w, succ=succ)
+
+
+@pytest.mark.cuda
+def test_repair_apply_refuses_an_aliased_out(cuda_device):
+    flat = torch.zeros(2 * 64 * 64, device=cuda_device)
+    d = flat[:64 * 64].view(64, 64)
+    u, v, w = fp.edge_vectors([0], [1], [1.0], 64, cuda_device)
+    bufs = fp.repair_buffers(d, 1)
+    fp.repair_phase("stage", d, u, v, w, bufs)
+    for out in (d, flat[64:64 + 64 * 64].view(64, 64), bufs.staged.new_empty(0)):
+        with pytest.raises(ValueError):
+            fp.repair_phase("apply", d, u, v, w, bufs, out)
+    succ = torch.zeros(64, 64, dtype=torch.int32, device=cuda_device)
+    sb = fp.repair_buffers(d, 1, successors=True)
+    fp.repair_succ_phase("stage", d, succ, u, v, w, sb)
+    with pytest.raises(ValueError):
+        fp.repair_succ_phase("apply", d, succ, u, v, w, sb, torch.empty_like(d), succ)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", NAMES)
 def test_engine_repair_on_the_card_matches_the_plain_path(cuda_device, name):
@@ -190,9 +260,9 @@ def test_launches_refuse_what_the_kernels_do_not_take(cuda_device):
     d = torch.zeros(64, 64, device=cuda_device)
     u, v, w = fp.edge_vectors([0] * 65, [1] * 65, [1.0] * 65, 64, cuda_device)
     with pytest.raises(ValueError):  # more edges than one launch pair takes
-        fp.repair_phase("stage", d, u, v, w, torch.empty(65, 64, device=cuda_device))
+        fp.repair_phase("stage", d, u, v, w, fp.repair_buffers(d, 65))
     with pytest.raises(ValueError):  # staged buffer of the wrong shape
-        fp.repair_phase("stage", d, u[:4], v[:4], w[:4], torch.empty(3, 64, device=cuda_device))
+        fp.repair_phase("stage", d, u[:4], v[:4], w[:4], fp.repair_buffers(d, 3))
 
 
 def _strip_rows(n, a, seed):
@@ -861,19 +931,18 @@ def test_kernel_lowered_repair_matches_plain(cuda_device, tag, name, E):
     want = ref.fw_repair_ref(d, u, v, w, semiring=sr)
     torch.cuda.synchronize()
     assert got.dtype == d.dtype and bits_equal(got, want), (tag, name)
-    pairs = -(-(E + 1) // fp.MAX_EDGES_LOWERED)
+    pairs = -(-(E + 1) // fp.MAX_EDGES)
     assert fp.LAUNCHES[kind] == before + pairs
-    # each launch kind alone against its plain phase
+    # each launch kind alone against its plain phase, on both apply paths
     uu, vv, ww = fp.edge_vectors(u, v, w, 256, cuda_device, d.dtype)
-    k = min(len(uu), fp.MAX_EDGES_LOWERED)
-    staged = torch.empty((k, 256), dtype=d.dtype, device=cuda_device)
-    fp.repair_phase("stage", d, uu[:k], vv[:k], ww[:k], staged, semiring=sr)
-    out = torch.empty_like(d)
-    fp.repair_phase("apply", d, uu[:k], vv[:k], ww[:k], staged, out, semiring=sr)
-    plain = ref.repair_stage_ref(d, uu[:k], vv[:k], ww[:k], semiring=sr)
-    torch.cuda.synchronize()
-    assert bits_equal(staged, plain)
-    assert bits_equal(out, ref.repair_apply_ref(d, plain, uu[:k], ww[:k], semiring=sr))
+    k = min(len(uu), fp.MAX_EDGES)
+    assert _held_phases(d, sr, uu[:k], vv[:k], ww[:k]) == (True, False)
+    # rows of 200 bytes in a 2-byte storage: one element at a time
+    d100 = d[:100, :100].contiguous()
+    u1, v1, w1 = fp.edge_vectors(*_lowered_edges(d100, sr, min(E, 16), seed=E), 100,
+                                 cuda_device, d.dtype)
+    paths = _held_phases(d100, sr, u1[:16], v1[:16], w1[:16])
+    assert paths == ((False, False) if d.element_size() == 2 else (True, False))
 
 
 @pytest.mark.cuda
@@ -890,7 +959,14 @@ def test_kernel_lowered_successor_repair_matches_plain(cuda_device, tag, E):
     wd, ws = ref.fw_repair_with_successors_ref(d, succ, u, v, w)
     torch.cuda.synchronize()
     assert bits_equal(gd, wd) and bits_equal(gs, ws)
-    assert fp.LAUNCHES[kind] == before + -(-(E + 1) // fp.MAX_EDGES_LOWERED)
+    assert fp.LAUNCHES[kind] == before + -(-(E + 1) // fp.MAX_EDGES)
+    uu, vv, ww = fp.edge_vectors(u, v, w, 256, cuda_device, d.dtype)
+    k = min(len(uu), fp.MAX_EDGES)
+    _held_phases(d, sr, uu[:k], vv[:k], ww[:k], succ=succ)
+    d100, s100 = d[:100, :100].contiguous(), succ[:100, :100].contiguous()
+    u1, v1, w1 = fp.edge_vectors(*_lowered_edges(d100, sr, 16, seed=E), 100, cuda_device,
+                                 d.dtype)
+    assert _held_phases(d100, sr, u1[:16], v1[:16], w1[:16], succ=s100) == (False, False)
 
 
 @pytest.mark.cuda
@@ -996,12 +1072,12 @@ def test_a_build_failure_raises_rather_than_falling_back(cuda_device, tmp_path, 
 @pytest.mark.cuda
 def test_lowered_repair_launches_refuse_what_the_kernels_do_not_take(cuda_device):
     d = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda_device)
-    u, v, w = fp.edge_vectors([0] * 33, [1] * 33, [1.0] * 33, 64, cuda_device, d.dtype)
-    with pytest.raises(ValueError):  # more edges than one lowered launch pair takes
-        fp.repair_phase("stage", d, u, v, w, torch.empty(33, 64, dtype=d.dtype,
-                                                         device=cuda_device))
-    with pytest.raises(ValueError):  # a staged buffer of another dtype
-        fp.repair_phase("stage", d, u[:4], v[:4], w[:4], torch.empty(4, 64, device=cuda_device))
+    E = fp.MAX_EDGES + 1
+    u, v, w = fp.edge_vectors([0] * E, [1] * E, [1.0] * E, 64, cuda_device, d.dtype)
+    with pytest.raises(ValueError):  # more edges than one launch pair takes
+        fp.repair_phase("stage", d, u, v, w, fp.repair_buffers(d, E))
+    with pytest.raises(ValueError):  # buffers of another dtype
+        fp.repair_phase("stage", d, u[:4], v[:4], w[:4], fp.repair_buffers(d.float(), 4))
     with pytest.raises(TypeError):  # no int16 successor repair
         fp.fw_repair_with_successors(d.to(torch.int16), torch.zeros_like(d, dtype=torch.int32),
                                      [0], [1], [1], block_size=16)
