@@ -204,6 +204,21 @@ Phases, each of which raises (exit code 1) on any failure:
      in-core ``solve(method="recursive", leaf=1024)`` at n = 8192 timed
      beside fused; ``ApspEngine(hbm_budget=192 MiB)`` at n = 8192 twice
      (an out-of-core key, then a cache hit).
+ 11. LM serving path (``phase_lm_serve``, last): ``serve.lm.Engine`` over
+     ``repro_torch.models``, plain torch ops (the reference's LM runs no
+     Pallas kernel; the phase requires that no kernel of the port
+     launched).  Qwen2-7B at full width and depth, 7,615,616,512 bf16
+     parameters drawn from a seed on the card: ``Engine.generate`` of 8
+     prompts of 512 seeded tokens and 64 greedy tokens, twice with equal
+     ids; finite logits; decode steps that change only their own cache
+     row; prefill ms (median of 3), decode ms a step (median), generated
+     tokens/s and peak memory beside the bounds derived from the datasheet
+     (``launch.roofline``); a forward over the prompt and 16 generated
+     tokens against the decode steps' logits, for information.  Then
+     Qwen2-7B cut to 2 layers at full width and the six attention-family
+     smoke configs, card == CPU on the same weights (prefill logits and
+     caches, 4 teacher-forced decode steps; rtol 2e-2 and two bf16 ulps
+     of the largest |value|).
 
 Every kernel of the record must have been launched on its path; the
 last lines are the ``{"kernels": [...]}`` record and then
@@ -4789,6 +4804,249 @@ def phase_flash_decode(rows: dict, B: int = 8, Hkv: int = 4, g: int = 7, hd: int
         del q, k, v, ks, vs
 
 
+# -------------------------------------------------------------- LM serving
+LM_ARCHS = ("qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
+            "whisper-small")
+
+
+def kernel_launches() -> int:
+    """Launches of every kernel wrapper of the port, summed."""
+    from repro_torch.kernels import flash_decode, fw_phase1, fw_repair, fw_repair_del
+    from repro_torch.kernels import fw_round, minplus_matmul
+
+    return sum(sum(m.LAUNCHES.values()) for m in (flash_decode, fw_phase1, fw_repair,
+                                                   fw_repair_del, fw_round, minplus_matmul))
+
+
+def lm_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """Seeded tokens within the real vocabulary [+ the bf16 modality
+    stubs: image patch or audio frame embeddings], on the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                                   dtype=np.int32))}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    if cfg.encoder is not None:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    return out
+
+
+def lm_same(label: str, got, want) -> float:
+    """got (the card's) == want (the CPU's) within the bf16 rule of
+    ``decode_tolerance``: rtol 2e-2 and two bf16 ulps of the largest
+    |want|.  Returns the max abs error."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    rtol, atol = decode_tolerance(torch.bfloat16, want)
+    err = max_abs_err(got, want)
+    require(bool(torch.isfinite(got).all()), f"lm {label}: non-finite values on the card")
+    require(torch.allclose(got, want, rtol=rtol, atol=atol),
+            f"lm {label}: card != CPU (max abs err {err}, atol {atol}, rtol {rtol})")
+    return err
+
+
+def lm_card_vs_cpu(label: str, cfg, card, prompt: int, steps: int, batch: int,
+                   seed: int) -> float:
+    """The card's prefill (logits and caches) and ``steps`` teacher-forced
+    decode steps == the CPU's on the same weights (``card``'s, copied) and
+    inputs.  Returns the largest error."""
+    import torch
+
+    from repro_torch.models.model import Model, decode_step, prefill
+    from repro_torch.serve.lm import Engine
+
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    data = lm_batch(cfg, batch, prompt + steps, seed)
+    runs = []
+    with torch.inference_mode():
+        for model in (card, cpu):
+            logits, caches = prefill(cfg, model, dict(data, tokens=data["tokens"][:, :prompt]))
+            out = [logits, [{n: t.cpu() for n, t in c.items()} for c in caches]]
+            caches = Engine(cfg, model)._extend_caches(caches, steps)
+            for t in range(steps):
+                logits, caches = decode_step(cfg, model, data["tokens"][:, prompt + t],
+                                             prompt + t, caches)
+                out.append(logits)
+            runs.append(out)
+    (pre, caches, *dec), (pre_c, caches_c, *dec_c) = runs
+    errs = [lm_same(f"{label} prefill logits", pre, pre_c)]
+    for j, (c, cc) in enumerate(zip(caches, caches_c)):
+        errs += [lm_same(f"{label} prefill cache {j}/{n}", c[n], cc[n]) for n in c]
+    errs += [lm_same(f"{label} decode step {t}", a, b) for t, (a, b) in enumerate(zip(dec, dec_c))]
+    print(f"lm {label}: card == CPU, prefill of {batch} x {prompt} tokens and {steps} decode "
+          f"steps; max abs err {max(errs)} (logits: prefill {errs[0]}, decode "
+          f"{max(errs[-steps:])})")
+    return max(errs)
+
+
+def phase_lm_serve(batch: int = 8, prompt: int = 512, new: int = 64):
+    """The LM serving path (``repro_torch.serve.lm.Engine`` over
+    ``repro_torch.models``), plain torch ops throughout: the reference's LM
+    runs no Pallas kernel, so no kernel of the port is launched (counted).
+
+    (a) Qwen2-7B at full width and depth (``configs/qwen2_7b.py``,
+        7,615,616,512 parameters, bf16, drawn from a seeded generator on
+        the card): ``Engine.generate`` of ``batch`` prompts of ``prompt``
+        seeded tokens, ``new`` greedy tokens, twice with equal ids; finite
+        logits; three decode steps each change only their own cache row.
+        Prefill ms (median of 3), decode ms a step (median), generated
+        tokens/s, peak device memory, beside the bounds derived from the
+        datasheet (``launch.roofline``): the prefill's ``model_flops`` at
+        the bf16 peak, a decode step's weights (but the embedding table)
+        and cache at the HBM rate.
+        For information: the largest difference between a forward over
+        the prompt and the first 16 generated tokens and the decode steps'
+        logits at those positions.
+    (b) Qwen2-7B cut to 2 layers at full width, card == CPU on the same
+        weights: 2 prompts of 32 tokens, the prefill and 4 teacher-forced
+        decode steps.
+    (c) the smoke configs of the six attention-family architectures, card
+        == CPU likewise (2 prompts of 16 tokens, 4 decode steps).
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models.model import (count_params, decode_step, forward_train,
+                                          init_params, model_flops, prefill)
+    from repro_torch.serve.lm import Engine
+
+    launches = kernel_launches()
+    cfg = get_config("qwen2-7b")
+    n_params = count_params(cfg)
+    require(n_params == 7_615_616_512, f"qwen2-7b has {n_params} parameters")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    require(sum(p.numel() for p in model.parameters()) == n_params, "qwen2-7b model size")
+    require(all(p.dtype == torch.bfloat16 for p in model.parameters()), "qwen2-7b not bf16")
+    data = lm_batch(cfg, batch, prompt, seed=0)
+    eng = Engine(cfg, model)
+    walls, ids = [], []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        ids.append(eng.generate(data, max_new_tokens=new))
+        walls.append(time.perf_counter() - t0)
+    require(ids[0].shape == (batch, new), f"generated ids of shape {ids[0].shape}")
+    require((ids[0] == ids[1]).all(), "two greedy runs generated different ids")
+    require(((ids[0] >= 0) & (ids[0] < cfg.vocab_size)).all(), "ids outside the vocabulary")
+
+    pre_ms, dec_ms = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            pre_ms.append(host_ms(lambda: prefill(cfg, model, data)))
+        logits, caches = prefill(cfg, model, data)
+        require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        caches = eng._extend_caches(caches, new)
+        fed = torch.from_numpy(ids[0]).cuda()
+        step_logits, other = [], 0
+        for i in range(new - 1):
+            watch = i in (0, new // 2, new - 2)
+            before = [{n: t.clone() for n, t in c.items()} for c in caches] if watch else None
+            sync()
+            t0 = time.perf_counter()
+            logits, caches = decode_step(cfg, model, fed[:, i], prompt + i, caches)
+            sync()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            require(bool(torch.isfinite(logits).all()), f"non-finite logits at decode step {i}")
+            other += int((logits[:, : cfg.vocab_size].argmax(-1) != fed[:, i + 1]).sum())
+            if i < 16:
+                step_logits.append(logits.clone())
+            if watch:
+                rows = [r for r in range(prompt + new) if r != prompt + i]
+                for c, old in zip(caches, before):
+                    for n in c:
+                        require(torch.equal(c[n][:, rows], old[n][:, rows])
+                                and not torch.equal(c[n][:, prompt + i], old[n][:, prompt + i]),
+                                f"decode step {i} changed cache rows other than its own")
+                del before
+        profiles = {"prefill": (profiled(lambda: prefill(cfg, model, data)), 1)}
+        _, fresh = prefill(cfg, model, data)
+        fresh = eng._extend_caches(fresh, 8)
+
+        def eight_steps():
+            c = fresh
+            for i in range(8):
+                _, c = decode_step(cfg, model, fed[:, i], prompt + i, c)
+
+        profiles["decode"] = (profiled(eight_steps), 8)
+        del fresh
+        full, _ = forward_train(cfg, model, {"tokens": torch.cat([data["tokens"].cuda(),
+                                                                   fed[:, :16]], dim=1)})
+        info = max_abs_err(full[:, prompt:prompt + 16].float(),
+                           torch.stack(step_logits, dim=1).float())
+        del full, step_logits
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    # A decode step reads every weight once but the untied embedding table,
+    # of which it gathers one row a sequence, and the whole extended cache.
+    table = 0 if cfg.tie_embeddings else model.embed.numel() - batch * cfg.d_model
+    decode_bytes = 2 * (n_params - table) + cache_bytes
+    flops = model_flops(cfg, kind="prefill", global_batch=batch, seq_len=prompt)
+    fig = dict(
+        model="qwen2-7b", params=n_params, batch=batch, prompt=prompt, new_tokens=new,
+        init_s=init_s, generate_s=walls, tokens_per_s=batch * new / walls[1],
+        prefill_ms=statistics.median(pre_ms), prefill_times_ms=pre_ms,
+        decode_ms=statistics.median(dec_ms), decode_min_ms=min(dec_ms),
+        max_memory_allocated=peak,
+        prefill_bound_ms=flops / rl.PEAK_FLOPS_BF16 * 1e3, prefill_flops=flops,
+        decode_bound_ms=decode_bytes / rl.HBM_BW * 1e3, decode_bound_bytes=decode_bytes,
+        forward_vs_decode_max_abs_diff=info, timed_loop_other_ids=other)
+    print(f"lm qwen2-7b: {n_params} parameters, drawn on the card in {init_s:.1f} s; generate "
+          f"{batch} x {prompt} + {new} greedy tokens: {walls[0]:.3f} / {walls[1]:.3f} s, ids equal; "
+          f"prefill {fig['prefill_ms']:.2f} ms (median of 3: {pre_ms}), decode "
+          f"{fig['decode_ms']:.3f} ms a step (median of {len(dec_ms)}), "
+          f"{fig['tokens_per_s']:.1f} generated tokens/s, max_memory_allocated {peak} B; "
+          f"the timed decode loop's greedy ids differ from generate's at {other} of "
+          f"{batch * (new - 1)}")
+    print(f"lm qwen2-7b bounds, derived from the H100 datasheet, not measured: prefill "
+          f"{flops:.4e} FLOP / {rl.PEAK_FLOPS_BF16:.4g} FLOP/s = {fig['prefill_bound_ms']:.2f} ms; "
+          f"a decode step {decode_bytes} B (the weights but the embedding table, its {batch} "
+          f"gathered rows, the cache) / {rl.HBM_BW:.4g} B/s "
+          f"= {fig['decode_bound_ms']:.3f} ms")
+    print(f"lm qwen2-7b, for information: forward over the prompt + 16 generated tokens vs the "
+          f"decode steps' logits at those positions: max abs diff {info}")
+    for what, (prof, calls) in profiles.items():
+        top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])[:6]
+        launched = sum(c for _, c in prof["kernels"].values())
+        busy = prof["busy"] or 0.0
+        fig[f"{what}_profile"] = dict(wall_ms=prof["wall"] / calls, busy_ms=busy / calls,
+                                      kernel_ms=prof["dev"] / calls, launches=launched / calls,
+                                      idle=1 - busy / prof["wall"])
+        print(f"lm qwen2-7b {what} under torch.profiler, a call of {calls}: wall "
+              f"{prof['wall'] / calls:.3f} ms, device busy {busy / calls:.3f} ms (idle "
+              f"{1 - busy / prof['wall']:.1%}), {launched / calls:.0f} kernels; by time: "
+              + ", ".join(f"{n} {t / calls:.3f} ms x{c / calls:.0f}" for n, (t, c) in top))
+    del model, eng, caches, logits
+    torch.cuda.empty_cache()
+
+    two = dataclasses.replace(cfg, n_layers=2)
+    card = init_params(two, seed=1, device="cuda")
+    fig["two_layer_max_abs_err"] = lm_card_vs_cpu("qwen2-7b, 2 layers", two, card, 32, 4, 2, 1)
+    del card
+    torch.cuda.empty_cache()
+    for arch in LM_ARCHS:
+        scfg = get_smoke_config(arch)
+        fig[f"smoke_{arch}_max_abs_err"] = lm_card_vs_cpu(
+            scfg.name, scfg, init_params(scfg, seed=2, device="cuda"), 16, 4, 2, 2)
+    launched = kernel_launches() - launches
+    require(launched == 0, f"the LM path launched {launched} kernels of the port")
+    print("lm_serve " + json.dumps(fig))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4856,6 +5114,7 @@ def main(argv=None) -> int:
         run(phase_four_lowered, rows, 8192)
         run(phase_kernels_dist, rows, 8192)
         run(phase_dist, rows, 8192, 2048)
+        run(phase_lm_serve)
         idle = [k for k, r in rows.items() if r["launches"] < 1]
         require(not idle, f"kernels of the record launched no time on their paths: {idle}")
         print(json.dumps({"kernels": list(rows.values())}))

@@ -187,6 +187,23 @@ def fused_round_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> f
     return 2.0 * batch * (T * T + 2 * T - 1) * s * s * word
 
 
+def staged_hbm_bytes_per_round(
+    n_r: int, n_c: int, s: int, *, bm: int = 256, bn: int = 256, word: int = 4
+) -> float:
+    """HBM traffic model of one round of the multi-kernel (staged) round on
+    one rank's (n_r, n_c) block: phase 3 reads + writes W once (the C tile
+    resident across k) and streams (bm × bk) / (bk × bn) panel slices;
+    phase 2 reads + writes the two panels with the diag broadcast; phase 1
+    round-trips the diag tile.  The reference's model (bm = bn = 256, its
+    Pallas tiles); the card's relax tiles are 128 × 128."""
+    return (
+        2 * n_r * n_c                         # C in/out, resident over k
+        + s * n_r * n_c * (1 / bm + 1 / bn)   # streamed panel slices
+        + 4 * s * (n_r + n_c)                 # phase-2 panel r/w
+        + 2 * s * s * 3                       # diag r/w + phase-2 reads
+    ) * word
+
+
 def fused_solve_hbm_bytes(n: int, s: int, *, word: int = 4, batch: int = 1) -> float:
     """n/s rounds × ``fused_round_hbm_bytes``."""
     return round_count(n, s) * fused_round_hbm_bytes(n, s, word=word, batch=batch)

@@ -33,6 +33,17 @@ Exit code 0 on success.  Modes:
   --repair         ``ApspEngine(method="distributed").repair`` == the
                    single-device repair == a re-solve of the updated
                    graph, bitwise; a warm repair builds no new runner.
+  --repair-del     ``ApspEngine(method="distributed").repair_del`` of
+                   on-path link failures (threshold 100: the sweep, not
+                   the re-solve) == the single-device repair_del == a
+                   re-solve of the deleted graph, bitwise, after the mesh
+                   solve == the single-device one; plus_mul takes the
+                   re-solve fallback, == the mesh engine's own re-solve.
+  --method engine  ``ApspEngine(method="distributed").solve_many`` of three
+                   ragged graphs (n, max(n/2, 2·bs), n) == the
+                   single-device fused solve of each; a second pass builds
+                   no new runner.
+  --pods P         the grid of ``plan.mesh_factorization(--devices, P)``.
   --bench          ``METRICS {json}``: per-round ms and the bytes each rank
                    handed to collectives, against
                    ``plan.dist_round_comm_bytes`` × rounds and the SUMMA
@@ -226,6 +237,10 @@ def grid_check(mesh, cfgs: list[dict]) -> list[dict]:
 def _check(mesh, cfg: dict) -> dict:
     if cfg.get("repair"):
         return _check_repair(mesh, cfg)
+    if cfg.get("repair_del"):
+        return _check_repair_del(mesh, cfg)
+    if cfg.get("method") == "engine":
+        return _check_engine(mesh, cfg)
     dev = mesh.device
     sr = storage_semiring(cfg)
     w = _inputs(cfg, dev, sr)
@@ -387,6 +402,64 @@ def _check_repair(mesh, cfg: dict) -> dict:
     rec["traces"] = sorted(e.traces for e in dist._cache.values())
     rec["ok"] = rec["ok"] and all(t == 1 for t in rec["traces"])
     return rec
+
+
+def _check_engine(mesh, cfg: dict) -> dict:
+    """The mesh engine's ``solve_many`` of ragged graphs == the
+    single-device fused solve of each; a warm pass builds no new runner."""
+    dev = mesh.device
+    sr, s = storage_semiring(cfg), cfg.get("bs")
+    eng = ApspEngine(method="distributed", mesh=mesh, semiring=sr, dtype=cfg.get("dtype"),
+                     block_size=s, validate=False, device=dev.type)
+    sizes = [cfg["n"], max(cfg["n"] // 2, 2 * s), cfg["n"]]
+    graphs = [_inputs(dict(cfg, n=nn, batch=1, seed=i), dev, sr) for i, nn in enumerate(sizes)]
+    results = eng.solve_many(graphs)
+    ok = all(same(r.dist, solve(g, method="fused", block_size=r.block_size, semiring=sr,
+                                validate=False, device=dev.type).dist)
+             for g, r in zip(graphs, results))
+    eng.solve_many(graphs)
+    traces = sorted(e.traces for e in eng._cache.values())
+    return dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=cfg["n"], sizes=sizes, semiring=sr.name,
+                dtype=str(results[0].dist.dtype).removeprefix("torch."), method="engine",
+                cache=eng.cache_size, hits=eng.stats.hits, traces=traces,
+                ok=ok and all(t == 1 for t in traces))
+
+
+def _check_repair_del(mesh, cfg: dict) -> dict:
+    """Mesh repair_del == single-device repair_del == re-solve of the
+    deleted graph (plus_mul: its fallback == the mesh engine's re-solve),
+    from a mesh solve == the single-device one."""
+    from repro_torch.launch import fw_serve
+
+    dev = mesh.device
+    name, n = cfg["semiring"], cfg["n"]
+    sr = SEMIRINGS[name]
+    w0, _, baseline = fw_serve.repair_scenario(name, n, seed=cfg.get("seed", 0))
+    kw = dict(semiring=sr, validate=False, device=dev.type)
+    single = ApspEngine(method=baseline, **kw)
+    dist = ApspEngine(method="distributed", mesh=mesh, **kw)
+    d0 = single.solve(w0).dist
+    ok = name == "plus_mul" or same(dist.solve(w0).dist, d0)  # plus_mul: naive baseline
+    dels, w1 = fw_serve.pick_deletions(w0, d0, name)
+    if not dels:  # plus_mul: no on-path edge; any deleted edge takes the fallback
+        u, v = next((int(u), int(v)) for u, v in np.argwhere(w0 != sr.zero) if u != v)
+        dels, w1 = [(u, v, float(w0[u, v]))], np.array(w0, copy=True)
+        w1[u, v] = sr.zero
+    rd = dist.repair_del(d0, w1, dels, threshold=100.0).dist
+    rs = single.repair_del(d0, w1, dels, threshold=100.0).dist
+    want = single.solve(w1).dist
+    if name == "plus_mul":
+        ok = (ok and dist.stats.repair_del_fallbacks >= 1
+              and same(rd, dist.solve(w1).dist) and same(rs, want))
+    else:
+        ok = ok and same(rd, rs) and same(rs, want) and dist.stats.repair_dels >= 1
+        dist.repair_del(d0, w1, dels, threshold=100.0)  # warm: no new runner
+    traces = sorted(e.traces for e in dist._cache.values()
+                    if e.key.method.startswith("repair_del"))
+    return dict(rank=mesh.rank, R=mesh.R, C=mesh.C, n=n, semiring=name, edges=len(dels),
+                dtype=str(rd.dtype).removeprefix("torch."), repair_del=True,
+                sweeps=dist.stats.repair_dels, fallbacks=dist.stats.repair_del_fallbacks,
+                traces=traces, ok=ok and all(t == 1 for t in traces))
 
 
 def _lowered(cfg: dict) -> bool:
@@ -568,7 +641,7 @@ def main(argv=None) -> int:
     ap.add_argument("--packed", action="store_true",
                     help="or_and on packed words, 32 graphs a word")
     ap.add_argument("--backend", default="fused", choices=["fused", "jnp", "pallas"])
-    ap.add_argument("--method", default="direct", choices=["direct", "solve"])
+    ap.add_argument("--method", default="direct", choices=["direct", "solve", "engine"])
     ap.add_argument("--batch", type=int, default=1,
                     help="solve mode: close B graphs through one batched solve")
     ap.add_argument("--bitwise", action="store_true",
@@ -577,24 +650,31 @@ def main(argv=None) -> int:
                     help="direct mode in chunks, restarted from a checkpoint")
     ap.add_argument("--repair", action="store_true",
                     help="mesh repair == single-device repair == re-solve")
+    ap.add_argument("--repair-del", action="store_true", dest="repair_del",
+                    help="mesh repair_del == single-device repair_del == re-solve")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="the grid of plan.mesh_factorization(--devices, --pods)")
     ap.add_argument("--bench", action="store_true",
                     help="print METRICS json: per-round ms and collective bytes")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.batch > 1 and not (args.method == "solve" and args.bitwise):
         ap.error("--batch needs --method solve --bitwise")
-    R, C = plan.mesh_factorization(args.devices)
+    if args.repair_del and (args.dtype != "float32" or args.packed
+                            or args.semiring not in SEMIRINGS):
+        ap.error("--repair-del runs the f32 semirings")
+    R, C = plan.mesh_factorization(args.devices, args.pods)
     cfg = dict(n=args.n, bs=args.bs, semiring=args.semiring, backend=args.backend,
                method=args.method, batch=args.batch, bitwise=args.bitwise,
-               chunked=args.chunked, repair=args.repair, reps=3 if args.bench else 0,
-               dtype=args.dtype, packed=args.packed)
+               chunked=args.chunked, repair=args.repair, repair_del=args.repair_del,
+               reps=3 if args.bench else 0, dtype=args.dtype, packed=args.packed)
     try:
         sr = storage_semiring(cfg)
     except ValueError as err:
         ap.error(str(err))
-    if _lowered(cfg) and not (args.bitwise or args.repair):
-        ap.error("a lowered storage needs --bitwise (or --repair): it holds against the "
-                 "lowered single-device fused solve")
+    if _lowered(cfg) and not (args.bitwise or args.repair or args.method == "engine"):
+        ap.error("a lowered storage needs --bitwise (or --repair, --method engine): it "
+                 "holds against the lowered single-device fused solve")
     if args.device == "cuda":
         from repro_torch.kernels import _build
 
@@ -602,12 +682,15 @@ def main(argv=None) -> int:
         # "pallas" backend) in f32 and the lowerings; the repair's for --repair
         _build.build_all(("fw_round", "fw_round_lowered", "minplus_matmul",
                           "minplus_matmul_lowered")
-                         + (("fw_repair", "fw_repair_lowered") if args.repair else ()))
+                         + (("fw_repair", "fw_repair_lowered") if args.repair else ())
+                         + (("fw_repair_del",) if args.repair_del else ()))
     recs = [r[0] for r in run_grid(grid_check, R, C, device=args.device, args=([cfg],))]
     bad = [r["rank"] for r in recs if not (r["ok"] and r.get("chunked_ok", True))]
-    mode = ("repair" if args.repair else
+    mode = ("repair" if args.repair else "repair_del" if args.repair_del else
+            "engine" if args.method == "engine" else
             f"{'bitwise' if args.bitwise else 'allclose'} method={args.method}")
-    where = (f"devices={args.devices} grid={R}x{C} n={args.n} bs={recs[0].get('block_size')} "
+    bs = recs[0].get("block_size", args.bs)
+    where = (f"devices={args.devices} grid={R}x{C} n={args.n} bs={bs} "
              f"semiring={sr.name} dtype={recs[0]['dtype']} backend={args.backend} "
              f"device={args.device}")
     if bad:
@@ -631,7 +714,10 @@ def main(argv=None) -> int:
             print(f"FAIL counted collective bytes != model: {metrics}", file=sys.stderr)
             return 1
         print("METRICS " + json.dumps(metrics))
-    extra = f" padded={recs[0]['padded_n']}" if args.method == "solve" and not args.repair else ""
+    extra = (f" padded={recs[0]['padded_n']}" if "padded_n" in recs[0] else
+             f" sizes={recs[0]['sizes']} cache={recs[0]['cache']} hits={recs[0]['hits']}"
+             if "sizes" in recs[0] else
+             f" edges={recs[0]['edges']} sweeps={recs[0]['sweeps']}" if args.repair_del else "")
     print(f"OK {mode}{' chunked' if args.chunked else ''} {where} batch={args.batch}{extra}")
     return 0
 

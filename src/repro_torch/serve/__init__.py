@@ -8,5 +8,6 @@
 
 Modules: ``registry`` (weights, byte accounting, LRU, dirty kinds),
 ``snapshot`` (double-buffered host tables), ``scheduler`` (micro-batcher),
-``routing`` (``RoutingEngine``) and the ``engine`` shim.
+``routing`` (``RoutingEngine``), ``lm`` (the language models' ``Engine``:
+prefill, then lockstep decode) and the ``engine`` shim.
 """

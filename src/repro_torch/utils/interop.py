@@ -9,6 +9,9 @@ Both packages read and write them as numpy arrays, so these two functions
 are the whole bridge.  bfloat16 is not a numpy dtype: the reference's
 arrays carry it as ``ml_dtypes.bfloat16``, and it crosses by bit view
 (uint16), never by a value cast.
+
+The LM substrate has weights: ``lm_params_from_numpy`` loads the
+reference's parameter pytree, as numpy arrays, into a port ``Model``.
 """
 from __future__ import annotations
 
@@ -70,3 +73,53 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, (*prefix, k))
+    else:
+        yield prefix
+
+
+def lm_params_from_numpy(cfg, tree: dict, *, device="cuda"):
+    """The reference's ``init_params`` pytree (nested dicts of numpy arrays;
+    bf16 as ``ml_dtypes.bfloat16``) → a ``repro_torch.models.model.Model``
+    on ``device`` with the same bits.
+
+    The reference stacks each pattern slot's leaves over the repetitions:
+    ``periods/l{i}/...`` has shape (n_periods, ...), and its entry p is the
+    port's layer ``p·len(pattern) + i``; ``encoder/periods/l0/...`` entry p
+    is encoder layer p.  Every leaf must land in exactly one parameter of
+    the same shape and dtype, else ``ValueError``."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device=device)
+    period = len(cfg.layer_pattern)
+    used = set()
+    for name, param in model.named_parameters():
+        path = name.split(".")
+        if path[0] == "layers":
+            j = int(path[1])
+            src, row = ("periods", f"l{j % period}", *path[2:]), j // period
+        elif path[:2] == ["encoder", "layers"]:
+            src, row = ("encoder", "periods", "l0", *path[3:]), int(path[2])
+        else:
+            src, row = tuple(path), None
+        leaf = tree
+        for key in src:
+            leaf = leaf[key]
+        arr = np.asarray(leaf)
+        arr = np.asarray(arr if row is None else arr[row])
+        t = host_tensor(arr).reshape(arr.shape)  # host_tensor makes a 0-d array 1-d
+        if t.shape != param.shape or t.dtype != param.dtype:
+            raise ValueError(f"{'/'.join(src)}: {tuple(t.shape)} {t.dtype} does not fit "
+                             f"{name} {tuple(param.shape)} {param.dtype}")
+        with torch.no_grad():
+            param.copy_(t)
+        used.add(src)
+    unused = set(_leaf_paths(tree)) - used
+    if unused:
+        raise ValueError(f"leaves with no parameter of {cfg.name}: {sorted(unused)}")
+    return model

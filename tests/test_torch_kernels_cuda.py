@@ -1987,3 +1987,128 @@ def test_kleene_engine_caches_an_out_of_core_key(cuda_device):
     fused = solve(w, block_size=64).dist.cpu()
     assert bits_equal(r1.dist, fused) and bits_equal(r2.dist, fused)
     assert fw_oocore.smoke(device="cuda") == 0
+
+
+# ------------------------------------------------------- the LM serving path
+LM_ARCHS = ["qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
+            "whisper-small"]
+
+
+@pytest.fixture
+def card():
+    """The card, or a skip; builds nothing: the LM path runs plain torch
+    ops (the reference's LM runs no Pallas kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _lm_tolerance(want: torch.Tensor) -> tuple[float, float]:
+    """rtol 2e-2 and four bf16 ulps of the largest |want|: twice the atol
+    that ``chip_smoke.py:phase_lm_serve`` holds its fixed seeds to.  On
+    identical inputs every op of the card is within a few bf16 ulps of the
+    CPU's (its GEMMs sum in another order); carried through five layers
+    those roundings moved a smoke model's logits by up to 1.23 times the
+    two-ulp atol (llama-3.2-vision, weights seed 5)."""
+    top = float(want.float().abs().max())
+    return 2e-2, (4.0 * 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0)
+
+
+def _lm_close(got: torch.Tensor, want: torch.Tensor) -> None:
+    rtol, atol = _lm_tolerance(want)
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=rtol, atol=atol)
+
+
+def _lm_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq),
+                                                   dtype=np.int32))}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    if cfg.encoder is not None:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder.n_frames, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_matches_cpu(card, arch):
+    """The smoke model on the card == the same weights on the CPU (bf16
+    rule): ``forward_train`` logits, the prefill's logits and caches, four
+    teacher-forced decode steps; greedy ids equal where the CPU's top-2
+    margin exceeds the atol."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import Model, decode_step, forward_train, init_params, prefill
+    from repro_torch.serve.lm import Engine
+
+    cfg = get_smoke_config(arch)
+    gpu = init_params(cfg, seed=5, device="cuda")
+    cpu = Model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    data = _lm_batch(cfg, 2, 20, seed=6)
+    head = dict(data, tokens=data["tokens"][:, :16])
+    with torch.inference_mode():
+        _lm_close(forward_train(cfg, gpu, data)[0], forward_train(cfg, cpu, data)[0])
+        (lg, cg), (lc, cc) = prefill(cfg, gpu, head), prefill(cfg, cpu, head)
+        _lm_close(lg, lc)
+        for a, b in zip(cg, cc):
+            assert sorted(a) == sorted(b)
+            for name in a:
+                _lm_close(a[name], b[name])
+        cg, cc = Engine(cfg, gpu)._extend_caches(cg, 4), Engine(cfg, cpu)._extend_caches(cc, 4)
+        for t in range(4):
+            tok = data["tokens"][:, 16 + t]
+            lg, cg = decode_step(cfg, gpu, tok, 16 + t, cg)
+            lc, cc = decode_step(cfg, cpu, tok, 16 + t, cc)
+            _lm_close(lg, lc)
+    ids_gpu = Engine(cfg, gpu).generate(head, max_new_tokens=6)
+    ids_cpu = Engine(cfg, cpu).generate(head, max_new_tokens=6)
+    with torch.inference_mode():
+        logits, caches = prefill(cfg, cpu, head)
+        caches = Engine(cfg, cpu)._extend_caches(caches, 6)
+        for t in range(6):
+            top2 = torch.topk(logits[:, : cfg.vocab_size], 2).values
+            margin = top2[:, 0] - top2[:, 1]
+            atol = _lm_tolerance(logits)[1]
+            for b in range(2):
+                if margin[b] > atol:
+                    assert ids_gpu[b, t] == ids_cpu[b, t], (b, t)
+            if (ids_gpu[:, t] != ids_cpu[:, t]).any():
+                break  # a near-tie went the other way: the texts part here
+            logits, caches = decode_step(cfg, cpu, torch.from_numpy(ids_cpu[:, t]), 16 + t,
+                                         caches)
+
+
+@pytest.mark.cuda
+def test_lm_engine_on_the_card_is_seeded(card):
+    """Greedy generation repeats; sampling repeats with its seed and stays
+    within the real vocabulary."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.lm import Engine
+
+    cfg = get_smoke_config("qwen2-7b")
+    model = init_params(cfg, seed=0)
+    assert model.device.type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    data = _lm_batch(cfg, 4, 12, seed=7)
+    greedy = Engine(cfg, model)
+    np.testing.assert_array_equal(greedy.generate(data, max_new_tokens=8),
+                                  greedy.generate(data, max_new_tokens=8))
+    runs = [Engine(cfg, model, temperature=0.8, seed=s).generate(data, max_new_tokens=8)
+            for s in (1, 1)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert ((runs[0] >= 0) & (runs[0] < cfg.vocab_size)).all()
+
+
+@pytest.mark.cuda
+def test_serve_lm_example_on_the_card(card):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run([sys.executable, os.path.join(root, "examples", "serve_lm_torch.py")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "greedy decode deterministic" in res.stdout

@@ -298,14 +298,16 @@ def test_routing_scheduler_integration():
 
 
 def test_serve_engine_shim_reexports():
-    """The shim keeps the routing names; the LM ``Engine`` waits for A.13."""
+    """The shim keeps the routing names and the LM ``Engine`` of
+    ``serve/lm.py``; the reference's mesh specs wait for A.13c."""
     from repro_torch.serve import engine as shim
-    from repro_torch.serve import routing
+    from repro_torch.serve import lm, routing
 
     assert shim.RoutingEngine is routing.RoutingEngine
     assert shim.RouteReply is routing.RouteReply
-    assert set(shim.__all__) == {"RoutingEngine", "RouteReply"}
-    assert not hasattr(shim, "Engine")
+    assert shim.Engine is lm.Engine
+    assert set(shim.__all__) == {"RoutingEngine", "RouteReply", "Engine"}
+    assert not hasattr(shim, "make_serve_fns")
 
 
 # ------------------------------------- tests/test_apsp_engine.py:164-235
