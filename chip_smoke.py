@@ -218,7 +218,17 @@ Phases, each of which raises (exit code 1) on any failure:
      Qwen2-7B cut to 2 layers at full width and the six attention-family
      smoke configs, card == CPU on the same weights (prefill logits and
      caches, 4 teacher-forced decode steps; rtol 2e-2 and two bf16 ulps
-     of the largest |value|).
+     of the largest |value|).  Then the MoE, MLA and SSM families, the
+     same generate and reports: DeepSeek-V2-Lite (16,210,324,992
+     parameters, routers f32; decode steps write only their own c_kv /
+     k_pe row; the share of the prefill's assignments capacity 1.25
+     dropped) and Mamba2-780M (857,846,016; decode steps move every conv /
+     ssm state; a 500-token prompt runs the one-chunk fallback) at full
+     width and depth, Jamba v0.1 at full width over one period (8 of 32
+     layers), Kimi K2 at full width over one layer (2 prompts of 128
+     tokens, 8 greedy tokens); DeepSeek-V2-Lite and Mamba2-780M cut to 2
+     layers and the four families' smoke configs card == CPU within four
+     bf16 ulps (the card tests' rule).
 
 Every kernel of the record must have been launched on its path; the
 last lines are the ``{"kernels": [...]}`` record and then
@@ -471,18 +481,23 @@ def record_kernel(rows: dict, kind: str, err, ms, plain, ops, nbytes, *,
 
 
 # ------------------------------------------------------------------ phases
+@functools.cache
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
     from repro_torch.kernels import _build
 
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"nvidia-smi: {smi}")
+    print(f"nvidia-smi: {card_line()}")
     return name, _build.build_async()
 
 
@@ -4807,6 +4822,9 @@ def phase_flash_decode(rows: dict, B: int = 8, Hkv: int = 4, g: int = 7, hd: int
 # -------------------------------------------------------------- LM serving
 LM_ARCHS = ("qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
             "whisper-small")
+# The architectures with MoE, MLA or SSM layers (``phase_lm_serve`` (d)–(h)).
+LM_FAMILIES = ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-780m", "jamba-v0.1-52b")
+LM_F32_LEAVES = ("router", "A_log", "D", "dt_bias")  # f32 in the reference too
 
 
 def kernel_launches() -> int:
@@ -4836,14 +4854,16 @@ def lm_batch(cfg, batch: int, seq: int, seed: int) -> dict:
     return out
 
 
-def lm_same(label: str, got, want) -> float:
+def lm_same(label: str, got, want, ulps: int = 2) -> float:
     """got (the card's) == want (the CPU's) within the bf16 rule of
     ``decode_tolerance``: rtol 2e-2 and two bf16 ulps of the largest
-    |want|.  Returns the max abs error."""
+    |want| (``ulps`` of them: the card tests take four).  Returns the max
+    abs error."""
     import torch
 
     got, want = got.float().cpu(), want.float().cpu()
     rtol, atol = decode_tolerance(torch.bfloat16, want)
+    atol *= ulps / 2
     err = max_abs_err(got, want)
     require(bool(torch.isfinite(got).all()), f"lm {label}: non-finite values on the card")
     require(torch.allclose(got, want, rtol=rtol, atol=atol),
@@ -4852,86 +4872,109 @@ def lm_same(label: str, got, want) -> float:
 
 
 def lm_card_vs_cpu(label: str, cfg, card, prompt: int, steps: int, batch: int,
-                   seed: int) -> float:
+                   seed: int, ulps: int = 2) -> float:
     """The card's prefill (logits and caches) and ``steps`` teacher-forced
     decode steps == the CPU's on the same weights (``card``'s, copied) and
-    inputs.  Returns the largest error."""
+    inputs, within ``ulps`` bf16 ulps (``lm_same``).  With MoE layers the
+    CPU replays the card's routes (``models.moe.routes``): a token whose
+    near-tied top-k went another way on the card moves the outputs by far
+    more than rounding, so the check holds the rest to rounding and
+    requires every such route to be a near-tie, its probability mass
+    within four bf16 ulps (2^-6, relative) of the CPU's own top-k's.
+    Returns the largest error."""
     import torch
 
+    from repro_torch.models import moe
     from repro_torch.models.model import Model, decode_step, prefill
     from repro_torch.serve.lm import Engine
 
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict(card.state_dict())
     data = lm_batch(cfg, batch, prompt + steps, seed)
-    runs = []
+    runs, replay = [], None
     with torch.inference_mode():
         for model in (card, cpu):
-            logits, caches = prefill(cfg, model, dict(data, tokens=data["tokens"][:, :prompt]))
-            out = [logits, [{n: t.cpu() for n, t in c.items()} for c in caches]]
-            caches = Engine(cfg, model)._extend_caches(caches, steps)
-            for t in range(steps):
-                logits, caches = decode_step(cfg, model, data["tokens"][:, prompt + t],
-                                             prompt + t, caches)
-                out.append(logits)
+            with moe.routes(replay) as log:
+                logits, caches = prefill(cfg, model,
+                                         dict(data, tokens=data["tokens"][:, :prompt]))
+                # A copy: the decode steps update an SSD state in place.
+                out = [logits, [{n: t.to("cpu", copy=True) for n, t in c.items()}
+                                for c in caches]]
+                caches = Engine(cfg, model)._extend_caches(caches, steps)
+                for t in range(steps):
+                    logits, caches = decode_step(cfg, model, data["tokens"][:, prompt + t],
+                                                 prompt + t, caches)
+                    out.append(logits)
             runs.append(out)
+            replay = log
+    if cfg.moe is not None:
+        moved, tokens, gap = moe.replay_gap(log)
+        print(f"lm {label}: the CPU replayed the card's routes; {moved} of {tokens} token "
+              f"routings differ from the CPU's own top-k, the largest relative shortfall of "
+              f"their probability mass {gap}")
+        require(gap <= 2.0 ** -6, f"lm {label}: a route of the card is no near-tie on the "
+                                  f"CPU (shortfall {gap})")
     (pre, caches, *dec), (pre_c, caches_c, *dec_c) = runs
-    errs = [lm_same(f"{label} prefill logits", pre, pre_c)]
+    errs = [lm_same(f"{label} prefill logits", pre, pre_c, ulps)]
     for j, (c, cc) in enumerate(zip(caches, caches_c)):
-        errs += [lm_same(f"{label} prefill cache {j}/{n}", c[n], cc[n]) for n in c]
-    errs += [lm_same(f"{label} decode step {t}", a, b) for t, (a, b) in enumerate(zip(dec, dec_c))]
+        errs += [lm_same(f"{label} prefill cache {j}/{n}", c[n], cc[n], ulps) for n in c]
+    errs += [lm_same(f"{label} decode step {t}", a, b, ulps)
+             for t, (a, b) in enumerate(zip(dec, dec_c))]
     print(f"lm {label}: card == CPU, prefill of {batch} x {prompt} tokens and {steps} decode "
           f"steps; max abs err {max(errs)} (logits: prefill {errs[0]}, decode "
-          f"{max(errs[-steps:])})")
+          f"{max(errs[-steps:])}; limit {ulps} bf16 ulps)")
     return max(errs)
 
 
-def phase_lm_serve(batch: int = 8, prompt: int = 512, new: int = 64):
-    """The LM serving path (``repro_torch.serve.lm.Engine`` over
-    ``repro_torch.models``), plain torch ops throughout: the reference's LM
-    runs no Pallas kernel, so no kernel of the port is launched (counted).
-
-    (a) Qwen2-7B at full width and depth (``configs/qwen2_7b.py``,
-        7,615,616,512 parameters, bf16, drawn from a seeded generator on
-        the card): ``Engine.generate`` of ``batch`` prompts of ``prompt``
-        seeded tokens, ``new`` greedy tokens, twice with equal ids; finite
-        logits; three decode steps each change only their own cache row.
-        Prefill ms (median of 3), decode ms a step (median), generated
-        tokens/s, peak device memory, beside the bounds derived from the
-        datasheet (``launch.roofline``): the prefill's ``model_flops`` at
-        the bf16 peak, a decode step's weights (but the embedding table)
-        and cache at the HBM rate.
-        For information: the largest difference between a forward over
-        the prompt and the first 16 generated tokens and the decode steps'
-        logits at those positions.
-    (b) Qwen2-7B cut to 2 layers at full width, card == CPU on the same
-        weights: 2 prompts of 32 tokens, the prefill and 4 teacher-forced
-        decode steps.
-    (c) the smoke configs of the six attention-family architectures, card
-        == CPU likewise (2 prompts of 16 tokens, 4 decode steps).
-    """
-    import dataclasses
-
+def prefill_dropped(cfg, model, data) -> float:
+    """The share of a prefill's routed assignments that the experts'
+    capacity dropped, over every MoE layer (``models.moe.routes`` watching
+    one untimed prefill)."""
     import torch
 
-    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import prefill
+
+    with torch.inference_mode(), moe.routes() as log:
+        prefill(cfg, model, data)
+    return 1.0 - sum(float(r["keep"].sum()) for r in log) / sum(r["keep"].numel() for r in log)
+
+
+def lm_serve_model(label: str, cfg, *, batch: int, prompt: int, new: int,
+                   n_params: int | None = None, profile: bool = False,
+                   forward_info: bool = False):
+    """One model of ``phase_lm_serve`` on the card: drawn from seed 0,
+    ``Engine.generate`` of ``batch`` seeded prompts of ``prompt`` tokens and
+    ``new`` greedy tokens twice (equal ids within the vocabulary), prefill
+    ms (median of 3), the timed decode loop (finite logits; three steps
+    checked: each writes only its own row of a sequence cache and moves
+    every SSD state), tokens/s, peak memory, and the bounds from the
+    datasheet (``launch.roofline``): the prefill's ``model_flops`` at the
+    bf16 peak or its weights at the HBM rate, whichever is longer; a
+    decode step's weights (all of them, every expert's included: the
+    dispatch buffer runs every expert's GEMM; the embedding table but the
+    rows it gathers left out), its caches and its SSD states written back
+    at the HBM rate.  Returns (figures, model)."""
+    import torch
+
     from repro_torch.launch import roofline as rl
-    from repro_torch.models.model import (count_params, decode_step, forward_train,
+    from repro_torch.models.model import (CACHE_SEQ, count_params, decode_step, forward_train,
                                           init_params, model_flops, prefill)
     from repro_torch.serve.lm import Engine
 
-    launches = kernel_launches()
-    cfg = get_config("qwen2-7b")
-    n_params = count_params(cfg)
-    require(n_params == 7_615_616_512, f"qwen2-7b has {n_params} parameters")
+    counted = count_params(cfg)
+    require(n_params is None or counted == n_params, f"{label} has {counted} parameters")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device="cuda")
     sync()
     init_s = time.perf_counter() - t0
-    require(sum(p.numel() for p in model.parameters()) == n_params, "qwen2-7b model size")
-    require(all(p.dtype == torch.bfloat16 for p in model.parameters()), "qwen2-7b not bf16")
+    require(sum(p.numel() for p in model.parameters()) == counted, f"{label} model size")
+    for name, p in model.named_parameters():
+        want = torch.float32 if name.split(".")[-1] in LM_F32_LEAVES else torch.bfloat16
+        require(p.dtype == want, f"{label}: {name} is {p.dtype}, not {want}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     data = lm_batch(cfg, batch, prompt, seed=0)
     eng = Engine(cfg, model)
     walls, ids = [], []
@@ -4940,97 +4983,180 @@ def phase_lm_serve(batch: int = 8, prompt: int = 512, new: int = 64):
         t0 = time.perf_counter()
         ids.append(eng.generate(data, max_new_tokens=new))
         walls.append(time.perf_counter() - t0)
-    require(ids[0].shape == (batch, new), f"generated ids of shape {ids[0].shape}")
-    require((ids[0] == ids[1]).all(), "two greedy runs generated different ids")
-    require(((ids[0] >= 0) & (ids[0] < cfg.vocab_size)).all(), "ids outside the vocabulary")
+    require(ids[0].shape == (batch, new), f"{label}: generated ids of shape {ids[0].shape}")
+    require((ids[0] == ids[1]).all(), f"{label}: two greedy runs generated different ids")
+    require(((ids[0] >= 0) & (ids[0] < cfg.vocab_size)).all(),
+            f"{label}: ids outside the vocabulary")
 
     pre_ms, dec_ms = [], []
+    fig = {}
     with torch.inference_mode():
         for _ in range(3):
             pre_ms.append(host_ms(lambda: prefill(cfg, model, data)))
         logits, caches = prefill(cfg, model, data)
-        require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        require(bool(torch.isfinite(logits).all()), f"{label}: non-finite prefill logits")
         caches = eng._extend_caches(caches, new)
         fed = torch.from_numpy(ids[0]).cuda()
         step_logits, other = [], 0
+        watched = (0, new // 2, new - 2) if new > 3 else tuple(range(new - 1))
         for i in range(new - 1):
-            watch = i in (0, new // 2, new - 2)
+            watch = i in watched
             before = [{n: t.clone() for n, t in c.items()} for c in caches] if watch else None
             sync()
             t0 = time.perf_counter()
             logits, caches = decode_step(cfg, model, fed[:, i], prompt + i, caches)
             sync()
             dec_ms.append((time.perf_counter() - t0) * 1e3)
-            require(bool(torch.isfinite(logits).all()), f"non-finite logits at decode step {i}")
+            require(bool(torch.isfinite(logits).all()),
+                    f"{label}: non-finite logits at decode step {i}")
             other += int((logits[:, : cfg.vocab_size].argmax(-1) != fed[:, i + 1]).sum())
-            if i < 16:
+            if forward_info and i < 16:
                 step_logits.append(logits.clone())
             if watch:
                 rows = [r for r in range(prompt + new) if r != prompt + i]
                 for c, old in zip(caches, before):
                     for n in c:
-                        require(torch.equal(c[n][:, rows], old[n][:, rows])
-                                and not torch.equal(c[n][:, prompt + i], old[n][:, prompt + i]),
-                                f"decode step {i} changed cache rows other than its own")
+                        if n in CACHE_SEQ:
+                            ok = (torch.equal(c[n][:, rows], old[n][:, rows])
+                                  and not torch.equal(c[n][:, prompt + i], old[n][:, prompt + i]))
+                        elif n in ("conv", "ssm"):
+                            ok = not torch.equal(c[n], old[n])
+                        else:
+                            ok = torch.equal(c[n], old[n])
+                        require(ok, f"{label}: decode step {i} changed cache {n} other than "
+                                    f"its own row, or left its own row or state unmoved")
                 del before
-        profiles = {"prefill": (profiled(lambda: prefill(cfg, model, data)), 1)}
-        _, fresh = prefill(cfg, model, data)
-        fresh = eng._extend_caches(fresh, 8)
+        if profile:
+            profiles = {"prefill": (profiled(lambda: prefill(cfg, model, data)), 1)}
+            _, fresh = prefill(cfg, model, data)
+            fresh = eng._extend_caches(fresh, 8)
 
-        def eight_steps():
-            c = fresh
-            for i in range(8):
-                _, c = decode_step(cfg, model, fed[:, i], prompt + i, c)
+            def eight_steps():
+                c = fresh
+                for i in range(8):
+                    _, c = decode_step(cfg, model, fed[:, i], prompt + i, c)
 
-        profiles["decode"] = (profiled(eight_steps), 8)
-        del fresh
-        full, _ = forward_train(cfg, model, {"tokens": torch.cat([data["tokens"].cuda(),
-                                                                   fed[:, :16]], dim=1)})
-        info = max_abs_err(full[:, prompt:prompt + 16].float(),
-                           torch.stack(step_logits, dim=1).float())
-        del full, step_logits
+            profiles["decode"] = (profiled(eight_steps), 8)
+            del fresh
+        if forward_info:
+            full, _ = forward_train(cfg, model, {"tokens": torch.cat([data["tokens"].cuda(),
+                                                                       fed[:, :16]], dim=1)})
+            fig["forward_vs_decode_max_abs_diff"] = max_abs_err(
+                full[:, prompt:prompt + 16].float(), torch.stack(step_logits, dim=1).float())
+            del full, step_logits
     peak = torch.cuda.max_memory_allocated()
     cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    state_bytes = sum(t.numel() * t.element_size() for c in caches for n, t in c.items()
+                      if n in ("conv", "ssm"))
     # A decode step reads every weight once but the untied embedding table,
-    # of which it gathers one row a sequence, and the whole extended cache.
-    table = 0 if cfg.tie_embeddings else model.embed.numel() - batch * cfg.d_model
-    decode_bytes = 2 * (n_params - table) + cache_bytes
+    # of which it gathers one row a sequence, the whole extended cache, and
+    # writes its SSD states back.
+    table = 0 if cfg.tie_embeddings else (model.embed.numel() - batch * cfg.d_model) * 2
+    decode_bytes = weight_bytes - table + cache_bytes + state_bytes
+    prefill_bytes = weight_bytes - (0 if cfg.tie_embeddings
+                                    else (model.embed.numel() - batch * prompt * cfg.d_model) * 2)
     flops = model_flops(cfg, kind="prefill", global_batch=batch, seq_len=prompt)
-    fig = dict(
-        model="qwen2-7b", params=n_params, batch=batch, prompt=prompt, new_tokens=new,
-        init_s=init_s, generate_s=walls, tokens_per_s=batch * new / walls[1],
+    fig.update(
+        model=label, params=counted, weight_bytes=weight_bytes, batch=batch, prompt=prompt,
+        new_tokens=new, init_s=init_s, generate_s=walls, tokens_per_s=batch * new / walls[1],
         prefill_ms=statistics.median(pre_ms), prefill_times_ms=pre_ms,
         decode_ms=statistics.median(dec_ms), decode_min_ms=min(dec_ms),
         max_memory_allocated=peak,
-        prefill_bound_ms=flops / rl.PEAK_FLOPS_BF16 * 1e3, prefill_flops=flops,
+        prefill_bound_ms=max(flops / rl.PEAK_FLOPS_BF16, prefill_bytes / rl.HBM_BW) * 1e3,
+        prefill_flops=flops, prefill_bound_bytes=prefill_bytes,
         decode_bound_ms=decode_bytes / rl.HBM_BW * 1e3, decode_bound_bytes=decode_bytes,
-        forward_vs_decode_max_abs_diff=info, timed_loop_other_ids=other)
-    print(f"lm qwen2-7b: {n_params} parameters, drawn on the card in {init_s:.1f} s; generate "
-          f"{batch} x {prompt} + {new} greedy tokens: {walls[0]:.3f} / {walls[1]:.3f} s, ids equal; "
-          f"prefill {fig['prefill_ms']:.2f} ms (median of 3: {pre_ms}), decode "
-          f"{fig['decode_ms']:.3f} ms a step (median of {len(dec_ms)}), "
-          f"{fig['tokens_per_s']:.1f} generated tokens/s, max_memory_allocated {peak} B; "
-          f"the timed decode loop's greedy ids differ from generate's at {other} of "
+        timed_loop_other_ids=other, card=card_line())
+    if cfg.moe is not None:
+        fig["prefill_dropped_share"] = prefill_dropped(cfg, model, data)
+    print(f"lm {label} [{card_line()}]: {counted} parameters ({weight_bytes} B), drawn on the "
+          f"card in {init_s:.1f} s; generate {batch} x {prompt} + {new} greedy tokens: "
+          f"{walls[0]:.3f} / {walls[1]:.3f} s, ids equal; prefill {fig['prefill_ms']:.2f} ms "
+          f"(median of 3: {pre_ms}), decode {fig['decode_ms']:.3f} ms a step (median of "
+          f"{len(dec_ms)}), {fig['tokens_per_s']:.1f} generated tokens/s, max_memory_allocated "
+          f"{peak} B; the timed decode loop's greedy ids differ from generate's at {other} of "
           f"{batch * (new - 1)}")
-    print(f"lm qwen2-7b bounds, derived from the H100 datasheet, not measured: prefill "
-          f"{flops:.4e} FLOP / {rl.PEAK_FLOPS_BF16:.4g} FLOP/s = {fig['prefill_bound_ms']:.2f} ms; "
-          f"a decode step {decode_bytes} B (the weights but the embedding table, its {batch} "
-          f"gathered rows, the cache) / {rl.HBM_BW:.4g} B/s "
-          f"= {fig['decode_bound_ms']:.3f} ms")
-    print(f"lm qwen2-7b, for information: forward over the prompt + 16 generated tokens vs the "
-          f"decode steps' logits at those positions: max abs diff {info}")
-    for what, (prof, calls) in profiles.items():
+    print(f"lm {label} bounds [{card_line()}], derived from the H100 datasheet, not measured: "
+          f"prefill max({flops:.4e} FLOP / {rl.PEAK_FLOPS_BF16:.4g} FLOP/s, {prefill_bytes} B "
+          f"/ {rl.HBM_BW:.4g} B/s) = {fig['prefill_bound_ms']:.2f} ms; a decode step "
+          f"{decode_bytes} B (the weights but the embedding table, its {batch} gathered rows, "
+          f"the cache{', the SSD states written back' if state_bytes else ''}) / "
+          f"{rl.HBM_BW:.4g} B/s = {fig['decode_bound_ms']:.3f} ms")
+    if "prefill_dropped_share" in fig:
+        print(f"lm {label}, for information: capacity factor {cfg.moe.capacity_factor} dropped "
+              f"{fig['prefill_dropped_share']:.4%} of the prefill's routed assignments")
+    if forward_info:
+        print(f"lm {label}, for information: forward over the prompt + 16 generated tokens vs "
+              f"the decode steps' logits at those positions: max abs diff "
+              f"{fig['forward_vs_decode_max_abs_diff']}")
+    for what, (prof, calls) in (profiles.items() if profile else ()):
         top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][0])[:6]
         launched = sum(c for _, c in prof["kernels"].values())
         busy = prof["busy"] or 0.0
         fig[f"{what}_profile"] = dict(wall_ms=prof["wall"] / calls, busy_ms=busy / calls,
                                       kernel_ms=prof["dev"] / calls, launches=launched / calls,
                                       idle=1 - busy / prof["wall"])
-        print(f"lm qwen2-7b {what} under torch.profiler, a call of {calls}: wall "
-              f"{prof['wall'] / calls:.3f} ms, device busy {busy / calls:.3f} ms (idle "
+        print(f"lm {label} {what} under torch.profiler [{card_line()}], a call of {calls}: "
+              f"wall {prof['wall'] / calls:.3f} ms, device busy {busy / calls:.3f} ms (idle "
               f"{1 - busy / prof['wall']:.1%}), {launched / calls:.0f} kernels; by time: "
               + ", ".join(f"{n} {t / calls:.3f} ms x{c / calls:.0f}" for n, (t, c) in top))
-    del model, eng, caches, logits
+    return fig, model
+
+
+def phase_lm_serve(batch: int = 8, prompt: int = 512, new: int = 64):
+    """The LM serving path (``repro_torch.serve.lm.Engine`` over
+    ``repro_torch.models``), plain torch ops throughout: the reference's LM
+    runs no Pallas kernel, so no kernel of the port is launched (counted).
+    Each model is freed before the next; every figure is printed beside
+    the card's name and power limit.
+
+    (a) Qwen2-7B at full width and depth (``configs/qwen2_7b.py``,
+        7,615,616,512 parameters, bf16, drawn from a seeded generator on
+        the card): ``Engine.generate`` of ``batch`` prompts of ``prompt``
+        seeded tokens, ``new`` greedy tokens, twice with equal ids; finite
+        logits; three decode steps each change only their own cache row.
+        Prefill ms (median of 3), decode ms a step (median), generated
+        tokens/s, peak device memory, beside the bounds derived from the
+        datasheet (``lm_serve_model``), and under ``torch.profiler``.
+        For information: the largest difference between a forward over
+        the prompt and the first 16 generated tokens and the decode steps'
+        logits at those positions.
+    (b) Qwen2-7B cut to 2 layers at full width, card == CPU on the same
+        weights: 2 prompts of 32 tokens, the prefill and 4 teacher-forced
+        decode steps.
+    (c) the smoke configs of the six attention-family architectures, card
+        == CPU likewise (2 prompts of 16 tokens, 4 decode steps).
+    (d) DeepSeek-V2-Lite at full width and depth (27 layers, MLA without
+        q_lora, 64 routed + 2 shared experts, top-6; 16,210,324,992
+        parameters, routers f32): as (a), its decode steps each writing
+        only their own c_kv / k_pe row; for information, the share of the
+        prefill's assignments that capacity factor 1.25 dropped.
+    (e) Mamba2-780M at full width and depth (48 layers, 857,846,016
+        parameters): as (a), its decode steps each moving every conv and
+        ssm state; then a prompt of 500 tokens, not a multiple of the
+        256-token chunk, so that the one-chunk fallback runs.
+    (f) Jamba v0.1 at full width, cut to one period of its pattern (8 of
+        32 layers: 7 SSD, 1 attention, 4 MoE and 4 dense FFNs; the 52B
+        model does not fit one card): as (a).
+    (g) Kimi K2 at full width, cut to one layer (MLA with q_lora 1536, 384
+        experts, top-8): 2 prompts of 128 tokens and 8 greedy tokens twice
+        with equal ids, finite logits; its times for information.
+    (h) card == CPU within four bf16 ulps (the card tests' rule):
+        DeepSeek-V2-Lite and Mamba2-780M each cut to 2 layers at full
+        width, and the smoke configs of the four families; 2 prompts of 32
+        tokens, the prefill and 4 teacher-forced decode steps.
+    """
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_config, get_smoke_config
+    from repro_torch.models.model import init_params, prefill
+
+    launches = kernel_launches()
+    cfg = get_config("qwen2-7b")
+    fig, model = lm_serve_model("qwen2-7b", cfg, batch=batch, prompt=prompt, new=new,
+                                n_params=7_615_616_512, profile=True, forward_info=True)
+    del model
     torch.cuda.empty_cache()
 
     two = dataclasses.replace(cfg, n_layers=2)
@@ -5042,6 +5168,60 @@ def phase_lm_serve(batch: int = 8, prompt: int = 512, new: int = 64):
         scfg = get_smoke_config(arch)
         fig[f"smoke_{arch}_max_abs_err"] = lm_card_vs_cpu(
             scfg.name, scfg, init_params(scfg, seed=2, device="cuda"), 16, 4, 2, 2)
+
+    families = fig["families"] = {}
+    for arch, n_params in (("deepseek-v2-lite-16b", 16_210_324_992),
+                           ("mamba2-780m", 857_846_016)):
+        fcfg = get_config(arch)
+        families[arch], model = lm_serve_model(arch, fcfg, batch=batch, prompt=prompt,
+                                               new=new, n_params=n_params, profile=True)
+        if fcfg.ssm is not None:
+            odd = prompt - 12
+            require(odd % fcfg.ssm.chunk_size, "the fallback prompt is a multiple of the chunk")
+            data = lm_batch(fcfg, batch, odd, seed=3)
+            with torch.inference_mode():
+                odd_ms = host_ms(lambda: prefill(fcfg, model, data))
+                logits, caches = prefill(fcfg, model, data)
+            require(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits at {odd}")
+            families[arch]["one_chunk_prefill"] = dict(prompt=odd, ms=odd_ms)
+            print(f"lm {arch} [{card_line()}]: a prompt of {odd} tokens (not a multiple of the "
+                  f"{fcfg.ssm.chunk_size}-token chunk: one chunk), prefill {odd_ms:.2f} ms, "
+                  f"finite logits")
+            del logits, caches
+        del model
+        torch.cuda.empty_cache()
+
+    jamba = get_config("jamba-v0.1-52b")
+    period = dataclasses.replace(jamba, n_layers=len(jamba.layer_pattern))
+    families["jamba-v0.1-52b"], model = lm_serve_model(
+        "jamba-v0.1-52b, one period", period, batch=batch, prompt=prompt, new=new,
+        profile=True)
+    families["jamba-v0.1-52b"]["reduced"] = (
+        f"n_layers {jamba.n_layers} -> {period.n_layers} (one period of the pattern): the "
+        f"52B model does not fit one card")
+    del model
+    torch.cuda.empty_cache()
+
+    kimi = get_config("kimi-k2-1t-a32b")
+    one = dataclasses.replace(kimi, n_layers=1)
+    families["kimi-k2-1t-a32b"], model = lm_serve_model(
+        "kimi-k2-1t-a32b, one layer", one, batch=2, prompt=128, new=8)
+    families["kimi-k2-1t-a32b"]["reduced"] = (
+        f"n_layers {kimi.n_layers} -> 1: the 1.04T model does not fit one card")
+    del model
+    torch.cuda.empty_cache()
+
+    for arch in ("deepseek-v2-lite-16b", "mamba2-780m"):
+        two = dataclasses.replace(get_config(arch), n_layers=2)
+        card = init_params(two, seed=1, device="cuda")
+        families[arch]["two_layer_max_abs_err"] = lm_card_vs_cpu(
+            f"{arch}, 2 layers", two, card, 32, 4, 2, 1, ulps=4)
+        del card
+        torch.cuda.empty_cache()
+    for arch in LM_FAMILIES:
+        scfg = get_smoke_config(arch)
+        families[arch]["smoke_max_abs_err"] = lm_card_vs_cpu(
+            scfg.name, scfg, init_params(scfg, seed=2, device="cuda"), 32, 4, 2, 2, ulps=4)
     launched = kernel_launches() - launches
     require(launched == 0, f"the LM path launched {launched} kernels of the port")
     print("lm_serve " + json.dumps(fig))

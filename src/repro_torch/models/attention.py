@@ -1,11 +1,10 @@
-"""Attention: GQA/MHA (+QKV bias) and cross-attention.
+"""Attention: GQA/MHA (+QKV bias), MLA (DeepSeek latent attention), cross.
 
-Counterpart of ``repro.models.attention`` (MLA waits for ROADMAP A.13b).
-Queries are processed in chunks of ``chunk_q`` where the reference chunks
-them, bounding the transient score matrix to (B, Hkv, g, cq, Skv).
-Logits and softmax in f32 (the operands of the QK product widened to f32,
-the reference's ``preferred_element_type=f32``), P cast to v's dtype for
-the PV product.
+Counterpart of ``repro.models.attention``.  Queries are processed in
+chunks of ``chunk_q`` where the reference chunks them, bounding the
+transient score matrix to (B, Hkv, g, cq, Skv).  Logits and softmax in f32
+(the operands of the QK product widened to f32, the reference's
+``preferred_element_type=f32``), P cast to v's dtype for the PV product.
 """
 from __future__ import annotations
 
@@ -172,3 +171,117 @@ def cross_attention(
     if gated:
         out = out * torch.tanh(p["gate"]).to(out.dtype)
     return out, new_cache
+
+
+# --------------------------------------------------------------------- MLA
+def mla_shapes(cfg: ModelConfig) -> dict:
+    """The spec of an MLA block's parameters (``layers.Params``), with the
+    reference's ``init_mla`` scales: a low-rank q projection (``w_dq``,
+    ``q_norm``, ``w_uq``) when ``q_lora_rank`` is set, else ``wq``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    nd, rd, vd, rkv, rq = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                           m.kv_lora_rank, m.q_lora_rank)
+    sc = d ** -0.5
+    spec = {
+        "norm": norm_shapes(cfg, d),
+        "w_dkv": ((d, rkv), sc),
+        "kv_norm": norm_shapes(cfg, rkv),
+        "w_kpe": ((d, rd), sc),
+        "w_uk": ((rkv, h * nd), rkv ** -0.5),
+        "w_uv": ((rkv, h * vd), rkv ** -0.5),
+        "wo": ((h * vd, d), (h * vd) ** -0.5),
+    }
+    if rq:
+        spec["w_dq"] = ((d, rq), sc)
+        spec["q_norm"] = norm_shapes(cfg, rq)
+        spec["w_uq"] = ((rq, h * (nd + rd)), rq ** -0.5)
+    else:
+        spec["wq"] = ((d, h * (nd + rd)), sc)
+    return spec
+
+
+def init_mla(cfg: ModelConfig, *, device="cuda") -> Params:
+    """An MLA block's parameters on ``device``, not yet drawn."""
+    return Params(mla_shapes(cfg), device)
+
+
+def _mla_q(h, p, cfg, cos, sin):
+    m = cfg.mla
+    b, s, _ = h.shape
+    nh, nd, rd = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = apply_norm(h @ p["w_dq"], p["q_norm"], cfg)
+        q = cq @ p["w_uq"]
+    else:
+        q = h @ p["wq"]
+    q = q.reshape(b, s, nh, nd + rd)
+    q_nope, q_pe = q[..., :nd], q[..., nd:]
+    q_pe = apply_rope(q_pe, cos, sin)
+    return q_nope, q_pe
+
+
+def mla_attention(
+    x: torch.Tensor,
+    p,
+    cfg: ModelConfig,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+) -> tuple[torch.Tensor, dict | None]:
+    """MLA forward.  Returns (residual_delta, new_cache).
+
+    Train and prefill decompress K/V per head and attend with
+    ``grouped_attention`` at scale (nd + rd)^-0.5; decode uses the absorbed
+    form (score and context computed in the kv_lora latent space, the
+    reason the cache is only (B, S, rkv + rd) a layer).  The branch is the
+    reference's: a call is a decode when it has a cache whose length is
+    not its own; it writes its ``c_kv`` / ``k_pe`` rows into the cache in
+    place at positions[0, 0] and attends over the whole cache under the
+    ``kv_pos <= q_pos`` mask.  The two forms round differently in bf16."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    nh = cfg.n_heads
+    nd, rd, vd, rkv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    scale = (nd + rd) ** -0.5
+
+    h = apply_norm(x, p["norm"], cfg)
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    q_nope, q_pe = _mla_q(h, p, cfg, cos, sin)
+
+    c_kv = apply_norm(h @ p["w_dkv"], p["kv_norm"], cfg)  # (B,S,rkv)
+    k_pe = apply_rope((h @ p["w_kpe"]).reshape(b, s, 1, rd), cos, sin)[:, :, 0]
+
+    decode = cache is not None and s != cache["c_kv"].shape[1]
+    new_cache = None
+    if cache is not None:
+        if not decode:
+            new_cache = {"c_kv": c_kv, "k_pe": k_pe}
+        else:
+            rows = positions[0, :1].long() + torch.arange(s, device=x.device)
+            cache["c_kv"].index_copy_(1, rows, c_kv)
+            cache["k_pe"].index_copy_(1, rows, k_pe)
+            new_cache = {"c_kv": cache["c_kv"], "k_pe": cache["k_pe"]}
+        c_kv, k_pe = new_cache["c_kv"], new_cache["k_pe"]
+
+    skv = c_kv.shape[1]
+    if decode:
+        kv_pos = torch.arange(skv, dtype=torch.int32, device=x.device)
+        mask = kv_pos[None, None, None, :] <= positions[:, None, :, None]  # (B,1,Sq,Skv)
+        # Absorbed: q_lat = q_nope · W_uk → score in latent space.
+        w_uk = p["w_uk"].reshape(rkv, nh, nd)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+        logits = torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv.float())
+        logits = logits + torch.einsum("bqhr,bsr->bhqs", q_pe.float(), k_pe.float())
+        logits = torch.where(mask, logits * scale, NEG_INF)
+        prob = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhqs,bsr->bqhr", prob.to(c_kv.dtype), c_kv)
+        w_uv = p["w_uv"].reshape(rkv, nh, vd)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    else:
+        k_nope = (c_kv @ p["w_uk"]).reshape(b, skv, nh, nd)
+        v = (c_kv @ p["w_uv"]).reshape(b, skv, nh, vd)
+        k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, skv, nh, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_pe], dim=-1)
+        out = grouped_attention(q_full, k_full, v, q_pos=positions, causal=True, scale=scale)
+
+    return out.reshape(b, s, nh * vd) @ p["wo"], new_cache

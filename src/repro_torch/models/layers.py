@@ -12,6 +12,8 @@ dtype before the products; the LM head's product on f32 operands
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -19,15 +21,33 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 
+DRAW_SLICE = 2 ** 30  # the most elements ``Params.draw_`` draws at once
+
+
+def _draw(shape, init, generator: torch.Generator, device) -> torch.Tensor:
+    """One f32 draw of ``init`` (a normal's scale, "a_log" or "dt_bias")."""
+    if init in ("a_log", "dt_bias"):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+        if init == "a_log":
+            return torch.log(u * 15.0 + 1.0)
+        lo, hi = math.log(0.001), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device) * init
+
+
 class Params(nn.Module):
     """A node of the parameter tree, read as ``p["name"]`` like the
-    reference's dicts: tensors (bf16; the tanh gate f32) and nested nodes.
+    reference's dicts: tensors (bf16; f32 where the reference keeps f32:
+    the tanh gate, the MoE router, the SSD block's ``A_log``, ``D`` and
+    ``dt_bias``) and nested nodes.
 
     Built from a spec of name → (shape, init[, dtype]) or name → a nested
     spec; init is the scale of a normal draw (the reference's ``init_*``
-    scales), "ones" or "zeros".  The tensors start uninitialised (on the
-    meta device they hold no memory); ``draw_`` fills them.  They take no
-    gradient: the port runs forward passes only."""
+    scales), "ones", "zeros", or one of the SSD block's draws "a_log" /
+    "dt_bias" (``ssm.mamba_shapes``).  The tensors start uninitialised (on
+    the meta device they hold no memory); ``draw_`` fills them.  They take
+    no gradient: the port runs forward passes only."""
 
     def __init__(self, spec: dict, device):
         super().__init__()
@@ -51,7 +71,12 @@ class Params(nn.Module):
     def draw_(self, generator: torch.Generator) -> None:
         """Fill this node's own tensors: ``normal × scale`` drawn in f32 and
         cast, as the reference's ``(jax.random.normal(k, shape) *
-        scale).astype(bf16)``; ones; zeros."""
+        scale).astype(bf16)``; ones; zeros; the SSD block's ``A_log =
+        log(U(1, 16))`` and ``dt_bias``, the inverse softplus of ``dt =
+        exp(U·(log 0.1 − log 0.001) + log 0.001)`` (``ssm.py:38-58`` of the
+        reference).  A tensor of more than ``DRAW_SLICE`` elements is drawn
+        in slices along its first axis, so that the f32 temporary stays
+        small beside the model (Kimi K2's (384, 7168, 2048) experts)."""
         for name, init in self.inits.items():
             t = self._parameters[name]
             if init == "ones":
@@ -59,9 +84,9 @@ class Params(nn.Module):
             elif init == "zeros":
                 t.zero_()
             else:
-                x = torch.randn(t.shape, generator=generator, dtype=torch.float32,
-                                device=t.device)
-                t.copy_((x * init).to(t.dtype))
+                rows = max(1, DRAW_SLICE // max(1, t[0].numel())) if t.dim() else 1
+                for part in (t.split(rows) if t.dim() else (t,)):
+                    part.copy_(_draw(part.shape, init, generator, part.device).to(t.dtype))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Top-level model API: init / train-forward / prefill / decode / caches.
 
 Counterpart of ``repro.models.model``: the same four entry points, params
-first, with a ``Model`` (an ``nn.Module`` holding the bf16 parameters) in
-place of the reference's pytree.  Modality frontends are stubs, as in the
-reference: VLM image patches and audio frames arrive as precomputed
-embeddings in the batch.  ``forward_train`` is the forward pass only (the
+first, with a ``Model`` (an ``nn.Module`` holding the parameters: bf16,
+f32 where the reference keeps f32) in place of the reference's pytree.
+Modality frontends are stubs, as in the reference: VLM image patches and
+audio frames arrive as precomputed embeddings in the batch.  ``forward_train`` is the forward pass only (the
 port has no trainer yet, ROADMAP A.13c).
 """
 from __future__ import annotations
@@ -13,11 +13,12 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.layers import Params, apply_norm, embed_tokens, lm_logits, norm_shapes
-from repro_torch.models.transformer import init_stack, stack_forward
+from repro_torch.models.ssm import _dims as ssm_dims
+from repro_torch.models.transformer import SELF_CACHE, init_stack, stack_forward
 from repro_torch.utils.interop import host_tensor
 
 ENC_PATTERN = (LayerSpec(kind="attn", ffn="dense"),)
-CACHE_SEQ = ("k", "v")  # cache entries with a sequence axis (the rest: context)
+CACHE_SEQ = SELF_CACHE  # cache entries with a sequence axis (the rest: context, state)
 
 
 def exact_gemms() -> None:
@@ -86,8 +87,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def _encode(cfg: ModelConfig, params: Model, frames: torch.Tensor) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings (B, n_frames, D)."""
     b, s, _ = frames.shape
-    x, _ = stack_forward(frames, params.encoder.layers, cfg, _positions(b, s, frames.device),
-                         causal=False)
+    x, _, _ = stack_forward(frames, params.encoder.layers, cfg,
+                            _positions(b, s, frames.device), causal=False)
     return apply_norm(x, params.encoder.final_norm, cfg)
 
 
@@ -102,32 +103,49 @@ def _context(cfg, params, batch: dict) -> torch.Tensor | None:
 def forward_train(cfg: ModelConfig, params: Model,
                   batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens (B,S) [+ image_embeds | frames].  Returns (logits f32
-    (B, S, vocab_padded), aux loss: zero, no MoE layer is ported)."""
+    (B, S, vocab_padded), aux loss: the MoE layers' load-balance loss, f32,
+    zero without MoE layers)."""
     tokens = _input(params, batch["tokens"])
     b, s = tokens.shape
     ctx = _context(cfg, params, batch)
     x = embed_tokens(params.embed, tokens, cfg)
-    x, _ = stack_forward(x, params.layers, cfg, _positions(b, s, x.device), ctx_embeds=ctx)
-    logits = lm_logits(x, params, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    x, _, aux = stack_forward(x, params.layers, cfg, _positions(b, s, x.device),
+                              ctx_embeds=ctx)
+    return lm_logits(x, params, cfg), aux
 
 
 # ------------------------------------------------------------------ caches
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                *, device="cuda") -> list[dict]:
     """One dict a layer, in layer order: "k" / "v" (B, max_seq, Hkv, hd) for
-    self-attention, "ck" / "cv" (B, n_ctx, Hkv, hd) for cross-attention."""
+    self-attention, "c_kv" (B, max_seq, kv_lora_rank) / "k_pe" (B, max_seq,
+    qk_rope_head_dim) for MLA, "ck" / "cv" (B, n_ctx, Hkv, hd) for
+    cross-attention, and for an SSD block its decode state: "conv" (B,
+    d_conv-1, conv_dim) of ``dtype`` and "ssm" (B, H, N, P) f32."""
     n_ctx = cfg.n_image_tokens or (cfg.encoder.n_frames if cfg.encoder else 0)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
 
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     def one(spec: LayerSpec) -> dict:
         c: dict = {}
+        if spec.kind == "mamba":
+            s = cfg.ssm
+            _, nh, conv_dim = ssm_dims(cfg)
+            c["conv"] = zeros(batch, s.d_conv - 1, conv_dim)
+            c["ssm"] = zeros(batch, nh, s.d_state, s.head_dim, dt=torch.float32)
+            return c
         if spec.kind in ("attn", "attn_cross"):
-            c["k"] = torch.zeros((batch, max_seq, hkv, hd), dtype=dtype, device=device)
-            c["v"] = torch.zeros((batch, max_seq, hkv, hd), dtype=dtype, device=device)
+            if cfg.mla is not None:
+                c["c_kv"] = zeros(batch, max_seq, cfg.mla.kv_lora_rank)
+                c["k_pe"] = zeros(batch, max_seq, cfg.mla.qk_rope_head_dim)
+            else:
+                c["k"] = zeros(batch, max_seq, hkv, hd)
+                c["v"] = zeros(batch, max_seq, hkv, hd)
         if spec.kind in ("cross_attn", "attn_cross"):
-            c["ck"] = torch.zeros((batch, n_ctx, hkv, hd), dtype=dtype, device=device)
-            c["cv"] = torch.zeros((batch, n_ctx, hkv, hd), dtype=dtype, device=device)
+            c["ck"] = zeros(batch, n_ctx, hkv, hd)
+            c["cv"] = zeros(batch, n_ctx, hkv, hd)
         return c
 
     pattern = cfg.layer_pattern
@@ -146,8 +164,8 @@ def prefill(cfg: ModelConfig, params: Model, batch: dict) -> tuple[torch.Tensor,
     ctx = _context(cfg, params, batch)
     caches = init_cache(cfg, b, s, device=params.device)
     x = embed_tokens(params.embed, tokens, cfg)
-    x, new_caches = stack_forward(x, params.layers, cfg, _positions(b, s, x.device),
-                                  caches=caches, ctx_embeds=ctx)
+    x, new_caches, _ = stack_forward(x, params.layers, cfg, _positions(b, s, x.device),
+                                     caches=caches, ctx_embeds=ctx)
     logits = lm_logits(x[:, -1:], params, cfg)
     return logits[:, 0], new_caches
 
@@ -156,23 +174,40 @@ def decode_step(cfg: ModelConfig, params: Model, token: torch.Tensor, pos,
                 caches: list) -> tuple[torch.Tensor, list]:
     """One lockstep decode step.  token (B,), pos the current write position
     (an int or a 0-d tensor; all sequences advance together).  Writes each
-    layer's cache row ``pos`` in place; returns (logits (B, V), caches)."""
+    layer's cache row ``pos`` (an SSD block: its state) in place; returns
+    (logits (B, V), caches)."""
     token = _input(params, token)
     b = token.shape[0]
     x = embed_tokens(params.embed, token[:, None], cfg)
     positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
-    x, new_caches = stack_forward(x, params.layers, cfg, positions, caches=caches)
+    x, new_caches, _ = stack_forward(x, params.layers, cfg, positions, caches=caches)
     logits = lm_logits(x, params, cfg)
     return logits[:, 0], new_caches
 
 
 # ------------------------------------------------------------------ counts
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameter count, from a ``Model`` on the meta device.
+    """Total (or per-token active) parameter count, from a ``Model`` on the
+    meta device.
 
-    ``active_only`` scales routed-expert tensors in the reference; no MoE
-    layer is ported (building one raises), so here it changes nothing."""
-    return sum(p.numel() for p in Model(cfg, device="meta").parameters())
+    ``active_only`` scales routed-expert tensors by top_k / n_experts (the
+    MoE 6·N_active·D convention) as the reference's ``count_params`` does:
+    in a config with MoE, every FFN leaf named w1 / w2 / w3 / router of two
+    or more axes a layer (three stacked over the periods), the dense FFNs'
+    of a hybrid included, each pattern slot's leaf scaled over all its
+    periods at once and truncated to an int."""
+    model = Model(cfg, device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    if not (active_only and cfg.moe is not None):
+        return total
+    period = len(cfg.layer_pattern)
+    for layer in model.layers[:period]:
+        ffn = getattr(layer, "ffn", None)
+        for name, p in (ffn.named_parameters() if ffn is not None else ()):
+            if name in ("w1", "w2", "w3", "router") and p.dim() >= 2:
+                n = p.numel() * cfg.n_periods
+                total += int(n * cfg.moe.top_k / cfg.moe.n_experts) - n
+    return total
 
 
 def matmul_param_count(cfg: ModelConfig, active_only: bool = True) -> int:

@@ -16,8 +16,9 @@ from repro_torch.models.model import CACHE_SEQ, Model, decode_step, exact_gemms,
 class Engine:
     """Host-side generation loop (single process) on the model's device.
 
-    ``generate`` runs the prefill, extends every self-attention cache by
-    ``max_new_tokens`` zero rows, then decodes in lockstep: greedy
+    ``generate`` runs the prefill, extends every self-attention cache (k /
+    v, MLA's c_kv / k_pe) by ``max_new_tokens`` zero rows, leaving an SSD
+    block's conv / ssm state as it is, then decodes in lockstep: greedy
     (``temperature <= 0``) or sampled at ``temperature`` from the engine's
     own generator, seeded with ``seed``, over the real classes only (the
     padded vocabulary rows are never chosen)."""

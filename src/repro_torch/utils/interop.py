@@ -85,8 +85,9 @@ def _leaf_paths(tree, prefix=()):
 
 def lm_params_from_numpy(cfg, tree: dict, *, device="cuda"):
     """The reference's ``init_params`` pytree (nested dicts of numpy arrays;
-    bf16 as ``ml_dtypes.bfloat16``) → a ``repro_torch.models.model.Model``
-    on ``device`` with the same bits.
+    bf16 as ``ml_dtypes.bfloat16``; f32 leaves where the reference keeps
+    f32: MoE routers, the SSD block's ``A_log`` / ``D`` / ``dt_bias``) → a
+    ``repro_torch.models.model.Model`` on ``device`` with the same bits.
 
     The reference stacks each pattern slot's leaves over the repetitions:
     ``periods/l{i}/...`` has shape (n_periods, ...), and its entry p is the

@@ -1991,7 +1991,8 @@ def test_kleene_engine_caches_an_out_of_core_key(cuda_device):
 
 # ------------------------------------------------------- the LM serving path
 LM_ARCHS = ["qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
-            "whisper-small"]
+            "whisper-small", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-780m",
+            "jamba-v0.1-52b"]
 
 
 @pytest.fixture
@@ -2036,36 +2037,70 @@ def _lm_batch(cfg, batch: int, seq: int, seed: int) -> dict:
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_card_matches_cpu(card, arch):
     """The smoke model on the card == the same weights on the CPU (bf16
-    rule): ``forward_train`` logits, the prefill's logits and caches, four
+    rule): ``forward_train`` logits and aux loss, the prefill's logits and
+    caches (k / v, MLA's c_kv / k_pe, an SSD block's conv / ssm), four
     teacher-forced decode steps; greedy ids equal where the CPU's top-2
-    margin exceeds the atol."""
+    margin exceeds the atol.  With MoE layers the CPU replays the card's
+    routes (``models.moe.routes``): a near-tied top-k that went another
+    way on the card moves the outputs by far more than rounding, so every
+    such route must be a near-tie (its probability mass within 2^-6,
+    relative, of the CPU's own top-k's) and the rest is held to rounding.
+    Building the model and its ``Engine`` on the card turns TF32 and bf16
+    reduced-precision reductions off for every GEMM of the path (the
+    router's and the SSD scan's f32 products, the experts' bf16 ones),
+    whatever they were before."""
     from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe
     from repro_torch.models.model import Model, decode_step, forward_train, init_params, prefill
     from repro_torch.serve.lm import Engine
 
     cfg = get_smoke_config(arch)
+    flags = torch.backends.cuda.matmul
+    flags.allow_tf32 = flags.allow_bf16_reduced_precision_reduction = True
     gpu = init_params(cfg, seed=5, device="cuda")
+    assert not flags.allow_tf32 and not flags.allow_bf16_reduced_precision_reduction
+    flags.allow_tf32 = flags.allow_bf16_reduced_precision_reduction = True
+    Engine(cfg, gpu)
+    assert not flags.allow_tf32 and not flags.allow_bf16_reduced_precision_reduction
     cpu = Model(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
     data = _lm_batch(cfg, 2, 20, seed=6)
     head = dict(data, tokens=data["tokens"][:, :16])
-    with torch.inference_mode():
-        _lm_close(forward_train(cfg, gpu, data)[0], forward_train(cfg, cpu, data)[0])
-        (lg, cg), (lc, cc) = prefill(cfg, gpu, head), prefill(cfg, cpu, head)
-        _lm_close(lg, lc)
-        for a, b in zip(cg, cc):
-            assert sorted(a) == sorted(b)
-            for name in a:
-                _lm_close(a[name], b[name])
-        cg, cc = Engine(cfg, gpu)._extend_caches(cg, 4), Engine(cfg, cpu)._extend_caches(cc, 4)
+
+    def teacher_forced(model):
+        logits, aux = forward_train(cfg, model, data)
+        lg, caches = prefill(cfg, model, head)
+        # A copy: the decode steps update an SSD state in place.
+        out = [logits, aux, lg, [{n: t.to("cpu", copy=True) for n, t in c.items()}
+                                 for c in caches]]
+        caches = Engine(cfg, model)._extend_caches(caches, 4)
         for t in range(4):
-            tok = data["tokens"][:, 16 + t]
-            lg, cg = decode_step(cfg, gpu, tok, 16 + t, cg)
-            lc, cc = decode_step(cfg, cpu, tok, 16 + t, cc)
-            _lm_close(lg, lc)
-    ids_gpu = Engine(cfg, gpu).generate(head, max_new_tokens=6)
-    ids_cpu = Engine(cfg, cpu).generate(head, max_new_tokens=6)
+            lg, caches = decode_step(cfg, model, data["tokens"][:, 16 + t], 16 + t, caches)
+            out.append(lg)
+        return out
+
     with torch.inference_mode():
+        with moe.routes() as log:
+            fg, ag, lg, cg, *dg = teacher_forced(gpu)
+        with moe.routes(log) as replayed:
+            fc, ac, lc, cc, *dc = teacher_forced(cpu)
+    _lm_close(fg, fc)
+    _lm_close(ag, ac)  # f32, from probabilities of bf16 activations a few ulps apart
+    _lm_close(lg, lc)
+    for a, b in zip(cg, cc, strict=True):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            _lm_close(a[name], b[name])
+    for a, b in zip(dg, dc, strict=True):
+        _lm_close(a, b)
+    if cfg.moe is not None:
+        assert moe.replay_gap(replayed)[2] <= 2.0 ** -6
+
+    with moe.routes() as log:
+        ids_gpu = Engine(cfg, gpu).generate(head, max_new_tokens=6)
+    with moe.routes(log):
+        ids_cpu = Engine(cfg, cpu).generate(head, max_new_tokens=6)
+    with torch.inference_mode(), moe.routes(log):
         logits, caches = prefill(cfg, cpu, head)
         caches = Engine(cfg, cpu)._extend_caches(caches, 6)
         for t in range(6):
@@ -2077,8 +2112,9 @@ def test_lm_card_matches_cpu(card, arch):
                     assert ids_gpu[b, t] == ids_cpu[b, t], (b, t)
             if (ids_gpu[:, t] != ids_cpu[:, t]).any():
                 break  # a near-tie went the other way: the texts part here
-            logits, caches = decode_step(cfg, cpu, torch.from_numpy(ids_cpu[:, t]), 16 + t,
-                                         caches)
+            if t < 5:  # generate's own decode steps, whose routes are replayed
+                logits, caches = decode_step(cfg, cpu, torch.from_numpy(ids_cpu[:, t]),
+                                             16 + t, caches)
 
 
 @pytest.mark.cuda

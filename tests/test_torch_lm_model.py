@@ -1,11 +1,14 @@
 """The port's LM path (``repro_torch.models.model`` and ``serve.lm.Engine``) vs
-the JAX reference, on the CPU, for the six attention-family architectures.
+the JAX reference, on the CPU, for the six attention-family architectures
+(the four with MoE, MLA or SSM layers run the same bodies in
+``tests/test_torch_lm_families.py`` and ``tests/test_torch_lm_ssm.py``).
 
 For each smoke config the reference's ``init_params(key 0)`` crosses into a
 port ``Model`` through ``utils.interop.lm_params_from_numpy``; then
-``forward_train`` logits, ``prefill`` logits and caches, six teacher-forced
-``decode_step``s and greedy ``Engine.generate`` ids are held to the
-reference's on the same seeded batch.  The reference's steps are compiled
+``forward_train`` logits and aux loss, ``prefill`` logits and caches, six
+teacher-forced ``decode_step``s and the caches after them, and greedy
+``Engine.generate`` ids are held to the reference's on the same seeded
+batch.  The reference's steps are compiled
 without XLA's excess precision (``exact``), so that each bf16 op rounds as
 its code says; the port mirrors those casts.  Tolerance: rtol 2e-2 with an
 atol of two bf16 ulps of the largest |value|
@@ -24,11 +27,21 @@ ulp).  ``forward_train``, ``prefill`` and the decode steps are held to that
 reference too, at six ulps (``DEFAULT_ULPS``): the measured 3.99 with the
 margin the card tests keep (four ulps over a measured 2.46).
 
-Also: ``count_params`` of the full configs equals the reference's exactly,
-the port's versions of ``tests/test_models_smoke.py`` (shapes, no NaN,
-prefill + decode == the full forward) and ``tests/test_substrate.py:133``
-(``Engine`` determinism), and the architectures with MoE, MLA or SSM
-layers raising ``NotImplementedError``.
+A router's top-k is discontinuous: where two routes nearly tie, the two
+compiles of the reference itself can route a token to different experts
+(deepseek-v2-lite smoke, row 1 token 7: its logits 48 bf16 ulps apart),
+and attention and SSM state carry the change to later tokens (jamba
+smoke: up to 18 ulps).  The port rounds as the exact compile does, so for
+a config with MoE layers an element where the reference's two compiles
+disagree by more than ``DEFAULT_ULPS`` is held no farther from the
+default compile than the exact compile is, plus the two-ulp rule
+(``assert_near_default``); every other element at ``DEFAULT_ULPS``.
+
+Also: ``count_params`` (total and active) of the full configs equals the
+reference's exactly, and the port's versions of
+``tests/test_models_smoke.py`` (shapes, no NaN, prefill + decode == the
+full forward) and ``tests/test_substrate.py:133`` (``Engine``
+determinism).
 """
 import dataclasses
 import functools
@@ -55,7 +68,12 @@ from repro_torch.utils.interop import host_tensor, lm_params_from_numpy
 
 ARCHS = ["qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
          "whisper-small"]
-UNPORTED = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-780m", "jamba-v0.1-52b"]
+FAMILIES = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-780m", "jamba-v0.1-52b"]
+# Parameters of the full configs (the reference's counts).
+FULL_PARAMS = {"qwen2-7b": 7_615_616_512, "deepseek-v2-lite-16b": 16_210_324_992,
+               "kimi-k2-1t-a32b": 1_042_970_074_112, "mamba2-780m": 857_846_016,
+               "jamba-v0.1-52b": 51_485_722_112}
+ACTIVE_PARAMS = {"deepseek-v2-lite-16b": 2_660_040_192}
 B, S, STEPS, NEW = 2, 16, 6, 8
 DEFAULT_ULPS = 6  # against the reference as XLA compiles it by default
 
@@ -73,6 +91,25 @@ def assert_matches(got: torch.Tensor, want, ulps: int = 2) -> None:
     rtol, atol = tolerance(want.astype(np.float32), ulps)
     np.testing.assert_allclose(got.float().numpy(), want.astype(np.float32), rtol=rtol,
                                atol=atol)
+
+
+def assert_near_default(got: torch.Tensor, want, exact_want, cfg) -> None:
+    """got within ``DEFAULT_ULPS`` of the default-compiled reference
+    ``want``; for a config with MoE layers, where the reference's exact
+    compile ``exact_want`` lies farther from ``want`` than that, no farther
+    from ``want`` than the exact compile is, plus the two-ulp rule (a
+    route that flipped between the reference's two compiles)."""
+    want, exact_want = np.asarray(want), np.asarray(exact_want)
+    assert tuple(got.shape) == want.shape
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    got, want = got.float().numpy(), want.astype(np.float32)
+    rtol, atol = tolerance(want, DEFAULT_ULPS)
+    limit = atol + rtol * np.abs(want)
+    if cfg.moe is not None:
+        own = np.abs(exact_want.astype(np.float32) - want) + tolerance(want)[1]
+        limit = np.maximum(limit, own + rtol * np.abs(want))
+    excess = np.abs(got - want) - limit
+    assert (excess <= 0).all(), f"max excess {excess.max()} over the limit"
 
 
 def batch_for(cfg, seq: int, seed: int = 0) -> dict:
@@ -125,7 +162,7 @@ def reference(arch: str, xla_default: bool = False) -> dict:
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     eng = JEngine(cfg, params, temperature=0.0)
     forward = jax.jit(lambda p, b: jm.forward_train(cfg, p, b))
-    logits, _ = compiled(forward, params, jb)(params, jb)
+    logits, aux = compiled(forward, params, jb)(params, jb)
     pre_fn = compiled(eng._prefill, params, prompt(jb, S))
     pre_logits, caches = pre_fn(params, prompt(jb, S))
     pre = (np.asarray(pre_logits), layer_caches(caches, cfg))
@@ -137,6 +174,7 @@ def reference(arch: str, xla_default: bool = False) -> dict:
         step_logits, caches = decode_fn(params, jb["tokens"][:, S + t], jnp.int32(S + t),
                                         caches)
         steps.append(np.asarray(step_logits))
+    decoded = layer_caches(caches, cfg)
     # Engine.generate's loop (greedy) on the same compiled steps, keeping
     # the logits behind each id.
     step_logits, caches = pre_fn(params, prompt(jb, S))
@@ -148,7 +186,8 @@ def reference(arch: str, xla_default: bool = False) -> dict:
         gen_logits.append(np.asarray(step_logits))
         ids.append(eng._sample(step_logits))
     return dict(tree=jax.tree.map(np.asarray, params), batch=batch,
-                forward=np.asarray(logits), prefill=pre, steps=steps,
+                forward=np.asarray(logits), aux=float(aux), prefill=pre, steps=steps,
+                decoded=decoded,
                 ids=np.stack([np.asarray(t) for t in ids], axis=1), gen_logits=gen_logits)
 
 
@@ -159,22 +198,20 @@ def port_model(arch: str) -> tm.Model:
 # ------------------------------------------------------------------ counts
 @pytest.mark.parametrize("arch", ARCHS)
 def test_count_params_matches_reference(arch):
+    """Total and active (routed experts scaled by top_k / n_experts) counts
+    of the full and smoke configs equal the reference's."""
     cfg, jcfg = get_config(arch), ref_full_config(arch)
     assert tm.count_params(cfg) == jm.count_params(jcfg)
     assert cfg.param_count() == jcfg.param_count()
     assert cfg.active_param_count() == jcfg.active_param_count()
-    scfg = get_smoke_config(arch)
-    assert tm.count_params(scfg) == jm.count_params(ref_config(arch))
-    if arch == "qwen2-7b":
-        assert tm.count_params(cfg) == 7_615_616_512
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.13"):
-        tm.Model(get_smoke_config(arch), device="meta")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.13"):
-        tm.count_params(get_config(arch))
+    assert tm.count_params(cfg, active_only=True) == jm.count_params(jcfg, active_only=True)
+    scfg, jscfg = get_smoke_config(arch), ref_config(arch)
+    assert tm.count_params(scfg) == jm.count_params(jscfg)
+    assert tm.count_params(scfg, active_only=True) == jm.count_params(jscfg, active_only=True)
+    if arch in FULL_PARAMS:
+        assert tm.count_params(cfg) == FULL_PARAMS[arch]
+    if arch in ACTIVE_PARAMS:
+        assert tm.count_params(cfg, active_only=True) == ACTIVE_PARAMS[arch]
 
 
 def test_every_architecture_has_the_reference_config():
@@ -182,7 +219,7 @@ def test_every_architecture_has_the_reference_config():
     every full and smoke config equals the reference's."""
     from repro.configs.base import list_archs as ref_archs
 
-    assert list_archs() == ref_archs() == sorted(ARCHS + UNPORTED)
+    assert list_archs() == ref_archs() == sorted(ARCHS + FAMILIES)
     for arch in list_archs():
         for port_cfg, ref_cfg in ((get_config(arch), ref_full_config(arch)),
                                   (get_smoke_config(arch), ref_config(arch))):
@@ -195,7 +232,8 @@ def test_forward_train_matches_reference(arch):
     ref = reference(arch)
     logits, aux = tm.forward_train(get_smoke_config(arch), port_model(arch), ref["batch"])
     assert_matches(logits, ref["forward"])
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    assert float(aux) == pytest.approx(ref["aux"], rel=1e-5, abs=0.0)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -214,7 +252,8 @@ def test_prefill_logits_and_caches_match_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_teacher_forced_decode_matches_reference(arch):
     """Six decode steps on the batch's own next tokens, each writing only
-    its own cache row."""
+    its own row of a sequence cache and moving an SSD block's state (in
+    place), then every cache entry against the reference's."""
     ref = reference(arch)
     cfg, model = get_smoke_config(arch), port_model(arch)
     tokens = torch.from_numpy(ref["batch"]["tokens"])
@@ -226,8 +265,15 @@ def test_teacher_forced_decode_matches_reference(arch):
         assert_matches(logits, ref["steps"][t])
         for c, old in zip(caches, before):
             for name, x in c.items():
+                if name in ("conv", "ssm"):
+                    assert not torch.equal(x, old[name]), (t, name)
+                    continue
                 keep = [r for r in range(x.shape[1]) if name in ("ck", "cv") or r != S + t]
                 assert torch.equal(x[:, keep], old[name][:, keep]), (t, name)
+    for got, want in zip(caches, ref["decoded"], strict=True):
+        assert sorted(got) == sorted(want)
+        for name in got:
+            assert_matches(got[name], want[name])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -252,27 +298,30 @@ def test_greedy_generate_matches_reference(arch):
 def test_matches_default_compiled_reference(part, arch):
     """``forward_train`` logits, ``prefill`` logits and caches and six
     teacher-forced decode steps against the reference as XLA compiles it
-    by default, at ``DEFAULT_ULPS``; the weights are the same (the
-    compile does not change ``init_params``)."""
-    ref = reference(arch, xla_default=True)
+    by default, at ``DEFAULT_ULPS`` (``assert_near_default``); the weights
+    are the same (the compile does not change ``init_params``)."""
+    ref, ex = reference(arch, xla_default=True), reference(arch)
     cfg, model = get_smoke_config(arch), port_model(arch)
     if part == "forward":
-        logits, _ = tm.forward_train(cfg, model, ref["batch"])
-        assert_matches(logits, ref["forward"], DEFAULT_ULPS)
+        logits, aux = tm.forward_train(cfg, model, ref["batch"])
+        assert_near_default(logits, ref["forward"], ex["forward"], cfg)
+        # A flipped route moves the aux loss's counts as well.
+        own = abs(ex["aux"] - ref["aux"]) + 1e-5 * abs(ex["aux"]) if cfg.moe else 0.0
+        assert abs(float(aux) - ref["aux"]) <= max(1e-5 * abs(ref["aux"]), own)
         return
     logits, caches = tm.prefill(cfg, model, prompt(ref["batch"], S))
     if part == "prefill":
-        want_logits, want_caches = ref["prefill"]
-        assert_matches(logits, want_logits, DEFAULT_ULPS)
-        for got, want in zip(caches, want_caches, strict=True):
+        (want_logits, want_caches), (ex_logits, ex_caches) = ref["prefill"], ex["prefill"]
+        assert_near_default(logits, want_logits, ex_logits, cfg)
+        for got, want, exw in zip(caches, want_caches, ex_caches, strict=True):
             for name in want:
-                assert_matches(got[name], want[name], DEFAULT_ULPS)
+                assert_near_default(got[name], want[name], exw[name], cfg)
         return
     tokens = torch.from_numpy(ref["batch"]["tokens"])
     caches = Engine(cfg, model)._extend_caches(caches, NEW)
     for t in range(STEPS):
         logits, caches = tm.decode_step(cfg, model, tokens[:, S + t], S + t, caches)
-        assert_matches(logits, ref["steps"][t], DEFAULT_ULPS)
+        assert_near_default(logits, ref["steps"][t], ex["steps"][t], cfg)
 
 
 # ----------------------------------- tests/test_models_smoke.py, test_substrate.py
@@ -285,12 +334,15 @@ def test_forward_shapes_no_nans(arch):
     assert logits.dtype == torch.float32
     assert bool(torch.isfinite(logits).all()), "NaN/inf in logits"
     assert bool(torch.isfinite(aux))
+    if cfg.moe is not None and cfg.moe.aux_loss_coef > 0:
+        assert float(aux) > 0.0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch):
     """Decode after prefill reproduces the teacher-forced full forward (the
-    reference's tolerance, 0.08)."""
+    reference's tolerances: 0.08, and 0.25 with MLA, whose absorbed decode
+    reassociates the bf16 products)."""
     cfg = get_smoke_config(arch)
     model = tm.init_params(cfg, seed=2, device="cpu")
     batch = batch_for(cfg, 16, seed=2)
@@ -298,9 +350,10 @@ def test_prefill_decode_consistency(arch):
     full, _ = tm.forward_train(cfg, model, batch)
     _, caches = tm.prefill(cfg, model, prompt(batch, 8))
     caches = Engine(cfg, model)._extend_caches(caches, 8)
+    tol = 0.25 if cfg.mla is not None else 0.08
     for t in range(8, 16):
         logits, caches = tm.decode_step(cfg, model, tokens[:, t], t, caches)
-        torch.testing.assert_close(logits, full[:, t], rtol=0.08, atol=0.08)
+        torch.testing.assert_close(logits, full[:, t], rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

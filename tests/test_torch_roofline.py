@@ -1,10 +1,11 @@
 """The port's roofline (``repro_torch.launch.roofline``) and model-FLOPs
 decomposition (``repro_torch.models.model``) vs the reference's.
 
-The port's versions of ``tests/test_roofline.py:40-76``: trip-count
+The port's versions of ``tests/test_roofline.py:40-83``: trip-count
 extrapolation, the terms' bottleneck and fraction on the H100 datasheet
-figures, and ``flops_param_groups`` / ``model_flops`` equal to the
-reference's values exactly.  The reference's HLO-parser tests (``:24-38``)
+figures, ``flops_param_groups`` / ``model_flops`` equal to the reference's
+values exactly (the MoE configs counting their active parameters), and
+Kimi K2's active FLOPs.  The reference's HLO-parser tests (``:24-38``)
 have no counterpart: the port compiles no HLO.
 """
 import pytest
@@ -16,7 +17,8 @@ from repro_torch.launch import roofline as rl
 from repro_torch.models.model import flops_param_groups, model_flops
 
 ARCHS = ["qwen1.5-0.5b", "qwen2-7b", "qwen2-72b", "minicpm-2b", "llama-3.2-vision-11b",
-         "whisper-small"]
+         "whisper-small", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-780m",
+         "jamba-v0.1-52b"]
 
 
 def test_h100_datasheet_figures():
@@ -91,6 +93,15 @@ def test_model_flops_kinds_ordering():
 def test_model_flops_equal_reference(arch, kind):
     got = model_flops(get_config(arch), kind=kind, global_batch=8, seq_len=512)
     assert got == jm.model_flops(ref_config(arch), kind=kind, global_batch=8, seq_len=512)
+
+
+def test_moe_active_flops_scale():
+    cfg = get_config("kimi-k2-1t-a32b")
+    dense_equiv = model_flops(cfg, kind="prefill", global_batch=1, seq_len=1024)
+    # active ≈ 32B params → 2·32e9·1024 ≈ 6.6e13, far below total-param flops
+    assert 4e13 < dense_equiv < 9e13
+    assert dense_equiv == jm.model_flops(ref_config("kimi-k2-1t-a32b"), kind="prefill",
+                                         global_batch=1, seq_len=1024)
 
 
 def test_qwen2_7b_serving_bounds():
